@@ -1,28 +1,42 @@
-"""Drive the PyTorch port's main path on one CUDA GPU and check it.
+"""Drive the PyTorch port's main paths on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device   — require a CUDA device; print its name and power limit
-  2. build    — build the three CUDA kernels from tpuslam_torch/csrc
+  2. build    — build the four CUDA kernels from tpuslam_torch/csrc (one
+                nvcc per source, in parallel)
   3. kernels  — each kernel against its plain PyTorch twin at the main
-                path's shapes (all three levels of a 640×480 frame pair),
-                with each one's time beside its twin's
+                paths' shapes (all three levels of a 640×480 frame pair;
+                gn_fused with T_gate ≠ T_res), with each one's time beside
+                its twin's
   4. uint16   — raw uint16 depth divided on the device is bit-equal to
                 host-divided float32 depth
   5. small    — a 12-frame 120×160 scan on the GPU against the same scan
                 through the plain twins on the CPU (the twins are held to
                 the JAX reference by tests/test_torch_*.py)
   6. main     — tpuslam_torch.bench.harness.run_bench: 240 frames at
-                640×480, default config; ATE < 1 mm; every kernel
-                launched, no plain twin called
-  7. profile  — device time by kernel over a few frames (torch.profiler)
+                640×480, default config; ATE < 1 mm; every kernel of the
+                path launched, no plain twin called
+  7. fused    — the same with ICPConfig.fused_gn=True: gn_fused carries
+                tracking; fps beside phase 6's
+  8. small slam — SlamSystem on the 48-frame 120×160 two-lap loop
+                (boundary chunks, deferred backend, fused_gn False and
+                True) on the GPU against the CPU twins: same keyframes and
+                closure pairs, poses within 1e-4
+  9. slam     — run_slam_bench: 120 frames at 640×480, boundary chunks,
+                backend sync and deferred, fused_gn False and True; ATE
+                < 1 mm, ≥ 1 closure, every kernel launched, no twin called
+ 10. profile  — device time by kernel over a few odometry frames; one
+                SLAM chunk's stages on the host clock, the promotion
+                pack's cost, and the next chunk under torch.profiler
 Then one JSON line with the kernels, and last a JSON line with the device.
 No JAX is imported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,6 +49,7 @@ TOL_PARTIALS_REL = 1e-4     # order of summation differs (blocks vs chunks)
 TOL_EPILOGUE_T = 1e-5       # FMA contraction / libm differences
 TOL_EPILOGUE_H_REL = 1e-6
 TOL_SMALL_POSE = 1e-4       # GPU kernels vs CPU twins over 12 frames
+TOL_SLAM_POSE = 1e-4        # GPU vs CPU twins, 48-frame SLAM loop
 
 
 def log(msg: str) -> None:
@@ -78,12 +93,39 @@ def main() -> int:
         print("chip_smoke: no CUDA device — this script runs only on a GPU",
               file=sys.stderr)
         return 2
-    from tpuslam_torch.bench.harness import _render_sequence, run_bench
+    from tpuslam_torch.bench.harness import (
+        _render_sequence,
+        run_bench,
+        run_slam_bench,
+        slam_bench_config,
+    )
     from tpuslam_torch.config import ICPConfig, KeyframeConfig, SLAMConfig
     from tpuslam_torch.frontend import preprocess, scan_odometry
     from tpuslam_torch.geom import se3
-    from tpuslam_torch.icp import pack_pyramid, select_level_source
-    from tpuslam_torch.kernels import _build, correspond, gn_epilogue, gn_partials
+    from tpuslam_torch.icp import (
+        _association_rows,
+        pack_pyramid,
+        select_level_source,
+    )
+    from tpuslam_torch.kernels import (
+        _build,
+        correspond,
+        gn_epilogue,
+        gn_fused,
+        gn_partials,
+    )
+    counters = {"correspond": correspond.counter,
+                "gn_partials": gn_partials.counter,
+                "gn_epilogue": gn_epilogue.counter,
+                "gn_fused": gn_fused.counter}
+
+    def reset_counts() -> None:
+        for c in counters.values():
+            c.reset()
+
+    def read_counts():
+        return ({k: c.launches for k, c in counters.items()},
+                {k: c.plain_calls for k, c in counters.items()})
 
     dev = torch.device("cuda:0")
     card = gpu_line()
@@ -107,9 +149,12 @@ def main() -> int:
     packed = pack_pyramid(pyr_a, icp)
     T = se3.exp(torch.tensor([0.01, -0.005, 0.008, 0.004, -0.006, 0.003],
                              device=dev))
+    # the fused step's residual pose: one GN update past the gate pose
+    T_res = se3.exp(torch.tensor([0.002, 0.001, -0.002, 0.001, 0.0, -0.001],
+                                 device=dev)) @ T
     carry = gn_epilogue.init_carry(T, 12)
-    nvs_all = {}
-    stats = {"correspond": {}, "gn_partials": {}, "gn_epilogue": {}}
+    stats = {"correspond": {}, "gn_partials": {}, "gn_epilogue": {},
+             "gn_fused": {}}
     for li in range(icp.pyramid_levels - 1, -1, -1):
         K_l = K.scaled(1.0 / 2 ** li)
         src = select_level_source(pyr_b, li, icp)
@@ -143,7 +188,6 @@ def main() -> int:
         p_err = max(float((a - b).abs().max()) for a, b in zip(fk, fr))
 
         nvs = torch.sum(src.mask.to(torch.float32))
-        nvs_all[li] = nvs
         eargs = (pk, carry, nvs, icp.damping, icp.damping_abs,
                  icp.max_trans_step, icp.max_rot_step, True, icp.inner_steps,
                  12, icp.tol_delta ** 2)
@@ -180,8 +224,40 @@ def main() -> int:
                 time_ms(lambda: gn_epilogue.gn_epilogue_reference(*eargs),
                         reps=20)),
         }
+        # fused step: gates at T, residuals at T_res, gather in the kernel
+        flat = _association_rows(T, src.points, K_l, h, w)
+        fargs = (src.points, src.normals, src.mask, packed[li], flat, T,
+                 T_res, K_l, w, h, icp.max_corr_dist, icp.normal_dot_min,
+                 icp.huber_delta)
+        gk = gn_fused.gn_fused_partials(*fargs, done=carry)
+        gr = gn_fused.gn_fused_partials_reference(*fargs)
+        torch.cuda.synchronize()
+        gfk, gfr = gn_partials.fold_partials(gk), gn_partials.fold_partials(gr)
+        g_rel = max(rel_err(a, b) for a, b in zip(gfk, gfr))
+        check(g_rel <= TOL_PARTIALS_REL, f"gn_fused level {li}: rel {g_rel}")
+        g_err = max(float((a - b).abs().max()) for a, b in zip(gfk, gfr))
+        # gate equivalence: the twin's per-point validity, summed with the
+        # kernel's point-to-block assignment (grid-stride, 256 threads),
+        # must equal each block's Σvalid exactly
+        valid = gn_fused.fused_terms(
+            src.points, src.normals, src.mask, packed[li][flat.long()], T,
+            T_res, K_l, w, h, icp.max_corr_dist, icp.normal_dot_min,
+            icp.huber_delta)[:, 28]
+        n_pts = valid.shape[0]
+        block = (torch.arange(n_pts, device=dev) // gn_partials.BLOCK_THREADS
+                 ) % gn_partials.num_blocks(n_pts)
+        per_block = torch.zeros(gk.shape[0], device=dev).index_add_(
+            0, block, valid)
+        check(torch.equal(per_block, gk[:, 28]),
+              f"gn_fused level {li}: per-block validity counts differ")
+        check(float(gfk[2]) == float(gfr[2]) > 0,
+              f"gn_fused level {li}: Σvalid {float(gfk[2])} vs "
+              f"{float(gfr[2])}")
+        times["gn_fused"] = (
+            time_ms(lambda: gn_fused.gn_fused_partials(*fargs, done=carry)),
+            time_ms(lambda: gn_fused.gn_fused_partials_reference(*fargs)))
         errs = {"correspond": c_err, "gn_partials": p_err,
-                "gn_epilogue": t_err}
+                "gn_epilogue": t_err, "gn_fused": g_err}
         for name, (ms, plain_ms) in times.items():
             stats[name][li] = {"ms": ms, "plain_ms": plain_ms,
                                "max_abs_err": errs[name], "n": x.shape[0]}
@@ -189,7 +265,9 @@ def main() -> int:
                 f"{ms:.5f} ms, plain {plain_ms:.5f} ms, max_abs_err "
                 f"{errs[name]:.3e} ({card})")
         log(f"[kernels] level {li}: w mismatch share {w_mis}, partials rel "
-            f"{p_rel:.3e}, epilogue T {t_err:.3e} H rel {h_rel:.3e}")
+            f"{p_rel:.3e}, epilogue T {t_err:.3e} H rel {h_rel:.3e}, "
+            f"gn_fused rel {g_rel:.3e} Σvalid {float(gfk[2]):.0f} "
+            f"(per block equal)")
 
     # ---- 4. uint16 divide ----
     raw = np.round(depths_np * cfg.depth_scale).astype(np.uint16)
@@ -224,15 +302,12 @@ def main() -> int:
     log(f"[small] 12×120×160 scan GPU vs CPU twins: pose max err "
         f"{small_err:.3e}, promotions {int(fc.sum())} identical")
 
-    # ---- 6. main path ----
-    for c in (correspond.counter, gn_partials.counter, gn_epilogue.counter):
-        c.reset()
-    res = run_bench(frames=240, height=480, width=640, device="cuda")
-    counts = {"correspond": correspond.counter,
-              "gn_partials": gn_partials.counter,
-              "gn_epilogue": gn_epilogue.counter}
-    launches = {k: c.launches for k, c in counts.items()}
-    plain = {k: c.plain_calls for k, c in counts.items()}
+    # ---- 6. main path of the odometry slice (unfused) ----
+    orbit = _render_sequence(240, 480, 640)
+    reset_counts()
+    res = run_bench(frames=240, height=480, width=640, device="cuda",
+                    sequence=orbit)
+    launches, plain = read_counts()
     log(f"[main] {json.dumps(res)}")
     log(f"[main] fps {res['fps']:.3f}, ms/frame {res['ms_per_frame']:.4f}, "
         f"icp_iter_latency_ms {res['icp_iter_latency_ms']:.5f}, ATE "
@@ -240,40 +315,236 @@ def main() -> int:
     log(f"[main] launches {launches} plain calls {plain}")
     check(res["poses_finite"], "main: non-finite poses")
     check(res["ate_rmse_m"] < 1e-3, f"main: ATE {res['ate_rmse_m']} ≥ 1 mm")
-    check(all(v > 0 for v in launches.values()), f"main: launches {launches}")
+    check(all(launches[k] > 0 for k in ("correspond", "gn_partials",
+                                        "gn_epilogue")),
+          f"main: launches {launches}")
     check(all(v == 0 for v in plain.values()), f"main: plain calls {plain}")
 
-    # ---- 7. profile: device time by kernel over a few frames ----
+    # ---- 7. fused odometry: gn_fused carries tracking ----
+    reset_counts()
+    res_f = run_bench(frames=240, height=480, width=640, device="cuda",
+                      fused_gn=True, sequence=orbit)
+    launches_f, plain_f = read_counts()
+    log(f"[fused] {json.dumps(res_f)}")
+    log(f"[fused] fps {res_f['fps']:.3f} (unfused, phase 6: "
+        f"{res['fps']:.3f}), ms/frame {res_f['ms_per_frame']:.4f} "
+        f"(unfused {res['ms_per_frame']:.4f}), icp_iter_latency_ms "
+        f"{res_f['icp_iter_latency_ms']:.5f} (unfused "
+        f"{res['icp_iter_latency_ms']:.5f}), ATE {res_f['ate_rmse_m']:.3e} m"
+        f" ({card})")
+    log(f"[fused] launches {launches_f} plain calls {plain_f}")
+    check(res_f["poses_finite"], "fused: non-finite poses")
+    check(res_f["ate_rmse_m"] < 1e-3,
+          f"fused: ATE {res_f['ate_rmse_m']} ≥ 1 mm")
+    check(launches_f["gn_fused"] > 0 and launches_f["gn_epilogue"] > 0,
+          f"fused: launches {launches_f}")
+    check(all(v == 0 for v in plain_f.values()),
+          f"fused: plain calls {plain_f}")
+    del orbit
+
+    # ---- 8. small slam: GPU kernels vs CPU twins on the 48-frame loop ----
+    from tpuslam_torch.config import PoseGraphConfig, VoxelConfig
+    from tpuslam_torch.data.synthetic import loop_trajectory
+    from tpuslam_torch.slam import SlamSystem
+
+    cfg_l = SLAMConfig(          # tests/test_chunked_slam.py's config
+        height=120, width=160,
+        icp=ICPConfig(pyramid_levels=3, iters_per_level=(12, 8, 8),
+                      max_corr_dist=0.25, huber_delta=0.05),
+        keyframe=KeyframeConfig(max_translation=0.08, max_rotation=0.12),
+        posegraph=PoseGraphConfig(max_nodes=64, max_edges=256, gn_iters=15,
+                                  lc_min_gap=3, lc_max_dist=0.6,
+                                  lc_max_residual=0.05, lc_min_inliers=0.3),
+        voxel=VoxelConfig(capacity=1 << 13, map_capacity=1 << 15))
+    gt_l = loop_trajectory(48, cycles=2, radius=0.35)
+    d_l = np.stack([render_depth(gt_l[i], Ks, 120, 160, seed=i)
+                    for i in range(48)]).astype(np.float32)
+    ts_l = np.arange(48) / 30.0
+
+    def slam_loop(device, fused: bool):
+        cfg_f = cfg_l.replace(icp=dataclasses.replace(cfg_l.icp,
+                                                      fused_gn=fused))
+        slam = SlamSystem(Ks, cfg_f, chunk_mode="boundary",
+                          async_backend=True, device=device)
+        d = torch.as_tensor(d_l, device=device)
+        for i in range(0, 48, 8):
+            slam.process_chunk(d[i:i + 8], ts_l[i:i + 8])
+        slam.finalize()
+        return ([r.index for r in slam.odo.keyframes],
+                [(c.i, c.j) for c in slam.closures], slam.trajectory()[1])
+
+    for fused in (False, True):
+        kg, cg, eg = slam_loop(dev, fused)
+        kc, cc, ec = slam_loop("cpu", fused)
+        err = float(np.abs(eg - ec).max())
+        check(kg == kc, f"small slam fused={fused}: keyframes {kg} vs {kc}")
+        check(cg == cc and len(cc) >= 1,
+              f"small slam fused={fused}: closures {cg} vs {cc}")
+        check(err <= TOL_SLAM_POSE, f"small slam fused={fused}: pose {err}")
+        log(f"[small slam] fused_gn={fused}: GPU vs CPU twins identical "
+            f"keyframes ({len(kg)}) and closure pairs ({len(cg)}), pose max "
+            f"err {err:.3e}")
+
+    # ---- 9. slam: the full system at 640×480 (this slice's main path) ----
+    loop = _render_sequence(120, 480, 640, loop_cycles=2)
+    reset_counts()
+    slam_res = {}
+    for fused in (False, True):
+        before, _ = read_counts()
+        r = run_slam_bench(120, 480, 640, device="cuda", fused_gn=fused,
+                           reps=3, sequence=loop)
+        after, _ = read_counts()
+        slam_res[fused] = r
+        ran = {k: after[k] - before[k] for k in after}
+        log(f"[slam] {json.dumps(r)}")
+        for mode in ("sync", "deferred"):
+            m = r[mode]
+            log(f"[slam] fused_gn={fused} {mode}: fps {m['fps']:.3f} (reps "
+                f"{', '.join(f'{v:.3f}' for v in m['fps_reps'])}), closures "
+                f"{m['closures']}, keyframes {m['keyframes']}, ATE "
+                f"{m['ate_rmse_m']:.3e} m ({card})")
+            check(m["poses_finite"], f"slam {fused} {mode}: non-finite")
+            check(m["ate_rmse_m"] < 1e-3,
+                  f"slam {fused} {mode}: ATE {m['ate_rmse_m']} ≥ 1 mm")
+            check(m["closures"] >= 1, f"slam {fused} {mode}: no closure")
+        check(r["sync"]["closure_pairs"] == r["deferred"]["closure_pairs"],
+              f"slam fused={fused}: sync and deferred closures differ")
+        need = (("gn_fused", "gn_epilogue") if fused else
+                ("correspond", "gn_partials", "gn_epilogue"))
+        check(all(ran[k] > 0 for k in need),
+              f"slam fused={fused}: launches {ran}")
+        log(f"[slam] fused_gn={fused} launches {ran}")
+    launches_slam, plain_slam = read_counts()
+    log(f"[slam] launches {launches_slam} plain calls {plain_slam}")
+    check(all(v > 0 for v in launches_slam.values()),
+          f"slam: launches {launches_slam}")
+    check(all(v == 0 for v in plain_slam.values()),
+          f"slam: plain calls {plain_slam}")
+
+    # ---- 10. profile ----
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def device_rows(prof):
+        rows = []
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA or ev.key.startswith("slam."):
+                # host ops (their device time is their kernels'), and the
+                # slam.* spans' copies on the device timeline, which cover
+                # kernels counted on their own
+                continue
+            dt = getattr(ev, "self_device_time_total", None)
+            if dt is None:
+                dt = getattr(ev, "self_cuda_time_total", 0)
+            if dt > 0:
+                rows.append((dt, ev.count, ev.key))
+        return sorted(rows, reverse=True)
+
     d8 = torch.as_tensor(depths_np, device=dev)
     d8 = d8[[0, 1] * 4]
-    scan_odometry(d8, K, cfg)
+    for fused in (False, True):
+        cfg_p = cfg.replace(icp=dataclasses.replace(cfg.icp, fused_gn=fused))
+        scan_odometry(d8, K, cfg_p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            scan_odometry(d8, K, cfg_p)
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        rows = device_rows(prof)
+        busy = sum(r[0] for r in rows)
+        if busy > 0:
+            log(f"[profile] fused_gn={fused}, 8 frames: wall {wall_us:.1f} us "
+                f"(profiled), device busy {busy:.1f} us, idle share "
+                f"{1 - busy / wall_us:.4f} ({card})")
+            for dt, cnt, key in rows[:15]:
+                log(f"[profile]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
+        else:
+            log("[profile] device time: not measured (profiler saw no "
+                "kernels)")
+
+    # steady-state SLAM chunks (deferred backend, fused_gn False) after the
+    # first closures, the previous chunk's attempt draining through each
+    # chunk's readback: one timed by stage, the next under the profiler
+    K_loop, _, d_loop = loop
+    d_loop = torch.as_tensor(d_loop, device=dev)
+    slam = SlamSystem(K_loop, slam_bench_config(480, 640, False),
+                      async_backend=True, chunk_mode="boundary", chunk_sub=4,
+                      device=dev)
+    ts = np.arange(120) / 30.0
+    for i in range(0, 64, 8):
+        slam.process_chunk(d_loop[i:i + 8], ts[i:i + 8])
+    # chunk 64-71 on the host clock, each stage fenced by a synchronize
+    # (the profiler's own cost inflates host spans several-fold): the
+    # scan, the promotion bundles, the attempt's dispatch and drain; the
+    # rest of the chunk is host bookkeeping
+    import tpuslam_torch.slam as slam_mod
+
+    spans: dict = {}
+
+    def fenced(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + (time.perf_counter() - t)
+            return out
+        return run
+
+    saved = {n: getattr(slam_mod, n) for n in (
+        "scan_superchunk_frozen", "promote_bundle_jit", "fuse_readbacks_jit")}
+    for n, fn in saved.items():
+        setattr(slam_mod, n, fenced(n, fn))
+    for n in ("_dispatch_closure_attempt", "_drain_closure_attempt"):
+        setattr(slam, n, fenced(n, getattr(slam, n)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        scan_odometry(d8, K, cfg)
+    slam.process_chunk(d_loop[64:72], ts[64:72])
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    for n, fn in saved.items():
+        setattr(slam_mod, n, fn)
+    for n in ("_dispatch_closure_attempt", "_drain_closure_attempt"):
+        delattr(slam, n)
+    staged = sum(spans.values()) * 1e3
+    log(f"[chunk stages] frames 64-71: {chunk_ms:.3f} ms; " + ", ".join(
+        f"{n} {v * 1e3:.3f} ms" for n, v in spans.items())
+        + f"; host bookkeeping {chunk_ms - staged:.3f} ms ({card})")
+    # the promotion pack the boundary scan pays at every sub-chunk (it
+    # packs unconditionally and selects with torch.where on the device)
+    pyr_l = preprocess(d_loop[64], K_loop, slam.cfg)
+    old = pack_pyramid(pyr_l, slam.cfg.icp)
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+    pack_ms = time_ms(lambda: tuple(
+        torch.where(flag, n, o)
+        for n, o in zip(pack_pyramid(pyr_l, slam.cfg.icp), old)), reps=20)
+    log(f"[chunk stages] pack + select of one sub-chunk's keyframe: "
+        f"{pack_ms:.5f} ms ({card})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        slam.process_chunk(d_loop[72:80], ts[72:80])
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue        # host ops: their device time is their kernels'
-        dt = getattr(ev, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "self_cuda_time_total", 0)
-        if dt > 0:
-            rows.append((dt, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
-    if busy > 0:
-        log(f"[profile] 8 frames: wall {wall_us:.1f} us (profiled), device "
-            f"busy {busy:.1f} us, idle share {1 - busy / wall_us:.4f} ({card})")
-        for dt, cnt, key in rows[:15]:
-            log(f"[profile]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
-    else:
-        log("[profile] device time: not measured (profiler saw no kernels)")
+    log(f"[profile chunk] frames 72-79: wall {wall_us:.1f} us (profiled), "
+        f"device busy {busy:.1f} us, idle share "
+        f"{1 - busy / wall_us if busy else float('nan'):.4f}, attempt "
+        f"pending after: {slam._pending_attempt is not None} ({card})")
+    for ev in prof.key_averages():
+        if ev.key.startswith("slam."):
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0)
+            log(f"[profile chunk]   {ev.key:20s} {ev.count:3d}x host "
+                f"{ev.cpu_time_total:10.1f} us, device {dev_us:10.1f} us")
+    for dt, cnt, key in rows[:12]:
+        log(f"[profile chunk]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
+    del loop, d_loop
 
     # ---- result lines ----
     sources = {
@@ -283,13 +554,15 @@ def main() -> int:
                         "tpuslam/kernels/pallas_gn.py:37"),
         "gn_epilogue": ("tpuslam_torch/csrc/gn_epilogue.cu",
                         "tpuslam/kernels/pallas_epilogue.py:187"),
+        "gn_fused": ("tpuslam_torch/csrc/gn_fused.cu",
+                     "tpuslam/kernels/gn_fused.py:160"),
     }
     kernels = []
     for name, (src_path, replaces) in sources.items():
         s0 = stats[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": src_path,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches_slam[name],
             "max_abs_err": max(v["max_abs_err"] for v in stats[name].values()),
             "ms": s0["ms"], "plain_ms": s0["plain_ms"],
         })

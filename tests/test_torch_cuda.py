@@ -6,6 +6,8 @@ machine without it:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -o addopts=""
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,8 +16,13 @@ from tpuslam_torch.config import ICPConfig, Intrinsics, KeyframeConfig, SLAMConf
 from tpuslam_torch.data.synthetic import orbit_trajectory, render_depth
 from tpuslam_torch.frontend import preprocess, scan_odometry
 from tpuslam_torch.geom import se3
-from tpuslam_torch.icp import align_frames, pack_pyramid, select_level_source
-from tpuslam_torch.kernels import correspond, gn_epilogue, gn_partials
+from tpuslam_torch.icp import (
+    _association_rows,
+    align_frames,
+    pack_pyramid,
+    select_level_source,
+)
+from tpuslam_torch.kernels import correspond, gn_epilogue, gn_fused, gn_partials
 
 K = Intrinsics(160.0, 160.0, 79.5, 59.5)
 H, W = 120, 160
@@ -125,14 +132,59 @@ def test_epilogue_kernel_matches_twin(dev, case):
 
 
 @pytest.mark.cuda
-def test_align_frames_gpu_matches_cpu_twins(dev):
+@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("case", ["f16", "f32", "normal_gate_off"])
+def test_gn_fused_kernel_matches_twin(dev, level, case):
+    """Gates at T_gate ≠ T_res: the per-block validity counts are exact
+    (w bit-equal to the twin's), the folded sums agree to 1e-4 relative."""
+    d = torch.as_tensor(depths(4), device=dev)
+    icp = dataclasses.replace(CFG.icp, packed_dtype="float32"
+                              if case == "f32" else "float16")
+    pyr_a, pyr_b = preprocess(d[0], K, CFG), preprocess(d[3], K, CFG)
+    packed = pack_pyramid(pyr_a, icp)[level]
+    src = select_level_source(pyr_b, level, icp)
+    h, w, _ = pyr_b[level].points.shape
+    K_l = K.scaled(1.0 / 2 ** level)
+    T_gate = se3.exp(torch.tensor([0.01, -0.01, 0.01, 0.01, 0.0, -0.01],
+                                  device=dev))
+    T_res = se3.exp(torch.tensor([0.002, 0.0, -0.001, 0.001, -0.002, 0.0],
+                                 device=dev)) @ T_gate
+    flat = _association_rows(T_gate, src.points, K_l, h, w)
+    args = (src.points, src.normals, src.mask, packed, flat, T_gate, T_res,
+            K_l, w, h, 0.25, -2.0 if case == "normal_gate_off" else 0.5,
+            0.05)
+    pk = gn_fused.gn_fused_partials(*args)
+    pr = gn_fused.gn_fused_partials_reference(*args)
+    torch.cuda.synchronize()
+    valid = gn_fused.fused_terms(src.points, src.normals, src.mask,
+                                 packed[flat.long()], *args[5:])[:, 28]
+    n = valid.shape[0]
+    block = (torch.arange(n, device=dev) // gn_partials.BLOCK_THREADS
+             ) % gn_partials.num_blocks(n)
+    assert torch.equal(torch.zeros(pk.shape[0], device=dev).index_add_(
+        0, block, valid), pk[:, 28])
+    for a, b in zip(gn_partials.fold_partials(pk),
+                    gn_partials.fold_partials(pr)):
+        assert rel(a, b) <= 1e-4
+    assert float(pk[:, 28].sum()) > 0.3 * float(src.mask.sum())
+    done = gn_epilogue.init_carry(T_gate, 0)
+    assert torch.all(gn_fused.gn_fused_partials(*args, done=done) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_align_frames_gpu_matches_cpu_twins(dev, fused):
     d = depths(4)
+    icp = dataclasses.replace(CFG.icp, fused_gn=fused)
     pa_c, pb_c = preprocess(torch.as_tensor(d[0]), K, CFG), preprocess(
         torch.as_tensor(d[3]), K, CFG)
     pa_g, pb_g = (tuple(type(f)(*(t.to(dev) for t in f)) for f in p)
                   for p in (pa_c, pb_c))
-    rc = align_frames(pb_c, pa_c, K, torch.eye(4), CFG.icp)
-    rg = align_frames(pb_g, pa_g, K, torch.eye(4, device=dev), CFG.icp)
+    counter = gn_fused.counter if fused else gn_partials.counter
+    counter.reset()
+    rc = align_frames(pb_c, pa_c, K, torch.eye(4), icp)
+    rg = align_frames(pb_g, pa_g, K, torch.eye(4, device=dev), icp)
+    assert counter.launches > 0
     assert int(rg.iters) == int(rc.iters)
     assert bool(rg.converged) == bool(rc.converged)
     assert float((rg.T.cpu() - rc.T).abs().max()) <= 5e-5
@@ -151,6 +203,50 @@ def test_scan_gpu_matches_cpu_twins_and_counts_launches(dev):
     assert torch.equal(fg.cpu(), fc)
     assert float((pg.cpu() - pc).abs().max()) <= 1e-4
     assert float((ig.cpu() - ic).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_slam_gpu_matches_cpu_twins(dev, fused):
+    """SlamSystem on the 48-frame two-lap loop (boundary chunks, deferred
+    backend): the card's kernels take the CPU twins' keyframe and closure
+    decisions, and every kernel of the path launches."""
+    from tpuslam_torch.config import PoseGraphConfig, VoxelConfig
+    from tpuslam_torch.data.synthetic import loop_trajectory
+    from tpuslam_torch.slam import SlamSystem
+
+    cfg = SLAMConfig(
+        height=H, width=W,
+        icp=dataclasses.replace(CFG.icp, fused_gn=fused),
+        keyframe=KeyframeConfig(max_translation=0.08, max_rotation=0.12),
+        posegraph=PoseGraphConfig(max_nodes=64, max_edges=256, gn_iters=15,
+                                  lc_min_gap=3, lc_max_dist=0.6,
+                                  lc_max_residual=0.05, lc_min_inliers=0.3),
+        voxel=VoxelConfig(capacity=1 << 13, map_capacity=1 << 15))
+    gt = loop_trajectory(48, cycles=2, radius=0.35)
+    d = np.stack([render_depth(gt[i], K, H, W, seed=i)
+                  for i in range(48)]).astype(np.float32)
+    ts = np.arange(48) / 30.0
+
+    def run(device):
+        slam = SlamSystem(K, cfg, chunk_mode="boundary", async_backend=True,
+                          device=device)
+        dd = torch.as_tensor(d, device=device)
+        for i in range(0, 48, 8):
+            slam.process_chunk(dd[i:i + 8], ts[i:i + 8])
+        slam.finalize()
+        return ([r.index for r in slam.odo.keyframes],
+                [(c.i, c.j) for c in slam.closures], slam.trajectory()[1])
+
+    kc, cc, ec = run("cpu")
+    counters = ((gn_fused.counter, gn_epilogue.counter) if fused else
+                (correspond.counter, gn_partials.counter, gn_epilogue.counter))
+    for c in counters:
+        c.reset()
+    kg, cg, eg = run(dev)
+    assert all(c.launches > 0 and c.plain_calls == 0 for c in counters)
+    assert kg == kc and cg == cc and len(cc) >= 1
+    assert float(np.abs(eg - ec).max()) <= 1e-4
 
 
 @pytest.mark.cuda

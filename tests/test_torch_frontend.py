@@ -1,10 +1,12 @@
-"""The port's full-sequence odometry (tpuslam_torch/frontend.py) against the
-reference's `scan_odometry` on the 12-frame synthetic orbit of
-tests/test_odometry.py, with the reference on its kernel path in interpret
-mode (TPUSLAM_FORCE_PALLAS=1).  Promotion flags must be identical, poses
-within 1e-4 and ATE within 1e-5 m of the reference's; a restart from the
-reference's mid-sequence state (interop.scan_state_from_numpy) must
-reproduce the reference's following frames."""
+"""The port's odometry (tpuslam_torch/frontend.py) against the reference on
+the 12-frame synthetic orbit of tests/test_odometry.py.  `scan_odometry`
+runs against the reference's kernel path in interpret mode
+(TPUSLAM_FORCE_PALLAS=1), the boundary scan and the host-driven `Odometry`
+against its plain path.  Promotion flags and keyframe indices must be
+identical, poses within 1e-4 and ATE within 1e-5 m of the reference's; a
+restart from the reference's mid-sequence state
+(interop.scan_state_from_numpy) must reproduce the reference's following
+frames."""
 
 import dataclasses
 
@@ -20,6 +22,11 @@ from tpuslam.data.synthetic import orbit_trajectory, render_depth
 from tpuslam.eval.ate import ate_rmse
 from tpuslam_torch.config import Intrinsics as PIntrinsics
 from tpuslam_torch.interop import config_from_reference, scan_state_from_numpy
+
+# The tests run in several worker processes on one machine: one intra-op
+# thread each keeps PyTorch's CPU thread pools from oversubscribing the
+# cores (which slows these small ops down by an order of magnitude).
+torch.set_num_threads(1)
 
 K = Intrinsics(160.0, 160.0, 79.5, 59.5)
 PK = PIntrinsics(*K)
@@ -91,6 +98,61 @@ def test_restart_from_reference_state(sequence, monkeypatch):
     np.testing.assert_allclose(pi.numpy(),
                                rows[:, rf.FlatChunk.INLIER_FRACTION],
                                atol=1e-4)
+
+
+def test_scan_odometry_boundary_matches_reference(sequence):
+    """Boundary promotion over 4-frame chunks: the chunk's LAST frame
+    becomes the keyframe when any of its frames flags promotion."""
+    gt, depths = sequence
+    rp, rpr, ri = rf.scan_odometry_boundary(jnp.asarray(depths), K,
+                                            CFG_PROMOTE, chunk=4)
+    pp, ppr, pi = pf.scan_odometry_boundary(
+        torch.as_tensor(depths), PK, config_from_reference(CFG_PROMOTE),
+        chunk=4)
+    np.testing.assert_array_equal(ppr.numpy(), np.asarray(rpr))
+    assert int(ppr.sum()) >= 2
+    np.testing.assert_allclose(pp.numpy(), np.asarray(rp), atol=1e-4)
+    np.testing.assert_allclose(pi.numpy(), np.asarray(ri), atol=1e-4)
+    assert ate(pp.numpy(), gt) < 1e-3
+
+
+def test_track_step_matches_reference(sequence):
+    """One frame against a keyframe pyramid packed per call."""
+    _, depths = sequence
+    pcfg = config_from_reference(CFG_PROMOTE)
+    ra, rb = (rf.preprocess(jnp.asarray(depths[i]), K, CFG_PROMOTE)
+              for i in (0, 3))
+    pa, pb = (pf.preprocess(torch.as_tensor(depths[i]), PK, pcfg)
+              for i in (0, 3))
+    r = rf.track_step_jit(ra, rb, K, jnp.eye(4), CFG_PROMOTE)
+    p = pf.track_step(pa, pb, PK, torch.eye(4), pcfg)
+    assert bool(p.promote) == bool(r.promote) and bool(p.lost) == bool(r.lost)
+    assert int(p.icp.iters) == int(r.icp.iters)
+    np.testing.assert_allclose(p.T_kf_cam.numpy(), np.asarray(r.T_kf_cam),
+                               atol=5e-5)
+
+
+def test_odometry_process_matches_reference(sequence):
+    """The host-driven per-frame loop (`Odometry.process`): the same
+    keyframes (frame indices, poses), iteration counts and trajectory."""
+    gt, depths = sequence
+    r = rf.Odometry(K, CFG_PROMOTE)
+    p = pf.Odometry(PK, config_from_reference(CFG_PROMOTE))
+    for i in range(F):
+        r.process(depths[i], timestamp=i / 30.0)
+        p.process(depths[i], timestamp=i / 30.0)
+    assert [k.index for k in p.keyframes] == [k.index for k in r.keyframes]
+    assert len(p.keyframes) >= 2
+    assert [s["iters"] for s in p.stats] == [s["iters"] for s in r.stats]
+    for a, b in zip(p.keyframes, r.keyframes):
+        np.testing.assert_allclose(a.T_world_kf, b.T_world_kf, atol=1e-4)
+        assert a.verify.packed.shape == tuple(b.verify.packed.shape)
+        # the two preprocesses agree to 1e-5, not bit for bit, so a point
+        # on a voxel face can fall on either side: occupied voxels ±2
+        assert abs(int(a.cloud.mask.sum()) - int(np.sum(b.cloud.mask))) <= 2
+    np.testing.assert_allclose(np.stack(p.trajectory),
+                               np.stack(r.trajectory), atol=1e-4)
+    assert ate(np.stack(p.trajectory), gt) < 1e-3
 
 
 def test_uint16_depth_bit_equals_float32(sequence):

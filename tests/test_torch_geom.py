@@ -25,6 +25,11 @@ from tpuslam_torch.geom.backproject import project as p_project
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.geom.normals import organized_normals as p_normals
 
+# The tests run in several worker processes on one machine: one intra-op
+# thread each keeps PyTorch's CPU thread pools from oversubscribing the
+# cores (which slows these small ops down by an order of magnitude).
+torch.set_num_threads(1)
+
 K = Intrinsics(160.0, 160.0, 79.5, 59.5)
 H, W = 120, 160
 ATOL = 1e-6
@@ -161,4 +166,5 @@ def test_point_cloud_ops():
     T = pse3.exp(torch.tensor([0.1, 0.0, 0.0, 0.0, 0.0, 0.2]))
     moved = c.transform(T)
     np.testing.assert_allclose(moved.points[:10].numpy(),
-                               pse3.transform_points(T, pts).numpy())
+                               pse3.transform_points(T, pts).numpy(),
+                               atol=ATOL)

@@ -28,6 +28,11 @@ from tpuslam_torch import config as pc
 from tpuslam_torch.geom.backproject import backproject as p_backproject
 from tpuslam_torch.geom.normals import organized_normals as p_normals
 
+# The tests run in several worker processes on one machine: one intra-op
+# thread each keeps PyTorch's CPU thread pools from oversubscribing the
+# cores (which slows these small ops down by an order of magnitude).
+torch.set_num_threads(1)
+
 K = Intrinsics(160.0, 160.0, 79.5, 59.5)
 H, W = 120, 160
 TAU = [0.03, -0.02, 0.02, 0.015, 0.025, -0.01]
@@ -118,6 +123,8 @@ def test_pack_and_select_source_shapes(pair):
     with pytest.raises(ValueError, match="share pyramid shapes"):
         picp.align_frames_packed(pyr, packed[::-1], pc.Intrinsics(*K),
                                  torch.eye(4), cfg)
-    with pytest.raises(NotImplementedError):
-        picp.align_frames_packed(pyr, packed, pc.Intrinsics(*K), torch.eye(4),
-                                 dataclasses.replace(cfg, fused_gn=True))
+    # fused_gn runs (tests/test_torch_gn_fused.py holds it to the reference)
+    fused, plain = (picp.align_frames_packed(
+        pyr, packed, pc.Intrinsics(*K), torch.eye(4),
+        dataclasses.replace(cfg, fused_gn=f)) for f in (True, False))
+    np.testing.assert_allclose(fused.T.numpy(), plain.T.numpy(), atol=5e-5)

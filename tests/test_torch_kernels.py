@@ -31,6 +31,11 @@ from tpuslam_torch.kernels import _build, correspond, gn_epilogue, gn_partials
 from tpuslam_torch.kernels.gn_reduce import gn_reduce as p_gn_reduce
 from tpuslam_torch.kernels.gn_reduce import solve_gn_step as p_solve
 
+# The tests run in several worker processes on one machine: one intra-op
+# thread each keeps PyTorch's CPU thread pools from oversubscribing the
+# cores (which slows these small ops down by an order of magnitude).
+torch.set_num_threads(1)
+
 K = Intrinsics(160.0, 160.0, 79.5, 59.5)
 H, W = 120, 160
 ARGS = (1e-6, 1e-4, 0.3, 0.3)   # damping, damping_abs, max_trans, max_rot
@@ -320,7 +325,8 @@ def test_find_nvcc_error_is_clear(monkeypatch, tmp_path):
 def test_sources_note_what_they_replace():
     for name, ref in (("correspond.cu", "tpuslam/kernels/correspond.py"),
                       ("gn_partials.cu", "tpuslam/kernels/pallas_gn.py"),
-                      ("gn_epilogue.cu", "tpuslam/kernels/pallas_epilogue.py")):
+                      ("gn_epilogue.cu", "tpuslam/kernels/pallas_epilogue.py"),
+                      ("gn_fused.cu", "tpuslam/kernels/gn_fused.py")):
         text = (PKG / "csrc" / name).read_text()
         head = text[:3000]
         assert "Replaces:" in head and ref in head, name

@@ -2,11 +2,13 @@
 
 A second package beside `tpuslam/` (the JAX reference, which it never
 imports).  Module paths mirror the reference's so each counterpart is easy
-to find.  The first slice is frame-to-keyframe odometry over a full
-sequence (`frontend.scan_odometry`), with the association gather, the GN
-reduction and the GN epilogue as hand-written CUDA kernels
-(`csrc/*.cu`, built at first use by `kernels/_build.py`).  On CPU tensors
-every kernel wrapper runs its plain PyTorch twin instead.
+to find.  It covers frame-to-keyframe odometry (`frontend.scan_odometry`,
+`frontend.Odometry`) and the SLAM system (`slam.SlamSystem`: boundary
+chunks, deferred loop closure, pose graph, relocalization).  The
+association gather, the GN reduction, the GN epilogue and the fused GN
+step are hand-written CUDA kernels (`csrc/*.cu`, built at first use by
+`kernels/_build.py`).  On CPU tensors every kernel wrapper runs its plain
+PyTorch twin instead.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,24 @@
-"""Frame-to-keyframe odometry — port of the scan path of
-`tpuslam/frontend.py`.
+"""Frame-to-keyframe odometry — port of `tpuslam/frontend.py`.
 
-`scan_odometry` tracks a whole sequence with every piece of state on the
-input's device: a Python loop over frames, the keyframe kept as its packed
-gather tables, promotion a `torch.where` select instead of the reference's
-`lax.cond`, and per-frame outputs written into preallocated tensors that
-the caller reads back once.  Nothing inside a frame waits for the GPU.
+Three loops over one tracking step (`track_step_packed`):
+
+  * `scan_odometry` / `scan_odometry_boundary` — a whole sequence with every
+    piece of state on the input's device: the keyframe is kept as its
+    packed gather tables, per-frame outputs go into preallocated tensors
+    that the caller reads back once.  Nothing inside a frame waits for the
+    GPU.
+  * `scan_chunk` / `scan_superchunk_frozen` — the chunked streaming scans
+    of `SlamSystem.process_chunk` (inline and boundary promotion): one
+    (C, SIZE) float32 matrix per chunk for the host to read back once.
+  * `Odometry` — the host-driven per-frame loop: one `process_frame_jit`
+    call and one readback per frame; promotion bookkeeping (keyframe
+    records, their voxel clouds and verification tables, cloud budget) on
+    the host.
+
+Where the reference takes a `lax.cond` to re-pack the keyframe only on
+promotion, the port packs unconditionally and selects with `torch.where`
+on the device, so no flag is read on the host inside a chunk.  Names ending
+in `_jit` are the reference's; PyTorch runs them eagerly.
 
 Keyframe criterion: relative motion (translation/rotation) beyond
 threshold OR inlier fraction below threshold; a frame whose inlier fraction
@@ -15,15 +28,24 @@ warm-start pose and never promotes.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from tpuslam_torch.config import Intrinsics, SLAMConfig
 from tpuslam_torch.geom import se3
 from tpuslam_torch.geom.backproject import backproject, device_scalar
+from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.geom.normals import organized_normals
-from tpuslam_torch.icp import Frame, ICPResult, align_frames_packed, pack_pyramid
+from tpuslam_torch.geom.voxel import voxel_downsample
+from tpuslam_torch.icp import (
+    Frame,
+    ICPResult,
+    align_frames,
+    align_frames_packed,
+    pack_pyramid,
+)
 
 
 def damped_velocity(delta: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -96,6 +118,280 @@ def track_step_packed(kf_packed: tuple, cur_pyr, K: Intrinsics,
     return _promote_flags(res, T0, cfg)
 
 
+def track_step(kf_pyr, cur_pyr, K: Intrinsics, T0: torch.Tensor,
+               cfg: SLAMConfig) -> TrackResult:
+    """Track the current pyramid against a keyframe pyramid (packed per
+    call) and decide promotion."""
+    res = align_frames(cur_pyr, kf_pyr, K, T0, cfg.icp)
+    return _promote_flags(res, T0, cfg)
+
+
+def _track(kf_packed: tuple, depth: torch.Tensor, K: Intrinsics,
+           T_kf_cam: torch.Tensor, last_delta: torch.Tensor,
+           cfg: SLAMConfig):
+    """Warm start + preprocess + track one frame: (pyr, TrackResult, the
+    inter-frame motion for the next warm start)."""
+    pyr = preprocess(depth, K, cfg)
+    T0 = T_kf_cam @ damped_velocity(last_delta, cfg.cv_damping)
+    out = track_step_packed(kf_packed, pyr, K, T0, cfg)
+    return pyr, out, se3.relative(T_kf_cam, out.T_kf_cam)
+
+
+def _track_stats(out: TrackResult) -> torch.Tensor:
+    """(5,) float32 [promote, lost, iters, rms, inlier_fraction]."""
+    return torch.stack([
+        out.promote.to(torch.float32),
+        out.lost.to(torch.float32),
+        out.icp.iters.to(torch.float32),
+        out.icp.rms.to(torch.float32),
+        out.icp.inlier_fraction.to(torch.float32),
+    ])
+
+
+def _select(flag: torch.Tensor, new, old):
+    """`torch.where(flag, new, old)` over a pose or a tuple of tables."""
+    if isinstance(new, tuple):
+        return tuple(torch.where(flag, n, o) for n, o in zip(new, old))
+    return torch.where(flag, new, old)
+
+
+def _eye(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(4, dtype=like.dtype, device=like.device)
+
+
+class FlatTrack:
+    """Index map of `process_frame_jit`'s flat scalar vector (the per-frame
+    readback of the host-driven loop; not icp.FlatICP's layout)."""
+
+    T = slice(0, 16)          # T_kf_cam, row-major
+    PROMOTE = 16
+    LOST = 17
+    ITERS = 18
+    RMS = 19
+    INLIER_FRACTION = 20
+    SIZE = 21
+
+
+def process_frame_jit(depth: torch.Tensor, kf_packed: tuple, K: Intrinsics,
+                      T_kf_cam: torch.Tensor, last_delta: torch.Tensor,
+                      cfg: SLAMConfig):
+    """Warm start + preprocess + track for the host-driven loop.
+
+    Returns (pyr, T_kf_cam, delta, flat): the chained state stays on the
+    device and every scalar the host needs is in one (FlatTrack.SIZE,)
+    float32 vector, so the loop reads back once per frame.
+    """
+    pyr, out, delta = _track(kf_packed, depth, K, T_kf_cam, last_delta, cfg)
+    flat = torch.cat([out.T_kf_cam.reshape(16).to(torch.float32),
+                      _track_stats(out)])
+    return pyr, out.T_kf_cam, delta, flat
+
+
+def promote_bundle_jit(depth: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
+                       with_desc: bool):
+    """Everything a keyframe promotion derives from its depth frame: the
+    pyramid, its packed gather tables and the voxel-downsampled cloud."""
+    if with_desc:
+        raise NotImplementedError(
+            "depth descriptors (PoseGraphConfig.lc_descriptor) are not "
+            "ported yet (ROADMAP Queue 1 item 11)")
+    pyr = preprocess(depth, K, cfg)
+    packed = pack_pyramid(pyr, cfg.icp)
+    cloud = voxel_downsample(pyr[0].as_cloud(), cfg.voxel.voxel_size,
+                             cfg.voxel.capacity, cfg.voxel.origin,
+                             cfg.voxel.extent)
+    return pyr, packed, cloud, None
+
+
+class VerifyTable(NamedTuple):
+    """Packed row-gather table a keyframe retains for projective backend
+    verification (loop closure / relocalization) — a byproduct of its own
+    tracking tables, kept at KeyframeConfig.verify_level."""
+
+    packed: torch.Tensor        # (h·w, 8) table (pack_organized_target)
+    height: int                 # level image dims
+    width: int
+    level: int                  # pyramid level (scales the intrinsics)
+
+
+class KeyframeRecord(NamedTuple):
+    """Host-side record of a promoted keyframe (for the backend)."""
+
+    index: int                  # frame index in the sequence
+    timestamp: float
+    T_world_kf: np.ndarray      # (4, 4)
+    cloud: Optional[PointCloud]  # voxel-downsampled cloud, KF camera frame
+    # retained verification table; dropped together with `cloud` by
+    # sparsification
+    verify: Optional[VerifyTable] = None
+    desc: Optional[np.ndarray] = None
+
+
+class Odometry:
+    """Host-driven frame-to-keyframe visual odometry.
+
+    `device` is where tracking runs; depth given as a host array is copied
+    there, depth given as a tensor must already be on it.
+    """
+
+    def __init__(self, K: Intrinsics, cfg: SLAMConfig,
+                 keep_keyframe_clouds: bool = True, device="cpu"):
+        if cfg.posegraph.lc_descriptor:
+            raise NotImplementedError(
+                "PoseGraphConfig.lc_descriptor: descriptor proposal is not "
+                "ported yet (ROADMAP Queue 1 item 11)")
+        self.K = K
+        self.cfg = cfg
+        # the concrete device ("cuda" becomes "cuda:<current>"), so that
+        # as_depth compares like with like
+        self.device = torch.empty(0, device=device).device
+        self.keep_keyframe_clouds = keep_keyframe_clouds
+        self.T_world_kf = np.eye(4, dtype=np.float32)
+        self.T_kf_cam = torch.eye(4, device=self.device)
+        self.last_delta = torch.eye(4, device=self.device)
+        self.kf_pyr = None
+        self.kf_packed = None             # row-gather tables, built per promote
+        self.frame_idx = 0
+        self.trajectory: list[np.ndarray] = []
+        self.timestamps: list[float] = []
+        self.keyframes: list[KeyframeRecord] = []
+        self.stats: list[dict] = []
+        # per-frame (keyframe id, T_kf_cam) so the backend can re-anchor the
+        # full trajectory after pose-graph optimization
+        self.frame_refs: list[tuple[int, np.ndarray]] = []
+        self.last_pyr = None  # most recent preprocessed frame
+        # keyframe ids whose clouds must survive sparsification (loop-closure
+        # and relocalization anchors), mapped to a recency sequence so the
+        # bound evicts the least recently re-confirmed anchor
+        self.protected_kf_ids: dict[int, int] = {}
+        self._protect_seq = 0
+
+    def as_depth(self, depth) -> torch.Tensor:
+        """Depth as a tensor on the odometry's device."""
+        if isinstance(depth, torch.Tensor):
+            if depth.device != self.device:
+                raise ValueError(f"depth is on {depth.device}, odometry runs "
+                                 f"on {self.device}")
+            return depth
+        return torch.as_tensor(np.asarray(depth), device=self.device)
+
+    def protect(self, *ids: int) -> None:
+        """Mark keyframes as sparsification-protected, refreshing recency."""
+        for k in ids:
+            self._protect_seq += 1
+            self.protected_kf_ids[k] = self._protect_seq
+
+    def _kf_cloud(self, pyr) -> PointCloud:
+        v = self.cfg.voxel
+        return voxel_downsample(pyr[0].as_cloud(), v.voxel_size, v.capacity,
+                                v.origin, v.extent)
+
+    def _promote(self, pyr, timestamp: float) -> None:
+        packed = pack_pyramid(pyr, self.cfg.icp)
+        cloud = self._kf_cloud(pyr) if self.keep_keyframe_clouds else None
+        self._promote_from_bundle(pyr, packed, cloud, None, timestamp)
+
+    def _promote_from_bundle(self, pyr, packed, cloud, desc,
+                             timestamp: float) -> None:
+        """Promotion bookkeeping from pre-computed derived state (the
+        boundary chunk path computes it with `promote_bundle_jit`)."""
+        self.kf_pyr = pyr
+        self.kf_packed = packed
+        verify = None
+        if self.keep_keyframe_clouds:
+            # retain the tracking table at verify_level for the backend's
+            # projective verification — already computed, memory only
+            lvl = min(int(self.cfg.keyframe.verify_level), len(pyr) - 1)
+            h, w, _ = pyr[lvl].points.shape
+            verify = VerifyTable(packed=packed[lvl], height=h, width=w,
+                                 level=lvl)
+        else:
+            cloud = None
+            desc = None
+        self.keyframes.append(KeyframeRecord(
+            index=self.frame_idx, timestamp=timestamp,
+            T_world_kf=self.T_world_kf.copy(), cloud=cloud, verify=verify,
+            desc=desc))
+        if self.keep_keyframe_clouds:
+            self._enforce_cloud_budget()
+
+    def _enforce_cloud_budget(self) -> None:
+        """Keyframe sparsification: past `cfg.keyframe.max_keyframes`
+        retained clouds, drop the cloud of the most spatially redundant
+        keyframe (smallest distance to another retained one).  Protected:
+        the newest `sparsify_protect_recent`, id 0, and `protected_kf_ids`.
+        Poses always stay."""
+        budget = int(self.cfg.keyframe.max_keyframes)
+        recent = int(self.cfg.keyframe.sparsify_protect_recent)
+        retained = [k for k, r in enumerate(self.keyframes)
+                    if r.cloud is not None]
+        if len(retained) <= budget:
+            return
+        protected = set(self.protected_kf_ids)
+        protected.add(0)
+        if recent > 0:           # -0 would slice the WHOLE list (protect all)
+            protected.update(retained[-recent:])
+        pos = np.stack([self.keyframes[k].T_world_kf[:3, 3].astype(np.float64)
+                        for k in retained])
+        while len(retained) > budget:
+            d = np.linalg.norm(pos[:, None, :] - pos[None, :, :], axis=-1)
+            np.fill_diagonal(d, np.inf)
+            nearest = d.min(axis=1)
+            drop_at = None
+            for idx in np.argsort(nearest):
+                if retained[int(idx)] not in protected:
+                    drop_at = int(idx)
+                    break
+            if drop_at is None:
+                return  # everything protected — bounded by the protections
+            k = retained[drop_at]
+            self.keyframes[k] = self.keyframes[k]._replace(
+                cloud=None, verify=None, desc=None)
+            retained.pop(drop_at)
+            pos = np.delete(pos, drop_at, axis=0)
+
+    def process(self, depth, timestamp: float = 0.0) -> np.ndarray:
+        """Feed one depth frame (H, W) metres; returns world←cam pose (4, 4)."""
+        depth = self.as_depth(depth)
+        if self.kf_pyr is None:
+            pyr = preprocess(depth, self.K, self.cfg)
+            self.last_pyr = pyr
+            self._promote(pyr, timestamp)
+            T_world_cam = self.T_world_kf
+            self.stats.append({"iters": 0, "rms": 0.0, "inliers": 1.0,
+                               "promoted": True})
+            self.frame_refs.append((len(self.keyframes) - 1, np.eye(4)))
+        else:
+            pyr, T_new, delta, flat = process_frame_jit(
+                depth, self.kf_packed, self.K, self.T_kf_cam,
+                self.last_delta, self.cfg)
+            self.last_pyr = pyr
+            s = flat.cpu().numpy()   # the ONE host sync of the frame
+            T_rel = s[FlatTrack.T].reshape(4, 4)
+            promoted = s[FlatTrack.PROMOTE] > 0.5
+            self.last_delta = delta  # device-resident; never read back
+            self.T_kf_cam = T_new
+            T_world_cam = (self.T_world_kf @ T_rel).astype(np.float32)
+            if promoted:
+                self.T_world_kf = T_world_cam
+                self.T_kf_cam = torch.eye(4, device=self.device)
+                self._promote(pyr, timestamp)
+                self.frame_refs.append((len(self.keyframes) - 1, np.eye(4)))
+            else:
+                self.frame_refs.append((len(self.keyframes) - 1, T_rel))
+            self.stats.append({
+                "iters": int(s[FlatTrack.ITERS]),
+                "rms": float(s[FlatTrack.RMS]),
+                "inliers": float(s[FlatTrack.INLIER_FRACTION]),
+                "promoted": bool(promoted),
+                "lost": bool(s[FlatTrack.LOST] > 0.5),
+            })
+        self.trajectory.append(np.asarray(T_world_cam, dtype=np.float64))
+        self.timestamps.append(timestamp)
+        self.frame_idx += 1
+        return self.trajectory[-1]
+
+
 class ScanState(NamedTuple):
     kf_packed: tuple            # keyframe row-gather tables (per level)
     T_world_kf: torch.Tensor
@@ -114,23 +410,21 @@ def initial_state(depth0: torch.Tensor, K: Intrinsics,
 
 def scan_step(state: ScanState, depth: torch.Tensor, K: Intrinsics,
               cfg: SLAMConfig):
-    """Track one frame; returns (new_state, (T_world_cam, promote,
-    inlier_fraction)), all on the device."""
-    pyr = preprocess(depth, K, cfg)
-    T0 = state.T_kf_cam @ damped_velocity(state.last_delta, cfg.cv_damping)
-    out = track_step_packed(state.kf_packed, pyr, K, T0, cfg)
+    """Track one frame with per-frame promotion; returns (new_state,
+    T_world_cam, TrackResult), all on the device.  The frame's tables are
+    packed every frame and selected by the promote flag on the device."""
+    pyr, out, delta = _track(state.kf_packed, depth, K, state.T_kf_cam,
+                             state.last_delta, cfg)
     T_world_cam = state.T_world_kf @ out.T_kf_cam
     promote = out.promote
-    new_packed = pack_pyramid(pyr, cfg.icp)
-    eye = torch.eye(4, dtype=T_world_cam.dtype, device=T_world_cam.device)
     new_state = ScanState(
-        kf_packed=tuple(torch.where(promote, n, o)
-                        for n, o in zip(new_packed, state.kf_packed)),
-        T_world_kf=torch.where(promote, T_world_cam, state.T_world_kf),
-        T_kf_cam=torch.where(promote, eye, out.T_kf_cam),
-        last_delta=se3.relative(state.T_kf_cam, out.T_kf_cam),
+        kf_packed=_select(promote, pack_pyramid(pyr, cfg.icp),
+                          state.kf_packed),
+        T_world_kf=_select(promote, T_world_cam, state.T_world_kf),
+        T_kf_cam=_select(promote, _eye(T_world_cam), out.T_kf_cam),
+        last_delta=delta,
     )
-    return new_state, (T_world_cam, promote, out.icp.inlier_fraction)
+    return new_state, T_world_cam, out
 
 
 def scan_odometry(depths: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
@@ -154,9 +448,159 @@ def scan_odometry(depths: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
     promotes = torch.empty((F,), dtype=torch.bool, device=dev)
     inliers = torch.empty((F,), dtype=torch.float32, device=dev)
     for i in range(F):
-        state, (T_world_cam, promote, inl) = scan_step(state, depths[i], K,
-                                                       cfg)
+        state, T_world_cam, out = scan_step(state, depths[i], K, cfg)
         poses[i] = T_world_cam
-        promotes[i] = promote
-        inliers[i] = inl
+        promotes[i] = out.promote
+        inliers[i] = out.icp.inlier_fraction
     return poses, promotes, inliers
+
+
+class FlatChunk:
+    """Per-frame column layout of `scan_chunk`'s (C, SIZE) readback matrix.
+    Index through these names, never literals (FlatTrack/FlatICP differ)."""
+
+    WORLD_T = slice(0, 16)     # T_world_cam, row-major
+    REL_T = slice(16, 32)      # T_kf_cam (pre-promotion, vs the frame's kf)
+    PROMOTE = 32
+    LOST = 33
+    ITERS = 34
+    RMS = 35
+    INLIER_FRACTION = 36
+    SIZE = 37
+
+
+def scan_chunk(depths: torch.Tensor, K: Intrinsics, state: ScanState,
+               cfg: SLAMConfig):
+    """Track a chunk of frames with per-frame promotion (the inline chunk
+    mode): keyframe state stays on the device; returns (new_state, ys) with
+    ys the (C, FlatChunk.SIZE) matrix the host reads back once."""
+    ys = torch.empty((depths.shape[0], FlatChunk.SIZE), dtype=torch.float32,
+                     device=depths.device)
+    for i in range(depths.shape[0]):
+        state, T_world_cam, out = scan_step(state, depths[i], K, cfg)
+        ys[i] = torch.cat([T_world_cam.reshape(16).to(torch.float32),
+                           out.T_kf_cam.reshape(16).to(torch.float32),
+                           _track_stats(out)])
+    return state, ys
+
+
+class FrozenState(NamedTuple):
+    """Carry of the frozen-keyframe chunk scan — poses only, no tables."""
+
+    T_kf_cam: torch.Tensor      # (4, 4) pose vs the FROZEN keyframe
+    last_delta: torch.Tensor    # (4, 4) last inter-frame motion
+
+
+class FlatFrozen:
+    """Per-frame column layout of `scan_superchunk_frozen`'s (N, SIZE)
+    readback.  No world pose: the host composes world = T_world_kf · REL_T
+    in float64, which keeps the scan output independent of pose
+    corrections (what makes the deferred backend deterministic)."""
+
+    REL_T = slice(0, 16)       # T_kf_cam vs the frozen keyframe, row-major
+    PROMOTE = 16
+    LOST = 17
+    ITERS = 18
+    RMS = 19
+    INLIER_FRACTION = 20
+    SIZE = 21
+
+
+class SuperChunkCarry(NamedTuple):
+    """Device-resident carry of `scan_superchunk_frozen` across calls."""
+
+    kf_packed: tuple            # packed tables of the CURRENT keyframe
+    T_kf_cam: torch.Tensor      # (4, 4) pose vs that keyframe
+    last_delta: torch.Tensor    # (4, 4) last inter-frame motion
+
+
+def _frozen_sub_chunk(kf_packed: tuple, depths: torch.Tensor, K: Intrinsics,
+                      st: FrozenState, cfg: SLAMConfig, rows: torch.Tensor):
+    """Track `depths` against a frozen keyframe; each frame's FlatFrozen row
+    goes into `rows`.  Returns (end state, the last frame's pyramid)."""
+    pyr = None
+    for i in range(depths.shape[0]):
+        pyr, out, delta = _track(kf_packed, depths[i], K, st.T_kf_cam,
+                                 st.last_delta, cfg)
+        rows[i] = torch.cat([out.T_kf_cam.reshape(16).to(torch.float32),
+                             _track_stats(out)])
+        st = FrozenState(T_kf_cam=out.T_kf_cam, last_delta=delta)
+    return st, pyr
+
+
+def scan_superchunk_frozen(depths: torch.Tensor, K: Intrinsics,
+                           carry: SuperChunkCarry, cfg: SLAMConfig,
+                           sub: int):
+    """G sub-chunks of `sub` frames with promotion on the device at
+    sub-chunk boundaries; the host reads back once per call.
+
+    Every emitted pose is relative to the sub-chunk's entry keyframe.  When
+    any frame of a sub-chunk flags promotion, its LAST frame becomes the
+    keyframe and the carry resets to the exact identity (re-anchoring on a
+    mid-chunk frame leaves ~1e-7 of inversion noise that the nearest-pixel
+    association amplifies, see the reference).  The last frame's pyramid is
+    the one its tracking just built, so the promotion only packs it; the
+    select is a `torch.where` on the device.
+
+    Returns (new_carry, ys) with ys of shape (G·sub, FlatFrozen.SIZE).
+    """
+    n = depths.shape[0]
+    if n % sub:
+        raise ValueError(f"superchunk length {n} not divisible by {sub}")
+    ys = torch.empty((n, FlatFrozen.SIZE), dtype=torch.float32,
+                     device=depths.device)
+    kf_packed = carry.kf_packed
+    st = FrozenState(T_kf_cam=carry.T_kf_cam, last_delta=carry.last_delta)
+    for g0 in range(0, n, sub):
+        st, pyr = _frozen_sub_chunk(kf_packed, depths[g0:g0 + sub], K, st,
+                                    cfg, ys[g0:g0 + sub])
+        any_p = torch.any(ys[g0:g0 + sub, FlatFrozen.PROMOTE] > 0.5)
+        kf_packed = _select(any_p, pack_pyramid(pyr, cfg.icp), kf_packed)
+        st = st._replace(T_kf_cam=_select(any_p, _eye(st.T_kf_cam),
+                                          st.T_kf_cam))
+    return SuperChunkCarry(kf_packed=kf_packed, T_kf_cam=st.T_kf_cam,
+                           last_delta=st.last_delta), ys
+
+
+def fuse_readbacks_jit(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Concatenate two device results into one flat float32 vector, so the
+    host reads both back in one transfer (the deferred backend's attempt
+    rides the next chunk's scan readback)."""
+    return torch.cat([a.reshape(-1).to(torch.float32),
+                      b.reshape(-1).to(torch.float32)])
+
+
+def scan_odometry_boundary(depths: torch.Tensor, K: Intrinsics,
+                           cfg: SLAMConfig, chunk: int = 8):
+    """Full-sequence odometry with BOUNDARY keyframe promotion: each chunk
+    tracks against a frozen keyframe, and when any frame of the chunk flags
+    promotion the chunk's LAST frame becomes the keyframe, its world pose
+    the last frame's tracked pose.
+
+    Args:
+      depths: (F, H, W) depth on the device, F divisible by `chunk`.
+    Returns:
+      poses (F, 4, 4) world←cam, promote flags (F,), inlier fractions (F,).
+    """
+    F = depths.shape[0]
+    if F % chunk:
+        raise ValueError(f"frames ({F}) must be divisible by chunk ({chunk})")
+    eye = torch.eye(4, dtype=torch.float32, device=depths.device)
+    kf_packed = pack_pyramid(preprocess(depths[0], K, cfg), cfg.icp)
+    T_world_kf = eye
+    st = FrozenState(T_kf_cam=eye, last_delta=eye)
+    ys = torch.empty((F, FlatFrozen.SIZE), dtype=torch.float32,
+                     device=depths.device)
+    poses = torch.empty((F, 4, 4), dtype=torch.float32, device=depths.device)
+    for c0 in range(0, F, chunk):
+        st, pyr = _frozen_sub_chunk(kf_packed, depths[c0:c0 + chunk], K, st,
+                                    cfg, ys[c0:c0 + chunk])
+        rels = ys[c0:c0 + chunk, FlatFrozen.REL_T].reshape(-1, 4, 4)
+        world = T_world_kf @ rels
+        poses[c0:c0 + chunk] = world
+        any_p = torch.any(ys[c0:c0 + chunk, FlatFrozen.PROMOTE] > 0.5)
+        kf_packed = _select(any_p, pack_pyramid(pyr, cfg.icp), kf_packed)
+        T_world_kf = _select(any_p, world[-1], T_world_kf)
+        st = st._replace(T_kf_cam=_select(any_p, eye, st.T_kf_cam))
+    return (poses, ys[:, FlatFrozen.PROMOTE] > 0.5,
+            ys[:, FlatFrozen.INLIER_FRACTION])

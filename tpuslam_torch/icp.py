@@ -11,7 +11,13 @@ loop runs a fixed budget of ⌈max_iters / inner⌉ outer iterations; the
 epilogue sets the carry's DONE flag where the reference's predicate fails,
 after which every kernel leaves the carry as it is.  Iteration counts and
 poses are the reference's, and no tensor is read back to the host inside
-the loop.
+the loop.  (On CPU tensors, where reading the flag waits for nothing, the
+loop stops at DONE: the remaining iterations would leave the carry as it
+is.)
+
+With `ICPConfig.fused_gn` each GN solve is one fused kernel instead
+(kernels/gn_fused.py: gates, residual, Huber and the reduction with the
+row gather inside) followed by the same epilogue.
 """
 
 from __future__ import annotations
@@ -22,12 +28,14 @@ import torch
 
 from tpuslam_torch.config import ICPConfig, Intrinsics
 from tpuslam_torch.geom import se3
+from tpuslam_torch.geom.backproject import project
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.kernels import gn_epilogue as ep
 from tpuslam_torch.kernels.correspond import (
     pack_organized_target,
     projective_correspond_packed,
 )
+from tpuslam_torch.kernels.gn_fused import gn_fused_partials
 from tpuslam_torch.kernels.gn_partials import gn_reduce_partials
 
 
@@ -39,6 +47,32 @@ class ICPResult(NamedTuple):
     converged: torch.Tensor       # () bool
     H: torch.Tensor               # (6, 6) final GN information matrix
     num_inliers: torch.Tensor     # () absolute inlier count
+
+
+class FlatICP:
+    """Index map of `flat_icp_scalars`: an ICPResult's scalars as one
+    (20,) float32 vector, so a host reads a verification in one transfer
+    (the tracking loop has its own layout, frontend.FlatTrack)."""
+
+    T = slice(0, 16)          # (4, 4) row-major
+    CONVERGED = 16
+    INLIER_FRACTION = 17
+    NUM_INLIERS = 18
+    RMS = 19
+    SIZE = 20
+
+
+def flat_icp_scalars(res: ICPResult) -> torch.Tensor:
+    """Pack an ICPResult's scalars per the FlatICP layout (on its device)."""
+    return torch.cat([
+        res.T.reshape(16).to(torch.float32),
+        torch.stack([
+            res.converged.to(torch.float32),
+            res.inlier_fraction.to(torch.float32),
+            res.num_inliers.to(torch.float32),
+            res.rms.to(torch.float32),
+        ]),
+    ])
 
 
 class Frame(NamedTuple):
@@ -113,6 +147,11 @@ def pack_pyramid(pyr, cfg: ICPConfig) -> tuple:
                                        dtype=dtype) for f in pyr)
 
 
+def _finished(carry: torch.Tensor) -> bool:
+    """DONE is set and reading it costs no device round trip (CPU)."""
+    return carry.device.type == "cpu" and bool(carry[ep.DONE] != 0)
+
+
 def _icp_loop(packed: torch.Tensor, height: int, width: int, K: Intrinsics,
               src: PointCloud, T0: torch.Tensor, cfg: ICPConfig,
               max_iters: int, inner_steps: int | None = None,
@@ -126,6 +165,8 @@ def _icp_loop(packed: torch.Tensor, height: int, width: int, K: Intrinsics,
     num_valid_src = torch.sum(src.mask.to(torch.float32))
     carry = ep.init_carry(T0, max_iters)
     for _ in range(outer):
+        if _finished(carry):
+            break
         T = carry[ep.T_SLICE].reshape(4, 4)
         x = se3.transform_points(T, src.points)
         n_rot = se3.rotate_vectors(T, src.normals)
@@ -144,6 +185,10 @@ def _icp_loop(packed: torch.Tensor, height: int, width: int, K: Intrinsics,
                 partials, carry, num_valid_src, cfg.damping, cfg.damping_abs,
                 cfg.max_trans_step, cfg.max_rot_step, is_last=k == inner - 1,
                 inner=inner, max_iters=max_iters, tol_sq=tol_sq)
+    return _result(carry, tol_sq)
+
+
+def _result(carry: torch.Tensor, tol_sq: float) -> ICPResult:
     return ICPResult(
         T=carry[ep.T_SLICE].reshape(4, 4),
         iters=carry[ep.IT].to(torch.int32),
@@ -155,6 +200,81 @@ def _icp_loop(packed: torch.Tensor, height: int, width: int, K: Intrinsics,
     )
 
 
+def _association_rows(T: torch.Tensor, points: torch.Tensor, K: Intrinsics,
+                      height: int, width: int) -> torch.Tensor:
+    """(N,) int32 row index of each point's projective association at pose
+    T — the reference's index computation (tpuslam/icp.py:257-262:
+    transform, project, round, clip; no gates)."""
+    uv, _ = project(se3.transform_points(T, points), K)
+    # the clamp keeps the float→int conversion defined; any value it
+    # changes is clipped to the border either way
+    uvi = torch.round(uv).clamp(-2.0 ** 30, 2.0 ** 30).to(torch.int32)
+    return (torch.clamp(uvi[..., 1], 0, height - 1) * width
+            + torch.clamp(uvi[..., 0], 0, width - 1))
+
+
+def _icp_loop_projective_fused(packed: torch.Tensor, height: int,
+                               width: int, K: Intrinsics, src: PointCloud,
+                               T0: torch.Tensor, cfg: ICPConfig,
+                               max_iters: int,
+                               inner_steps: int | None = None,
+                               tol_delta: float | None = None) -> ICPResult:
+    """Projective ICP with the fused GN step (kernels/gn_fused.py).
+
+    The reference's semantics (`_icp_loop_projective_fused`): per outer
+    iteration one association (`flat`) at the current pose, then `inner`
+    solves whose gates use that pose (T_gate, a copy of the carry taken at
+    the association) and whose residuals use the freshly updated one (the
+    carry's T).  The solve is the epilogue kernel, whose twin is held to
+    the reference's `solve_gn_step` + `se3.exp`; both poses stay on the
+    device and the fixed budget with the DONE flag replaces the
+    while-loop, as in `_icp_loop`.
+    """
+    inner = max(1, int(cfg.inner_steps if inner_steps is None
+                       else inner_steps))
+    tol = cfg.tol_delta if tol_delta is None else tol_delta
+    tol_sq = tol ** 2
+    outer = -(-max_iters // inner) if max_iters > 0 else 0
+    num_valid_src = torch.sum(src.mask.to(torch.float32))
+    # the kernel always applies the normal gate; cosines are ≥ -1 and a
+    # zero normal gives 0 > -2, so -2 disables it (tpuslam/icp.py:245)
+    ndmin = cfg.normal_dot_min if cfg.normal_dot_min > 0.0 else -2.0
+    carry = ep.init_carry(T0, max_iters)
+    for _ in range(outer):
+        if _finished(carry):
+            break
+        gate = carry.clone()
+        flat = _association_rows(gate[ep.T_SLICE].reshape(4, 4), src.points,
+                                 K, height, width)
+        for k in range(inner):
+            partials = gn_fused_partials(
+                src.points, src.normals, src.mask, packed, flat,
+                gate[ep.T_SLICE], carry[ep.T_SLICE], K, width, height,
+                cfg.max_corr_dist, ndmin, cfg.huber_delta, done=carry)
+            carry, _ = ep.gn_epilogue(
+                partials, carry, num_valid_src, cfg.damping, cfg.damping_abs,
+                cfg.max_trans_step, cfg.max_rot_step, is_last=k == inner - 1,
+                inner=inner, max_iters=max_iters, tol_sq=tol_sq)
+    return _result(carry, tol_sq)
+
+
+def align_cloud_to_organized(src: PointCloud, packed: torch.Tensor,
+                             height: int, width: int, K: Intrinsics,
+                             T0: torch.Tensor, cfg: ICPConfig) -> ICPResult:
+    """Align an unorganized cloud onto an ORGANIZED target's packed table.
+
+    The backend's verification path (loop closure, relocalization): the
+    target keyframe keeps the row-gather table its own tracking built, so
+    association is one row gather per source point per iteration.
+    Estimates T s.t. target_point ≈ T·src_point.  `inlier_fraction` is
+    measured against all valid source points.
+    """
+    if cfg.fused_gn:
+        return _icp_loop_projective_fused(packed, height, width, K, src, T0,
+                                          cfg, cfg.max_iters)
+    return _icp_loop(packed, height, width, K, src, T0, cfg, cfg.max_iters)
+
+
 def align_frames_packed(src_pyr, dst_packed: tuple, K: Intrinsics,
                         T0: torch.Tensor, cfg: ICPConfig) -> ICPResult:
     """Coarse-to-fine projective ICP against pre-packed target tables.
@@ -163,9 +283,7 @@ def align_frames_packed(src_pyr, dst_packed: tuple, K: Intrinsics,
     image geometry is taken from `src_pyr` (both sides of a tracking pair
     share the pyramid shapes).
     """
-    if cfg.fused_gn:
-        raise NotImplementedError(
-            "ICPConfig.fused_gn: the fused GN kernel is not ported yet")
+    loop = _icp_loop_projective_fused if cfg.fused_gn else _icp_loop
     T = T0
     result = None
     for li in range(len(src_pyr) - 1, -1, -1):  # coarsest → finest
@@ -183,8 +301,8 @@ def align_frames_packed(src_pyr, dst_packed: tuple, K: Intrinsics,
         ipl, tpl = cfg.inner_steps_per_level, cfg.tol_delta_per_level
         inner = ipl[li] if ipl is not None and li < len(ipl) else None
         tol = tpl[li] if tpl is not None and li < len(tpl) else None
-        result = _icp_loop(packed, h, w, K_l, src_cloud, T, cfg, iters,
-                           inner_steps=inner, tol_delta=tol)
+        result = loop(packed, h, w, K_l, src_cloud, T, cfg, iters,
+                      inner_steps=inner, tol_delta=tol)
         T = result.T
     return result
 

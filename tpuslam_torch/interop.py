@@ -1,8 +1,9 @@
-"""Carry the reference's configuration and tracking state into the port.
+"""Carry the reference's configuration and state into the port.
 
-The "parameters" of this system are its config and its tracking state;
-both cross over as plain data (JSON, numpy arrays), so this module needs
-nothing of the JAX package.
+The "parameters" of this system are its config, its tracking state, its
+keyframe records and its pose graph; all cross over as plain data (JSON,
+numpy arrays), so this module needs nothing of the JAX package: the
+reference's objects are read field by field through `np.asarray`.
 """
 
 from __future__ import annotations
@@ -13,8 +14,11 @@ import json
 import numpy as np
 import torch
 
+from tpuslam_torch.backend.posegraph import PoseGraph
 from tpuslam_torch.config import SLAMConfig
-from tpuslam_torch.frontend import ScanState
+from tpuslam_torch.frontend import KeyframeRecord, ScanState, VerifyTable
+from tpuslam_torch.geom.cloud import PointCloud
+from tpuslam_torch.transfer import upload
 
 
 def config_from_reference(cfg_like) -> SLAMConfig:
@@ -38,3 +42,33 @@ def scan_state_from_numpy(kf_packed, T_world_kf, T_kf_cam, last_delta,
         T_kf_cam=pose(T_kf_cam),
         last_delta=pose(last_delta),
     )
+
+
+def pose_graph_from_reference(graph, device) -> PoseGraph:
+    """The port's PoseGraph from the reference's `backend.posegraph
+    .PoseGraph` (or anything with its six fields as arrays)."""
+    return PoseGraph(*(upload(np.asarray(f), device) for f in graph))
+
+
+def keyframe_record_from_reference(rec, device) -> KeyframeRecord:
+    """The port's KeyframeRecord from the reference's `frontend
+    .KeyframeRecord`: pose, voxel cloud and verification table as arrays
+    on `device`.  Descriptors are not ported and must be absent."""
+    if rec.desc is not None:
+        raise NotImplementedError("keyframe descriptors are not ported yet "
+                                  "(ROADMAP Queue 1 item 11)")
+    cloud = verify = None
+    if rec.cloud is not None:
+        cloud = PointCloud(*(upload(np.asarray(a), device)
+                             for a in rec.cloud))
+    if rec.verify is not None:
+        verify = VerifyTable(packed=upload(np.asarray(rec.verify.packed),
+                                           device),
+                             height=int(rec.verify.height),
+                             width=int(rec.verify.width),
+                             level=int(rec.verify.level))
+    return KeyframeRecord(index=int(rec.index),
+                          timestamp=float(rec.timestamp),
+                          T_world_kf=np.array(rec.T_world_kf,
+                                              dtype=np.float32),
+                          cloud=cloud, verify=verify)

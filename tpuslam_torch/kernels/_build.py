@@ -25,9 +25,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("correspond.cu", "gn_partials.cu", "gn_epilogue.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("correspond.cu", "gn_partials.cu", "gn_epilogue.cu",
+           "gn_fused.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types: a pointer (and the stream) is a
@@ -38,6 +39,8 @@ _SIGNATURES = {
     "tpuslam_gn_partials": [_P, _P, _P, _P, _I, _F, _P, _P, _I, _P],
     "tpuslam_gn_epilogue": [_P, _I, _P, _P, _F, _F, _F, _F, _I, _I, _I, _F,
                             _P, _P, _P],
+    "tpuslam_gn_fused": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _F, _F, _F, _F,
+                         _F, _F, _F, _F, _F, _P, _P, _I, _P],
 }
 
 
@@ -72,37 +75,58 @@ def find_nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
+def _check(proc: subprocess.Popen, cmd: list) -> str:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}\n{err}")
+    return out + err
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the sources into the cached shared library; return its path.
 
-    Returns at once when a library for these exact sources exists."""
+    One nvcc per source, all started together, then one link.  Returns at
+    once when a library for these exact sources exists."""
     out = BUILD_DIR / f"libtpuslam_kernels_{_source_hash()}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS]
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for name in SOURCES:
+            cmd = [nvcc, *COMPILE_FLAGS, *(["-Xptxas", "-v"] if verbose
+                                           else []),
+                   "-c", str(CSRC / name), "-o", f"{tmp}/{name}.o"]
+            jobs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True),
+                         cmd))
+        try:
+            for proc, cmd in jobs:
+                log.append(_check(proc, cmd))
+        finally:
+            for proc, _ in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = f"{tmp}/lib.so"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib,
+               *(f"{tmp}/{name}.o" for name in SOURCES)]
+        log.append(_check(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True),
+                          cmd))
+        os.replace(lib, out)
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+        print("".join(log))
     return out
 
 

@@ -1,0 +1,561 @@
+"""Full SLAM orchestration — port of `tpuslam/slam.py`: odometry + keyframe
+pose graph + loop closure + relocalization.
+
+Host-driven control loop; everything compute-heavy runs on the device.
+The production shape is `process_chunk` in boundary mode: each chunk is
+tracked against a frozen keyframe with promotion on the device at
+sub-chunk boundaries (`frontend.scan_superchunk_frozen`), the host reads
+the chunk back once, mirrors the bookkeeping, promotes keyframes from the
+device-resident depth and dispatches ONE fused propose → verify →
+pose-graph attempt (`backend.loopclosure.fused_attempt_jit`).  With
+`async_backend=True` the attempt's readback rides the next chunk's
+readback (the deferred backend), so a chunk costs one host sync.
+
+Not in this port yet (each raises NotImplementedError): the voxel map and
+frame-to-map tracking, map BA, the mesh-sharded map, the worker-thread
+async backend of the inline chunk mode, descriptor loop-closure proposal,
+and the grid-hash verification fallback for keyframes without
+verification tables.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from tpuslam_torch.backend.loopclosure import (
+    fused_attempt_jit,
+    gate_rows,
+    propose_attempt,
+)
+from tpuslam_torch.backend.posegraph import GraphHost, optimize, resolve_solver
+from tpuslam_torch.backend.relocalize import relocalize
+from tpuslam_torch.backend.verify import ROW_SIZE
+from tpuslam_torch.config import Intrinsics, SLAMConfig
+from tpuslam_torch.frontend import (
+    FlatChunk,
+    FlatFrozen,
+    Odometry,
+    ScanState,
+    SuperChunkCarry,
+    fuse_readbacks_jit,
+    preprocess,
+    promote_bundle_jit,
+    scan_chunk,
+    scan_superchunk_frozen,
+)
+from tpuslam_torch.transfer import upload
+
+# Information weight of verified loop-closure / relocalization edges
+# relative to odometry edges (1.0).  The fused attempt's candidate weights,
+# accepted-closure edges and reloc edges must agree, or the device-side
+# solve diverges from later host re-solves.
+LC_EDGE_WEIGHT = 2.0
+
+
+class PendingAttempt(NamedTuple):
+    """A dispatched-but-unread fused loop-closure attempt (the deferred
+    backend: rows + poses stay on the device until the next chunk)."""
+
+    live: list                  # (i, j, T_init) candidate triples
+    attempted: set              # all attempted pairs
+    packed: torch.Tensor        # device handle: flat rows ++ poses
+    rows_shape: tuple
+    poses_shape: tuple
+    live_nodes: int             # graph live count at dispatch
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.rows_shape) + math.prod(self.poses_shape)
+
+
+def _span(name: str):
+    """A named range for torch.profiler traces (about a microsecond when
+    no profiler runs): the chunk's scan dispatch, readback, promotion
+    bundles, closure-attempt dispatch and drain."""
+    return torch.profiler.record_function(name)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class SlamSystem:
+    """Odometry frontend + pose-graph backend with loop closure.
+
+    `device` is where tracking and the backend run; depth handed over as a
+    host array is copied there.
+    """
+
+    def __init__(self, K: Intrinsics, cfg: SLAMConfig,
+                 enable_loop_closure: bool = True,
+                 enable_map: bool = False,
+                 track_against_map: bool = False,
+                 async_backend: bool = False,
+                 map_ba: bool = False,
+                 sharded_map: bool = False,
+                 enable_relocalization: bool = True,
+                 reloc_after: int = 2,
+                 chunk_mode: str = "inline",
+                 chunk_sub: int = 8,
+                 device="cpu"):
+        if enable_map or track_against_map or map_ba or sharded_map:
+            raise _not_ported("the voxel map (enable_map, track_against_map,"
+                              " map_ba, sharded_map)", "Queue 1 item 15")
+        if chunk_mode not in ("inline", "boundary"):
+            raise ValueError(f"chunk_mode must be 'inline' or 'boundary', "
+                             f"got {chunk_mode!r}")
+        if async_backend and chunk_mode == "inline":
+            raise _not_ported("the worker-thread async backend of the "
+                              "inline chunk mode (async means the deferred "
+                              "drain of boundary mode)", "Queue 1 item 12")
+        if chunk_sub < 1:
+            raise ValueError("chunk_sub must be ≥ 1")
+        self.cfg = cfg
+        self.odo = Odometry(K, cfg, keep_keyframe_clouds=True, device=device)
+        self.device = self.odo.device
+        self.graph = GraphHost(cfg.posegraph, device=self.device)
+        self.enable_loop_closure = enable_loop_closure
+        self._known_edges: set[tuple[int, int]] = set()
+        # pairs that FAILED verification: skipped until the next graph
+        # optimization (keyframe clouds are immutable, so only a moved
+        # initial guess can change a pair's verdict)
+        self._failed_pairs: set[tuple[int, int]] = set()
+        self._num_graph_nodes = 0
+        self.closures: list = []
+        # relocalization after `reloc_after` consecutive lost frames, with
+        # exponential backoff on failed attempts
+        self.enable_relocalization = enable_relocalization
+        self.reloc_after = reloc_after
+        self._reloc_backoff = reloc_after
+        self._lost_streak = 0
+        self._pending_reloc_edges: dict[int, tuple[int, np.ndarray]] = {}
+        self.relocalizations: list = []
+        # "inline": per-frame promotion through the chunk (frontend
+        # .scan_chunk); "boundary": frozen-keyframe sub-chunks promoting
+        # their LAST frame (frontend.scan_superchunk_frozen)
+        self.chunk_mode = chunk_mode
+        # sub-chunk size = the boundary mode's keyframe-cadence floor
+        self.chunk_sub = int(chunk_sub)
+        # deferred backend (boundary mode + async_backend): the attempt's
+        # readback rides the next chunk's scan readback
+        self.async_backend = async_backend
+        self._pending_attempt: Optional[PendingAttempt] = None
+
+    def finalize(self) -> None:
+        """Drain the deferred backend and run a final global optimization."""
+        self._drain_pending()
+        if self.enable_loop_closure:
+            self._attempt_loop_closure()
+        if self.graph.num_edges > 0:
+            self._optimize()
+
+    def _sync_graph_with_keyframes(self) -> bool:
+        """Add any newly promoted keyframes as nodes + odometry edges."""
+        added = False
+        while self._num_graph_nodes < len(self.odo.keyframes):
+            k = self._num_graph_nodes
+            rec = self.odo.keyframes[k]
+            self.graph.add_node(rec.T_world_kf)
+            if k in self._pending_reloc_edges:
+                # keyframe born from relocalization: link it to its anchor
+                # with the verified pose, not an odometry edge across the
+                # loss gap
+                anchor, T_ij = self._pending_reloc_edges.pop(k)
+                self.graph.add_edge(anchor, k, T_ij, weight=LC_EDGE_WEIGHT)
+                self._known_edges.add((anchor, k))
+                self.odo.protect(anchor, k)
+                self._bound_protected()
+            elif k > 0:
+                prev = self.odo.keyframes[k - 1]
+                T_ij = np.linalg.inv(prev.T_world_kf.astype(np.float64)) @ (
+                    rec.T_world_kf.astype(np.float64))
+                self.graph.add_edge(k - 1, k, T_ij, weight=1.0)
+                self._known_edges.add((k - 1, k))
+            self._num_graph_nodes += 1
+            added = True
+        return added
+
+    def _dispatch_closure_attempt(
+            self, max_candidates: int = 4) -> Optional[PendingAttempt]:
+        """Propose → verify → optimize on the device, WITHOUT reading back.
+
+        Candidate edges enter the solve with weight LC_EDGE_WEIGHT·accept
+        (the device-side gate), so verification rows and optimized poses
+        come back in one readback; the host then mirrors the gate decisions
+        from the same float32 values and applies the poses when a closure
+        was accepted.  Returns None when nothing was verifiable (a dry pass
+        costs no device work: proposal is host-side numpy).
+        """
+        n = self._num_graph_nodes
+        kf_poses = [self.graph._poses[k].astype(np.float64)
+                    for k in range(n)]
+        keyframes = list(self.odo.keyframes[:n])
+        known = set(self._known_edges) | set(self._failed_pairs)
+        live_nodes = self.graph.num_nodes
+        live, padded, attempted, v0 = propose_attempt(
+            keyframes, kf_poses, self.cfg.icp, self.cfg.posegraph,
+            exclude_pairs=known, K=self.odo.K, max_candidates=max_candidates)
+        if not live:
+            self._failed_pairs.update(attempted)
+            return None
+        if v0 is None:
+            raise _not_ported("loop-closure verification without uniform "
+                              "verification tables (the grid-hash "
+                              "fallback)", "Queue 1 item 11")
+        g = self.graph.graph(bucketed=True)
+        b = len(padded)
+        dev = self.device
+        cand_i = upload(np.asarray([i for i, _, _ in live] + [0] * (b - len(
+            live)), dtype=np.int32), dev)
+        cand_j = upload(np.asarray([j for _, j, _ in live] + [0] * (b - len(
+            live)), dtype=np.int32), dev)
+        T_inits = upload(np.stack([T for _, _, T in padded]), dev)
+        use_dense = resolve_solver(self.cfg.posegraph, live_nodes,
+                                   capacity=g.poses.shape[0]) == "dense"
+        packed = fused_attempt_jit(
+            [keyframes[i].verify.packed for i, _, _ in padded],
+            [keyframes[j].cloud.points for _, j, _ in padded],
+            [keyframes[j].cloud.normals for _, j, _ in padded],
+            [keyframes[j].cloud.mask for _, j, _ in padded],
+            self.odo.K.scaled(1.0 / (2 ** v0.level)), T_inits, len(live), g,
+            cand_i, cand_j, v0.height, v0.width, self.cfg.icp,
+            self.cfg.posegraph, use_dense, LC_EDGE_WEIGHT)
+        return PendingAttempt(
+            live=live, attempted=attempted, packed=packed,
+            rows_shape=(b, ROW_SIZE), poses_shape=tuple(g.poses.shape),
+            live_nodes=live_nodes)
+
+    def _drain_closure_attempt(self, p: PendingAttempt,
+                               flat: Optional[np.ndarray] = None) -> bool:
+        """Read back (unless `flat` came fused with another readback), gate
+        and commit one dispatched attempt."""
+        if flat is None:
+            flat = p.packed.cpu().numpy()          # the ONE sync
+        rows_size = math.prod(p.rows_shape)
+        s = flat[:rows_size].reshape(p.rows_shape)
+        poses = flat[rows_size:].reshape(p.poses_shape)
+        closures = gate_rows(p.live, s, self.cfg.posegraph)
+        accepted = {(c.i, c.j) for c in closures}
+        self._failed_pairs.update(p.attempted - accepted)
+        added = False
+        for c in closures:
+            if (c.i, c.j) in self._known_edges:
+                continue
+            self.graph.add_edge(c.i, c.j, c.T_ij, weight=LC_EDGE_WEIGHT)
+            self._known_edges.add((c.i, c.j))
+            # closure anchors keep their clouds through sparsification
+            self.odo.protect(c.i, c.j)
+            self._bound_protected()
+            self.closures.append(c)
+            added = True
+        if added:
+            if self.graph.num_nodes == p.live_nodes:
+                # apply the fused optimization (accepted edges at weight 2,
+                # rejected 0) and re-anchor the frontend as _optimize does
+                self._apply_poses(poses.astype(np.float32))
+            else:
+                # the graph grew while the attempt was in flight: its
+                # poses are stale, re-solve on the current graph
+                self._optimize()
+        return bool(closures)
+
+    def _attempt_loop_closure(self) -> bool:
+        """One fused attempt, dispatched and drained at once (one sync)."""
+        p = self._dispatch_closure_attempt()
+        if p is None:
+            return False
+        return self._drain_closure_attempt(p)
+
+    def _drain_pending(self) -> None:
+        """Drain the deferred backend's outstanding attempt, if any (before
+        any path that must see a sync-equivalent graph state: per-frame
+        stepping, inline chunks, finalize)."""
+        p, self._pending_attempt = self._pending_attempt, None
+        if p is not None:
+            self._drain_closure_attempt(p)
+
+    def _bound_protected(self) -> None:
+        """Cap the sparsification-protected anchor set, evicting the least
+        recently re-confirmed anchors."""
+        cap = max(4, int(self.cfg.keyframe.max_keyframes) // 2)
+        prot = self.odo.protected_kf_ids
+        if len(prot) > cap:
+            keep = sorted(prot, key=prot.__getitem__)[-cap:]
+            self.odo.protected_kf_ids = {k: prot[k] for k in keep}
+
+    def _apply_poses(self, poses: np.ndarray) -> None:
+        """Commit optimized keyframe poses: graph, keyframe records and the
+        live tracking origin."""
+        self.graph.set_poses(poses)
+        # optimization moved the initial guesses: failed pairs may verify
+        self._failed_pairs.clear()
+        self.odo.T_world_kf = poses[self._num_graph_nodes - 1]
+        for idx in range(self._num_graph_nodes):
+            rec = self.odo.keyframes[idx]
+            self.odo.keyframes[idx] = rec._replace(T_world_kf=poses[idx])
+
+    def _optimize(self) -> None:
+        graph = self.graph.graph(bucketed=True)
+        poses, _cost = optimize(graph, self.cfg.posegraph,
+                                live_nodes=self.graph.num_nodes)
+        self._apply_poses(poses.cpu().numpy().astype(np.float32))
+
+    def _attempt_relocalization(self) -> Optional[bool]:
+        """Re-anchor the current (lost) frame on a stored keyframe.
+
+        True on success (the frame becomes a keyframe at the verified pose,
+        joining the graph by a reloc edge to its anchor), False on a failed
+        attempt (counts toward the backoff), None when the frame has too
+        few valid points to verify anything."""
+        odo = self.odo
+        if odo.last_pyr is None or not odo.keyframes:
+            return None
+        frame_cloud = odo._kf_cloud(odo.last_pyr)
+        if int(frame_cloud.count()) < 100:
+            return None
+        kf_id, T_rel = odo.frame_refs[-1]
+        T_last = odo.keyframes[kf_id].T_world_kf.astype(np.float64) @ T_rel
+        r = relocalize(frame_cloud, odo.keyframes, T_last, self.cfg.icp,
+                       self.cfg.posegraph, K=odo.K)
+        if r is None:
+            return False
+        anchor = odo.keyframes[r.kf_id]
+        T_world_cam = anchor.T_world_kf.astype(np.float64) @ r.T_kf_cam
+        odo.T_world_kf = T_world_cam.astype(np.float32)
+        odo.T_kf_cam = torch.eye(4, device=self.device)
+        odo.last_delta = torch.eye(4, device=self.device)
+        odo._promote(odo.last_pyr, odo.timestamps[-1])
+        # _promote stamps index=frame_idx, which already advanced past the
+        # frame being relocalized
+        odo.keyframes[-1] = odo.keyframes[-1]._replace(index=odo.frame_idx - 1)
+        new_id = len(odo.keyframes) - 1
+        odo.frame_refs[-1] = (new_id, np.eye(4))
+        odo.trajectory[-1] = T_world_cam
+        odo.stats[-1]["relocalized"] = True
+        self._pending_reloc_edges[new_id] = (r.kf_id, np.asarray(r.T_kf_cam))
+        self.relocalizations.append(r)
+        return True
+
+    def _commit_chunk_end(self) -> bool:
+        """Bookkeeping shared by the chunk paths once a chunk is committed:
+        no loss streak, and the graph catches up with the new keyframes."""
+        self.odo.last_pyr = None      # per-frame pyramids are not retained
+        self._lost_streak = 0
+        self._reloc_backoff = self.reloc_after
+        return self._sync_graph_with_keyframes()
+
+    def _process_chunk_boundary(self, depths: torch.Tensor,
+                                timestamps) -> np.ndarray:
+        """Boundary-promotion chunk processing (frontend
+        .scan_superchunk_frozen).
+
+        World poses are composed on the host in float64 from the readback's
+        relative poses, so the scan output does not depend on pose
+        corrections: the deferred backend can apply the PREVIOUS attempt's
+        corrections right before this walk and stay identical to the
+        synchronous order, while its readback rides this scan's.
+        """
+        odo = self.odo
+        n = depths.shape[0]
+        # the keyframe cadence stays at `sub` whatever the call's length
+        sub = (self.chunk_sub
+               if n >= self.chunk_sub and n % self.chunk_sub == 0 else n)
+        carry = SuperChunkCarry(kf_packed=odo.kf_packed,
+                                T_kf_cam=odo.T_kf_cam,
+                                last_delta=odo.last_delta)
+        with _span("slam.scan"):
+            new_carry, ys = scan_superchunk_frozen(depths, odo.K, carry,
+                                                   self.cfg, sub)
+        pending, self._pending_attempt = self._pending_attempt, None
+        if pending is not None:
+            # one readback covers BOTH the deferred attempt and this scan
+            with _span("slam.readback"):
+                combined = fuse_readbacks_jit(pending.packed,
+                                              ys).cpu().numpy()
+            s = combined[pending.size:].reshape(n, FlatFrozen.SIZE)
+            with _span("slam.drain"):
+                self._drain_closure_attempt(pending, combined[:pending.size])
+        else:
+            with _span("slam.readback"):
+                s = ys.cpu().numpy()       # the ONE host sync of the chunk
+        if np.any(s[:, FlatFrozen.LOST] > 0.5):
+            # tracking failed mid-chunk: nothing was committed — replay the
+            # chunk per frame so loss accounting and relocalization engage
+            return np.stack([self.process(depths[i], float(timestamps[i]))
+                             for i in range(n)])
+        out = []
+        base_T = odo.T_world_kf.astype(np.float64)
+        for g0 in range(0, n, sub):
+            rels = [s[g0 + i][FlatFrozen.REL_T].reshape(4, 4)
+                    .astype(np.float64) for i in range(sub)]
+            flags = s[g0:g0 + sub, FlatFrozen.PROMOTE] > 0.5
+            # promote-LAST, mirroring the device-side select
+            p = sub - 1 if flags.any() else -1
+            kf_id = len(odo.keyframes) - 1
+            ref_base = len(odo.frame_refs)
+            for i in range(sub):
+                row = s[g0 + i]
+                T_world_cam = base_T @ rels[i]
+                odo.frame_refs.append((kf_id, rels[i]))
+                odo.stats.append({
+                    "iters": int(row[FlatFrozen.ITERS]),
+                    "rms": float(row[FlatFrozen.RMS]),
+                    "inliers": float(row[FlatFrozen.INLIER_FRACTION]),
+                    "promoted": i == p,
+                    "lost": False,
+                })
+                odo.trajectory.append(T_world_cam)
+                odo.timestamps.append(float(timestamps[g0 + i]))
+                odo.frame_idx += 1
+                out.append(T_world_cam)
+            if p >= 0:
+                # the sub-chunk's LAST frame is the new keyframe; its
+                # pyramid, tables and cloud derive from the device-resident
+                # depth without a sync
+                odo.T_world_kf = (base_T @ rels[p]).astype(np.float32)
+                with _span("slam.promote_bundle"):
+                    pyr, packed, cloud, desc = promote_bundle_jit(
+                        depths[g0 + p], odo.K, self.cfg, False)
+                odo._promote_from_bundle(pyr, packed, cloud, desc,
+                                         float(timestamps[g0 + p]))
+                odo.keyframes[-1] = odo.keyframes[-1]._replace(
+                    index=odo.frame_idx - sub + p)
+                odo.frame_refs[ref_base + p] = (len(odo.keyframes) - 1,
+                                                np.eye(4))
+                base_T = base_T @ rels[p]
+        # the carry's tables and poses ARE the device-side truth — the last
+        # promote_bundle packed the same frame the device packed
+        odo.kf_packed = new_carry.kf_packed
+        odo.T_kf_cam = new_carry.T_kf_cam
+        odo.last_delta = new_carry.last_delta
+        new_kf = self._commit_chunk_end()
+        if new_kf and self.enable_loop_closure:
+            # ONE coalesced attempt per call at the 4-candidate budget
+            with _span("slam.attempt"):
+                att = self._dispatch_closure_attempt()
+            if att is not None:
+                if self.async_backend:
+                    self._pending_attempt = att   # deferred to next chunk
+                else:
+                    with _span("slam.drain"):
+                        self._drain_closure_attempt(att)
+        return np.stack(out)
+
+    def process_chunk(self, depths, timestamps=None) -> np.ndarray:
+        """Process a chunk of frames with one readback.
+
+        Steps per frame instead (same semantics) while no keyframe is
+        seeded — in boundary mode only the first sub-chunk, then the rest
+        of the call is scanned — and when a frame of the chunk reports
+        tracking loss (the chunk then commits nothing and replays).
+
+        Returns (C, 4, 4) world←cam poses as tracked; `trajectory()`
+        re-anchors on optimized keyframe poses.
+        """
+        depths = self.odo.as_depth(depths)
+        n = depths.shape[0]
+        if timestamps is None:
+            timestamps = [0.0] * n
+        odo = self.odo
+        if odo.kf_pyr is None:
+            sub = self.chunk_sub
+            if self.chunk_mode == "boundary" and n > sub and n % sub == 0:
+                # bootstrap exactly ONE sub-chunk per frame (seeding the
+                # keyframe), then scan the tail, so keyframe decisions do
+                # not depend on the call's length
+                head = np.stack([self.process(depths[i], float(timestamps[i]))
+                                 for i in range(sub)])
+                tail = self._process_chunk_boundary(depths[sub:],
+                                                    timestamps[sub:])
+                return np.concatenate([head, tail])
+            return np.stack([self.process(depths[i], float(timestamps[i]))
+                             for i in range(n)])
+        if self.chunk_mode == "boundary":
+            return self._process_chunk_boundary(depths, timestamps)
+        self._drain_pending()
+        state = ScanState(
+            kf_packed=odo.kf_packed,
+            T_world_kf=upload(odo.T_world_kf.astype(np.float32), self.device),
+            T_kf_cam=odo.T_kf_cam, last_delta=odo.last_delta)
+        new_state, ys = scan_chunk(depths, odo.K, state, self.cfg)
+        s = ys.cpu().numpy()               # the ONE host sync of the chunk
+        if np.any(s[:, FlatChunk.LOST] > 0.5):
+            return np.stack([self.process(depths[i], float(timestamps[i]))
+                             for i in range(n)])
+        out = []
+        for i in range(n):
+            row = s[i]
+            T_world_cam = row[FlatChunk.WORLD_T].reshape(4, 4).astype(
+                np.float64)
+            promoted = bool(row[FlatChunk.PROMOTE] > 0.5)
+            if promoted:
+                odo.T_world_kf = T_world_cam.astype(np.float32)
+                odo._promote(preprocess(depths[i], odo.K, self.cfg),
+                             float(timestamps[i]))
+                odo.frame_refs.append((len(odo.keyframes) - 1, np.eye(4)))
+            else:
+                odo.frame_refs.append((
+                    len(odo.keyframes) - 1,
+                    row[FlatChunk.REL_T].reshape(4, 4).astype(np.float64)))
+            odo.stats.append({
+                "iters": int(row[FlatChunk.ITERS]),
+                "rms": float(row[FlatChunk.RMS]),
+                "inliers": float(row[FlatChunk.INLIER_FRACTION]),
+                "promoted": promoted,
+                "lost": False,
+            })
+            odo.trajectory.append(T_world_cam)
+            odo.timestamps.append(float(timestamps[i]))
+            odo.frame_idx += 1
+            out.append(T_world_cam)
+        # commit the device-side carry AFTER the walk
+        odo.kf_packed = new_state.kf_packed
+        odo.T_kf_cam = new_state.T_kf_cam
+        odo.last_delta = new_state.last_delta
+        kf_before = self._num_graph_nodes
+        new_kf = self._commit_chunk_end()
+        if new_kf and self.enable_loop_closure:
+            # one attempt per promotion, as the per-frame path gets,
+            # stopping when dry
+            for _ in range(self._num_graph_nodes - kf_before):
+                if not self._attempt_loop_closure():
+                    break
+        return np.stack(out)
+
+    def process(self, depth, timestamp: float = 0.0) -> np.ndarray:
+        """Track one frame (per-frame path); returns its world←cam pose."""
+        self._drain_pending()
+        self.odo.process(depth, timestamp)
+        if self.odo.stats[-1].get("lost"):
+            self._lost_streak += 1
+            if (self.enable_relocalization
+                    and self._lost_streak >= self._reloc_backoff):
+                r = self._attempt_relocalization()
+                if r is True:
+                    self._lost_streak = 0
+                    self._reloc_backoff = self.reloc_after
+                elif r is False:
+                    # genuine miss: back off
+                    self._lost_streak = 0
+                    self._reloc_backoff = min(2 * self._reloc_backoff, 64)
+                # r is None: no usable data — keep the streak
+        else:
+            self._lost_streak = 0
+            self._reloc_backoff = self.reloc_after
+        if self._sync_graph_with_keyframes() and self.enable_loop_closure:
+            self._attempt_loop_closure()
+        kf_id, T_rel = self.odo.frame_refs[-1]
+        return self.odo.keyframes[kf_id].T_world_kf.astype(np.float64) @ T_rel
+
+    def trajectory(self) -> tuple[np.ndarray, np.ndarray]:
+        """(timestamps (F,), poses (F, 4, 4)) with every frame re-anchored
+        on the current (optimized) keyframe poses."""
+        poses = np.zeros((len(self.odo.frame_refs), 4, 4))
+        for f, (kf_id, T_rel) in enumerate(self.odo.frame_refs):
+            poses[f] = (self.odo.keyframes[kf_id].T_world_kf
+                        .astype(np.float64) @ T_rel)
+        return np.asarray(self.odo.timestamps), poses
