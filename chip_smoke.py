@@ -4,12 +4,14 @@
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device   — require a CUDA device; print its name and power limit
-  2. build    — build the four CUDA kernels from tpuslam_torch/csrc (one
+  2. build    — build the five CUDA kernels from tpuslam_torch/csrc (one
                 nvcc per source, in parallel)
   3. kernels  — each kernel against its plain PyTorch twin at the main
                 paths' shapes (all three levels of a 640×480 frame pair;
-                gn_fused with T_gate ≠ T_res), with each one's time beside
-                its twin's
+                gn_fused with T_gate ≠ T_res; ring_nn at 16,384 queries ×
+                131,072 map rows, about half of them invalid, and four
+                hops over four shards against one hop over the whole map),
+                with each one's time beside its twin's and its bound
   4. uint16   — raw uint16 depth divided on the device is bit-equal to
                 host-divided float32 depth
   5. small    — a 12-frame 120×160 scan on the GPU against the same scan
@@ -30,6 +32,16 @@ Phases, in order (any failure raises and the script exits non-zero):
  10. profile  — device time by kernel over a few odometry frames; one
                 SLAM chunk's stages on the host clock, the promotion
                 pack's cost, and the next chunk under torch.profiler
+ 11. small map — SlamSystem(track_against_map=True) on a 16-frame 120×160
+                loop, unsharded and sharded (one rank, no process group),
+                on the GPU against the CPU twins: same keyframes, map size
+                and refinement gates, poses within 1e-4
+ 12. map      — run_map_bench: frame-to-map tracking, 120 frames at
+                640×480, unsharded and sharded, under a one-rank NCCL
+                group; ATE < 0.02 m, refinement ok share > 0.5, no point
+                dropped, every kernel of the path launched (ring_nn on the
+                sharded map), no twin called; then a few frames' stages on
+                the host clock and under torch.profiler
 Then one JSON line with the kernels, and last a JSON line with the device.
 No JAX is imported.
 """
@@ -50,6 +62,25 @@ TOL_EPILOGUE_T = 1e-5       # FMA contraction / libm differences
 TOL_EPILOGUE_H_REL = 1e-6
 TOL_SMALL_POSE = 1e-4       # GPU kernels vs CPU twins over 12 frames
 TOL_SLAM_POSE = 1e-4        # GPU vs CPU twins, 48-frame SLAM loop
+TOL_MAP_POSE = 1e-4         # GPU vs CPU twins, 16-frame map-tracking loop
+# a voxel-boundary point may fuse one voxel over when two keyframe poses
+# differ in their last float32 bits (the GN sums' order differs)
+TOL_MAP_SIZE_REL = 1e-3
+MAP_ATE_M = 0.02            # tests/test_slam.py's bound for map tracking
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense).
+# A kernel's bound is the larger of its bytes over the memory rate (each
+# input read once, each output written once) and its float32 operations
+# over the non-tensor float32 rate (an FMA counts as two).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# float32 operations a point (a score cell for ring_nn), counted from the
+# kernels' arithmetic
+OPS_CORRESPOND = 30       # projection, rounding, bounds, ‖x−q‖², n·n_src
+OPS_GN_PARTIALS = 86      # residual, Huber, Jacobian, 27 products, 30 sums
+OPS_GN_FUSED = 160        # gate and residual transforms, gates, the above
+OPS_EPILOGUE_SOLVE = 300  # 6×7 elimination, trust region, SE(3) exp
+OPS_RING_NN_CELL = 6      # (2x)·q as a product and two FMAs, then cst − g
 
 
 def log(msg: str) -> None:
@@ -87,6 +118,297 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for this work, and what sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def device_rows(prof) -> list:
+    """(self device µs, count, name) of each kernel a profile saw, largest
+    first."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("slam."):
+            # host ops (their device time is their kernels'), and the
+            # slam.* spans' copies on the device timeline, which cover
+            # kernels counted on their own
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0)
+        if dt > 0:
+            rows.append((dt, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def fenced_spans(spans: dict, owner, names) -> None:
+    """Replace each method `name` of `owner` by a copy that adds its time,
+    fenced by a synchronize on each side, to spans[name]."""
+    for name in names:
+        fn = getattr(owner, name)
+
+        def run(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans[_name] = spans.get(_name, 0.0) + (time.perf_counter() - t)
+            return out
+        setattr(owner, name, run)
+
+
+def ring_nn_phase(dev, card: str) -> dict:
+    """ring_nn against its twin at the map path's shapes: VoxelConfig
+    .capacity queries against a map_capacity-row shard of which about half
+    the rows are invalid (a map filling up), one query NaN."""
+    from tpuslam_torch.config import VoxelConfig
+    from tpuslam_torch.kernels import ring_nn
+
+    n, m = VoxelConfig().capacity, VoxelConfig().map_capacity
+    rng = np.random.default_rng(0)
+    q = rng.uniform(-2.0, 2.0, (m, 3)).astype(np.float32)
+    nrm = rng.normal(size=(m, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    valid = rng.uniform(size=m) > 0.5
+    x = (q[rng.integers(0, m, n)]
+         + rng.normal(scale=0.02, size=(n, 3))).astype(np.float32)
+    x[7] = np.nan
+    x = torch.as_tensor(x, device=dev)
+    shard = ring_nn.pack_cloud_rows(torch.as_tensor(q, device=dev),
+                                    torch.as_tensor(nrm, device=dev),
+                                    torch.as_tensor(valid, device=dev))
+    bk = ring_nn.init_best(n, dev)
+    ring_nn.ring_nn_hop(x, shard, *bk)
+    bt = ring_nn.init_best(n, dev)
+    ring_nn.ring_nn_hop_reference(x, shard, *bt)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(bt[0])
+    err = float((bk[0][fin] - bt[0][fin]).abs().max())
+    check(torch.equal(bk[0], bt[0]) and torch.equal(bk[1], bt[1]),
+          f"ring_nn: kernel not bit-equal to its twin (score err {err})")
+    check(float(bk[0][7]) == float("inf") and not bool(bk[1][7].any()),
+          "ring_nn: a NaN query must keep +inf and a zero row")
+    check(bool((bk[1][fin, 6] == 1.0).all()), "ring_nn: an invalid row won")
+    # the ring's merge rule: four hops over four shards = one over the map
+    h4 = ring_nn.init_best(n, dev)
+    for s in range(4):
+        ring_nn.ring_nn_hop(x, shard[s * m // 4:(s + 1) * m // 4], *h4)
+    torch.cuda.synchronize()
+    check(torch.equal(h4[0], bk[0]) and torch.equal(h4[1], bk[1]),
+          "ring_nn: four hops over four shards differ from one hop")
+    # DONE set: the running best is left as it was
+    hd = ring_nn.init_best(n, dev)
+    ring_nn.ring_nn_hop(x, shard, *hd, done=torch.ones(1, device=dev))
+    check(bool(torch.isinf(hd[0]).all()) and not bool(hd[1].any()),
+          "ring_nn: DONE did not stop the hop")
+    # an all-invalid shard: scores near 1e30, rows with valid = 0
+    dead = shard.clone()
+    dead[:, 6] = 0.0
+    hz = ring_nn.init_best(n, dev)
+    ring_nn.ring_nn_hop(x, dead, *hz)
+    torch.cuda.synchronize()
+    check(bool((hz[0][fin] > 9e29).all()) and not bool(hz[1][:, 6].any()),
+          "ring_nn: all-invalid shard")
+    ms = time_ms(lambda: ring_nn.ring_nn_hop(x, shard, *bk))
+    plain_ms = time_ms(lambda: ring_nn.ring_nn_hop_reference(x, shard, *bt),
+                       reps=3)
+    # the rows a query needs are the valid ones: an invalid row never wins
+    # over a valid one
+    b = bound(nbytes(x, shard) + 2 * nbytes(*bk),
+              OPS_RING_NN_CELL * n * int(valid.sum()))
+    log(f"[kernels] ring_nn {n} queries × {m} rows ({int(valid.sum())} "
+        f"valid): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+        f"{b['bound_ms']:.5f} ms by {b['bound_by']}, bit-equal; 4 hops = 1 "
+        f"hop, DONE, NaN query and all-invalid shard hold ({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b}
+
+
+def map_config():
+    """tests/test_torch_map_slam.py's reduced map-tracking config."""
+    from tpuslam_torch.config import (
+        ICPConfig,
+        KeyframeConfig,
+        PoseGraphConfig,
+        SLAMConfig,
+        VoxelConfig,
+    )
+    return SLAMConfig(
+        height=120, width=160,
+        icp=ICPConfig(pyramid_levels=3, iters_per_level=(12, 8, 8),
+                      max_corr_dist=0.25, huber_delta=0.05),
+        keyframe=KeyframeConfig(max_translation=0.08, max_rotation=0.12),
+        posegraph=PoseGraphConfig(max_nodes=64, max_edges=256, gn_iters=15,
+                                  lc_min_gap=3, lc_max_dist=0.6,
+                                  lc_max_residual=0.05, lc_min_inliers=0.3),
+        voxel=VoxelConfig(capacity=1 << 11, map_capacity=1 << 13),
+        map_refine_min_inliers=100)
+
+
+def small_map_phase(dev, counters) -> None:
+    """Map tracking on a 16-frame 120×160 loop: GPU kernels vs CPU twins,
+    unsharded and sharded on a one-rank mesh without a process group."""
+    from tpuslam_torch.config import Intrinsics
+    from tpuslam_torch.data.synthetic import loop_trajectory, render_depth
+    from tpuslam_torch.slam import SlamSystem
+
+    K = Intrinsics(160.0, 160.0, 79.5, 59.5)
+    cfg = map_config()
+    frames = 16
+    gt = loop_trajectory(frames, cycles=1, radius=0.35)
+    d_np = np.stack([render_depth(gt[i], K, 120, 160, seed=i)
+                     for i in range(frames)]).astype(np.float32)
+
+    def run(device, sharded):
+        slam = SlamSystem(K, cfg, enable_loop_closure=False,
+                          track_against_map=True, sharded_map=sharded,
+                          device=device)
+        d = torch.as_tensor(d_np, device=device)
+        for i in range(frames):
+            slam.process(d[i], timestamp=i / 30.0)
+        return ([r.index for r in slam.odo.keyframes], slam.map.size(),
+                [s["ok"] for s in slam.map_refine_stats],
+                slam.trajectory()[1])
+
+    for sharded in (False, True):
+        for c in counters.values():
+            c.reset()
+        kg, sg, og, eg = run(dev, sharded)
+        launches = {k: c.launches for k, c in counters.items()}
+        plain = {k: c.plain_calls for k, c in counters.items()}
+        kc, sc, oc, ec = run("cpu", sharded)
+        err = float(np.abs(eg - ec).max())
+        tag = f"small map sharded={sharded}"
+        check(kg == kc and len(kg) >= 4, f"{tag}: keyframes {kg} vs {kc}")
+        check(abs(sg - sc) <= TOL_MAP_SIZE_REL * sc,
+              f"{tag}: map size {sg} vs {sc}")
+        check(og == oc and np.mean(og) > 0.5, f"{tag}: gates {og} vs {oc}")
+        check(err <= TOL_MAP_POSE, f"{tag}: pose err {err}")
+        check(not sharded or launches["ring_nn"] > 0,
+              f"{tag}: ring_nn not launched {launches}")
+        check(all(v == 0 for v in plain.values()),
+              f"{tag}: twins called on the GPU {plain}")
+        log(f"[small map] sharded={sharded}: GPU vs CPU twins identical "
+            f"keyframes ({len(kg)}) and gates ({sum(og)}/{len(og)} ok), map "
+            f"size {sg} vs {sc}, pose max err {err:.3e}; launches {launches}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
+    """This slice's main path: frame-to-map tracking at 640×480, unsharded
+    and sharded, under a one-rank NCCL group.  Returns the path's launches
+    (both runs) by kernel."""
+    import torch.distributed as dist
+
+    from tpuslam_torch.bench.harness import run_map_bench, slam_bench_config
+    from tpuslam_torch.dist.mesh import initialize_distributed
+    from tpuslam_torch.slam import SlamSystem
+
+    initialize_distributed(f"tcp://localhost:{free_port()}", world_size=1,
+                           rank=0, backend="nccl", timeout_s=60)
+    try:
+        total = dict.fromkeys(counters, 0)
+        for sharded in (False, True):
+            for c in counters.values():
+                c.reset()
+            r = run_map_bench(120, 480, 640, sharded=sharded, device="cuda",
+                              sequence=loop)
+            launches = {k: c.launches for k, c in counters.items()}
+            plain = {k: c.plain_calls for k, c in counters.items()}
+            for k, v in launches.items():
+                total[k] += v
+            tag = f"map sharded={sharded}"
+            log(f"[map] {json.dumps(r)}")
+            log(f"[map] sharded={sharded}: fps {r['fps']:.3f}, ATE "
+                f"{r['ate_rmse_m']:.4e} m (run_slam_bench's: {slam_ate:.4e} m)"
+                f", keyframes {r['keyframes']}, closures {r['closures']}, map "
+                f"size {r['map_size']}, refine ok share "
+                f"{r['refine_ok_share']:.4f} of {r['map_refinements']}, "
+                f"dropped {r['dropped_total']} ({card})")
+            log(f"[map] sharded={sharded} launches {launches} plain calls "
+                f"{plain}")
+            check(r["poses_finite"], f"{tag}: non-finite poses")
+            check(r["ate_rmse_m"] < MAP_ATE_M, f"{tag}: ATE {r['ate_rmse_m']}")
+            check(r["refine_ok_share"] > 0.5,
+                  f"{tag}: refine ok share {r['refine_ok_share']}")
+            check(r["dropped_total"] == 0, f"{tag}: dropped points")
+            need = ("correspond", "gn_partials", "gn_epilogue") + (
+                ("ring_nn",) if sharded else ())
+            check(all(launches[k] > 0 for k in need),
+                  f"{tag}: launches {launches}")
+            check(all(v == 0 for v in plain.values()),
+                  f"{tag}: plain calls {plain}")
+
+        # where a frame's time goes, after the map has grown over 40
+        # frames: stages on the host clock (8 frames), then 8 frames under
+        # torch.profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        K, _, d_np = loop
+        d = torch.as_tensor(d_np, device=dev)
+        ts = np.arange(d.shape[0]) / 30.0
+        for sharded in (False, True):
+            slam = SlamSystem(K, slam_bench_config(480, 640, False),
+                              enable_loop_closure=True,
+                              track_against_map=True, sharded_map=sharded,
+                              device=dev)
+            for i in range(40):
+                slam.process(d[i], timestamp=ts[i])
+            spans: dict = {}
+            fenced_spans(spans, slam.odo, ("process",))
+            fenced_spans(spans, slam.map, ("insert",))
+            fenced_spans(spans, slam, ("_attempt_loop_closure",
+                                       "_refine_against_map"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(40, 48):
+                slam.process(d[i], timestamp=ts[i])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            staged = sum(spans.values()) * 1e3
+            log(f"[map stages] sharded={sharded}, frames 40-47: {wall:.3f} ms;"
+                + ", ".join(f" {n} {v * 1e3:.3f} ms" for n, v in spans.items())
+                + f"; the rest {wall - staged:.3f} ms ({card})")
+            for n in ("_attempt_loop_closure", "_refine_against_map"):
+                delattr(slam, n)
+            delattr(slam.odo, "process")
+            delattr(slam.map, "insert")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(48, 56):
+                    slam.process(d[i], timestamp=ts[i])
+                torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            rows = device_rows(prof)
+            busy = sum(r[0] for r in rows)
+            log(f"[map profile] sharded={sharded}, frames 48-55: wall "
+                f"{wall_us:.1f} us (profiled), device busy {busy:.1f} us, "
+                f"idle share "
+                f"{1 - busy / wall_us if busy else float('nan'):.4f} ({card})")
+            for dt, cnt, key in rows[:10]:
+                log(f"[map profile]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -95,6 +417,7 @@ def main() -> int:
         return 2
     from tpuslam_torch.bench.harness import (
         _render_sequence,
+        kernel_counters,
         run_bench,
         run_slam_bench,
         slam_bench_config,
@@ -114,10 +437,8 @@ def main() -> int:
         gn_fused,
         gn_partials,
     )
-    counters = {"correspond": correspond.counter,
-                "gn_partials": gn_partials.counter,
-                "gn_epilogue": gn_epilogue.counter,
-                "gn_fused": gn_fused.counter}
+    counters = kernel_counters()
+    frame_kernels = ("correspond", "gn_partials", "gn_epilogue", "gn_fused")
 
     def reset_counts() -> None:
         for c in counters.values():
@@ -258,16 +579,37 @@ def main() -> int:
             time_ms(lambda: gn_fused.gn_fused_partials_reference(*fargs)))
         errs = {"correspond": c_err, "gn_partials": p_err,
                 "gn_epilogue": t_err, "gn_fused": g_err}
+        # a table row is read once for each distinct pixel gathered
+        row_bytes = packed[li].element_size() * packed[li].shape[1]
+        bounds = {
+            "correspond": bound(
+                nbytes(x, src.mask, n_rot, ck.q, ck.n, ck.w, ck.idx)
+                + row_bytes * torch.unique(ck.idx).numel(),
+                OPS_CORRESPOND * x.shape[0]),
+            "gn_partials": bound(nbytes(x, ck.q, ck.n, ck.w, pk),
+                                 OPS_GN_PARTIALS * x.shape[0]),
+            "gn_epilogue": bound(
+                nbytes(pk, nvs, ek_step) + 2 * nbytes(carry),
+                pk.shape[0] * gn_partials.NUM_SUMS + OPS_EPILOGUE_SOLVE),
+            "gn_fused": bound(
+                nbytes(src.points, src.normals, src.mask, flat, T, T_res, gk)
+                + row_bytes * torch.unique(flat).numel(),
+                OPS_GN_FUSED * x.shape[0]),
+        }
         for name, (ms, plain_ms) in times.items():
             stats[name][li] = {"ms": ms, "plain_ms": plain_ms,
-                               "max_abs_err": errs[name], "n": x.shape[0]}
+                               "max_abs_err": errs[name], "n": x.shape[0],
+                               **bounds[name]}
             log(f"[kernels] {name} level {li} N={x.shape[0]}: kernel "
-                f"{ms:.5f} ms, plain {plain_ms:.5f} ms, max_abs_err "
+                f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+                f"{bounds[name]['bound_ms']:.5f} ms by "
+                f"{bounds[name]['bound_by']}, max_abs_err "
                 f"{errs[name]:.3e} ({card})")
         log(f"[kernels] level {li}: w mismatch share {w_mis}, partials rel "
             f"{p_rel:.3e}, epilogue T {t_err:.3e} H rel {h_rel:.3e}, "
             f"gn_fused rel {g_rel:.3e} Σvalid {float(gfk[2]):.0f} "
             f"(per block equal)")
+    ring_stats = ring_nn_phase(dev, card)
 
     # ---- 4. uint16 divide ----
     raw = np.round(depths_np * cfg.depth_scale).astype(np.uint16)
@@ -416,29 +758,13 @@ def main() -> int:
         log(f"[slam] fused_gn={fused} launches {ran}")
     launches_slam, plain_slam = read_counts()
     log(f"[slam] launches {launches_slam} plain calls {plain_slam}")
-    check(all(v > 0 for v in launches_slam.values()),
+    check(all(launches_slam[k] > 0 for k in frame_kernels),
           f"slam: launches {launches_slam}")
     check(all(v == 0 for v in plain_slam.values()),
           f"slam: plain calls {plain_slam}")
 
     # ---- 10. profile ----
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_rows(prof):
-        rows = []
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA or ev.key.startswith("slam."):
-                # host ops (their device time is their kernels'), and the
-                # slam.* spans' copies on the device timeline, which cover
-                # kernels counted on their own
-                continue
-            dt = getattr(ev, "self_device_time_total", None)
-            if dt is None:
-                dt = getattr(ev, "self_cuda_time_total", 0)
-            if dt > 0:
-                rows.append((dt, ev.count, ev.key))
-        return sorted(rows, reverse=True)
 
     d8 = torch.as_tensor(depths_np, device=dev)
     d8 = d8[[0, 1] * 4]
@@ -482,23 +808,11 @@ def main() -> int:
     import tpuslam_torch.slam as slam_mod
 
     spans: dict = {}
-
-    def fenced(name, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + (time.perf_counter() - t)
-            return out
-        return run
-
     saved = {n: getattr(slam_mod, n) for n in (
         "scan_superchunk_frozen", "promote_bundle_jit", "fuse_readbacks_jit")}
-    for n, fn in saved.items():
-        setattr(slam_mod, n, fenced(n, fn))
-    for n in ("_dispatch_closure_attempt", "_drain_closure_attempt"):
-        setattr(slam, n, fenced(n, getattr(slam, n)))
+    fenced_spans(spans, slam_mod, saved)
+    fenced_spans(spans, slam, ("_dispatch_closure_attempt",
+                               "_drain_closure_attempt"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     slam.process_chunk(d_loop[64:72], ts[64:72])
@@ -544,7 +858,15 @@ def main() -> int:
                 f"{ev.cpu_time_total:10.1f} us, device {dev_us:10.1f} us")
     for dt, cnt, key in rows[:12]:
         log(f"[profile chunk]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
-    del loop, d_loop
+    del d_loop
+
+    # ---- 11. small map: GPU kernels vs CPU twins ----
+    small_map_phase(dev, counters)
+
+    # ---- 12. map: frame-to-map tracking (this slice's main path) ----
+    launches_map = map_phase(dev, card, counters, loop,
+                             slam_res[False]["sync"]["ate_rmse_m"])
+    del loop
 
     # ---- result lines ----
     sources = {
@@ -556,15 +878,28 @@ def main() -> int:
                         "tpuslam/kernels/pallas_epilogue.py:187"),
         "gn_fused": ("tpuslam_torch/csrc/gn_fused.cu",
                      "tpuslam/kernels/gn_fused.py:160"),
+        "ring_nn": ("tpuslam_torch/csrc/ring_nn.cu",
+                    "tpuslam/kernels/pallas_ring.py:100"),
     }
+    # timings at level 0 (ring_nn: its own phase); launches on the map path
+    # (phase 12), or for gn_fused, which that path does not run, on the
+    # SLAM path with fused_gn (phase 9).  No single PyTorch call computes
+    # any of these functions, so library_ms is null.
+    summary = {k: dict(stats[k][0], max_abs_err=max(
+        v["max_abs_err"] for v in stats[k].values())) for k in frame_kernels}
+    summary["ring_nn"] = ring_stats
     kernels = []
     for name, (src_path, replaces) in sources.items():
-        s0 = stats[name][0]
+        s = summary[name]
+        on_map = name != "gn_fused"
         kernels.append({
             "name": name, "route": "cuda", "source": src_path,
-            "replaces": replaces, "launches": launches_slam[name],
-            "max_abs_err": max(v["max_abs_err"] for v in stats[name].values()),
-            "ms": s0["ms"], "plain_ms": s0["plain_ms"],
+            "replaces": replaces,
+            "launches": launches_map[name] if on_map else launches_slam[name],
+            "path": "map (phase 12)" if on_map else "slam (phase 9)",
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

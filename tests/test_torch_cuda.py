@@ -22,7 +22,13 @@ from tpuslam_torch.icp import (
     pack_pyramid,
     select_level_source,
 )
-from tpuslam_torch.kernels import correspond, gn_epilogue, gn_fused, gn_partials
+from tpuslam_torch.kernels import (
+    correspond,
+    gn_epilogue,
+    gn_fused,
+    gn_partials,
+    ring_nn,
+)
 
 K = Intrinsics(160.0, 160.0, 79.5, 59.5)
 H, W = 120, 160
@@ -259,3 +265,82 @@ def test_uint16_divide_bit_equal_on_device(dev):
         ph = preprocess(torch.as_tensor(host[i], device=dev), K, CFG)
         for a, b in zip(pu, ph):
             assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1, 1), (300, 1000), (513, 2049),
+                                 (4096, 20_000)])
+@pytest.mark.parametrize("case", ["half_valid", "all_invalid", "ties"])
+def test_ring_nn_kernel_bit_equal_to_twin(dev, n, m, case):
+    """One hop and two hops (a ring of two shards) on ragged shapes: the
+    kernel's scores and rows equal the twin's bit for bit, a non-finite
+    query keeps +inf and a zero row, and DONE leaves the best as it is."""
+    rng = np.random.default_rng(n + m)
+    q = rng.uniform(-1.0, 1.0, (m, 3)).astype(np.float32)
+    if case == "ties":
+        q = np.round(q * 4.0) / 4.0          # many exact duplicate rows
+    nrm = rng.normal(size=(m, 3)).astype(np.float32)
+    valid = rng.uniform(size=m) > (1.0 if case == "all_invalid" else 0.5)
+    x = q[rng.integers(0, m, n)] + rng.normal(scale=0.01, size=(n, 3))
+    x = x.astype(np.float32)
+    if case == "ties":
+        x = np.round(x * 4.0) / 4.0
+    x[n // 2] = np.nan
+    shard = ring_nn.pack_cloud_rows(torch.as_tensor(q), torch.as_tensor(nrm),
+                                    torch.as_tensor(valid))
+    xt = torch.as_tensor(x)
+    half = m // 2
+    for parts in ((shard,), (shard[:half], shard[half:])):
+        bc = ring_nn.init_best(n, "cpu")
+        bg = ring_nn.init_best(n, dev)
+        for p in parts:
+            ring_nn.ring_nn_hop(xt, p.contiguous(), *bc)
+            ring_nn.ring_nn_hop(xt.to(dev), p.contiguous().to(dev), *bg)
+        assert torch.equal(bg[0].cpu(), bc[0])
+        assert torch.equal(bg[1].cpu(), bc[1])
+    assert float(bg[0][n // 2]) == float("inf") and not bool(bg[1][n // 2].any())
+    hd = ring_nn.init_best(n, dev)
+    ring_nn.ring_nn_hop(xt.to(dev), shard.to(dev), *hd,
+                        done=torch.ones(1, device=dev))
+    assert bool(torch.isinf(hd[0]).all()) and not bool(hd[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded", [False, True],
+                         ids=["unsharded", "sharded"])
+def test_map_tracking_gpu_matches_cpu_twins(dev, sharded):
+    """SlamSystem(track_against_map=True) on a 16-frame loop: the card takes
+    the CPU twins' keyframes and refinement gates, poses within 1e-4, and
+    the sharded map's refinement launches ring_nn."""
+    from tpuslam_torch.config import PoseGraphConfig, VoxelConfig
+    from tpuslam_torch.data.synthetic import loop_trajectory
+    from tpuslam_torch.slam import SlamSystem
+
+    cfg = SLAMConfig(
+        height=H, width=W, icp=CFG.icp,
+        keyframe=KeyframeConfig(max_translation=0.08, max_rotation=0.12),
+        posegraph=PoseGraphConfig(max_nodes=64, max_edges=256),
+        voxel=VoxelConfig(capacity=1 << 11, map_capacity=1 << 13),
+        map_refine_min_inliers=100)
+    gt = loop_trajectory(16, cycles=1, radius=0.35)
+    d = np.stack([render_depth(gt[i], K, H, W, seed=i)
+                  for i in range(16)]).astype(np.float32)
+
+    def run(device):
+        slam = SlamSystem(K, cfg, enable_loop_closure=False,
+                          track_against_map=True, sharded_map=sharded,
+                          device=device)
+        dd = torch.as_tensor(d, device=device)
+        for i in range(16):
+            slam.process(dd[i], timestamp=i / 30.0)
+        return ([r.index for r in slam.odo.keyframes],
+                [s["ok"] for s in slam.map_refine_stats],
+                slam.trajectory()[1])
+
+    kc, oc, ec = run("cpu")
+    ring_nn.counter.reset()
+    kg, og, eg = run(dev)
+    assert (ring_nn.counter.launches > 0) == sharded
+    assert ring_nn.counter.plain_calls == 0
+    assert kg == kc and og == oc and np.mean(oc) > 0.5
+    assert float(np.abs(eg - ec).max()) <= 1e-4

@@ -137,7 +137,7 @@ def test_odometry_process_matches_reference(sequence):
     keyframes (frame indices, poses), iteration counts and trajectory."""
     gt, depths = sequence
     r = rf.Odometry(K, CFG_PROMOTE)
-    p = pf.Odometry(PK, config_from_reference(CFG_PROMOTE))
+    p = pf.Odometry(PK, config_from_reference(CFG_PROMOTE), device="cpu")
     for i in range(F):
         r.process(depths[i], timestamp=i / 30.0)
         p.process(depths[i], timestamp=i / 30.0)

@@ -112,7 +112,7 @@ def test_slam_matches_reference(loop, reference, mode, deferred, fused):
     slam = drive(PSlam(PIntrinsics(*K),
                        config_from_reference(with_fused(CFG, fused)),
                        enable_loop_closure=True, chunk_mode=mode,
-                       async_backend=deferred), depths)
+                       async_backend=deferred, device="cpu"), depths)
     kf, closures, est = summary(slam)
     r_kf, r_closures, r_est = reference[mode, fused and mode == "boundary"]
     assert kf == r_kf
@@ -144,7 +144,8 @@ def test_lost_chunk_replays_and_relocalizes_like_reference(loop):
 
     r = run(RSlam(K, CFG, enable_loop_closure=True, chunk_mode="boundary"))
     p = run(PSlam(PIntrinsics(*K), config_from_reference(CFG),
-                  enable_loop_closure=True, chunk_mode="boundary"))
+                  enable_loop_closure=True, chunk_mode="boundary",
+                  device="cpu"))
     assert p[0] == r[0] and p[1] == r[1]
     assert p[3] == r[3] and p[4] == r[4] and any(p[4])
     np.testing.assert_allclose(p[2], r[2], atol=POSE_TOL)
@@ -168,12 +169,12 @@ def test_not_ported_options_raise():
     cfg = config_from_reference(CFG)
     pk = PIntrinsics(*K)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSlam(pk, cfg, enable_map=True)
+        PSlam(pk, cfg, map_ba=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSlam(pk, cfg, async_backend=True, chunk_mode="inline")
+        PSlam(pk, cfg, async_backend=True, chunk_mode="inline", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PSlam(pk, dataclasses.replace(cfg, posegraph=dataclasses.replace(
-            cfg.posegraph, lc_descriptor=True)))
+            cfg.posegraph, lc_descriptor=True)), device="cpu")
 
 
 def test_chunk_paths_read_back_once_per_chunk(loop, monkeypatch):
@@ -181,7 +182,7 @@ def test_chunk_paths_read_back_once_per_chunk(loop, monkeypatch):
     and the deferred backend's attempt rides that same readback."""
     _, depths = loop
     slam = PSlam(PIntrinsics(*K), config_from_reference(CFG),
-                 chunk_mode="boundary", async_backend=True)
+                 chunk_mode="boundary", async_backend=True, device="cpu")
     ts = np.arange(FRAMES) / 30.0
     for i in range(0, 32, CHUNK):
         slam.process_chunk(depths[i:i + CHUNK], ts[i:i + CHUNK])

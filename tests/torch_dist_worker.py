@@ -1,0 +1,94 @@
+"""One rank of a gloo process group for tests/test_torch_ring.py.
+
+    python tests/torch_dist_worker.py CASE RANK WORLD INIT_FILE IN.npz OUT_DIR
+
+Joins the group through `file://INIT_FILE`, runs CASE on the arrays of
+IN.npz with the port (tpuslam_torch only: this process imports no JAX) and
+writes OUT_DIR/rank<RANK>.npz.  Not a test module: the tests start WORLD
+of these processes and compare what they write with the reference.
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from tpuslam_torch.config import ICPConfig, VoxelConfig  # noqa: E402
+from tpuslam_torch.dist.mesh import (  # noqa: E402
+    initialize_distributed,
+    make_mesh,
+)
+from tpuslam_torch.geom.cloud import PointCloud  # noqa: E402
+
+
+def cloud(z, prefix: str) -> PointCloud:
+    return PointCloud(points=torch.as_tensor(z[f"{prefix}_points"]),
+                      normals=torch.as_tensor(z[f"{prefix}_normals"]),
+                      mask=torch.as_tensor(z[f"{prefix}_mask"]))
+
+
+def ring_case(z, mesh) -> dict:
+    """Ring ICP of the frame against this rank's map shard, per backend."""
+    from tpuslam_torch.dist.ring_map import make_ring_align_fn
+
+    cfg = ICPConfig(max_iters=int(z["max_iters"]),
+                    max_corr_dist=float(z["max_corr_dist"]),
+                    huber_delta=float(z["huber_delta"]))
+    frame = cloud(z, "frame")
+    rows = z["map_points"].shape[0] // mesh.size
+    lo = mesh.rank * rows
+    out = {}
+    for name in ("map", "tiny"):
+        full = cloud(z, name)
+        shard = PointCloud(*(a[lo:lo + rows] for a in full))
+        for backend in ("ops", "kernel"):
+            res, flat = make_ring_align_fn(mesh, cfg, backend)(
+                frame, shard, torch.as_tensor(z["T0"]))
+            key = f"{name}_{backend}"
+            out[f"{key}_T"] = res.T.numpy()
+            out[f"{key}_iters"] = res.iters.numpy()
+            out[f"{key}_num_inliers"] = res.num_inliers.numpy()
+            out[f"{key}_flat"] = flat.numpy()
+    return out
+
+
+def fusion_case(z, mesh) -> dict:
+    """Insert the clouds into a ShardedVoxelMap; return this rank's shard."""
+    from tpuslam_torch.dist.map_fusion import ShardedVoxelMap
+
+    cfg = VoxelConfig(voxel_size=0.05, map_voxel_size=0.05,
+                      capacity=1 << 12, map_capacity=1 << 13, origin=-2.0,
+                      extent=4.0)
+    svm = ShardedVoxelMap(cfg, mesh, new_capacity=int(z["new_capacity"]))
+    T = z["T"]
+    dropped = []
+    for i in range(int(z["num_clouds"])):
+        stats = svm.insert(cloud(z, f"c{i}"), T)
+        dropped.append(int(stats.dropped))
+    full = svm.gather()
+    return {"points": svm.cloud_shards.points.numpy(),
+            "normals": svm.cloud_shards.normals.numpy(),
+            "mask": svm.cloud_shards.mask.numpy(),
+            "dropped": np.asarray(dropped), "size": np.asarray(svm.size()),
+            "gathered_mask": full.mask.numpy()}
+
+
+def main(argv) -> int:
+    case, rank, world, init_file, inp, out_dir = argv
+    torch.set_num_threads(1)
+    initialize_distributed(f"file://{init_file}", world_size=int(world),
+                           rank=int(rank), backend="gloo", timeout_s=120)
+    mesh = make_mesh("cpu")
+    z = np.load(inp)
+    out = {"ring": ring_case, "fusion": fusion_case}[case](z, mesh)
+    out["jax_imported"] = np.asarray("jax" in sys.modules)
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -25,7 +25,7 @@ import torch
 
 from tpuslam_torch.config import PoseGraphConfig
 from tpuslam_torch.geom import se3
-from tpuslam_torch.transfer import upload
+from tpuslam_torch.transfer import resolve_device, upload
 
 
 class PoseGraph(NamedTuple):
@@ -47,9 +47,9 @@ class GraphHost:
     `device` without waiting for the device (transfer.upload).
     """
 
-    def __init__(self, cfg: PoseGraphConfig, device="cpu"):
+    def __init__(self, cfg: PoseGraphConfig, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.num_nodes = 0
         self.num_edges = 0
         self.node_capacity = cfg.max_nodes

@@ -16,6 +16,11 @@ sub-chunks of 4) over the synthetic two-lap loop, with the backend
 synchronous and deferred, each best of `reps` timed passes after one
 uncounted pass, plus closures, keyframes and ATE of the best pass.
 
+`run_map_bench` measures frame-to-map tracking: `SlamSystem.process` per
+frame with `track_against_map=True` over the same loop, the map unsharded
+or sharded (the ring ICP), with its map size, refinement gate share and
+every kernel's launches.
+
 Every result names the device it ran on; timings on a GPU are fenced with
 `torch.cuda.synchronize()`.
 """
@@ -28,7 +33,12 @@ import time
 import numpy as np
 import torch
 
-from tpuslam_torch.config import ICPConfig, Intrinsics, SLAMConfig
+from tpuslam_torch.config import (
+    ICPConfig,
+    Intrinsics,
+    SLAMConfig,
+    VoxelConfig,
+)
 
 
 def _intrinsics(height: int, width: int) -> Intrinsics:
@@ -139,6 +149,22 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
     return result
 
 
+def kernel_counters() -> dict:
+    """Every kernel's LaunchCounter, by kernel name."""
+    from tpuslam_torch.kernels import (
+        correspond,
+        gn_epilogue,
+        gn_fused,
+        gn_partials,
+        ring_nn,
+    )
+
+    return {"correspond": correspond.counter,
+            "gn_partials": gn_partials.counter,
+            "gn_epilogue": gn_epilogue.counter,
+            "gn_fused": gn_fused.counter, "ring_nn": ring_nn.counter}
+
+
 def slam_bench_config(height: int, width: int,
                       fused_gn: bool) -> SLAMConfig:
     """The SLAM benchmark's config: defaults at this size, lc_min_gap 8
@@ -212,3 +238,71 @@ def run_slam_bench(frames: int = 120, height: int = 480, width: int = 640,
             "poses_finite": bool(np.all(np.isfinite(est))),
         }
     return result
+
+
+def run_map_bench(frames: int = 120, height: int = 480, width: int = 640,
+                  sharded: bool = False, device: str = "cuda",
+                  cycles: int = 2, warmup: int = 1, sequence=None,
+                  voxel: VoxelConfig | None = None) -> dict:
+    """Frame-to-map tracking (BASELINE config 4): `SlamSystem.process` per
+    frame over the `cycles`-lap loop with `track_against_map=True` and
+    `slam_bench_config` (fused_gn off), the map unsharded (VoxelMap +
+    align_map_to_frame) or sharded over the default process group's ranks
+    (ShardedVoxelMap + the ring ICP, whose hops are the ring_nn kernel).
+
+    One timed pass after `warmup` uncounted ones.  Reports fps, ATE,
+    keyframes, map size, the share of map refinements that passed their
+    gates, the fusion's dropped points, and every kernel's launches and
+    plain-twin calls in the timed pass.  `sequence` is as in `run_bench`;
+    `voxel` replaces the config's cloud and map capacities (small runs).
+    """
+    from tpuslam_torch.eval.ate import ate_rmse
+    from tpuslam_torch.slam import SlamSystem
+
+    dev = torch.device(device)
+    cfg = slam_bench_config(height, width, False)
+    if voxel is not None:
+        cfg = cfg.replace(voxel=voxel)
+    K, gt, depths_np = (sequence if sequence is not None else
+                        _render_sequence(frames, height, width,
+                                         loop_cycles=cycles))
+    depths = torch.as_tensor(depths_np, device=dev)
+    _fence(dev)
+    ts = np.arange(frames) / 30.0
+    counters = kernel_counters()
+
+    def one_pass():
+        slam = SlamSystem(K, cfg, enable_loop_closure=True,
+                          track_against_map=True, sharded_map=sharded,
+                          device=dev)
+        _fence(dev)
+        t0 = time.perf_counter()
+        for i in range(frames):
+            slam.process(depths[i], timestamp=ts[i])
+        slam.finalize()
+        _fence(dev)
+        return time.perf_counter() - t0, slam
+
+    for _ in range(warmup):
+        one_pass()
+    for c in counters.values():
+        c.reset()
+    wall, slam = one_pass()
+    t_est, est = slam.trajectory()
+    refine_ok = [s["ok"] for s in slam.map_refine_stats]
+    return {
+        "device": _device_name(dev), "frames": frames,
+        "resolution": [height, width], "sharded": sharded,
+        "fps": frames / wall,
+        "ate_rmse_m": ate_rmse(t_est, est, ts, gt,
+                               max_difference=0.005)["rmse"],
+        "poses_finite": bool(np.all(np.isfinite(est))),
+        "keyframes": len(slam.odo.keyframes),
+        "closures": len(slam.closures),
+        "map_size": slam.map.size(),
+        "map_refinements": len(refine_ok),
+        "refine_ok_share": float(np.mean(refine_ok)) if refine_ok else 0.0,
+        "dropped_total": getattr(slam.map, "dropped_total", 0),
+        "launches": {k: c.launches for k, c in counters.items()},
+        "plain_calls": {k: c.plain_calls for k, c in counters.items()},
+    }

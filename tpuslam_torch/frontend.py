@@ -46,6 +46,7 @@ from tpuslam_torch.icp import (
     align_frames_packed,
     pack_pyramid,
 )
+from tpuslam_torch.transfer import resolve_device
 
 
 def damped_velocity(delta: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -235,16 +236,15 @@ class Odometry:
     """
 
     def __init__(self, K: Intrinsics, cfg: SLAMConfig,
-                 keep_keyframe_clouds: bool = True, device="cpu"):
+                 keep_keyframe_clouds: bool = True, device="cuda"):
         if cfg.posegraph.lc_descriptor:
             raise NotImplementedError(
                 "PoseGraphConfig.lc_descriptor: descriptor proposal is not "
                 "ported yet (ROADMAP Queue 1 item 11)")
         self.K = K
         self.cfg = cfg
-        # the concrete device ("cuda" becomes "cuda:<current>"), so that
-        # as_depth compares like with like
-        self.device = torch.empty(0, device=device).device
+        # the concrete device, so that as_depth compares like with like
+        self.device = resolve_device(device)
         self.keep_keyframe_clouds = keep_keyframe_clouds
         self.T_world_kf = np.eye(4, dtype=np.float32)
         self.T_kf_cam = torch.eye(4, device=self.device)

@@ -275,6 +275,40 @@ def align_cloud_to_organized(src: PointCloud, packed: torch.Tensor,
     return _icp_loop(packed, height, width, K, src, T0, cfg, cfg.max_iters)
 
 
+def align_map_to_frame(map_cloud: PointCloud, frame: Frame, K: Intrinsics,
+                       T0_world_cam: torch.Tensor,
+                       cfg: ICPConfig) -> ICPResult:
+    """Frame-to-map tracking by REVERSE projective association (the
+    reference's `align_map_to_frame`).
+
+    The map is the source and the organized current frame the target:
+    each world-frame map point is moved into the camera at the current
+    estimate S = T_cam←world, projected, and matched to the frame pixel it
+    lands on with one row gather from the frame's packed table.  Map points
+    outside the warm start's frustum (10% margin, nearer than `depth_max`)
+    are masked out, so `inlier_fraction` counts against what the camera
+    could see.  Returns T_world←cam = S⁻¹ in `.T`.
+    """
+    h, w, _ = frame.points.shape
+    packed = pack_organized_target(frame.points, frame.normals, frame.mask,
+                                   dtype=_table_dtype(cfg))
+    S0 = se3.inv(T0_world_cam)
+    x0 = se3.transform_points(S0, map_cloud.points)
+    uv0, in_front0 = project(x0, K)
+    margin = 0.1  # fractional frustum slack for warm-start error
+    in_view = (
+        in_front0
+        & (uv0[..., 0] >= -margin * w) & (uv0[..., 0] < (1 + margin) * w)
+        & (uv0[..., 1] >= -margin * h) & (uv0[..., 1] < (1 + margin) * h)
+        & (x0[..., 2] < cfg.depth_max)
+    )
+    src = PointCloud(points=map_cloud.points, normals=map_cloud.normals,
+                     mask=map_cloud.mask & in_view)
+    loop = _icp_loop_projective_fused if cfg.fused_gn else _icp_loop
+    res = loop(packed, h, w, K, src, S0, cfg, cfg.max_iters)
+    return res._replace(T=se3.inv(res.T))
+
+
 def align_frames_packed(src_pyr, dst_packed: tuple, K: Intrinsics,
                         T0: torch.Tensor, cfg: ICPConfig) -> ICPResult:
     """Coarse-to-fine projective ICP against pre-packed target tables.

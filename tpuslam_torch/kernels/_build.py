@@ -1,4 +1,5 @@
-"""Build and bind the port's CUDA kernels (`tpuslam_torch/csrc/*.cu`).
+"""Build and bind the port's CUDA kernels (`tpuslam_torch/csrc/*.cu`):
+correspond, gn_partials, gn_epilogue, gn_fused and ring_nn.
 
 The sources have a plain C interface: nvcc compiles them into one shared
 library for `sm_90a`, which `ctypes` loads.  That takes seconds, where an
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("correspond.cu", "gn_partials.cu", "gn_epilogue.cu",
-           "gn_fused.cu")
+           "gn_fused.cu", "ring_nn.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -41,6 +42,9 @@ _SIGNATURES = {
                             _P, _P, _P],
     "tpuslam_gn_fused": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _F, _F, _F, _F,
                          _F, _F, _F, _F, _F, _P, _P, _I, _P],
+    "tpuslam_ring_nn": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "tpuslam_ring_nn_slices": [_I],
+    "tpuslam_ring_nn_query_tiles": [_I],
 }
 
 

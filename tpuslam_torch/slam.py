@@ -11,11 +11,17 @@ pose-graph attempt (`backend.loopclosure.fused_attempt_jit`).  With
 `async_backend=True` the attempt's readback rides the next chunk's
 readback (the deferred backend), so a chunk costs one host sync.
 
-Not in this port yet (each raises NotImplementedError): the voxel map and
-frame-to-map tracking, map BA, the mesh-sharded map, the worker-thread
-async backend of the inline chunk mode, descriptor loop-closure proposal,
-and the grid-hash verification fallback for keyframes without
-verification tables.
+With `track_against_map` every keyframe is fused into a world voxel map
+(mapping.VoxelMap, or dist/map_fusion.ShardedVoxelMap over the ranks of
+the default process group with `sharded_map`) and each frame's tracked
+pose is refined against that map, one frame at a time: by reverse
+projective association (icp.align_map_to_frame) or, sharded, by the ring
+ICP (dist/ring_map.py, whose hops are the ring_nn kernel).
+
+Not in this port yet (each raises NotImplementedError): map BA, the
+grid-hash map tracking mode, the worker-thread async backend of the inline
+chunk mode, descriptor loop-closure proposal, and the grid-hash
+verification fallback for keyframes without verification tables.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ from tpuslam_torch.backend.posegraph import GraphHost, optimize, resolve_solver
 from tpuslam_torch.backend.relocalize import relocalize
 from tpuslam_torch.backend.verify import ROW_SIZE
 from tpuslam_torch.config import Intrinsics, SLAMConfig
+from tpuslam_torch.dist.map_fusion import ShardedVoxelMap
+from tpuslam_torch.dist.mesh import make_mesh
+from tpuslam_torch.dist.ring_map import make_ring_align_fn
 from tpuslam_torch.frontend import (
     FlatChunk,
     FlatFrozen,
@@ -47,6 +56,8 @@ from tpuslam_torch.frontend import (
     scan_chunk,
     scan_superchunk_frozen,
 )
+from tpuslam_torch.icp import FlatICP, align_map_to_frame, flat_icp_scalars
+from tpuslam_torch.mapping import VoxelMap
 from tpuslam_torch.transfer import upload
 
 # Information weight of verified loop-closure / relocalization edges
@@ -86,8 +97,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class SlamSystem:
     """Odometry frontend + pose-graph backend with loop closure.
 
-    `device` is where tracking and the backend run; depth handed over as a
-    host array is copied there.
+    `device` is where tracking, the map and the backend run (the card by
+    default); depth handed over as a host array is copied there.
     """
 
     def __init__(self, K: Intrinsics, cfg: SLAMConfig,
@@ -96,15 +107,21 @@ class SlamSystem:
                  track_against_map: bool = False,
                  async_backend: bool = False,
                  map_ba: bool = False,
+                 map_track_mode: str = "projective",
                  sharded_map: bool = False,
                  enable_relocalization: bool = True,
                  reloc_after: int = 2,
                  chunk_mode: str = "inline",
                  chunk_sub: int = 8,
-                 device="cpu"):
-        if enable_map or track_against_map or map_ba or sharded_map:
-            raise _not_ported("the voxel map (enable_map, track_against_map,"
-                              " map_ba, sharded_map)", "Queue 1 item 15")
+                 device="cuda"):
+        if map_ba:
+            raise _not_ported("map BA (map_ba)", "Queue 1 item 15")
+        if map_track_mode not in ("projective", "grid"):
+            raise ValueError(f"map_track_mode must be 'projective' or 'grid',"
+                             f" got {map_track_mode!r}")
+        if map_track_mode == "grid":
+            raise _not_ported("grid-hash frame-to-map tracking "
+                              "(map_track_mode='grid')", "Queue 1 item 9a")
         if chunk_mode not in ("inline", "boundary"):
             raise ValueError(f"chunk_mode must be 'inline' or 'boundary', "
                              f"got {chunk_mode!r}")
@@ -119,6 +136,20 @@ class SlamSystem:
         self.device = self.odo.device
         self.graph = GraphHost(cfg.posegraph, device=self.device)
         self.enable_loop_closure = enable_loop_closure
+        enable_map = enable_map or track_against_map
+        self.sharded_map = sharded_map
+        if enable_map and sharded_map:
+            # the map is sharded over the default process group's ranks:
+            # all-to-all fusion, ring refinement — never whole on a device
+            self._map_mesh = make_mesh(self.device)
+            self.map = ShardedVoxelMap(cfg.voxel, self._map_mesh,
+                                       new_capacity=cfg.voxel.capacity)
+        elif enable_map:
+            self.map = VoxelMap(cfg.voxel, device=self.device)
+        else:
+            self.map = None
+        self.track_against_map = track_against_map
+        self.map_refine_stats: list[dict] = []
         self._known_edges: set[tuple[int, int]] = set()
         # pairs that FAILED verification: skipped until the next graph
         # optimization (keyframe clouds are immutable, so only a moved
@@ -177,7 +208,47 @@ class SlamSystem:
                 self._known_edges.add((k - 1, k))
             self._num_graph_nodes += 1
             added = True
+            if self.map is not None and rec.cloud is not None:
+                self.map.insert(rec.cloud, rec.T_world_kf)
         return added
+
+    def _refine_against_map(self) -> None:
+        """Frame-to-map refinement: re-align the current frame's estimate
+        against the accumulated voxel map and, when the result passes the
+        gates, push it into the frontend's keyframe-relative state.  The
+        result is read back as one flat scalar vector (one host sync)."""
+        odo = self.odo
+        kf_id, T_rel = odo.frame_refs[-1]
+        rec = odo.keyframes[kf_id]
+        if odo.last_pyr is None or self.map.num_insertions < 2:
+            return
+        T0 = upload(rec.T_world_kf.astype(np.float32)
+                    @ T_rel.astype(np.float32), self.device)
+        if self.sharded_map:
+            cloud = odo._kf_cloud(odo.last_pyr)   # current frame, camera
+            _res, flat = make_ring_align_fn(self._map_mesh, self.cfg.icp)(
+                cloud, self.map.cloud_shards, T0)
+        else:
+            flat = flat_icp_scalars(align_map_to_frame(
+                self.map.cloud, odo.last_pyr[0], odo.K, T0, self.cfg.icp))
+        s = flat.cpu().numpy()                    # the one host sync
+        T_est = s[FlatICP.T].reshape(4, 4)
+        ok = (bool(s[FlatICP.CONVERGED] > 0.5)
+              and float(s[FlatICP.INLIER_FRACTION]) > 0.3
+              and float(s[FlatICP.NUM_INLIERS])
+              >= float(self.cfg.map_refine_min_inliers)
+              and bool(np.all(np.isfinite(T_est))))
+        self.map_refine_stats.append(
+            {"ok": ok, "rms": float(s[FlatICP.RMS]),
+             "inliers": float(s[FlatICP.INLIER_FRACTION])})
+        if not ok:
+            return
+        T_world_cam = T_est.astype(np.float64)
+        T_rel_new = np.linalg.inv(rec.T_world_kf.astype(np.float64)
+                                  ) @ T_world_cam
+        odo.frame_refs[-1] = (kf_id, T_rel_new)
+        odo.T_kf_cam = upload(T_rel_new.astype(np.float32), self.device)
+        odo.trajectory[-1] = T_world_cam
 
     def _dispatch_closure_attempt(
             self, max_candidates: int = 4) -> Optional[PendingAttempt]:
@@ -450,8 +521,9 @@ class SlamSystem:
 
         Steps per frame instead (same semantics) while no keyframe is
         seeded — in boundary mode only the first sub-chunk, then the rest
-        of the call is scanned — and when a frame of the chunk reports
-        tracking loss (the chunk then commits nothing and replays).
+        of the call is scanned — when a frame of the chunk reports
+        tracking loss (the chunk then commits nothing and replays), and
+        throughout with `track_against_map` (map refinement is per frame).
 
         Returns (C, 4, 4) world←cam poses as tracked; `trajectory()`
         re-anchors on optimized keyframe poses.
@@ -461,9 +533,10 @@ class SlamSystem:
         if timestamps is None:
             timestamps = [0.0] * n
         odo = self.odo
-        if odo.kf_pyr is None:
+        if self.track_against_map or odo.kf_pyr is None:
             sub = self.chunk_sub
-            if self.chunk_mode == "boundary" and n > sub and n % sub == 0:
+            if (self.chunk_mode == "boundary" and not self.track_against_map
+                    and n > sub and n % sub == 0):
                 # bootstrap exactly ONE sub-chunk per frame (seeding the
                 # keyframe), then scan the tail, so keyframe decisions do
                 # not depend on the call's length
@@ -548,6 +621,8 @@ class SlamSystem:
             self._reloc_backoff = self.reloc_after
         if self._sync_graph_with_keyframes() and self.enable_loop_closure:
             self._attempt_loop_closure()
+        if self.track_against_map:
+            self._refine_against_map()
         kf_id, T_rel = self.odo.frame_refs[-1]
         return self.odo.keyframes[kf_id].T_world_kf.astype(np.float64) @ T_rel
 

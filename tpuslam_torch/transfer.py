@@ -14,6 +14,22 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """The concrete device an entry point runs on ("cuda" becomes
+    "cuda:<current>").  Raises when a CUDA device is asked for and there is
+    none: the entry points default to the card, and a run that silently
+    fell back to the CPU twins would measure the wrong thing."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r}: no CUDA device here (pass device='cpu' "
+                f"to run on the plain PyTorch twins)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def upload(array, device) -> torch.Tensor:
     """A copy of a host array (numpy or nested lists) on `device`.
 
