@@ -4,14 +4,19 @@
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device   — require a CUDA device; print its name and power limit
-  2. build    — build the five CUDA kernels from tpuslam_torch/csrc (one
-                nvcc per source, in parallel)
+  2. build    — build the six CUDA kernels from tpuslam_torch/csrc (one
+                nvcc per source, in parallel), with ptxas's registers,
+                stack frames and spills
   3. kernels  — each kernel against its plain PyTorch twin at the main
                 paths' shapes (all three levels of a 640×480 frame pair;
-                gn_fused with T_gate ≠ T_res; ring_nn at 16,384 queries ×
-                131,072 map rows, about half of them invalid, and four
-                hops over four shards against one hop over the whole map),
-                with each one's time beside its twin's and its bound
+                gn_step from the untransformed source; gn_fused with
+                T_gate ≠ T_res; ring_nn at 16,384 queries × 131,072 map
+                rows, about half of them invalid, and four hops over four
+                shards against one hop over the whole map), with each one's
+                time beside its twin's and its bound; at level 0 gn_step
+                against the unmerged pair (gn_partials + gn_epilogue, with
+                and without the transform) in turns, by CUDA events and
+                under torch.profiler, on grids of 132 and 264 blocks
   4. uint16   — raw uint16 depth divided on the device is bit-equal to
                 host-divided float32 depth
   5. small    — a 12-frame 120×160 scan on the GPU against the same scan
@@ -19,7 +24,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                 the JAX reference by tests/test_torch_*.py)
   6. main     — tpuslam_torch.bench.harness.run_bench: 240 frames at
                 640×480, default config; ATE < 1 mm; every kernel of the
-                path launched, no plain twin called
+                path launched (correspond, gn_step; not the standalone
+                gn_partials or gn_epilogue), no plain twin called; then one
+                scan of the orbit counted for launches a frame
   7. fused    — the same with ICPConfig.fused_gn=True: gn_fused carries
                 tracking; fps beside phase 6's
   8. small slam — SlamSystem on the 48-frame 120×160 two-lap loop
@@ -29,7 +36,8 @@ Phases, in order (any failure raises and the script exits non-zero):
   9. slam     — run_slam_bench: 120 frames at 640×480, boundary chunks,
                 backend sync and deferred, fused_gn False and True; ATE
                 < 1 mm, ≥ 1 closure, every kernel launched, no twin called
- 10. profile  — device time by kernel over a few odometry frames; one
+ 10. profile  — device time by kernel over a few odometry frames (device
+                µs a launch of each kernel of the path); one
                 SLAM chunk's stages on the host clock, the promotion
                 pack's cost, and the next chunk under torch.profiler
  11. small map — SlamSystem(track_against_map=True) on a 16-frame 120×160
@@ -80,6 +88,7 @@ OPS_CORRESPOND = 30       # projection, rounding, bounds, ‖x−q‖², n·n_sr
 OPS_GN_PARTIALS = 86      # residual, Huber, Jacobian, 27 products, 30 sums
 OPS_GN_FUSED = 160        # gate and residual transforms, gates, the above
 OPS_EPILOGUE_SOLVE = 300  # 6×7 elimination, trust region, SE(3) exp
+OPS_TRANSFORM = 18        # x = R p + t: 9 products and 9 sums
 OPS_RING_NN_CELL = 6      # (2x)·q as a product and two FMAs, then cst − g
 
 
@@ -148,6 +157,87 @@ def device_rows(prof) -> list:
         if dt > 0:
             rows.append((dt, ev.count, ev.key))
     return sorted(rows, reverse=True)
+
+
+# each kernel's symbol, as the profiler names it
+KERNEL_SYMBOLS = {"correspond": "correspond_kernel",
+                  "gn_partials": "gn_partials_kernel",
+                  "gn_epilogue": "gn_epilogue_kernel",
+                  "gn_step": "gn_step_kernel", "gn_fused": "gn_fused_kernel",
+                  "ring_nn": "ring_nn_kernel"}
+
+
+def per_launch_us(rows, name: str):
+    """(device µs a launch, launches) of one kernel in `device_rows`'
+    rows, or None when the profile did not see it."""
+    hits = [(dt, cnt) for dt, cnt, key in rows if KERNEL_SYMBOLS[name] in key]
+    if not hits:
+        return None
+    cnt = sum(h[1] for h in hits)
+    return sum(h[0] for h in hits) / cnt, cnt
+
+
+def gn_step_ab(card: str, src, x, T, corr, carry, nvs, icp) -> dict:
+    """Level 0: one GN solve as gn_step (grids of 132 and 264 blocks)
+    against the unmerged pair gn_partials + gn_epilogue at the same
+    inputs, with and without the point transform the pair needs (a cuBLAS
+    GEMM and an add), timed in turns by CUDA events (forward, then back)
+    and each under torch.profiler for its device time a solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch.geom import se3
+    from tpuslam_torch.kernels import gn_epilogue, gn_partials, gn_step
+
+    pts = src.points.contiguous()
+    # is_last False: DONE is never set, so every timed launch does the work
+    mid = (nvs, icp.huber_delta, icp.damping, icp.damping_abs,
+           icp.max_trans_step, icp.max_rot_step, False, icp.inner_steps, 12,
+           icp.tol_delta ** 2)
+    sc = carry.clone()
+
+    def pair(xs):
+        return gn_epilogue.gn_epilogue(
+            gn_partials.gn_reduce_partials(xs, corr.q, corr.n, corr.w,
+                                           icp.huber_delta, done=carry),
+            carry, *mid[:1], *mid[2:])
+
+    one_row = gn_partials.gn_reduce_partials(
+        x, corr.q, corr.n, corr.w, icp.huber_delta).sum(0, keepdim=True)
+    fns = {
+        # the epilogue on this solve's sums as one row: its fold is
+        # trivial, so this is the solve's own time (plus a launch)
+        "solve alone": lambda: gn_epilogue.gn_epilogue(
+            one_row, carry, *mid[:1], *mid[2:]),
+        "pair": lambda: pair(x),
+        "pair+transform": lambda: pair(se3.transform_points(T, src.points)),
+        "gn_step/132": lambda: gn_step.gn_step(pts, corr.q, corr.n, corr.w,
+                                               sc, *mid, blocks=132),
+        "gn_step/264": lambda: gn_step.gn_step(pts, corr.q, corr.n, corr.w,
+                                               sc, *mid, blocks=264),
+    }
+    order = list(fns)
+    event_ms = {k: [] for k in order}
+    for seq in (order, order[::-1]):
+        for k in seq:
+            event_ms[k].append(time_ms(fns[k]))
+    device_us = {}
+    for k in order:
+        fns[k]()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fns[k]()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        # a launch's device time, summed over the variant's kernels (the
+        # profiler may miss a launch of the 20, so per launch, not per 20)
+        device_us[k] = sum(dt / cnt for dt, cnt, _ in rows)
+        log(f"[gn_step a/b] {k}: event ms {event_ms[k][0]:.5f}, "
+            f"{event_ms[k][1]:.5f}; device {device_us[k]:.3f} us a solve ("
+            + ", ".join(f"{key[:40]} {dt / cnt:.3f} us, {cnt} launches"
+                        for dt, cnt, key in rows) + f") ({card})")
+    return {"event_ms": event_ms, "device_us": device_us}
 
 
 def fenced_spans(spans: dict, owner, names) -> None:
@@ -347,10 +437,14 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
             check(r["refine_ok_share"] > 0.5,
                   f"{tag}: refine ok share {r['refine_ok_share']}")
             check(r["dropped_total"] == 0, f"{tag}: dropped points")
-            need = ("correspond", "gn_partials", "gn_epilogue") + (
-                ("ring_nn",) if sharded else ())
+            # the ring ICP reduces, all-reduces, then solves: the
+            # standalone gn_partials and gn_epilogue run only there
+            ring = ("ring_nn", "gn_partials", "gn_epilogue")
+            need = ("correspond", "gn_step") + (ring if sharded else ())
             check(all(launches[k] > 0 for k in need),
                   f"{tag}: launches {launches}")
+            check(sharded or all(launches[k] == 0 for k in ring),
+                  f"{tag}: ring kernels ran unsharded {launches}")
             check(all(v == 0 for v in plain.values()),
                   f"{tag}: plain calls {plain}")
 
@@ -436,9 +530,11 @@ def main() -> int:
         gn_epilogue,
         gn_fused,
         gn_partials,
+        gn_step,
     )
     counters = kernel_counters()
-    frame_kernels = ("correspond", "gn_partials", "gn_epilogue", "gn_fused")
+    frame_kernels = ("correspond", "gn_partials", "gn_epilogue", "gn_step",
+                     "gn_fused")
 
     def reset_counts() -> None:
         for c in counters.values():
@@ -474,8 +570,8 @@ def main() -> int:
     T_res = se3.exp(torch.tensor([0.002, 0.001, -0.002, 0.001, 0.0, -0.001],
                                  device=dev)) @ T
     carry = gn_epilogue.init_carry(T, 12)
-    stats = {"correspond": {}, "gn_partials": {}, "gn_epilogue": {},
-             "gn_fused": {}}
+    stats = {k: {} for k in frame_kernels}
+    step_ab = None
     for li in range(icp.pyramid_levels - 1, -1, -1):
         K_l = K.scaled(1.0 / 2 ** li)
         src = select_level_source(pyr_b, li, icp)
@@ -529,6 +625,35 @@ def main() -> int:
               == float(er_carry[gn_epilogue.DONE]),
               f"gn_epilogue level {li}: carry it/done")
 
+        # gn_step: the same solve from the untransformed source, the pose
+        # taken from the carry, which it updates in place
+        pts = src.points.contiguous()
+        sargs = (nvs, icp.huber_delta, icp.damping, icp.damping_abs,
+                 icp.max_trans_step, icp.max_rot_step, True, icp.inner_steps,
+                 12, icp.tol_delta ** 2)
+        sk = gn_step.gn_step(pts, ck.q, ck.n, ck.w, carry.clone(), *sargs)
+        sr = gn_step.gn_step_reference(pts, ck.q, ck.n, ck.w, carry, *sargs)
+        torch.cuda.synchronize()
+        ts = gn_epilogue.T_SLICE
+        s_err = float((sk[ts] - sr[ts]).abs().max())
+        s_hrel = rel_err(sk[gn_epilogue.H_SLICE], sr[gn_epilogue.H_SLICE])
+        check(s_err <= TOL_EPILOGUE_T, f"gn_step level {li}: T {s_err}")
+        check(s_hrel <= TOL_EPILOGUE_H_REL,
+              f"gn_step level {li}: H rel {s_hrel}")
+        check(all(float(sk[i]) == float(sr[i]) for i in (
+            gn_epilogue.IT, gn_epilogue.DONE, gn_epilogue.NUM_INLIERS)),
+              f"gn_step level {li}: it/done/Σvalid")
+        again = gn_step.gn_step(pts, ck.q, ck.n, ck.w, carry.clone(), *sargs)
+        dc = gn_epilogue.init_carry(T, 0)
+        d_before = dc.clone()
+        gn_step.gn_step(pts, ck.q, ck.n, ck.w, dc, *sargs)
+        torch.cuda.synchronize()
+        check(torch.equal(again, sk), f"gn_step level {li}: not reproducible")
+        check(torch.equal(dc.view(torch.int32), d_before.view(torch.int32)),
+              f"gn_step level {li}: wrote the carry after DONE")
+        step_carry = carry.clone()
+        step_mid = sargs[:6] + (False,) + sargs[7:]
+
         times = {
             "correspond": (
                 time_ms(lambda: correspond.projective_correspond_packed(
@@ -544,6 +669,12 @@ def main() -> int:
                 time_ms(lambda: gn_epilogue.gn_epilogue(*eargs)),
                 time_ms(lambda: gn_epilogue.gn_epilogue_reference(*eargs),
                         reps=20)),
+            # is_last False: DONE is never set, every launch does the work
+            "gn_step": (
+                time_ms(lambda: gn_step.gn_step(pts, ck.q, ck.n, ck.w,
+                                                step_carry, *step_mid)),
+                time_ms(lambda: gn_step.gn_step_reference(
+                    pts, ck.q, ck.n, ck.w, carry, *sargs), reps=20)),
         }
         # fused step: gates at T, residuals at T_res, gather in the kernel
         flat = _association_rows(T, src.points, K_l, h, w)
@@ -578,7 +709,7 @@ def main() -> int:
             time_ms(lambda: gn_fused.gn_fused_partials(*fargs, done=carry)),
             time_ms(lambda: gn_fused.gn_fused_partials_reference(*fargs)))
         errs = {"correspond": c_err, "gn_partials": p_err,
-                "gn_epilogue": t_err, "gn_fused": g_err}
+                "gn_epilogue": t_err, "gn_step": s_err, "gn_fused": g_err}
         # a table row is read once for each distinct pixel gathered
         row_bytes = packed[li].element_size() * packed[li].shape[1]
         bounds = {
@@ -591,6 +722,10 @@ def main() -> int:
             "gn_epilogue": bound(
                 nbytes(pk, nvs, ek_step) + 2 * nbytes(carry),
                 pk.shape[0] * gn_partials.NUM_SUMS + OPS_EPILOGUE_SOLVE),
+            "gn_step": bound(
+                nbytes(pts, ck.q, ck.n, ck.w, nvs) + 2 * nbytes(carry),
+                (OPS_GN_PARTIALS + OPS_TRANSFORM) * x.shape[0]
+                + OPS_EPILOGUE_SOLVE),
             "gn_fused": bound(
                 nbytes(src.points, src.normals, src.mask, flat, T, T_res, gk)
                 + row_bytes * torch.unique(flat).numel(),
@@ -607,8 +742,11 @@ def main() -> int:
                 f"{errs[name]:.3e} ({card})")
         log(f"[kernels] level {li}: w mismatch share {w_mis}, partials rel "
             f"{p_rel:.3e}, epilogue T {t_err:.3e} H rel {h_rel:.3e}, "
-            f"gn_fused rel {g_rel:.3e} Σvalid {float(gfk[2]):.0f} "
-            f"(per block equal)")
+            f"gn_step T {s_err:.3e} H rel {s_hrel:.3e} (same bits again, "
+            f"nothing written after DONE), gn_fused rel {g_rel:.3e} Σvalid "
+            f"{float(gfk[2]):.0f} (per block equal)")
+        if li == 0:
+            step_ab = gn_step_ab(card, src, x, T, ck, carry, nvs, icp)
     ring_stats = ring_nn_phase(dev, card)
 
     # ---- 4. uint16 divide ----
@@ -657,10 +795,25 @@ def main() -> int:
     log(f"[main] launches {launches} plain calls {plain}")
     check(res["poses_finite"], "main: non-finite poses")
     check(res["ate_rmse_m"] < 1e-3, f"main: ATE {res['ate_rmse_m']} ≥ 1 mm")
-    check(all(launches[k] > 0 for k in ("correspond", "gn_partials",
-                                        "gn_epilogue")),
+    check(all(launches[k] > 0 for k in ("correspond", "gn_step")),
           f"main: launches {launches}")
+    check(launches["gn_partials"] == launches["gn_epilogue"] == 0,
+          f"main: the standalone GN kernels ran {launches}")
     check(all(v == 0 for v in plain.values()), f"main: plain calls {plain}")
+    # launches a frame on the orbit: one scan of the 240 frames
+    K_o, _, d_o = orbit
+    d_o = torch.as_tensor(d_o, device=dev)
+    reset_counts()
+    scan_odometry(d_o, K_o, SLAMConfig(height=480, width=640).validate())
+    torch.cuda.synchronize()
+    odo_launches, _ = read_counts()
+    per_frame_odo = {k: v / d_o.shape[0] for k, v in odo_launches.items()}
+    check(odo_launches["gn_step"] == 2 * odo_launches["correspond"] > 0,
+          f"main: gn_step {odo_launches}")
+    log(f"[main] launches a frame on the orbit (one scan, "
+        f"{d_o.shape[0]} frames): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_frame_odo.items()))
+    del d_o
 
     # ---- 7. fused odometry: gn_fused carries tracking ----
     reset_counts()
@@ -752,19 +905,23 @@ def main() -> int:
         check(r["sync"]["closure_pairs"] == r["deferred"]["closure_pairs"],
               f"slam fused={fused}: sync and deferred closures differ")
         need = (("gn_fused", "gn_epilogue") if fused else
-                ("correspond", "gn_partials", "gn_epilogue"))
+                ("correspond", "gn_step"))
         check(all(ran[k] > 0 for k in need),
               f"slam fused={fused}: launches {ran}")
+        check(ran["gn_partials"] == 0 and (fused or ran["gn_epilogue"] == 0),
+              f"slam fused={fused}: standalone GN kernels ran {ran}")
         log(f"[slam] fused_gn={fused} launches {ran}")
     launches_slam, plain_slam = read_counts()
     log(f"[slam] launches {launches_slam} plain calls {plain_slam}")
-    check(all(launches_slam[k] > 0 for k in frame_kernels),
-          f"slam: launches {launches_slam}")
+    check(all(launches_slam[k] > 0 for k in frame_kernels
+              if k != "gn_partials"), f"slam: launches {launches_slam}")
     check(all(v == 0 for v in plain_slam.values()),
           f"slam: plain calls {plain_slam}")
 
     # ---- 10. profile ----
     from torch.profiler import ProfilerActivity, profile
+
+    odo_us: dict = {}
 
     d8 = torch.as_tensor(depths_np, device=dev)
     d8 = d8[[0, 1] * 4]
@@ -783,9 +940,15 @@ def main() -> int:
         if busy > 0:
             log(f"[profile] fused_gn={fused}, 8 frames: wall {wall_us:.1f} us "
                 f"(profiled), device busy {busy:.1f} us, idle share "
-                f"{1 - busy / wall_us:.4f} ({card})")
+                f"{1 - busy / wall_us:.4f}, device ops "
+                f"{sum(r[1] for r in rows)} ({card})")
             for dt, cnt, key in rows[:15]:
                 log(f"[profile]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
+            if not fused:
+                odo_us = {k: per_launch_us(rows, k) for k in KERNEL_SYMBOLS}
+                log("[profile] device us a launch, odometry: " + ", ".join(
+                    f"{k} {v[0]:.3f} ({v[1]}x)" for k, v in odo_us.items()
+                    if v is not None))
         else:
             log("[profile] device time: not measured (profiler saw no "
                 "kernels)")
@@ -876,6 +1039,10 @@ def main() -> int:
                         "tpuslam/kernels/pallas_gn.py:37"),
         "gn_epilogue": ("tpuslam_torch/csrc/gn_epilogue.cu",
                         "tpuslam/kernels/pallas_epilogue.py:187"),
+        "gn_step": ("tpuslam_torch/csrc/gn_step.cu",
+                    "tpuslam/kernels/pallas_gn.py:37 + "
+                    "tpuslam/kernels/pallas_epilogue.py:187 "
+                    "(the GN step of tpuslam/icp.py:129-139)"),
         "gn_fused": ("tpuslam_torch/csrc/gn_fused.cu",
                      "tpuslam/kernels/gn_fused.py:160"),
         "ring_nn": ("tpuslam_torch/csrc/ring_nn.cu",
@@ -883,8 +1050,10 @@ def main() -> int:
     }
     # timings at level 0 (ring_nn: its own phase); launches on the map path
     # (phase 12), or for gn_fused, which that path does not run, on the
-    # SLAM path with fused_gn (phase 9).  No single PyTorch call computes
-    # any of these functions, so library_ms is null.
+    # SLAM path with fused_gn (phase 9); beside them launches a frame on
+    # the odometry orbit (phase 6) and device µs a launch there (phase 10).
+    # No single PyTorch call computes any of these functions, so
+    # library_ms is null.
     summary = {k: dict(stats[k][0], max_abs_err=max(
         v["max_abs_err"] for v in stats[k].values())) for k in frame_kernels}
     summary["ring_nn"] = ring_stats
@@ -900,7 +1069,11 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
+            "odometry_launches_per_frame": per_frame_odo[name],
+            "odometry_device_us_per_launch": (
+                odo_us[name][0] if odo_us.get(name) else None),
         })
+    log(json.dumps({"gn_step_ab": step_ab}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

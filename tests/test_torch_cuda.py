@@ -7,6 +7,7 @@ machine without it:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from tpuslam_torch.kernels import (
     gn_epilogue,
     gn_fused,
     gn_partials,
+    gn_step,
     ring_nn,
 )
 
@@ -138,6 +140,154 @@ def test_epilogue_kernel_matches_twin(dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 264])
+def test_epilogue_parallel_fold_matches_twin(dev, rows):
+    """The 256-thread epilogue's fold (8 warps of contiguous rows, then
+    warp order) over random partials: the sums it solves with (H, Σw·r²,
+    Σvalid, Σw in the step) agree with the twin's fold."""
+    rng = np.random.default_rng(rows)
+    part = torch.as_tensor(rng.normal(size=(rows, 32)).astype(np.float32),
+                           device=dev)
+    part[:, 30:] = 0.0
+    carry = gn_epilogue.init_carry(torch.eye(4, device=dev), 12)
+    args = (part, carry, torch.tensor(100.0, device=dev), *ARGS, True, 2, 12,
+            1e-8)
+    ck, sk = gn_epilogue.gn_epilogue(*args)
+    cr, sr = gn_epilogue.gn_epilogue_reference(*args)
+    torch.cuda.synchronize()
+    assert rel(sk[gn_epilogue.STEP_H], sr[gn_epilogue.STEP_H]) <= 1e-6
+    for i in (gn_epilogue.STEP_WSQ, gn_epilogue.STEP_NINL,
+              gn_epilogue.STEP_WSUM):
+        assert abs(float(sk[i]) - float(sr[i])) <= 1e-5 * max(
+            1.0, abs(float(sr[i])))
+    # the fold is in a fixed order: a second launch gives the same bits
+    # (the random sums make the carry's RMS NaN, so compare bytes)
+    assert torch.equal(gn_epilogue.gn_epilogue(*args)[0].view(torch.int32),
+                       ck.view(torch.int32))
+
+
+VGA = SLAMConfig()
+
+
+@functools.cache
+def vga_pair():
+    from tpuslam_torch.bench.harness import _render_sequence
+
+    Kv, _, dv = _render_sequence(2, 480, 640)
+    return Kv, dv
+
+
+def vga_step_inputs(dev, level: int):
+    """A 640×480 frame pair's source at `level`, its association at a pose
+    T and the carry at T: what `_icp_loop` hands gn_step."""
+    Kv, dv = vga_pair()
+    d = torch.as_tensor(dv, device=dev)
+    pyr_a, pyr_b = preprocess(d[0], Kv, VGA), preprocess(d[1], Kv, VGA)
+    packed = pack_pyramid(pyr_a, VGA.icp)[level]
+    src = select_level_source(pyr_b, level, VGA.icp)
+    h, w, _ = pyr_b[level].points.shape
+    T = se3.exp(torch.tensor([0.01, -0.005, 0.008, 0.004, -0.006, 0.003],
+                             device=dev))
+    corr = correspond.projective_correspond_packed(
+        se3.transform_points(T, src.points), src.mask, packed, h, w,
+        Kv.scaled(1.0 / 2 ** level), VGA.icp.max_corr_dist,
+        se3.rotate_vectors(T, src.normals), VGA.icp.normal_dot_min)
+    nvs = torch.sum(src.mask.to(torch.float32))
+    return (src.points.contiguous(), corr.q, corr.n, corr.w), nvs, T
+
+
+def step_args(nvs, is_last=True):
+    icp = VGA.icp
+    return (nvs, icp.huber_delta, icp.damping, icp.damping_abs,
+            icp.max_trans_step, icp.max_rot_step, is_last, icp.inner_steps,
+            12, icp.tol_delta ** 2)
+
+
+def assert_step_close(ck, cr):
+    """T within 1e-5, H within 1e-6 of max |H|, Σvalid, it and DONE equal
+    (the kernel and the twin sum the same terms in other orders)."""
+    e = gn_epilogue
+    assert float((ck[e.T_SLICE] - cr[e.T_SLICE]).abs().max()) <= 1e-5
+    assert rel(ck[e.H_SLICE], cr[e.H_SLICE]) <= 1e-6
+    for i in (e.NUM_INLIERS, e.IT, e.DONE):
+        assert float(ck[i]) == float(cr[i])
+    assert abs(float(ck[e.DELTA_SQ]) - float(cr[e.DELTA_SQ])) <= 1e-4 * abs(
+        float(cr[e.DELTA_SQ])) + 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("blocks", [132, 264])
+def test_gn_step_kernel_matches_twin(dev, level, blocks):
+    """At the three 640×480 levels and both grids; the carry is updated in
+    place and the kernel's result is the same bits on every launch."""
+    pts, nvs, T = vga_step_inputs(dev, level)
+    carry0 = gn_epilogue.init_carry(T, 12)
+    cr = gn_step.gn_step_reference(*pts, carry0, *step_args(nvs),
+                                   blocks=blocks)
+    ck = carry0.clone()
+    out = gn_step.gn_step(*pts, ck, *step_args(nvs), blocks=blocks)
+    torch.cuda.synchronize()
+    assert out is ck
+    assert_step_close(ck, cr)
+    assert float(ck[gn_epilogue.NUM_INLIERS]) > 0.3 * float(nvs)
+    mid = carry0.clone()
+    gn_step.gn_step(*pts, mid, *step_args(nvs, is_last=False),
+                    blocks=blocks)
+    assert torch.equal(mid[gn_epilogue.T_SLICE], ck[gn_epilogue.T_SLICE])
+    assert float(mid[gn_epilogue.IT]) == 0.0
+
+
+@pytest.mark.cuda
+def test_gn_step_repeated_launches_are_bit_identical(dev):
+    """50 launches on fresh copies of one carry give the same bits: the
+    ticket is back at 0 after every launch, so no launch folds early."""
+    pts, nvs, T = vga_step_inputs(dev, 0)
+    carry0 = gn_epilogue.init_carry(T, 12)
+    outs = []
+    for _ in range(50):
+        c = carry0.clone()
+        gn_step.gn_step(*pts, c, *step_args(nvs))
+        outs.append(c)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    ticket, _ = gn_step._scratch(pts[0].device)
+    assert int(ticket) == 0
+
+
+@pytest.mark.cuda
+def test_gn_step_done_writes_nothing(dev):
+    pts, nvs, T = vga_step_inputs(dev, 1)
+    carry = gn_epilogue.init_carry(T, 0)
+    before = carry.clone()
+    gn_step.gn_step(*pts, carry, *step_args(nvs))
+    torch.cuda.synchronize()
+    assert torch.equal(carry.view(torch.int32), before.view(torch.int32))
+    ticket, _ = gn_step._scratch(pts[0].device)
+    assert int(ticket) == 0
+
+
+@pytest.mark.cuda
+def test_gn_step_non_finite_sum(dev):
+    """An infinite target point: H NaN, a zero step, the pose kept, δ² = 0
+    and DONE set, as the twin (and the reference) do."""
+    (p, q, n, w), nvs, T = vga_step_inputs(dev, 2)
+    q = q.clone()
+    q[int(torch.nonzero(w)[0])] = float("inf")
+    carry0 = gn_epilogue.init_carry(T, 12)
+    cr = gn_step.gn_step_reference(p, q, n, w, carry0, *step_args(nvs))
+    ck = carry0.clone()
+    gn_step.gn_step(p, q, n, w, ck, *step_args(nvs))
+    torch.cuda.synchronize()
+    e = gn_epilogue
+    assert bool(torch.isnan(ck[e.H_SLICE]).all())
+    assert bool(torch.isnan(cr[e.H_SLICE]).all())
+    assert float(ck[e.DELTA_SQ]) == float(cr[e.DELTA_SQ]) == 0.0
+    assert torch.equal(ck[e.T_SLICE], carry0[e.T_SLICE])
+    assert float(ck[e.DONE]) == float(cr[e.DONE]) == 1.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("level", [0, 1, 2])
 @pytest.mark.parametrize("case", ["f16", "f32", "normal_gate_off"])
 def test_gn_fused_kernel_matches_twin(dev, level, case):
@@ -186,7 +336,7 @@ def test_align_frames_gpu_matches_cpu_twins(dev, fused):
         torch.as_tensor(d[3]), K, CFG)
     pa_g, pb_g = (tuple(type(f)(*(t.to(dev) for t in f)) for f in p)
                   for p in (pa_c, pb_c))
-    counter = gn_fused.counter if fused else gn_partials.counter
+    counter = gn_fused.counter if fused else gn_step.counter
     counter.reset()
     rc = align_frames(pb_c, pa_c, K, torch.eye(4), icp)
     rg = align_frames(pb_g, pa_g, K, torch.eye(4, device=dev), icp)
@@ -199,13 +349,19 @@ def test_align_frames_gpu_matches_cpu_twins(dev, fused):
 @pytest.mark.cuda
 def test_scan_gpu_matches_cpu_twins_and_counts_launches(dev):
     d = depths(12)
-    counters = (correspond.counter, gn_partials.counter, gn_epilogue.counter)
+    counters = (correspond.counter, gn_step.counter)
     pc, fc, ic = scan_odometry(torch.as_tensor(d), K, CFG)
-    for c in counters:
+    for c in counters + (gn_partials.counter, gn_epilogue.counter):
         c.reset()
     pg, fg, ig = scan_odometry(torch.as_tensor(d, device=dev), K, CFG)
     torch.cuda.synchronize()
     assert all(c.launches > 0 and c.plain_calls == 0 for c in counters)
+    # one association and two solves an outer iteration, ⌈12/2⌉ + ⌈8/2⌉ +
+    # ⌈8/2⌉ = 14 outer iterations a tracked frame; the standalone
+    # reduction and epilogue are the ring's and the fused path's
+    assert gn_step.counter.launches == 2 * correspond.counter.launches
+    assert correspond.counter.launches % 14 == 0
+    assert gn_partials.counter.launches == gn_epilogue.counter.launches == 0
     assert torch.equal(fg.cpu(), fc)
     assert float((pg.cpu() - pc).abs().max()) <= 1e-4
     assert float((ig.cpu() - ic).abs().max()) <= 1e-4
@@ -246,7 +402,7 @@ def test_slam_gpu_matches_cpu_twins(dev, fused):
 
     kc, cc, ec = run("cpu")
     counters = ((gn_fused.counter, gn_epilogue.counter) if fused else
-                (correspond.counter, gn_partials.counter, gn_epilogue.counter))
+                (correspond.counter, gn_step.counter))
     for c in counters:
         c.reset()
     kg, cg, eg = run(dev)

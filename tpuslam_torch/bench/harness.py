@@ -156,12 +156,14 @@ def kernel_counters() -> dict:
         gn_epilogue,
         gn_fused,
         gn_partials,
+        gn_step,
         ring_nn,
     )
 
     return {"correspond": correspond.counter,
             "gn_partials": gn_partials.counter,
             "gn_epilogue": gn_epilogue.counter,
+            "gn_step": gn_step.counter,
             "gn_fused": gn_fused.counter, "ring_nn": ring_nn.counter}
 
 

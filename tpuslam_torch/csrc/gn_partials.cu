@@ -19,79 +19,42 @@
 //   results are bitwise reproducible.  The grid is capped at two blocks per
 //   SM so the epilogue's fold stays short.  The (num_blocks, 32) layout
 //   replaces the reference's (G*32, 128) lane partials; the epilogue kernel
-//   folds it.
+//   folds it.  The per-point terms and the block reduction are
+//   gn_solve.cuh's, shared with gn_step.cu.
 //
 // When *done != 0 (the ICP loop's device-side early exit) each block writes
 // a zero row and reads no input.
+//
+// The ICP loop on one card calls gn_step.cu, which merges this reduction
+// with the epilogue; this kernel serves the ring ICP (dist/ring_map.py),
+// which all-reduces the partials across ranks before the solve.
 
 #include <cuda_runtime.h>
 
+#include "gn_solve.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSums = 30;
-constexpr int kRow = 32;
-
-__global__ void __launch_bounds__(kThreads) gn_partials_kernel(
+__global__ void __launch_bounds__(gn::kThreads) gn_partials_kernel(
     const float* __restrict__ x, const float* __restrict__ q,
     const float* __restrict__ nrm, const float* __restrict__ wv, int n,
     float huber, const float* __restrict__ done,
     float* __restrict__ partials) {
-  __shared__ float warp_sums[kWarps][kRow];
-  float acc[kSums];
+  __shared__ float warp_sums[gn::kWarps][gn::kRow];
+  float acc[gn::kSums];
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < gn::kSums; ++k) acc[k] = 0.0f;
 
   const bool skip = (done != nullptr) && (done[0] != 0.0f);
   if (!skip) {
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += gridDim.x * blockDim.x) {
-      float x0 = x[3 * i], x1 = x[3 * i + 1], x2 = x[3 * i + 2];
-      float q0 = q[3 * i], q1 = q[3 * i + 1], q2 = q[3 * i + 2];
-      float n0 = nrm[3 * i], n1 = nrm[3 * i + 1], n2 = nrm[3 * i + 2];
-      float valid = wv[i];
-      float r = n0 * (x0 - q0) + n1 * (x1 - q1) + n2 * (x2 - q2);
-      float ar = fabsf(r);
-      float hub = (ar <= huber) ? 1.0f : huber / fmaxf(ar, 1e-12f);
-      float w = valid * hub;
-      float j[6] = {n0, n1, n2, x1 * n2 - x2 * n1, x2 * n0 - x0 * n2,
-                    x0 * n1 - x1 * n0};
-      int k = 0;
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        float wja = w * j[a];
-#pragma unroll
-        for (int b = a; b < 6; ++b) acc[k++] += wja * j[b];
-      }
-      float wr = w * r;
-#pragma unroll
-      for (int a = 0; a < 6; ++a) acc[21 + a] += wr * j[a];
-      acc[27] += wr * r;
-      acc[28] += valid;
-      acc[29] += w;
+      gn::accumulate_point(acc, x[3 * i], x[3 * i + 1], x[3 * i + 2],
+                           q[3 * i], q[3 * i + 1], q[3 * i + 2], nrm[3 * i],
+                           nrm[3 * i + 1], nrm[3 * i + 2], wv[i], huber);
     }
   }
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_sums[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kRow) {
-    const int k = threadIdx.x;
-    float s = 0.0f;
-    if (k < kSums) {
-      for (int wp = 0; wp < kWarps; ++wp) s += warp_sums[wp][k];
-    }
-    partials[blockIdx.x * kRow + k] = s;
-  }
+  gn::block_reduce_row(acc, warp_sums, partials + blockIdx.x * gn::kRow);
 }
 
 }  // namespace
@@ -101,7 +64,7 @@ extern "C" int tpuslam_gn_partials(const void* x, const void* q,
                                    float huber, const void* done,
                                    void* partials, int num_blocks,
                                    void* stream) {
-  gn_partials_kernel<<<num_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  gn_partials_kernel<<<num_blocks, gn::kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)q, (const float*)nrm, (const float*)w, n,
       huber, (const float*)done, (float*)partials);
   return (int)cudaGetLastError();

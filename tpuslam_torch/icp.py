@@ -2,9 +2,9 @@
 
 Per pyramid level (coarsest → finest) an ICP loop runs: transform the
 source, one projective row gather (kernels/correspond.py), then
-`inner_steps` GN solves against that association, each a reduction to
-partials (kernels/gn_partials.py) and an epilogue (kernels/gn_epilogue.py)
-that solves, updates the pose and keeps the loop carry on the device.
+`inner_steps` GN solves against that association, each one launch
+(kernels/gn_step.py) that transforms the source by the current pose,
+reduces, solves, updates the pose and keeps the loop carry on the device.
 
 The reference's `lax.while_loop` exits early once ‖δ‖ ≤ tol.  Here the
 loop runs a fixed budget of ⌈max_iters / inner⌉ outer iterations; the
@@ -17,7 +17,7 @@ is.)
 
 With `ICPConfig.fused_gn` each GN solve is one fused kernel instead
 (kernels/gn_fused.py: gates, residual, Huber and the reduction with the
-row gather inside) followed by the same epilogue.
+row gather inside) followed by the epilogue (kernels/gn_epilogue.py).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from tpuslam_torch.kernels.correspond import (
     projective_correspond_packed,
 )
 from tpuslam_torch.kernels.gn_fused import gn_fused_partials
-from tpuslam_torch.kernels.gn_partials import gn_reduce_partials
+from tpuslam_torch.kernels.gn_step import gn_step
 
 
 class ICPResult(NamedTuple):
@@ -163,28 +163,27 @@ def _icp_loop(packed: torch.Tensor, height: int, width: int, K: Intrinsics,
     tol_sq = tol ** 2
     outer = -(-max_iters // inner) if max_iters > 0 else 0
     num_valid_src = torch.sum(src.mask.to(torch.float32))
+    points = src.points.contiguous()
     carry = ep.init_carry(T0, max_iters)
     for _ in range(outer):
         if _finished(carry):
             break
         T = carry[ep.T_SLICE].reshape(4, 4)
-        x = se3.transform_points(T, src.points)
+        x = se3.transform_points(T, points)
         n_rot = se3.rotate_vectors(T, src.normals)
         corr = projective_correspond_packed(
             x, src.mask, packed, height, width, K, cfg.max_corr_dist,
             src_normals_in_dst=n_rot, normal_dot_min=cfg.normal_dot_min,
             done=carry)
         for k in range(inner):
-            if k > 0:
-                # frozen association, source re-transformed (inner/outer ICP)
-                x = se3.transform_points(carry[ep.T_SLICE].reshape(4, 4),
-                                         src.points)
-            partials = gn_reduce_partials(x, corr.q, corr.n, corr.w,
-                                          cfg.huber_delta, done=carry)
-            carry, _ = ep.gn_epilogue(
-                partials, carry, num_valid_src, cfg.damping, cfg.damping_abs,
-                cfg.max_trans_step, cfg.max_rot_step, is_last=k == inner - 1,
-                inner=inner, max_iters=max_iters, tol_sq=tol_sq)
+            # frozen association; the step transforms the source by the
+            # carry's current pose (inner/outer ICP) and updates the carry
+            # in place
+            gn_step(points, corr.q, corr.n, corr.w, carry, num_valid_src,
+                    cfg.huber_delta, cfg.damping, cfg.damping_abs,
+                    cfg.max_trans_step, cfg.max_rot_step,
+                    is_last=k == inner - 1, inner=inner, max_iters=max_iters,
+                    tol_sq=tol_sq)
     return _result(carry, tol_sq)
 
 

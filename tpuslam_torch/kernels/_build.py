@@ -1,5 +1,5 @@
 """Build and bind the port's CUDA kernels (`tpuslam_torch/csrc/*.cu`):
-correspond, gn_partials, gn_epilogue, gn_fused and ring_nn.
+correspond, gn_partials, gn_epilogue, gn_step, gn_fused and ring_nn.
 
 The sources have a plain C interface: nvcc compiles them into one shared
 library for `sm_90a`, which `ctypes` loads.  That takes seconds, where an
@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("correspond.cu", "gn_partials.cu", "gn_epilogue.cu",
-           "gn_fused.cu", "ring_nn.cu")
+           "gn_step.cu", "gn_fused.cu", "ring_nn.cu")
+HEADERS = ("gn_solve.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "tpuslam_gn_partials": [_P, _P, _P, _P, _I, _F, _P, _P, _I, _P],
     "tpuslam_gn_epilogue": [_P, _I, _P, _P, _F, _F, _F, _F, _I, _I, _I, _F,
                             _P, _P, _P],
+    "tpuslam_gn_step": [_P, _P, _P, _P, _I, _F, _P, _P, _F, _F, _F, _F, _I,
+                        _I, _I, _F, _P, _P, _I, _P],
     "tpuslam_gn_fused": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _F, _F, _F, _F,
                          _F, _F, _F, _F, _F, _P, _P, _I, _P],
     "tpuslam_ring_nn": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
@@ -80,7 +83,7 @@ def find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

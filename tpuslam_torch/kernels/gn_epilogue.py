@@ -7,7 +7,10 @@ non-finite guard and the trust region, takes the SE(3) exp and composes
 T ← exp(δ)·T — the reference's `_epilogue_math` — and then updates the ICP
 loop's carry on the device.  On a CUDA tensor it launches
 `csrc/gn_epilogue.cu`; on a CPU tensor it runs the plain twin
-`gn_epilogue_reference`, which follows the reference op for op.
+`gn_epilogue_reference`, which follows the reference op for op.  Both
+fold the partials rows in the kernel's order (`fold_rows`).  The ICP loop
+on one card runs the same fold and solve inside `kernels/gn_step.py`'s
+launch; this wrapper serves the ring ICP and the fused path.
 
 The carry is one float32[64] tensor (layout below).  It stands for the
 reference's `lax.while_loop` state plus the loop predicate: once DONE is
@@ -25,16 +28,17 @@ from tpuslam_torch.kernels.gn_partials import ROW
 
 counter = _build.LaunchCounter()
 
-# carry layout — mirrored in csrc/gn_epilogue.cu
+# carry layout — mirrored in csrc/gn_solve.cuh
 DONE, IT, DELTA_SQ, RMS, INLIER_FRACTION, NUM_INLIERS = 0, 1, 2, 3, 4, 5
 T_SLICE = slice(6, 22)
 H_SLICE = slice(22, 58)
 CARRY_SIZE = 64
-# step layout — mirrored in csrc/gn_epilogue.cu
+# step layout — mirrored in csrc/gn_solve.cuh
 STEP_T = slice(0, 16)
 STEP_H = slice(16, 52)
 STEP_DELTA_SQ, STEP_WSQ, STEP_NINL, STEP_WSUM = 52, 53, 54, 55
 STEP_SIZE = 64
+FOLD_WARPS = 8            # warps of the kernels' fold (csrc/gn_solve.cuh)
 
 _SINC_SERIES_THETA_SQ = 0.0625           # geom/se3.py threshold (θ < 0.25)
 
@@ -152,13 +156,23 @@ def _epilogue_math(sums, T, damping, damping_abs, max_trans, max_rot):
     return T_new, H, delta_sq, wsq, ninl, wsum
 
 
-def gn_epilogue_reference(partials, carry, num_valid_src, damping: float,
-                          damping_abs: float, max_trans: float,
-                          max_rot: float, is_last: bool, inner: int,
-                          max_iters: int, tol_sq: float):
-    """Plain twin of the epilogue kernel.  Returns (carry_out, step)."""
-    counter.plain_calls += 1
-    sums = partials.sum(dim=0).reshape(ROW, 1)
+def fold_rows(partials: torch.Tensor) -> torch.Tensor:
+    """(32,) column sums of a partials table in the kernels' grouping
+    (csrc/gn_solve.cuh `fold_rows`): warp w adds rows [w·R/8, (w+1)·R/8),
+    then the eight warp sums are added in warp order."""
+    rows = partials.shape[0]
+    total = torch.zeros(ROW, dtype=partials.dtype, device=partials.device)
+    for w in range(FOLD_WARPS):
+        r0, r1 = w * rows // FOLD_WARPS, (w + 1) * rows // FOLD_WARPS
+        total = total + partials[r0:r1].sum(dim=0)
+    return total
+
+
+def epilogue_plain(partials, carry, num_valid_src, damping: float,
+                   damping_abs: float, max_trans: float, max_rot: float,
+                   is_last: bool, inner: int, max_iters: int, tol_sq: float):
+    """`gn_epilogue_reference` without counting a call (for other twins)."""
+    sums = fold_rows(partials).reshape(ROW, 1)
     T = carry[T_SLICE].reshape(4, 4)
     T_new, H, delta_sq, wsq, ninl, wsum = _epilogue_math(
         sums, T, damping, damping_abs, max_trans, max_rot)
@@ -181,6 +195,17 @@ def gn_epilogue_reference(partials, carry, num_valid_src, damping: float,
         new[DONE] = (~keep_going).to(carry.dtype)
     carry_out = torch.where(carry[DONE] != 0, carry, new)
     return carry_out, step
+
+
+def gn_epilogue_reference(partials, carry, num_valid_src, damping: float,
+                          damping_abs: float, max_trans: float,
+                          max_rot: float, is_last: bool, inner: int,
+                          max_iters: int, tol_sq: float):
+    """Plain twin of the epilogue kernel.  Returns (carry_out, step)."""
+    counter.plain_calls += 1
+    return epilogue_plain(partials, carry, num_valid_src, damping,
+                          damping_abs, max_trans, max_rot, is_last, inner,
+                          max_iters, tol_sq)
 
 
 def gn_epilogue(partials: torch.Tensor, carry: torch.Tensor,

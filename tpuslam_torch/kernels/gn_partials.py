@@ -9,6 +9,11 @@ twin `gn_reduce_partials_reference`.  The two assign points to blocks
 differently, so they agree after the fold to the order of summation
 (rel 1e-4), not bit for bit.  `fold_partials` gives (H, b, stats) like the
 reference's `gn_reduce_pallas`.
+
+The ICP loop on one card reduces through `kernels/gn_step.py`, which
+merges this reduction with the epilogue; this wrapper serves the ring ICP
+(`dist/ring_map.py`), which all-reduces the partials across ranks before
+the solve.
 """
 
 from __future__ import annotations
@@ -52,17 +57,22 @@ def point_terms(x, q, n, w_valid, huber_delta: float) -> torch.Tensor:
     return torch.stack(vals, dim=-1)
 
 
+def partial_rows(x, q, n, w_valid, huber_delta: float,
+                 rows: int) -> torch.Tensor:
+    """(rows, 32) partial sums: contiguous chunks of points per row."""
+    n_pts = x.shape[0]
+    terms = point_terms(x, q, n, w_valid, huber_delta)
+    chunk = max(1, -(-n_pts // rows))
+    terms = torch.nn.functional.pad(terms, (0, ROW - NUM_SUMS,
+                                            0, rows * chunk - n_pts))
+    return terms.reshape(rows, chunk, ROW).sum(dim=1)
+
+
 def gn_reduce_partials_reference(x, q, n, w_valid,
                                  huber_delta: float) -> torch.Tensor:
     """Plain twin: contiguous chunks of points per block row."""
     counter.plain_calls += 1
-    n_pts = x.shape[0]
-    nb = num_blocks(n_pts)
-    terms = point_terms(x, q, n, w_valid, huber_delta)
-    chunk = max(1, -(-n_pts // nb))
-    terms = torch.nn.functional.pad(terms, (0, ROW - NUM_SUMS,
-                                            0, nb * chunk - n_pts))
-    return terms.reshape(nb, chunk, ROW).sum(dim=1)
+    return partial_rows(x, q, n, w_valid, huber_delta, num_blocks(x.shape[0]))
 
 
 def gn_reduce_partials(x: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
