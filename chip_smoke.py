@@ -9,14 +9,22 @@ Phases, in order (any failure raises and the script exits non-zero):
                 stack frames and spills
   3. kernels  — each kernel against its plain PyTorch twin at the main
                 paths' shapes (all three levels of a 640×480 frame pair;
-                gn_step from the untransformed source; gn_fused with
-                T_gate ≠ T_res; ring_nn at 16,384 queries × 131,072 map
-                rows, about half of them invalid, and four hops over four
-                shards against one hop over the whole map), with each one's
-                time beside its twin's and its bound; at level 0 gn_step
-                against the unmerged pair (gn_partials + gn_epilogue, with
-                and without the transform) in turns, by CUDA events and
-                under torch.profiler, on grids of 132 and 264 blocks
+                correspond and gn_step from the untransformed source and
+                the carry's pose, correspond bit-equal, also through its
+                unposed call, and writing nothing after DONE; gn_fused with
+                T_gate ≠ T_res; ring_nn at 16,384 frame points × 131,072
+                map rows, about half of them invalid: the ring ICP's hop
+                with the pose, the first hop's start and the last hop's
+                gates bit-equal to its twin in score, row, x, q, n and w,
+                four hops over four shards against one hop, DONE, a NaN
+                point, an all-invalid shard, the tickets back at zero, and
+                the bare hop), with each one's time beside its twin's and
+                its bound and its device µs of one full launch at level 0
+                (ring_nn: one full hop) under torch.profiler; at level 0
+                gn_step against the unmerged pair (gn_partials +
+                gn_epilogue, with and without the transform) in turns, by
+                CUDA events and under torch.profiler, on grids of 132 and
+                264 blocks
   4. uint16   — raw uint16 depth divided on the device is bit-equal to
                 host-divided float32 depth
   5. small    — a 12-frame 120×160 scan on the GPU against the same scan
@@ -37,9 +45,12 @@ Phases, in order (any failure raises and the script exits non-zero):
                 backend sync and deferred, fused_gn False and True; ATE
                 < 1 mm, ≥ 1 closure, every kernel launched, no twin called
  10. profile  — device time by kernel over a few odometry frames (device
-                µs a launch of each kernel of the path); one
-                SLAM chunk's stages on the host clock, the promotion
-                pack's cost, and the next chunk under torch.profiler
+                µs a launch of each kernel of the path, averaged over all
+                its launches, those after DONE included; fewer GEMMs than
+                associations: the association's transform is in its
+                kernel); one SLAM chunk's stages on the host clock, the
+                promotion pack's cost, and the next chunk under
+                torch.profiler
  11. small map — SlamSystem(track_against_map=True) on a 16-frame 120×160
                 loop, unsharded and sharded (one rank, no process group),
                 on the GPU against the CPU twins: same keyframes, map size
@@ -49,7 +60,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                 group; ATE < 0.02 m, refinement ok share > 0.5, no point
                 dropped, every kernel of the path launched (ring_nn on the
                 sharded map), no twin called; then a few frames' stages on
-                the host clock and under torch.profiler
+                the host clock and under torch.profiler (unsharded: fewer
+                GEMMs than associations; sharded: fewer extra fills than
+                ring hops, which allocate and fill nothing)
 Then one JSON line with the kernels, and last a JSON line with the device.
 No JAX is imported.
 """
@@ -85,6 +98,7 @@ FP32_FLOPS_PER_S = 67e12
 # float32 operations a point (a score cell for ring_nn), counted from the
 # kernels' arithmetic
 OPS_CORRESPOND = 30       # projection, rounding, bounds, ‖x−q‖², n·n_src
+OPS_ROTATE = 15           # n_rot = R n: 9 products and 6 sums
 OPS_GN_PARTIALS = 86      # residual, Huber, Jacobian, 27 products, 30 sums
 OPS_GN_FUSED = 160        # gate and residual transforms, gates, the above
 OPS_EPILOGUE_SOLVE = 300  # 6×7 elimination, trust region, SE(3) exp
@@ -167,6 +181,12 @@ KERNEL_SYMBOLS = {"correspond": "correspond_kernel",
                   "ring_nn": "ring_nn_kernel"}
 
 
+def count_ops(rows, word: str) -> int:
+    """Launches of the device operations whose name holds `word` (any
+    case) in `device_rows`' rows."""
+    return sum(cnt for _, cnt, key in rows if word.lower() in key.lower())
+
+
 def per_launch_us(rows, name: str):
     """(device µs a launch, launches) of one kernel in `device_rows`'
     rows, or None when the profile did not see it."""
@@ -175,6 +195,26 @@ def per_launch_us(rows, name: str):
         return None
     cnt = sum(h[1] for h in hits)
     return sum(h[0] for h in hits) / cnt, cnt
+
+
+def full_launch_us(fn, name: str):
+    """Device µs of one launch of `name` by fn() (20 launches under
+    torch.profiler), or None when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    hit = per_launch_us(device_rows(prof), name)
+    return hit[0] if hit else None
+
+
+def fmt_us(v) -> str:
+    return "not measured" if v is None else f"{v:.3f}"
 
 
 def gn_step_ab(card: str, src, x, T, corr, carry, nvs, icp) -> dict:
@@ -256,14 +296,25 @@ def fenced_spans(spans: dict, owner, names) -> None:
         setattr(owner, name, run)
 
 
+def same_bits(a, b) -> bool:
+    """Equal, with NaN where the other has NaN (the NaN query's x)."""
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
 def ring_nn_phase(dev, card: str) -> dict:
-    """ring_nn against its twin at the map path's shapes: VoxelConfig
-    .capacity queries against a map_capacity-row shard of which about half
-    the rows are invalid (a map filling up), one query NaN."""
-    from tpuslam_torch.config import VoxelConfig
-    from tpuslam_torch.kernels import ring_nn
+    """ring_nn against its twins at the map path's shapes: VoxelConfig
+    .capacity frame points against a map_capacity-row shard of which about
+    half the rows are invalid (a map filling up), one point NaN.  The ring
+    ICP's hop (`ring_correspond_hop`: the pose, the first hop's start, the
+    last hop's gates) as one hop and as four, DONE, an all-invalid shard,
+    and the bare hop (`ring_nn_hop`)."""
+    from tpuslam_torch.config import ICPConfig, VoxelConfig
+    from tpuslam_torch.geom import se3
+    from tpuslam_torch.kernels import gn_epilogue, ring_nn
 
     n, m = VoxelConfig().capacity, VoxelConfig().map_capacity
+    radius = ICPConfig().max_corr_dist
     rng = np.random.default_rng(0)
     q = rng.uniform(-2.0, 2.0, (m, 3)).astype(np.float32)
     nrm = rng.normal(size=(m, 3)).astype(np.float32)
@@ -273,53 +324,99 @@ def ring_nn_phase(dev, card: str) -> dict:
          + rng.normal(scale=0.02, size=(n, 3))).astype(np.float32)
     x[7] = np.nan
     x = torch.as_tensor(x, device=dev)
+    mask = torch.as_tensor(rng.uniform(size=n) > 0.05, device=dev)
     shard = ring_nn.pack_cloud_rows(torch.as_tensor(q, device=dev),
                                     torch.as_tensor(nrm, device=dev),
                                     torch.as_tensor(valid, device=dev))
-    bk = ring_nn.init_best(n, dev)
-    ring_nn.ring_nn_hop(x, shard, *bk)
-    bt = ring_nn.init_best(n, dev)
-    ring_nn.ring_nn_hop_reference(x, shard, *bt)
+    T = se3.exp(torch.tensor([0.004, -0.003, 0.002, 0.01, -0.01, 0.005],
+                             device=dev))
+    carry = gn_epilogue.init_carry(T, 12)
+
+    def ring(parts, state, twin=False):
+        for s, part in enumerate(parts):
+            flags = (s == 0, s == len(parts) - 1, radius)
+            if twin:
+                ring_nn.ring_correspond_hop_reference(x, mask, part, state,
+                                                      T, *flags)
+            else:
+                ring_nn.ring_correspond_hop(x, mask, part, state, carry,
+                                            *flags)
+        return state
+
+    sk = ring((shard,), ring_nn.ring_state(n, dev))
+    st = ring((shard,), ring_nn.ring_state(n, dev), twin=True)
     torch.cuda.synchronize()
-    fin = torch.isfinite(bt[0])
-    err = float((bk[0][fin] - bt[0][fin]).abs().max())
-    check(torch.equal(bk[0], bt[0]) and torch.equal(bk[1], bt[1]),
-          f"ring_nn: kernel not bit-equal to its twin (score err {err})")
-    check(float(bk[0][7]) == float("inf") and not bool(bk[1][7].any()),
-          "ring_nn: a NaN query must keep +inf and a zero row")
-    check(bool((bk[1][fin, 6] == 1.0).all()), "ring_nn: an invalid row won")
+    fin = torch.isfinite(st.score)
+    err = float((sk.score[fin] - st.score[fin]).abs().max())
+    check(all(same_bits(a, b) for a, b in zip(sk, st)),
+          f"ring_nn: hop not bit-equal to its twin (score err {err})")
+    check(float(sk.score[7]) == float("inf") and not bool(sk.row[7].any())
+          and float(sk.w[7]) == 0.0, "ring_nn: a NaN query must keep +inf, "
+          "a zero row and no match")
+    check(bool((sk.row[fin, 6] == 1.0).all()), "ring_nn: an invalid row won")
+    check(0.3 < float(sk.w.mean()) < 1.0, f"ring_nn: w mean {sk.w.mean()}")
+    tickets, _ = ring_nn._scratch(dev, 1, 1)
+    check(not bool(tickets.any()), "ring_nn: tickets left non-zero")
     # the ring's merge rule: four hops over four shards = one over the map
-    h4 = ring_nn.init_best(n, dev)
-    for s in range(4):
-        ring_nn.ring_nn_hop(x, shard[s * m // 4:(s + 1) * m // 4], *h4)
+    h4 = ring(tuple(shard[s * m // 4:(s + 1) * m // 4] for s in range(4)),
+              ring_nn.ring_state(n, dev))
     torch.cuda.synchronize()
-    check(torch.equal(h4[0], bk[0]) and torch.equal(h4[1], bk[1]),
+    check(all(same_bits(a, b) for a, b in zip(h4, sk)),
           "ring_nn: four hops over four shards differ from one hop")
-    # DONE set: the running best is left as it was
-    hd = ring_nn.init_best(n, dev)
-    ring_nn.ring_nn_hop(x, shard, *hd, done=torch.ones(1, device=dev))
-    check(bool(torch.isinf(hd[0]).all()) and not bool(hd[1].any()),
+    # DONE set: nothing is written
+    hd = ring_nn.ring_state(n, dev)
+    for t_ in hd:
+        t_.fill_(3.0)
+    for s in range(2):
+        ring_nn.ring_correspond_hop(x, mask, shard, hd,
+                                    gn_epilogue.init_carry(T, 0), s == 0,
+                                    s == 1, radius)
+    torch.cuda.synchronize()
+    check(all(bool((t_ == 3.0).all()) for t_ in hd),
           "ring_nn: DONE did not stop the hop")
-    # an all-invalid shard: scores near 1e30, rows with valid = 0
+    # an all-invalid shard: scores near 1e30, rows with valid = 0, no match
     dead = shard.clone()
     dead[:, 6] = 0.0
-    hz = ring_nn.init_best(n, dev)
-    ring_nn.ring_nn_hop(x, dead, *hz)
+    hz = ring((dead,), ring_nn.ring_state(n, dev))
+    hzt = ring((dead,), ring_nn.ring_state(n, dev), twin=True)
     torch.cuda.synchronize()
-    check(bool((hz[0][fin] > 9e29).all()) and not bool(hz[1][:, 6].any()),
+    check(all(same_bits(a, b) for a, b in zip(hz, hzt))
+          and bool((hz.score[fin] > 9e29).all())
+          and not bool(hz.row[:, 6].any()) and not bool(hz.w.any()),
           "ring_nn: all-invalid shard")
-    ms = time_ms(lambda: ring_nn.ring_nn_hop(x, shard, *bk))
-    plain_ms = time_ms(lambda: ring_nn.ring_nn_hop_reference(x, shard, *bt),
-                       reps=3)
+    # the bare hop on queries already in the map's frame
+    xb = se3.transform_points_ordered(T, x)
+    bk, bt = ring_nn.init_best(n, dev), ring_nn.init_best(n, dev)
+    ring_nn.ring_nn_hop(xb, shard, *bk)
+    ring_nn.ring_nn_hop_reference(xb, shard, *bt)
+    torch.cuda.synchronize()
+    check(torch.equal(bk[0], bt[0]) and torch.equal(bk[1], bt[1])
+          and torch.equal(bk[0], sk.score) and torch.equal(bk[1], sk.row),
+          "ring_nn: the bare hop differs from its twin or the posed hop")
+
+    state = ring_nn.ring_state(n, dev)
+
+    def hop():
+        ring_nn.ring_correspond_hop(x, mask, shard, state, carry, True, True,
+                                    radius)
+    ms = time_ms(hop)
+    plain_ms = time_ms(lambda: ring((shard,), st, twin=True), reps=3)
+    bare_ms = time_ms(lambda: ring_nn.ring_nn_hop(xb, shard, *bk))
+    full_us = full_launch_us(hop, "ring_nn")
     # the rows a query needs are the valid ones: an invalid row never wins
     # over a valid one
-    b = bound(nbytes(x, shard) + 2 * nbytes(*bk),
-              OPS_RING_NN_CELL * n * int(valid.sum()))
+    b = bound(nbytes(x, mask, shard) + nbytes(*state) + 12 * 4,
+              OPS_RING_NN_CELL * n * int(valid.sum()) + OPS_TRANSFORM * n)
     log(f"[kernels] ring_nn {n} queries × {m} rows ({int(valid.sum())} "
-        f"valid): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
-        f"{b['bound_ms']:.5f} ms by {b['bound_by']}, bit-equal; 4 hops = 1 "
-        f"hop, DONE, NaN query and all-invalid shard hold ({card})")
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b}
+        f"valid), the ring ICP's hop (pose, first and last): kernel "
+        f"{ms:.5f} ms, device {fmt_us(full_us)} us a full hop, plain "
+        f"{plain_ms:.5f} ms, bound {b['bound_ms']:.5f} ms by "
+        f"{b['bound_by']} ({b['bound_ms'] / ms:.3f} of it), bit-equal in "
+        f"score, row, x, q, n, w ({int(sk.w.sum())} matches); the bare hop "
+        f"{bare_ms:.5f} ms, bit-equal; 4 hops = 1 hop, DONE, NaN query, "
+        f"all-invalid shard and zero tickets hold ({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "device_us_full_launch": full_us, **b}
 
 
 def map_config():
@@ -456,6 +553,7 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
         K, _, d_np = loop
         d = torch.as_tensor(d_np, device=dev)
         ts = np.arange(d.shape[0]) / 30.0
+        fills = {}
         for sharded in (False, True):
             slam = SlamSystem(K, slam_bench_config(480, 640, False),
                               enable_loop_closure=True,
@@ -498,6 +596,26 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
                 f"{1 - busy / wall_us if busy else float('nan'):.4f} ({card})")
             for dt, cnt, key in rows[:10]:
                 log(f"[map profile]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
+            # unsharded, the association's transform is inside its kernel:
+            # fewer GEMMs than associations (each used to bring two); the
+            # ring's hops allocate and fill nothing (each outer iteration
+            # used to fill three buffers): the sharded frames' fills exceed
+            # the unsharded ones' by fewer than one a hop
+            fills[sharded] = count_ops(rows, "fill")
+            gemms = count_ops(rows, "gemm")
+            hit = per_launch_us(rows, "ring_nn" if sharded else "correspond")
+            launched = hit[1] if hit else 0
+            log(f"[map profile] sharded={sharded}: {fills[sharded]} fills, "
+                f"{gemms} GEMMs, {launched} "
+                f"{'ring hops' if sharded else 'associations'}"
+                + (f", ring_nn {hit[0]:.3f} us a hop on average" if sharded
+                   and hit else "") + f" ({card})")
+            check(launched > 0, f"map profile sharded={sharded}: no launch")
+            check(sharded or gemms < launched,
+                  f"map profile: {gemms} GEMMs against {launched} "
+                  f"associations")
+            check(not sharded or fills[True] - fills[False] < launched,
+                  f"map profile: {fills} fills against {launched} hops")
         return total
     finally:
         dist.destroy_process_group()
@@ -577,11 +695,13 @@ def main() -> int:
         src = select_level_source(pyr_b, li, icp)
         h, w, _ = pyr_b[li].points.shape
         x = se3.transform_points(T, src.points)
-        n_rot = se3.rotate_vectors(T, src.normals)
-        args = (x, src.mask, packed[li], h, w, K_l, icp.max_corr_dist, n_rot,
+        # the ICP loop's association: the untransformed source and the
+        # carry's pose, the transform in the kernel
+        pts, nrm = src.points.contiguous(), src.normals.contiguous()
+        args = (pts, src.mask, nrm, packed[li], h, w, K_l, icp.max_corr_dist,
                 icp.normal_dot_min)
-        ck = correspond.projective_correspond_packed(*args, done=carry)
-        cr = correspond.projective_correspond_packed_reference(*args)
+        ck = correspond.projective_correspond_at_pose(*args, carry)
+        cr = correspond.projective_correspond_at_pose_reference(*args, T)
         torch.cuda.synchronize()
         check(torch.equal(ck.q, cr.q) and torch.equal(ck.n, cr.n),
               f"correspond level {li}: q/n not bit-equal")
@@ -591,6 +711,23 @@ def main() -> int:
         c_err = max(float((ck.q - cr.q).abs().max()),
                     float((ck.n - cr.n).abs().max()),
                     float((ck.w - cr.w).abs().max()))
+        # the reference-shaped call on points already moved (in the same
+        # order) gives the same association
+        cu = correspond.projective_correspond_packed(
+            se3.transform_points_ordered(T, pts), src.mask, packed[li], h, w,
+            K_l, icp.max_corr_dist, se3.rotate_vectors_ordered(T, nrm),
+            icp.normal_dot_min, done=carry)
+        # after DONE the kernel writes nothing into the given buffers
+        out = correspond.correspondence_buffers(pts.shape[0], dev)
+        for t_ in out:
+            t_.fill_(7)
+        correspond.projective_correspond_at_pose(
+            *args, gn_epilogue.init_carry(T, 0), out=out)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(cu, ck)),
+              f"correspond level {li}: the unposed call differs")
+        check(all(bool((t_ == 7).all()) for t_ in out),
+              f"correspond level {li}: wrote after DONE")
 
         pk = gn_partials.gn_reduce_partials(x, ck.q, ck.n, ck.w,
                                             icp.huber_delta, done=carry)
@@ -627,7 +764,6 @@ def main() -> int:
 
         # gn_step: the same solve from the untransformed source, the pose
         # taken from the carry, which it updates in place
-        pts = src.points.contiguous()
         sargs = (nvs, icp.huber_delta, icp.damping, icp.damping_abs,
                  icp.max_trans_step, icp.max_rot_step, True, icp.inner_steps,
                  12, icp.tol_delta ** 2)
@@ -654,25 +790,32 @@ def main() -> int:
         step_carry = carry.clone()
         step_mid = sargs[:6] + (False,) + sargs[7:]
 
+        # each kernel as the main path launches it, and its twin (is_last
+        # False for gn_step: DONE is never set, every launch does the work)
+        launch = {
+            "correspond": lambda: correspond.projective_correspond_at_pose(
+                *args, carry, out=out),
+            "gn_partials": lambda: gn_partials.gn_reduce_partials(
+                x, ck.q, ck.n, ck.w, icp.huber_delta, done=carry),
+            "gn_epilogue": lambda: gn_epilogue.gn_epilogue(*eargs),
+            "gn_step": lambda: gn_step.gn_step(pts, ck.q, ck.n, ck.w,
+                                               step_carry, *step_mid),
+        }
         times = {
             "correspond": (
-                time_ms(lambda: correspond.projective_correspond_packed(
-                    *args, done=carry)),
-                time_ms(lambda: correspond.projective_correspond_packed_reference(
-                    *args))),
+                time_ms(launch["correspond"]),
+                time_ms(lambda: correspond.projective_correspond_at_pose_reference(
+                    *args, T))),
             "gn_partials": (
-                time_ms(lambda: gn_partials.gn_reduce_partials(
-                    x, ck.q, ck.n, ck.w, icp.huber_delta, done=carry)),
+                time_ms(launch["gn_partials"]),
                 time_ms(lambda: gn_partials.gn_reduce_partials_reference(
                     x, ck.q, ck.n, ck.w, icp.huber_delta))),
             "gn_epilogue": (
-                time_ms(lambda: gn_epilogue.gn_epilogue(*eargs)),
+                time_ms(launch["gn_epilogue"]),
                 time_ms(lambda: gn_epilogue.gn_epilogue_reference(*eargs),
                         reps=20)),
-            # is_last False: DONE is never set, every launch does the work
             "gn_step": (
-                time_ms(lambda: gn_step.gn_step(pts, ck.q, ck.n, ck.w,
-                                                step_carry, *step_mid)),
+                time_ms(launch["gn_step"]),
                 time_ms(lambda: gn_step.gn_step_reference(
                     pts, ck.q, ck.n, ck.w, carry, *sargs), reps=20)),
         }
@@ -705,18 +848,24 @@ def main() -> int:
         check(float(gfk[2]) == float(gfr[2]) > 0,
               f"gn_fused level {li}: Σvalid {float(gfk[2])} vs "
               f"{float(gfr[2])}")
+        launch["gn_fused"] = lambda: gn_fused.gn_fused_partials(*fargs,
+                                                               done=carry)
         times["gn_fused"] = (
-            time_ms(lambda: gn_fused.gn_fused_partials(*fargs, done=carry)),
+            time_ms(launch["gn_fused"]),
             time_ms(lambda: gn_fused.gn_fused_partials_reference(*fargs)))
+        # device time of one full launch (the profile's averages over a
+        # frame, phase 10, include the launches after DONE, which return
+        # at once)
+        full_us = {k: full_launch_us(fn, k) for k, fn in launch.items()}
         errs = {"correspond": c_err, "gn_partials": p_err,
                 "gn_epilogue": t_err, "gn_step": s_err, "gn_fused": g_err}
         # a table row is read once for each distinct pixel gathered
         row_bytes = packed[li].element_size() * packed[li].shape[1]
         bounds = {
             "correspond": bound(
-                nbytes(x, src.mask, n_rot, ck.q, ck.n, ck.w, ck.idx)
-                + row_bytes * torch.unique(ck.idx).numel(),
-                OPS_CORRESPOND * x.shape[0]),
+                nbytes(pts, src.mask, nrm, ck.q, ck.n, ck.w, ck.idx)
+                + 12 * 4 + row_bytes * torch.unique(ck.idx).numel(),
+                (OPS_TRANSFORM + OPS_ROTATE + OPS_CORRESPOND) * x.shape[0]),
             "gn_partials": bound(nbytes(x, ck.q, ck.n, ck.w, pk),
                                  OPS_GN_PARTIALS * x.shape[0]),
             "gn_epilogue": bound(
@@ -734,9 +883,11 @@ def main() -> int:
         for name, (ms, plain_ms) in times.items():
             stats[name][li] = {"ms": ms, "plain_ms": plain_ms,
                                "max_abs_err": errs[name], "n": x.shape[0],
+                               "device_us_full_launch": full_us[name],
                                **bounds[name]}
             log(f"[kernels] {name} level {li} N={x.shape[0]}: kernel "
-                f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+                f"{ms:.5f} ms, device {fmt_us(full_us[name])} us a full "
+                f"launch, plain {plain_ms:.5f} ms, bound "
                 f"{bounds[name]['bound_ms']:.5f} ms by "
                 f"{bounds[name]['bound_by']}, max_abs_err "
                 f"{errs[name]:.3e} ({card})")
@@ -949,6 +1100,14 @@ def main() -> int:
                 log("[profile] device us a launch, odometry: " + ", ".join(
                     f"{k} {v[0]:.3f} ({v[1]}x)" for k, v in odo_us.items()
                     if v is not None))
+                # the association transforms inside its kernel: fewer GEMMs
+                # than associations (each used to bring two)
+                gemms = count_ops(rows, "gemm")
+                assoc = odo_us["correspond"][1] if odo_us["correspond"] else 0
+                log(f"[profile] odometry: {gemms} GEMM launches, {assoc} "
+                    f"associations")
+                check(assoc > 0 and gemms < assoc,
+                      f"profile: {gemms} GEMMs against {assoc} associations")
         else:
             log("[profile] device time: not measured (profiler saw no "
                 "kernels)")
@@ -1048,10 +1207,12 @@ def main() -> int:
         "ring_nn": ("tpuslam_torch/csrc/ring_nn.cu",
                     "tpuslam/kernels/pallas_ring.py:100"),
     }
-    # timings at level 0 (ring_nn: its own phase); launches on the map path
-    # (phase 12), or for gn_fused, which that path does not run, on the
-    # SLAM path with fused_gn (phase 9); beside them launches a frame on
-    # the odometry orbit (phase 6) and device µs a launch there (phase 10).
+    # timings at level 0 (ring_nn: its own phase, one full hop); launches
+    # on the map path (phase 12), or for gn_fused, which that path does not
+    # run, on the SLAM path with fused_gn (phase 9); beside them launches a
+    # frame on the odometry orbit (phase 6), device µs a launch there
+    # averaged over all launches (phase 10) and device µs of one full
+    # launch at level 0 (phase 3).
     # No single PyTorch call computes any of these functions, so
     # library_ms is null.
     summary = {k: dict(stats[k][0], max_abs_err=max(
@@ -1072,6 +1233,7 @@ def main() -> int:
             "odometry_launches_per_frame": per_frame_odo[name],
             "odometry_device_us_per_launch": (
                 odo_us[name][0] if odo_us.get(name) else None),
+            "device_us_full_launch": s["device_us_full_launch"],
         })
     log(json.dumps({"gn_step_ab": step_ab}))
     log(json.dumps({"kernels": kernels}))

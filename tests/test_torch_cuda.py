@@ -500,3 +500,137 @@ def test_map_tracking_gpu_matches_cpu_twins(dev, sharded):
     assert ring_nn.counter.plain_calls == 0
     assert kg == kc and og == oc and np.mean(oc) > 0.5
     assert float(np.abs(eg - ec).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_correspond_at_pose_bit_equal_to_twin(dev, level):
+    """The posed association from the untransformed 640×480 source and the
+    carry's pose: q, n, flat and w bit-equal to the twin (the transform in
+    the kernel's order), at every level; nothing written after DONE."""
+    Kv, dv = vga_pair()
+    d = torch.as_tensor(dv, device=dev)
+    pyr_a, pyr_b = preprocess(d[0], Kv, VGA), preprocess(d[1], Kv, VGA)
+    packed = pack_pyramid(pyr_a, VGA.icp)[level]
+    src = select_level_source(pyr_b, level, VGA.icp)
+    h, w, _ = pyr_b[level].points.shape
+    T = se3.exp(torch.tensor([0.01, -0.005, 0.008, 0.004, -0.006, 0.003],
+                             device=dev))
+    carry = gn_epilogue.init_carry(T, 12)
+    pts, nrm = src.points.contiguous(), src.normals.contiguous()
+    args = (pts, src.mask, nrm, packed, h, w, Kv.scaled(1.0 / 2 ** level),
+            VGA.icp.max_corr_dist, VGA.icp.normal_dot_min)
+    k = correspond.projective_correspond_at_pose(*args, carry)
+    r = correspond.projective_correspond_at_pose_reference(*args, T)
+    torch.cuda.synchronize()
+    for a, b in zip(k, r):
+        assert torch.equal(a, b)
+    assert 0.3 < float(k.w.mean()) <= 1.0
+    # into given buffers, and after DONE nothing is written
+    out = correspond.correspondence_buffers(pts.shape[0], dev)
+    for t in out:
+        t.fill_(7)
+    before = [t.clone() for t in out]
+    res = correspond.projective_correspond_at_pose(
+        *args, gn_epilogue.init_carry(T, 0), out=out)
+    torch.cuda.synchronize()
+    assert res is out
+    assert all(torch.equal(a, b) for a, b in zip(out, before))
+    correspond.projective_correspond_at_pose(*args, carry, out=out)
+    assert all(torch.equal(a, b) for a, b in zip(out, k))
+
+
+def ring_problem(n, m, case, seed=0):
+    """Frame points, their mask and a packed shard: half the rows valid (or
+    none), a NaN query, rounded coordinates for exact ties."""
+    rng = np.random.default_rng(seed + n + m)
+    q = rng.uniform(-1.0, 1.0, (m, 3)).astype(np.float32)
+    if case == "ties":
+        q = np.round(q * 4.0) / 4.0
+    nrm = rng.normal(size=(m, 3))
+    nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(np.float32)
+    nrm[::7] = 0.0                           # rows without a normal
+    valid = rng.uniform(size=m) > (1.0 if case == "all_invalid" else 0.5)
+    p = q[rng.integers(0, m, n)] + rng.normal(scale=0.02, size=(n, 3))
+    p = p.astype(np.float32)
+    if case == "ties":
+        p = np.round(p * 4.0) / 4.0
+    p[n // 2] = np.nan
+    mask = rng.uniform(size=n) > 0.1
+    shard = ring_nn.pack_cloud_rows(torch.as_tensor(q), torch.as_tensor(nrm),
+                                    torch.as_tensor(valid))
+    return torch.as_tensor(p), torch.as_tensor(mask), shard
+
+
+def same_bits(a, b) -> bool:
+    """Equal values, NaN where the other has NaN (the NaN query's x)."""
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def ring_pose(device):
+    return se3.exp(torch.tensor([0.01, -0.02, 0.015, 0.03, -0.01, 0.02],
+                                device=device))
+
+
+def run_ring(points, mask, parts, state, carry, max_dist=0.05,
+             twin=False):
+    """One ring correspondence over `parts` (hop s holds parts[s])."""
+    for s, p in enumerate(parts):
+        flags = (s == 0, s == len(parts) - 1, max_dist)
+        if twin:
+            ring_nn.ring_correspond_hop_reference(
+                points, mask, p, state, carry[gn_epilogue.T_SLICE].reshape(
+                    4, 4), *flags)
+        else:
+            ring_nn.ring_correspond_hop(points, mask, p, state, carry,
+                                        *flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1, 1), (300, 1000), (1025, 2049),
+                                 (4096, 20_000)])
+@pytest.mark.parametrize("case", ["half_valid", "all_invalid", "ties"])
+def test_ring_correspond_hop_bit_equal_to_twin(dev, n, m, case):
+    """The ring ICP's hop at the carry's pose on ragged shapes, as one hop
+    and as a ring of four: score, row, x, q, n and w bit-equal to the twin;
+    four hops over four shards equal one; the tickets are back at zero."""
+    p, mask, shard = ring_problem(n, m, case)
+    carry = gn_epilogue.init_carry(ring_pose(dev), 12)
+    pg, mg, sg = p.to(dev), mask.to(dev), shard.to(dev)
+    quarter = -(-m // 4)
+    results = []
+    for parts in ((sg,), tuple(sg[i:i + quarter].contiguous()
+                               for i in range(0, m, quarter))):
+        sk = ring_nn.ring_state(n, dev)
+        st = ring_nn.ring_state(n, dev)
+        run_ring(pg, mg, parts, sk, carry)
+        run_ring(pg, mg, parts, st, carry, twin=True)
+        torch.cuda.synchronize()
+        for a, b in zip(sk, st):
+            assert same_bits(a, b)
+        results.append(sk)
+    for a, b in zip(*results):
+        assert same_bits(a, b)
+    one = results[0]
+    assert float(one.score[n // 2]) == float("inf")
+    assert not bool(one.row[n // 2].any()) and float(one.w[n // 2]) == 0.0
+    if case == "all_invalid":
+        assert not bool(one.w.any()) and not bool(one.row[:, 6].any())
+    tickets, _ = ring_nn._scratch(dev, 1, 1)
+    assert not bool(tickets.any())
+
+
+@pytest.mark.cuda
+def test_ring_correspond_hop_done_writes_nothing(dev):
+    p, mask, shard = ring_problem(2000, 5000, "half_valid")
+    carry = gn_epilogue.init_carry(ring_pose(dev), 0)        # DONE
+    state = ring_nn.ring_state(2000, dev)
+    for t in state:
+        t.fill_(3.0)
+    before = [t.clone() for t in state]
+    run_ring(p.to(dev), mask.to(dev), (shard.to(dev),), state, carry)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(state, before))
+    tickets, _ = ring_nn._scratch(dev, 1, 1)
+    assert not bool(tickets.any())

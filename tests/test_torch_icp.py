@@ -128,3 +128,29 @@ def test_pack_and_select_source_shapes(pair):
         pyr, packed, pc.Intrinsics(*K), torch.eye(4),
         dataclasses.replace(cfg, fused_gn=f)) for f in (True, False))
     np.testing.assert_allclose(fused.T.numpy(), plain.T.numpy(), atol=5e-5)
+
+
+def test_outer_iteration_is_one_association_and_the_steps(pair, monkeypatch):
+    """`_icp_loop` runs each outer iteration as one posed association (the
+    transform inside it) and `inner` GN steps: no se3 product is called,
+    and the CPU twins count one association and two steps an iteration
+    until DONE."""
+    from tpuslam_torch.kernels import correspond, gn_step
+
+    def no_product(*a, **k):
+        raise AssertionError("the ICP loop called an se3 product")
+
+    (_, pa), (_, pb), Tb = pair
+    cfg = pc.ICPConfig(pyramid_levels=3, iters_per_level=(12, 8, 8),
+                       max_corr_dist=0.25, huber_delta=0.05)
+    pyr_a, pyr_b = picp.build_pyramid(pa, 3), picp.build_pyramid(pb, 3)
+    packed = picp.pack_pyramid(pyr_a, cfg)
+    monkeypatch.setattr(picp.se3, "transform_points", no_product)
+    monkeypatch.setattr(picp.se3, "rotate_vectors", no_product)
+    c0, s0 = correspond.counter.plain_calls, gn_step.counter.plain_calls
+    res = picp.align_frames_packed(pyr_b, packed, pc.Intrinsics(*K),
+                                   torch.eye(4), cfg)
+    assoc = correspond.counter.plain_calls - c0
+    assert gn_step.counter.plain_calls - s0 == 2 * assoc
+    assert 3 <= assoc <= 14       # ⌈12/2⌉ + ⌈8/2⌉ + ⌈8/2⌉ at most
+    np.testing.assert_allclose(res.T.numpy(), Tb, atol=4e-3)

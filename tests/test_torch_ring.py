@@ -6,12 +6,21 @@ against the reference.
   mode, inside `shard_map` on a one-device mesh): scores to 1e-6 relative
   (the two expand |x − q|² in other orders, a few float32 ulps), the
   winning row equal except where the two rows' scores are within 1 ulp.
+- The ring ICP's hop twin (`ring_correspond_hop_reference`: the query
+  transform, first-hop start, merge, last-hop gates) against the
+  reference's `_ring_best_correspond_pallas` (interpret mode): q, n and w
+  equal but for near-tie winners and points on the distance gate, which
+  the reference's XLA transform (1 ulp from the twin's ordered one) can
+  move; an all-invalid shard and a NaN query; four hops equal one.
 - `_mix32` / `voxel_owner` bit for bit against numpy uint32 arithmetic and
   the reference.
 - Four gloo ranks, each a process of tests/torch_dist_worker.py that
   imports no JAX, started with a `file://` rendezvous under tmp_path: the
   ring ICP with both backends against the reference's `align_to_map_ring`
-  on a 4-device mesh (poses within 1e-4), and `ShardedVoxelMap` against
+  on a 4-device mesh (poses within 1e-4), at the identity and at an
+  offset warm start; the ring correspondence's hops over the real
+  transport against one hop over the whole map (scores bit for bit) and
+  against the reference's on a 4-device mesh; and `ShardedVoxelMap` against
   the reference's on a 4-device mesh, shard for shard (points 1e-5,
   normals 1e-4: the port sums voxels in float64, the reference in
   float32).
@@ -36,6 +45,7 @@ from tests.test_icp_synthetic import make_clouds
 from tpuslam.config import ICPConfig as RICPConfig
 from tpuslam.config import VoxelConfig as RVoxelConfig
 from tpuslam.dist.mesh import make_mesh as r_make_mesh
+from tpuslam.dist.ring_map import _ring_best_correspond_pallas
 from tpuslam.dist.ring_map import align_to_map_ring as r_align_ring
 from tpuslam.geom import se3 as rse3
 from tpuslam.geom.cloud import PointCloud as RCloud
@@ -44,6 +54,7 @@ from tpuslam_torch.config import VoxelConfig
 from tpuslam_torch.dist import map_fusion, ring_map
 from tpuslam_torch.dist.mesh import make_mesh, pad_to_multiple, shard_cloud
 from tpuslam_torch.geom.cloud import PointCloud
+from tpuslam_torch.kernels import gn_epilogue as ep
 from tpuslam_torch.kernels import ring_nn as pring
 
 # The tests run in several worker processes on one machine: one intra-op
@@ -160,6 +171,132 @@ def test_ring_nn_twin_merge_rules():
     assert torch.all(s_dead[fin] > 9e29) and torch.all(r_dead[:, 6] == 0)
 
 
+# Rows where the twin and the reference may differ: a near-tie winner or a
+# point on the max_dist gate, moved by the transform's last-ulp rounding.
+RING_MISMATCH_SHARE = 0.01
+POSE = [0.01, -0.02, 0.015, 0.03, -0.01, 0.02]
+RADIUS = 0.2
+
+
+def reference_ring_correspond(x, mask, rows, max_dist, n_dev=1):
+    """`_ring_best_correspond_pallas` on an n_dev-device mesh (interpret
+    mode): q, n, w for queries x (already at the pose)."""
+    mesh = r_make_mesh(n_dev)
+    fn = shard_map(
+        lambda xs, ms, cols: _ring_best_correspond_pallas(
+            xs, ms, cols, max_dist, "shard", n_dev, True),
+        mesh=mesh, in_specs=(P("shard", None), P("shard"), P(None, "shard")),
+        out_specs=(P("shard", None), P("shard", None), P("shard")),
+        check_vma=False)
+    q, n, w = jax.jit(fn)(jnp.asarray(x), jnp.asarray(mask),
+                          jnp.asarray(rows.numpy().T))
+    return np.asarray(q), np.asarray(n), np.asarray(w)
+
+
+def twin_ring(points, mask, parts, T, max_dist=RADIUS):
+    state = pring.ring_state(points.shape[0], "cpu")
+    for s, part in enumerate(parts):
+        pring.ring_correspond_hop_reference(
+            torch.as_tensor(points), torch.as_tensor(mask), part, state,
+            torch.as_tensor(T), s == 0, s == len(parts) - 1, max_dist)
+    return state
+
+
+def ring_inputs(rng, n=512, m=2048, invalid=0.5):
+    """Frame points (in the frame's camera) whose pose puts them near the
+    map rows, with no-normal rows, a NaN point and masked points."""
+    x, q, nrm, valid = random_problem(rng, n, m, invalid)
+    nrm[::9] = 0.0
+    T = np.array(rse3.exp(jnp.asarray(POSE)))
+    p = ((x - T[:3, 3]) @ T[:3, :3]).astype(np.float32)   # T⁻¹ x
+    p[7] = np.nan
+    mask = rng.uniform(size=n) > 0.1
+    return p, mask, q, nrm, valid, T
+
+
+@pytest.mark.parametrize("case", ["half_valid", "all_invalid"])
+def test_ring_correspond_twin_matches_reference(case):
+    """First-hop start, merge and last-hop gates of the twin against the
+    reference's whole ring correspondence; a NaN query and an all-invalid
+    shard give no match."""
+    rng = np.random.default_rng(4)
+    p, mask, q, nrm, valid, T = ring_inputs(
+        rng, invalid=1.0 if case == "all_invalid" else 0.5)
+    rows = pring.pack_cloud_rows(torch.as_tensor(q), torch.as_tensor(nrm),
+                                 torch.as_tensor(valid))
+    state = twin_ring(p, mask, (rows,), T)
+    x = np.asarray(rse3.transform_points(jnp.asarray(T), jnp.asarray(p)))
+    r_q, r_n, r_w = reference_ring_correspond(x, mask, rows, RADIUS)
+    w = state.w.numpy()
+    differ = (np.any(state.q.numpy() != r_q, axis=1)
+              | np.any(state.n.numpy() != r_n, axis=1) | (w != r_w))
+    assert differ.mean() <= RING_MISMATCH_SHARE, np.flatnonzero(differ)
+    np.testing.assert_array_equal(w[~differ], r_w[~differ])
+    np.testing.assert_array_equal(state.q.numpy()[~differ], r_q[~differ])
+    np.testing.assert_array_equal(state.n.numpy()[~differ], r_n[~differ])
+    assert w[7] == 0.0 and float(state.score[7]) == float("inf")
+    assert not bool(state.row[7].any())
+    np.testing.assert_array_equal(
+        state.x.numpy(), pring.transform_points_ordered(
+            torch.as_tensor(T), torch.as_tensor(p)).numpy())
+    if case == "all_invalid":
+        assert not w.any() and not bool(state.row[:, 6].any())
+        assert bool((state.score[torch.isfinite(state.x).all(1)]
+                     > 9e29).all())
+    else:
+        assert 0.3 < w.mean() < 0.95
+
+
+def test_ring_correspond_twin_hops_and_done():
+    """Four hops over four shards equal one over the map; the first hop
+    restarts the running best (stale buffers do not leak in); a DONE carry
+    leaves the state as it is; the gates read the last hop's best."""
+    rng = np.random.default_rng(5)
+    p, mask, q, nrm, valid, T = ring_inputs(rng, n=300, m=1024)
+    rows = pring.pack_cloud_rows(torch.as_tensor(q), torch.as_tensor(nrm),
+                                 torch.as_tensor(valid))
+    one = twin_ring(p, mask, (rows,), T)
+    four = twin_ring(p, mask, tuple(rows[i:i + 256] for i in range(0, 1024,
+                                                                   256)), T)
+    for a, b in zip(one, four):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    stale = pring.ring_state(300, "cpu")
+    for t_ in stale:
+        t_.fill_(-5.0)
+    for s in range(2):
+        pring.ring_correspond_hop_reference(
+            torch.as_tensor(p), torch.as_tensor(mask), rows, stale,
+            torch.as_tensor(T), s == 0, s == 1, RADIUS)
+    for a, b in zip(one, stale):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    done = pring.ring_state(300, "cpu")
+    for t_ in done:
+        t_.zero_()
+    carry = ep.init_carry(torch.as_tensor(T), 0)
+    pring.ring_correspond_hop(torch.as_tensor(p), torch.as_tensor(mask), rows,
+                              done, carry, True, True, RADIUS)
+    assert all(not bool(t_.any()) for t_ in done)
+    before = pring.counter.plain_calls
+    live = pring.ring_state(300, "cpu")
+    pring.ring_correspond_hop(torch.as_tensor(p), torch.as_tensor(mask), rows,
+                              live, ep.init_carry(torch.as_tensor(T), 12),
+                              True, True, RADIUS)
+    assert pring.counter.plain_calls == before + 1
+    for a, b in zip(one, live):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def test_ring_correspond_hop_other_devices_raise():
+    meta = torch.device("meta")
+    x = torch.empty((8, 3), device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        pring.ring_correspond_hop(
+            x, torch.empty(8, dtype=torch.bool, device=meta),
+            torch.empty((16, 8), device=meta),
+            pring.ring_state(8, meta), torch.empty(64, device=meta), True,
+            True, 0.05)
+
+
 def test_mix32_and_owner_bit_for_bit():
     rng = np.random.default_rng(2)
     hi = rng.integers(0, 2 ** 31 - 1, size=4096, dtype=np.int64).astype(
@@ -231,7 +368,9 @@ def run_ranks(case, tmp_path, arrays):
     return outs
 
 
-def test_ring_icp_four_ranks_match_reference(tmp_path):
+def check_ring_icp_four_ranks(tmp_path, T0):
+    """The ring ICP on 4 gloo ranks against `align_to_map_ring` on a
+    4-device mesh, from the warm start T0, both backends."""
     src_world, dst = make_clouds(n=1024)
     T_true = rse3.exp(jnp.array([0.03, -0.02, 0.04, 0.015, -0.02, 0.02]))
     src = src_world.transform(rse3.inv(T_true))
@@ -243,10 +382,10 @@ def test_ring_icp_four_ranks_match_reference(tmp_path):
     ref = {}
     for name, m in (("map", dst), ("tiny", tiny)):
         for backend, rb in (("ops", "xla"), ("kernel", "pallas")):
-            ref[name, backend] = r_align_ring(src, m, rse3.identity(), cfg,
+            ref[name, backend] = r_align_ring(src, m, jnp.asarray(T0), cfg,
                                               mesh, backend=rb)
     # every rank holds the reference's shard: the map padded to 4·128 rows
-    arrays = {"T0": np.eye(4, dtype=np.float32), "max_iters": 25,
+    arrays = {"T0": np.asarray(T0, np.float32), "max_iters": 25,
               "max_corr_dist": 0.3, "huber_delta": 0.1}
     for name, c in (("frame", src), ("map", dst), ("tiny", tiny)):
         pad = 1 if name == "frame" else WORLD * 128
@@ -274,6 +413,42 @@ def test_ring_icp_four_ranks_match_reference(tmp_path):
         np.testing.assert_allclose(got[f"tiny_{backend}_T"],
                                    np.asarray(ref["tiny", backend].T),
                                    atol=POSE_TOL)
+
+
+def test_ring_icp_four_ranks_match_reference(tmp_path):
+    check_ring_icp_four_ranks(tmp_path, np.eye(4, dtype=np.float32))
+
+
+def test_ring_icp_four_ranks_offset_warm_start(tmp_path):
+    """From a warm start off the identity: the hops apply the carry's pose
+    to the frame points in the kernel's order from the first iteration."""
+    check_ring_icp_four_ranks(tmp_path, np.array(rse3.exp(jnp.asarray(
+        [0.02, -0.01, 0.03, 0.01, -0.015, 0.01]))))
+
+
+def test_ring_correspond_four_ranks_over_the_transport(tmp_path):
+    """Each rank's frame slice against the four map shards passed round the
+    ring (gloo P2P, two spare buffers): the scores equal one hop over the
+    whole map bit for bit (a minimum does not depend on the hop order),
+    rows, x, q, n and w too (no exact ties here); and against the
+    reference's correspondence on a 4-device mesh."""
+    rng = np.random.default_rng(6)
+    p, mask, q, nrm, valid, T = ring_inputs(rng, n=4 * 128, m=4 * 512)
+    rows = pring.pack_cloud_rows(torch.as_tensor(q), torch.as_tensor(nrm),
+                                 torch.as_tensor(valid))
+    outs = run_ranks("ring_hops", tmp_path, {
+        "points": p, "mask": mask, "rows": rows.numpy(), "T": T,
+        "max_dist": RADIUS})
+    x = np.asarray(rse3.transform_points(jnp.asarray(T), jnp.asarray(p)))
+    r_q, r_n, r_w = reference_ring_correspond(x, mask, rows, RADIUS, WORLD)
+    for r, o in enumerate(outs):
+        lo, hi = r * 128, (r + 1) * 128
+        whole = twin_ring(p[lo:hi], mask[lo:hi], (rows,), T)
+        for name, t_ in zip(whole._fields, whole):
+            np.testing.assert_array_equal(o[name], t_.numpy(), err_msg=name)
+        differ = (np.any(o["q"] != r_q[lo:hi], axis=1)
+                  | (o["w"] != r_w[lo:hi]))
+        assert differ.mean() <= RING_MISMATCH_SHARE, np.flatnonzero(differ)
 
 
 def test_sharded_fusion_four_ranks_match_reference(tmp_path):

@@ -55,6 +55,27 @@ def ring_case(z, mesh) -> dict:
     return out
 
 
+def ring_hops_case(z, mesh) -> dict:
+    """The ring correspondence of this rank's slice of the frame points over
+    the map shards passed round the ring: the RingState after the D hops."""
+    from tpuslam_torch.dist.ring_map import _ring_hops
+    from tpuslam_torch.kernels.gn_epilogue import init_carry
+    from tpuslam_torch.kernels.ring_nn import ring_correspond_hop, ring_state
+
+    n = z["points"].shape[0] // mesh.size
+    m = z["rows"].shape[0] // mesh.size
+    pts = torch.as_tensor(z["points"][mesh.rank * n:(mesh.rank + 1) * n])
+    mask = torch.as_tensor(z["mask"][mesh.rank * n:(mesh.rank + 1) * n])
+    shard = torch.as_tensor(z["rows"][mesh.rank * m:(mesh.rank + 1) * m])
+    state = ring_state(n, "cpu")
+    carry = init_carry(torch.as_tensor(z["T"]), 12)
+    spare = [torch.empty_like(shard), torch.empty_like(shard)]
+    _ring_hops(mesh, shard, spare, lambda s, held: ring_correspond_hop(
+        pts, mask, held, state, carry, s == 0, s == mesh.size - 1,
+        float(z["max_dist"])))
+    return {name: t.numpy() for name, t in zip(state._fields, state)}
+
+
 def fusion_case(z, mesh) -> dict:
     """Insert the clouds into a ShardedVoxelMap; return this rank's shard."""
     from tpuslam_torch.dist.map_fusion import ShardedVoxelMap
@@ -83,7 +104,8 @@ def main(argv) -> int:
                            rank=int(rank), backend="gloo", timeout_s=120)
     mesh = make_mesh("cpu")
     z = np.load(inp)
-    out = {"ring": ring_case, "fusion": fusion_case}[case](z, mesh)
+    out = {"ring": ring_case, "ring_hops": ring_hops_case,
+           "fusion": fusion_case}[case](z, mesh)
     out["jax_imported"] = np.asarray("jax" in sys.modules)
     np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
     torch.distributed.destroy_process_group()

@@ -1,34 +1,48 @@
-// Projective association gather: one 16-byte float16 row per source point.
+// Projective association gather: one 16-byte float16 row per source point,
+// with the source moved into the target camera by the loop carry's pose.
 //
 // Replaces: the XLA gather of tpuslam/kernels/correspond.py,
 //   projective_correspond_packed (project -> round -> bounds/front gates ->
-//   packed[flat] -> distance/validity/normal gates).  Not a Pallas kernel in
-//   the reference, but the hottest step of every ICP iteration there.
+//   packed[flat] -> distance/validity/normal gates), and the two products in
+//   front of it at tpuslam/icp.py:180-182 (x = se3.transform_points(T, p),
+//   n_rot = se3.rotate_vectors(T, n)).  Not a Pallas kernel in the
+//   reference, but the hottest step of every ICP iteration there.
 //
 // What bounds it on the H100: bytes, and the latency of a dependent random
-//   read.  Per point it reads 40 B of source data (x, n_rot, mask), gathers
-//   one 16 B table row and writes 32 B (q, n, w, flat): ~90 B/point, 14 MB
-//   for the finest level's 153,600 points, i.e. ~4 us at 3.35 TB/s.  The
-//   table (4.9 MB at 640x480 in float16) fits the 50 MB L2, so the gathers
-//   hit L2 after the first touch; what is left is one load-to-use latency
-//   per thread.
+//   read.  Per point it reads 12 B of source point, 12 B of source normal
+//   and 1 B of mask (the 48 B pose once per block), gathers one 16 B table
+//   row and writes 32 B (q, n, w, flat): ~73 B/point, 11.2 MB for the
+//   finest level's 153,600 points, i.e. ~3.4 us at 3.35 TB/s, less the
+//   table rows that repeat.  The table (4.9 MB at 640x480 in float16) fits
+//   the 50 MB L2, so the gathers hit L2 after the first touch; what is left
+//   is one load-to-use latency per thread.  ~50 float operations a point.
 //
 // What the design does about it: one thread per point, one 16-byte vector
 //   load (uint4) per row, so every gather is a single L2 transaction; the
 //   table stays float16 (half the bytes of float32) and is widened in
 //   registers with __half2float.  The source arrays are read as
 //   interleaved (N, 3) float rows: neighbouring threads read neighbouring
-//   12-byte records, which coalesce into whole cache lines.
+//   12-byte records, which coalesce into whole cache lines.  The pose is
+//   applied in registers, so the two cuBLAS products and the add that used
+//   to run in front of the kernel (and wrote x and n_rot to memory, for the
+//   kernel to read back) are gone: one launch an outer ICP iteration.
 //
-// Numerics: the projection is written with __fdiv_rn / __fmul_rn /
-//   __fadd_rn so nvcc cannot contract it into an FMA (an FMA can move a
-//   point on a half-pixel boundary to the neighbouring pixel), and the
-//   rounding is __float2int_rn (round half to even, like jnp.round and
-//   torch.round).  The plain PyTorch twin in kernels/correspond.py then
-//   gives bit-equal q, n, flat and w.
+// Numerics: the transform is x = ((R0 p0 + R1 p1) + R2 p2) + t and the
+//   rotation ((R0 n0 + R1 n1) + R2 n2), each product and sum rounded with
+//   __fmul_rn / __fadd_rn (kernels/gn_step.py's transform_points_ordered,
+//   the order gn_step.cu uses), so the first GN solve of an outer iteration
+//   sees the x this association used.  The projection is written with
+//   __fdiv_rn / __fmul_rn / __fadd_rn so nvcc cannot contract it into an
+//   FMA (an FMA can move a point on a half-pixel boundary to the
+//   neighbouring pixel), and the rounding is __float2int_rn (round half to
+//   even, like jnp.round and torch.round).  The plain PyTorch twins in
+//   kernels/correspond.py then give bit-equal q, n, flat and w.
 //
-// The kernel skips all work when *done != 0 (the ICP loop's device-side
-// early exit); its outputs are then left unwritten and nothing reads them.
+// pose == nullptr: the points and normals are already in the target frame
+// (the reference-shaped call); they are used as they are, not multiplied by
+// an identity.  The kernel skips all work when *done != 0 (the ICP loop's
+// device-side early exit): it reads nothing else and leaves its outputs
+// unwritten, and nothing reads them.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -36,19 +50,33 @@
 
 namespace {
 
-__global__ void correspond_kernel(
-    const float* __restrict__ x, const uint8_t* __restrict__ x_mask,
-    const float* __restrict__ n_src, const uint4* __restrict__ packed,
-    int n, int height, int width, float fx, float fy, float cx, float cy,
-    float max_dist_sq, float normal_dot_min, int use_normal_gate,
-    const float* __restrict__ done, float* __restrict__ q_out,
-    float* __restrict__ n_out, float* __restrict__ w_out,
-    int* __restrict__ flat_out) {
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads) correspond_kernel(
+    const float* __restrict__ pts, const uint8_t* __restrict__ x_mask,
+    const float* __restrict__ nrm, const float* __restrict__ pose,
+    const uint4* __restrict__ packed, int n, int height, int width, float fx,
+    float fy, float cx, float cy, float max_dist_sq, float normal_dot_min,
+    int use_normal_gate, const float* __restrict__ done,
+    float* __restrict__ q_out, float* __restrict__ n_out,
+    float* __restrict__ w_out, int* __restrict__ flat_out) {
+  __shared__ float T[12];  // rows 0..2 of the pose, row-major
   if (done != nullptr && done[0] != 0.0f) return;
+  if (pose != nullptr && threadIdx.x < 12) T[threadIdx.x] = pose[threadIdx.x];
+  __syncthreads();
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
-  float x0 = x[3 * i + 0], x1 = x[3 * i + 1], x2 = x[3 * i + 2];
+  const float p0 = pts[3 * i + 0], p1 = pts[3 * i + 1], p2 = pts[3 * i + 2];
+  float x0 = p0, x1 = p1, x2 = p2;
+  if (pose != nullptr) {
+    x0 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[0], p0), __fmul_rn(T[1], p1)),
+                             __fmul_rn(T[2], p2)), T[3]);
+    x1 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[4], p0), __fmul_rn(T[5], p1)),
+                             __fmul_rn(T[6], p2)), T[7]);
+    x2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[8], p0), __fmul_rn(T[9], p1)),
+                             __fmul_rn(T[10], p2)), T[11]);
+  }
   bool in_front = x2 > 1e-6f;
   float zs = in_front ? x2 : 1.0f;
   float u = __fadd_rn(__fmul_rn(__fdiv_rn(x0, zs), fx), cx);
@@ -74,7 +102,16 @@ __global__ void correspond_kernel(
   bool valid = (x_mask[i] != 0) && in_front && in_bounds && dmask &&
                (dist_sq < max_dist_sq);
   if (use_normal_gate) {
-    float s0 = n_src[3 * i + 0], s1 = n_src[3 * i + 1], s2 = n_src[3 * i + 2];
+    const float a0 = nrm[3 * i + 0], a1 = nrm[3 * i + 1], a2 = nrm[3 * i + 2];
+    float s0 = a0, s1 = a1, s2 = a2;
+    if (pose != nullptr) {
+      s0 = __fadd_rn(__fadd_rn(__fmul_rn(T[0], a0), __fmul_rn(T[1], a1)),
+                     __fmul_rn(T[2], a2));
+      s1 = __fadd_rn(__fadd_rn(__fmul_rn(T[4], a0), __fmul_rn(T[5], a1)),
+                     __fmul_rn(T[6], a2));
+      s2 = __fadd_rn(__fadd_rn(__fmul_rn(T[8], a0), __fmul_rn(T[9], a1)),
+                     __fmul_rn(T[10], a2));
+    }
     float dot = __fadd_rn(__fadd_rn(__fmul_rn(m0, s0), __fmul_rn(m1, s1)),
                           __fmul_rn(m2, s2));
     valid = valid && (dot > normal_dot_min);
@@ -93,18 +130,17 @@ __global__ void correspond_kernel(
 }  // namespace
 
 extern "C" int tpuslam_correspond(
-    const void* x, const void* x_mask, const void* n_src, const void* packed,
-    int n, int height, int width, float fx, float fy, float cx, float cy,
-    float max_dist_sq, float normal_dot_min, int use_normal_gate,
-    const void* done, void* q_out, void* n_out, void* w_out, void* flat_out,
-    void* stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  correspond_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const uint8_t*)x_mask, (const float*)n_src,
-      (const uint4*)packed, n, height, width, fx, fy, cx, cy, max_dist_sq,
-      normal_dot_min, use_normal_gate, (const float*)done, (float*)q_out,
-      (float*)n_out, (float*)w_out, (int*)flat_out);
+    const void* pts, const void* x_mask, const void* nrm, const void* pose,
+    const void* packed, int n, int height, int width, float fx, float fy,
+    float cx, float cy, float max_dist_sq, float normal_dot_min,
+    int use_normal_gate, const void* done, void* q_out, void* n_out,
+    void* w_out, void* flat_out, void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  correspond_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)pts, (const uint8_t*)x_mask, (const float*)nrm,
+      (const float*)pose, (const uint4*)packed, n, height, width, fx, fy, cx,
+      cy, max_dist_sq, normal_dot_min, use_normal_gate, (const float*)done,
+      (float*)q_out, (float*)n_out, (float*)w_out, (int*)flat_out);
   return (int)cudaGetLastError();
 }
 

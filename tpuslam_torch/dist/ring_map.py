@@ -11,7 +11,11 @@ Two ring backends (the `backend` argument, the reference's names in
 brackets):
 
   * `"kernel"` [`"pallas"`] — each hop is the hand kernel
-    kernels/ring_nn.py (its plain twin on CPU tensors).  The default.
+    kernels/ring_nn.py (its plain twin on CPU tensors), one launch a hop
+    that also moves the frame points by the carry's pose, starts the
+    running best on the first hop and applies the correspondence gates on
+    the last: an outer iteration issues no op around the hops.  The
+    default.
   * `"ops"` [`"xla"`] — each hop is plain PyTorch: direct squared
     distances, argmin, gather (chunked over map rows).  An oracle; the
     card's main path does not use it.
@@ -52,21 +56,21 @@ from tpuslam_torch.kernels.ring_nn import (
     ROW_DIM,
     init_best,
     pack_cloud_rows,
-    ring_nn_hop,
+    ring_correspond_hop,
+    ring_state,
 )
 
 BACKENDS = ("kernel", "ops")
 _OPS_BLOCK = 4096           # map rows per chunk of the "ops" hop
 
 
-def _ring_hops(mesh: Mesh, shard: torch.Tensor, visit) -> None:
-    """Call `visit(held)` on each of the D shards in turn, passing the held
-    shard to the right neighbour while the visit runs.  Receives land in
-    two spare buffers in turn, never in the caller's `shard`; a buffer is
+def _ring_hops(mesh: Mesh, shard: torch.Tensor, spare: list, visit) -> None:
+    """Call `visit(s, held)` on each of the D shards in turn (s = 0 .. D−1),
+    passing the held shard to the right neighbour while the visit runs.
+    Receives land in the two `spare` buffers (shaped as `shard`, made once
+    per alignment) in turn, never in the caller's `shard`; a buffer is
     received into only after its own send was waited for and its visit
     enqueued (NCCL orders its stream after the work enqueued before)."""
-    spare = ([torch.empty_like(shard), torch.empty_like(shard)]
-             if mesh.size > 1 else [])
     held = shard
     for s in range(mesh.size):
         reqs = []
@@ -75,7 +79,7 @@ def _ring_hops(mesh: Mesh, shard: torch.Tensor, visit) -> None:
             reqs = dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, held, mesh.right, mesh.group),
                 dist.P2POp(dist.irecv, nxt, mesh.left, mesh.group)])
-        visit(held)
+        visit(s, held)
         for r in reqs:
             r.wait()
         if reqs:
@@ -95,24 +99,16 @@ def _ops_hop(x, held, best):
         best_row.copy_(torch.where(better[:, None], rows[j], best_row))
 
 
-def _ring_correspond(x, x_mask, shard, max_dist: float, mesh: Mesh,
-                     backend: str, done: torch.Tensor):
-    """(q, n, w) of the local frame points over ALL map shards."""
-    best_score, best_row = init_best(x.shape[0], x.device)
-    if backend == "kernel":
-        _ring_hops(mesh, shard, lambda held: ring_nn_hop(
-            x, held, best_score, best_row, done=done))
-        # the kernel's score is |q|² − 2x·q; add |x|² for the distance²
-        d2 = torch.clamp(best_score + torch.sum(x * x, dim=-1), min=0.0)
-        found = (best_row[:, 6] > 0.5) & torch.isfinite(best_score)
-    else:
-        _ring_hops(mesh, shard, lambda held: _ops_hop(
-            x, held, (best_score, best_row)))
-        d2 = best_score
-        found = torch.isfinite(d2)
+def _ops_correspond(x, x_mask, shard, spare, max_dist: float, mesh: Mesh):
+    """(q, n, w) of the local frame points over ALL map shards, by the
+    "ops" hops."""
+    best_d2, best_row = init_best(x.shape[0], x.device)
+    _ring_hops(mesh, shard, spare,
+               lambda s, held: _ops_hop(x, held, (best_d2, best_row)))
     q, n = best_row[:, :3].contiguous(), best_row[:, 3:6].contiguous()
     has_normal = torch.sum(n * n, dim=-1) > 0.5
-    valid = x_mask & found & (d2 < max_dist * max_dist) & has_normal
+    valid = (x_mask & torch.isfinite(best_d2) & (best_d2 < max_dist * max_dist)
+             & has_normal)
     return q, n, valid.to(x.dtype)
 
 
@@ -125,17 +121,33 @@ def _ring_icp(frame: PointCloud, shard: torch.Tensor, T0: torch.Tensor,
     num_valid_src = mesh.all_reduce(torch.sum(frame.mask.to(torch.float32)))
     carry = ep.init_carry(T0, cfg.max_iters)
     may_stop = mesh.size == 1 and carry.device.type == "cpu"
+    points = frame.points.contiguous()
+    mask = frame.mask.contiguous()
+    spare = ([torch.empty_like(shard), torch.empty_like(shard)]
+             if mesh.size > 1 else [])
+    if backend == "kernel":
+        state = ring_state(points.shape[0], points.device)
+        last = mesh.size - 1
+
+        def visit(s, held):
+            ring_correspond_hop(points, mask, held, state, carry, s == 0,
+                                s == last, cfg.max_corr_dist)
     for _ in range(outer):
         if may_stop and bool(carry[ep.DONE] != 0):
             break
-        x = se3.transform_points(carry[ep.T_SLICE].reshape(4, 4),
-                                 frame.points)
-        q, n, w = _ring_correspond(x, frame.mask, shard, cfg.max_corr_dist,
-                                   mesh, backend, carry)
+        if backend == "kernel":
+            # the hops move the points by the carry's pose and write x (at
+            # that pose), q, n and w into `state`
+            _ring_hops(mesh, shard, spare, visit)
+            x, q, n, w = state.x, state.q, state.n, state.w
+        else:
+            x = se3.transform_points(carry[ep.T_SLICE].reshape(4, 4), points)
+            q, n, w = _ops_correspond(x, mask, shard, spare,
+                                      cfg.max_corr_dist, mesh)
         for k in range(inner):
             if k > 0:
                 x = se3.transform_points(carry[ep.T_SLICE].reshape(4, 4),
-                                         frame.points)
+                                         points)
             partials = mesh.all_reduce(gn_reduce_partials(
                 x, q, n, w, cfg.huber_delta, done=carry))
             carry, _ = ep.gn_epilogue(

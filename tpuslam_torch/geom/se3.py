@@ -177,6 +177,21 @@ def rotate_vectors(T: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     return vecs @ R.transpose(-1, -2)
 
 
+def transform_points_ordered(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """x = R p + t as the kernels round it: ((R₀p₀ + R₁p₁) + R₂p₂) + t, each
+    product and sum rounded to float32 (no fused multiply-add)."""
+    p0, p1, p2 = p.unbind(-1)
+    return torch.stack([((T[i, 0] * p0 + T[i, 1] * p1) + T[i, 2] * p2)
+                        + T[i, 3] for i in range(3)], dim=-1)
+
+
+def rotate_vectors_ordered(T: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """R v as the kernels round it: (R₀v₀ + R₁v₁) + R₂v₂, unfused."""
+    v0, v1, v2 = v.unbind(-1)
+    return torch.stack([(T[i, 0] * v0 + T[i, 1] * v1) + T[i, 2] * v2
+                        for i in range(3)], dim=-1)
+
+
 def relative(T_a: torch.Tensor, T_b: torch.Tensor) -> torch.Tensor:
     """T_a⁻¹ ∘ T_b — pose of b expressed in a's frame."""
     return inv(T_a) @ T_b

@@ -1,7 +1,8 @@
 """Projective point-to-plane ICP — port of the frame path of `tpuslam/icp.py`.
 
-Per pyramid level (coarsest → finest) an ICP loop runs: transform the
-source, one projective row gather (kernels/correspond.py), then
+Per pyramid level (coarsest → finest) an ICP loop runs, each outer
+iteration: one projective row gather at the carry's pose (one launch,
+kernels/correspond.py, which transforms the source itself), then
 `inner_steps` GN solves against that association, each one launch
 (kernels/gn_step.py) that transforms the source by the current pose,
 reduces, solves, updates the pose and keeps the loop carry on the device.
@@ -32,8 +33,9 @@ from tpuslam_torch.geom.backproject import project
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.kernels import gn_epilogue as ep
 from tpuslam_torch.kernels.correspond import (
+    correspondence_buffers,
     pack_organized_target,
-    projective_correspond_packed,
+    projective_correspond_at_pose,
 )
 from tpuslam_torch.kernels.gn_fused import gn_fused_partials
 from tpuslam_torch.kernels.gn_step import gn_step
@@ -164,17 +166,17 @@ def _icp_loop(packed: torch.Tensor, height: int, width: int, K: Intrinsics,
     outer = -(-max_iters // inner) if max_iters > 0 else 0
     num_valid_src = torch.sum(src.mask.to(torch.float32))
     points = src.points.contiguous()
+    normals = src.normals.contiguous()
+    mask = src.mask.contiguous()
     carry = ep.init_carry(T0, max_iters)
+    corr = correspondence_buffers(points.shape[0], points.device)
     for _ in range(outer):
         if _finished(carry):
             break
-        T = carry[ep.T_SLICE].reshape(4, 4)
-        x = se3.transform_points(T, points)
-        n_rot = se3.rotate_vectors(T, src.normals)
-        corr = projective_correspond_packed(
-            x, src.mask, packed, height, width, K, cfg.max_corr_dist,
-            src_normals_in_dst=n_rot, normal_dot_min=cfg.normal_dot_min,
-            done=carry)
+        # the association at the carry's pose, the transform in the kernel
+        projective_correspond_at_pose(
+            points, mask, normals, packed, height, width, K,
+            cfg.max_corr_dist, cfg.normal_dot_min, carry, out=corr)
         for k in range(inner):
             # frozen association; the step transforms the source by the
             # carry's current pose (inner/outer ICP) and updates the carry

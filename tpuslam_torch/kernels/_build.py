@@ -36,8 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types: a pointer (and the stream) is a
 # c_void_p, otherwise ctypes would pass it as a 32-bit int.
 _SIGNATURES = {
-    "tpuslam_correspond": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
-                           _F, _I, _P, _P, _P, _P, _P, _P],
+    "tpuslam_correspond": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                           _F, _F, _I, _P, _P, _P, _P, _P, _P],
     "tpuslam_gn_partials": [_P, _P, _P, _P, _I, _F, _P, _P, _I, _P],
     "tpuslam_gn_epilogue": [_P, _I, _P, _P, _F, _F, _F, _F, _I, _I, _I, _F,
                             _P, _P, _P],
@@ -45,8 +45,9 @@ _SIGNATURES = {
                         _I, _I, _F, _P, _P, _I, _P],
     "tpuslam_gn_fused": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _F, _F, _F, _F,
                          _F, _F, _F, _F, _F, _P, _P, _I, _P],
-    "tpuslam_ring_nn": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "tpuslam_ring_nn_slices": [_I],
+    "tpuslam_ring_nn": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                        _F, _P, _P, _P, _P, _P],
+    "tpuslam_ring_nn_slices": [_I, _I],
     "tpuslam_ring_nn_query_tiles": [_I],
 }
 

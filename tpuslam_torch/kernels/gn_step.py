@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from tpuslam_torch.geom.se3 import transform_points_ordered
 from tpuslam_torch.kernels import _build
 from tpuslam_torch.kernels import gn_epilogue as ep
 from tpuslam_torch.kernels.gn_partials import BLOCK_THREADS, ROW, partial_rows
@@ -45,14 +46,6 @@ _workspace: dict = {}     # device → (ticket int32[1], partials rows)
 def num_blocks(n_points: int, max_blocks: int = MAX_BLOCKS) -> int:
     """The kernel's grid for `n_points` (one row of partials a block)."""
     return max(1, min(-(-n_points // BLOCK_THREADS), max_blocks))
-
-
-def transform_points_ordered(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """x = R p + t as the kernel rounds it: ((R₀p₀ + R₁p₁) + R₂p₂) + t, each
-    product and sum rounded to float32 (no fused multiply-add)."""
-    p0, p1, p2 = p.unbind(-1)
-    return torch.stack([((T[i, 0] * p0 + T[i, 1] * p1) + T[i, 2] * p2)
-                        + T[i, 3] for i in range(3)], dim=-1)
 
 
 def gn_step_reference(points, q, n, w_valid, carry, num_valid_src,
