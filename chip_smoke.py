@@ -11,8 +11,14 @@ Phases, in order (any failure raises and the script exits non-zero):
                 paths' shapes (all three levels of a 640×480 frame pair;
                 correspond and gn_step from the untransformed source and
                 the carry's pose, correspond bit-equal, also through its
-                unposed call, and writing nothing after DONE; gn_fused with
-                T_gate ≠ T_res; ring_nn at 16,384 frame points × 131,072
+                unposed call, and writing nothing after DONE; gn_partials
+                at the carry's pose, as the ring ICP calls it, also at the
+                ring's 16,384 points; gn_fused's one-launch solve on its
+                first solve of an outer iteration and with T_gate ≠ T_res:
+                per-block Σvalid exact, the carry within gn_step's
+                tolerances, the gate buffer bit-equal, the same bits again,
+                nothing written after DONE;
+                ring_nn at 16,384 frame points × 131,072
                 map rows, about half of them invalid: the ring ICP's hop
                 with the pose, the first hop's start and the last hop's
                 gates bit-equal to its twin in score, row, x, q, n and w,
@@ -24,7 +30,8 @@ Phases, in order (any failure raises and the script exits non-zero):
                 gn_step against the unmerged pair (gn_partials +
                 gn_epilogue, with and without the transform) in turns, by
                 CUDA events and under torch.profiler, on grids of 132 and
-                264 blocks
+                264 blocks (gn_fused's solve against the parent commit's
+                pair: tpuslam_torch/bench/profile_odometry.py --mode solve)
   4. uint16   — raw uint16 depth divided on the device is bit-equal to
                 host-divided float32 depth
   5. small    — a 12-frame 120×160 scan on the GPU against the same scan
@@ -36,19 +43,23 @@ Phases, in order (any failure raises and the script exits non-zero):
                 gn_partials or gn_epilogue), no plain twin called; then one
                 scan of the orbit counted for launches a frame
   7. fused    — the same with ICPConfig.fused_gn=True: gn_fused carries
-                tracking; fps beside phase 6's
+                tracking, one launch a solve (no standalone gn_epilogue or
+                gn_partials); fps beside phase 6's; launches a frame
   8. small slam — SlamSystem on the 48-frame 120×160 two-lap loop
                 (boundary chunks, deferred backend, fused_gn False and
                 True) on the GPU against the CPU twins: same keyframes and
                 closure pairs, poses within 1e-4
   9. slam     — run_slam_bench: 120 frames at 640×480, boundary chunks,
                 backend sync and deferred, fused_gn False and True; ATE
-                < 1 mm, ≥ 1 closure, every kernel launched, no twin called
+                < 1 mm, ≥ 1 closure, every kernel launched, no twin called,
+                no standalone gn_epilogue or gn_partials
  10. profile  — device time by kernel over a few odometry frames (device
                 µs a launch of each kernel of the path, averaged over all
                 its launches, those after DONE included; fewer GEMMs than
                 associations: the association's transform is in its
-                kernel); one SLAM chunk's stages on the host clock, the
+                kernel), plain and fused (the fused orbit runs no more
+                GEMMs than the plain one and no standalone epilogue); one
+                SLAM chunk's stages on the host clock, the
                 promotion pack's cost, and the next chunk under
                 torch.profiler
  11. small map — SlamSystem(track_against_map=True) on a 16-frame 120×160
@@ -60,9 +71,11 @@ Phases, in order (any failure raises and the script exits non-zero):
                 group; ATE < 0.02 m, refinement ok share > 0.5, no point
                 dropped, every kernel of the path launched (ring_nn on the
                 sharded map), no twin called; then a few frames' stages on
-                the host clock and under torch.profiler (unsharded: fewer
-                GEMMs than associations; sharded: fewer extra fills than
-                ring hops, which allocate and fill nothing)
+                the host clock and under torch.profiler (fewer GEMMs than
+                associations unsharded and than ring hops sharded: neither
+                the association nor the ring's solves transform the points
+                outside a kernel; sharded: fewer extra fills than ring
+                hops, which allocate and fill nothing)
 Then one JSON line with the kernels, and last a JSON line with the device.
 No JAX is imported.
 """
@@ -100,7 +113,8 @@ FP32_FLOPS_PER_S = 67e12
 OPS_CORRESPOND = 30       # projection, rounding, bounds, ‖x−q‖², n·n_src
 OPS_ROTATE = 15           # n_rot = R n: 9 products and 6 sums
 OPS_GN_PARTIALS = 86      # residual, Huber, Jacobian, 27 products, 30 sums
-OPS_GN_FUSED = 160        # gate and residual transforms, gates, the above
+OPS_GN_FUSED = 166        # gate and residual transforms, gates, row index,
+                          # the above
 OPS_EPILOGUE_SOLVE = 300  # 6×7 elimination, trust region, SE(3) exp
 OPS_TRANSFORM = 18        # x = R p + t: 9 products and 9 sums
 OPS_RING_NN_CELL = 6      # (2x)·q as a product and two FMAs, then cst − g
@@ -177,7 +191,8 @@ def device_rows(prof) -> list:
 KERNEL_SYMBOLS = {"correspond": "correspond_kernel",
                   "gn_partials": "gn_partials_kernel",
                   "gn_epilogue": "gn_epilogue_kernel",
-                  "gn_step": "gn_step_kernel", "gn_fused": "gn_fused_kernel",
+                  "gn_step": "gn_step_kernel",
+                  "gn_fused": "gn_fused_step_kernel",
                   "ring_nn": "ring_nn_kernel"}
 
 
@@ -278,6 +293,39 @@ def gn_step_ab(card: str, src, x, T, corr, carry, nvs, icp) -> dict:
             + ", ".join(f"{key[:40]} {dt / cnt:.3f} us, {cnt} launches"
                         for dt, cnt, key in rows) + f") ({card})")
     return {"event_ms": event_ms, "device_us": device_us}
+
+
+def partials_at_ring_size(card: str, pts, corr, carry, icp) -> dict:
+    """gn_partials at the ring ICP's size on one rank: the first
+    VoxelConfig().capacity (16,384) points of level 0, 64 blocks of one
+    point a thread, against its twin, timed beside it and its bound."""
+    from tpuslam_torch.config import VoxelConfig
+    from tpuslam_torch.kernels import gn_epilogue, gn_partials
+
+    n = VoxelConfig().capacity
+    args = (pts[:n], corr.q[:n], corr.n[:n], corr.w[:n],
+            carry[gn_epilogue.T_SLICE], icp.huber_delta)
+    pk = gn_partials.gn_reduce_partials_at_pose(*args, done=carry)
+    pr = gn_partials.gn_reduce_partials_at_pose_reference(*args)
+    torch.cuda.synchronize()
+    fk, fr = gn_partials.fold_partials(pk), gn_partials.fold_partials(pr)
+    rel = max(rel_err(a, b) for a, b in zip(fk, fr))
+    check(rel <= TOL_PARTIALS_REL, f"gn_partials at {n} points: rel {rel}")
+
+    def fn():
+        gn_partials.gn_reduce_partials_at_pose(*args, done=carry)
+    ms = time_ms(fn)
+    plain_ms = time_ms(
+        lambda: gn_partials.gn_reduce_partials_at_pose_reference(*args))
+    full_us = full_launch_us(fn, "gn_partials")
+    b = bound(nbytes(*args[:4], pk) + 12 * 4,
+              (OPS_GN_PARTIALS + OPS_TRANSFORM) * n)
+    log(f"[kernels] gn_partials at the ring's size N={n} ({pk.shape[0]} "
+        f"blocks): kernel {ms:.5f} ms, device {fmt_us(full_us)} us a full "
+        f"launch, plain {plain_ms:.5f} ms, bound {b['bound_ms']:.5f} ms by "
+        f"{b['bound_by']}, rel {rel:.3e} ({card})")
+    return {"n": n, "ms": ms, "plain_ms": plain_ms,
+            "device_us_full_launch": full_us, **b}
 
 
 def fenced_spans(spans: dict, owner, names) -> None:
@@ -611,9 +659,10 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
                 + (f", ring_nn {hit[0]:.3f} us a hop on average" if sharded
                    and hit else "") + f" ({card})")
             check(launched > 0, f"map profile sharded={sharded}: no launch")
-            check(sharded or gemms < launched,
-                  f"map profile: {gemms} GEMMs against {launched} "
-                  f"associations")
+            # the ring's solves transform nothing outside the kernel either
+            check(gemms < launched,
+                  f"map profile sharded={sharded}: {gemms} GEMMs against "
+                  f"{launched} launches")
             check(not sharded or fills[True] - fills[False] < launched,
                   f"map profile: {fills} fills against {launched} hops")
         return total
@@ -638,7 +687,6 @@ def main() -> int:
     from tpuslam_torch.frontend import preprocess, scan_odometry
     from tpuslam_torch.geom import se3
     from tpuslam_torch.icp import (
-        _association_rows,
         pack_pyramid,
         select_level_source,
     )
@@ -689,7 +737,7 @@ def main() -> int:
                                  device=dev)) @ T
     carry = gn_epilogue.init_carry(T, 12)
     stats = {k: {} for k in frame_kernels}
-    step_ab = None
+    step_ab = ring_partials = None
     for li in range(icp.pyramid_levels - 1, -1, -1):
         K_l = K.scaled(1.0 / 2 ** li)
         src = select_level_source(pyr_b, li, icp)
@@ -729,16 +777,28 @@ def main() -> int:
         check(all(bool((t_ == 7).all()) for t_ in out),
               f"correspond level {li}: wrote after DONE")
 
-        pk = gn_partials.gn_reduce_partials(x, ck.q, ck.n, ck.w,
-                                            icp.huber_delta, done=carry)
-        pr = gn_partials.gn_reduce_partials_reference(x, ck.q, ck.n, ck.w,
-                                                      icp.huber_delta)
+        # gn_partials as the ring ICP calls it: the untransformed points and
+        # the carry's pose, which the kernel applies (in the association's
+        # order: the same bits as the reference-shaped call on those x)
+        ts = gn_epilogue.T_SLICE
+        pargs = (pts, ck.q, ck.n, ck.w, carry[ts], icp.huber_delta)
+        pk = gn_partials.gn_reduce_partials_at_pose(*pargs, done=carry)
+        pr = gn_partials.gn_reduce_partials_at_pose_reference(*pargs)
+        pu = gn_partials.gn_reduce_partials(
+            se3.transform_points_ordered(T, pts), ck.q, ck.n, ck.w,
+            icp.huber_delta)
+        done_c = gn_epilogue.init_carry(T, 0)
+        pd = gn_partials.gn_reduce_partials_at_pose(
+            pts, ck.q, ck.n, ck.w, done_c[ts], icp.huber_delta, done=done_c)
         torch.cuda.synchronize()
         fk = gn_partials.fold_partials(pk)
         fr = gn_partials.fold_partials(pr)
         p_rel = max(rel_err(a, b) for a, b in zip(fk, fr))
         check(p_rel <= TOL_PARTIALS_REL,
               f"gn_partials level {li}: rel err {p_rel}")
+        check(torch.equal(pk, pu), f"gn_partials level {li}: the posed call "
+              f"differs from the unposed one at the ordered x")
+        check(bool((pd == 0).all()), f"gn_partials level {li}: DONE rows")
         p_err = max(float((a - b).abs().max()) for a, b in zip(fk, fr))
 
         nvs = torch.sum(src.mask.to(torch.float32))
@@ -770,7 +830,6 @@ def main() -> int:
         sk = gn_step.gn_step(pts, ck.q, ck.n, ck.w, carry.clone(), *sargs)
         sr = gn_step.gn_step_reference(pts, ck.q, ck.n, ck.w, carry, *sargs)
         torch.cuda.synchronize()
-        ts = gn_epilogue.T_SLICE
         s_err = float((sk[ts] - sr[ts]).abs().max())
         s_hrel = rel_err(sk[gn_epilogue.H_SLICE], sr[gn_epilogue.H_SLICE])
         check(s_err <= TOL_EPILOGUE_T, f"gn_step level {li}: T {s_err}")
@@ -795,8 +854,8 @@ def main() -> int:
         launch = {
             "correspond": lambda: correspond.projective_correspond_at_pose(
                 *args, carry, out=out),
-            "gn_partials": lambda: gn_partials.gn_reduce_partials(
-                x, ck.q, ck.n, ck.w, icp.huber_delta, done=carry),
+            "gn_partials": lambda: gn_partials.gn_reduce_partials_at_pose(
+                *pargs, done=carry),
             "gn_epilogue": lambda: gn_epilogue.gn_epilogue(*eargs),
             "gn_step": lambda: gn_step.gn_step(pts, ck.q, ck.n, ck.w,
                                                step_carry, *step_mid),
@@ -808,8 +867,8 @@ def main() -> int:
                     *args, T))),
             "gn_partials": (
                 time_ms(launch["gn_partials"]),
-                time_ms(lambda: gn_partials.gn_reduce_partials_reference(
-                    x, ck.q, ck.n, ck.w, icp.huber_delta))),
+                time_ms(lambda: gn_partials
+                        .gn_reduce_partials_at_pose_reference(*pargs))),
             "gn_epilogue": (
                 time_ms(launch["gn_epilogue"]),
                 time_ms(lambda: gn_epilogue.gn_epilogue_reference(*eargs),
@@ -819,40 +878,75 @@ def main() -> int:
                 time_ms(lambda: gn_step.gn_step_reference(
                     pts, ck.q, ck.n, ck.w, carry, *sargs), reps=20)),
         }
-        # fused step: gates at T, residuals at T_res, gather in the kernel
-        flat = _association_rows(T, src.points, K_l, h, w)
-        fargs = (src.points, src.normals, src.mask, packed[li], flat, T,
-                 T_res, K_l, w, h, icp.max_corr_dist, icp.normal_dot_min,
-                 icp.huber_delta)
-        gk = gn_fused.gn_fused_partials(*fargs, done=carry)
-        gr = gn_fused.gn_fused_partials_reference(*fargs)
+        # the fused solve, one launch: on the first solve of an outer
+        # iteration (gate pose = the carry's T, stored in the gate buffer;
+        # the buffer starts NaN and must not be read) and on a later one
+        # (gate pose from the buffer, the carry one update past it)
+        fsrc = (pts, nrm, src.mask.contiguous(), packed[li])
+        fgeo = (K_l, w, h, icp.max_corr_dist, icp.normal_dot_min,
+                icp.huber_delta, nvs, icp.damping, icp.damping_abs,
+                icp.max_trans_step, icp.max_rot_step)
+        ftail = (True, icp.inner_steps, 12, icp.tol_delta ** 2)
+        nb = gn_step.num_blocks(pts.shape[0])
+        _, scratch_rows = gn_step.scratch(dev)
+        g_err, g_hrel, g_valid = 0.0, 0.0, 0.0
+        for first in (True, False):
+            fc0 = gn_epilogue.init_carry(T if first else T_res, 12)
+            fg0 = (torch.full((12,), float("nan"), device=dev) if first
+                   else T[:3].reshape(12).clone())
+            fck, fgk = fc0.clone(), fg0.clone()
+            gn_fused.gn_fused_step(*fsrc, fck, fgk, first, *fgeo, *ftail)
+            kernel_valid = scratch_rows[:nb, 28].clone()
+            fcr, fgr = gn_fused.gn_fused_step_reference(
+                *fsrc, fc0, fg0, first, *fgeo, *ftail)
+            twin_rows = gn_fused.fused_rows(*fsrc, T[:3], fc0[ts].reshape(4, 4),
+                                            *fgeo[:6], nb)
+            torch.cuda.synchronize()
+            tag = f"gn_fused level {li} is_first={first}"
+            # the row index and w are bit-equal: each block's Σvalid is
+            check(torch.equal(kernel_valid, twin_rows[:, 28]),
+                  f"{tag}: per-block validity counts differ")
+            e = float((fck[ts] - fcr[ts]).abs().max())
+            hr = rel_err(fck[gn_epilogue.H_SLICE], fcr[gn_epilogue.H_SLICE])
+            check(e <= TOL_EPILOGUE_T, f"{tag}: T {e}")
+            check(hr <= TOL_EPILOGUE_H_REL, f"{tag}: H rel {hr}")
+            check(all(float(fck[i]) == float(fcr[i]) for i in (
+                gn_epilogue.IT, gn_epilogue.DONE, gn_epilogue.NUM_INLIERS)),
+                  f"{tag}: it/done/Σvalid")
+            check(torch.equal(fgk, fgr) and torch.equal(fgk, T[:3].reshape(12)),
+                  f"{tag}: gate buffer")
+            g_err, g_hrel = max(g_err, e), max(g_hrel, hr)
+            g_valid = float(fck[gn_epilogue.NUM_INLIERS])
+        check(g_valid > 0.3 * float(nvs), f"gn_fused level {li}: Σvalid "
+              f"{g_valid} of {float(nvs)}")
+        # the same bits again; after DONE nothing is written, and the
+        # ticket is back at 0
+        again = gn_epilogue.init_carry(T_res, 12)
+        gn_fused.gn_fused_step(*fsrc, again, T[:3].reshape(12).clone(), False,
+                               *fgeo, *ftail)
+        fd, fdg = gn_epilogue.init_carry(T, 0), torch.full((12,), 3.0,
+                                                           device=dev)
+        fd_before = fd.clone()
+        for first in (True, False):
+            gn_fused.gn_fused_step(*fsrc, fd, fdg, first, *fgeo, *ftail)
         torch.cuda.synchronize()
-        gfk, gfr = gn_partials.fold_partials(gk), gn_partials.fold_partials(gr)
-        g_rel = max(rel_err(a, b) for a, b in zip(gfk, gfr))
-        check(g_rel <= TOL_PARTIALS_REL, f"gn_fused level {li}: rel {g_rel}")
-        g_err = max(float((a - b).abs().max()) for a, b in zip(gfk, gfr))
-        # gate equivalence: the twin's per-point validity, summed with the
-        # kernel's point-to-block assignment (grid-stride, 256 threads),
-        # must equal each block's Σvalid exactly
-        valid = gn_fused.fused_terms(
-            src.points, src.normals, src.mask, packed[li][flat.long()], T,
-            T_res, K_l, w, h, icp.max_corr_dist, icp.normal_dot_min,
-            icp.huber_delta)[:, 28]
-        n_pts = valid.shape[0]
-        block = (torch.arange(n_pts, device=dev) // gn_partials.BLOCK_THREADS
-                 ) % gn_partials.num_blocks(n_pts)
-        per_block = torch.zeros(gk.shape[0], device=dev).index_add_(
-            0, block, valid)
-        check(torch.equal(per_block, gk[:, 28]),
-              f"gn_fused level {li}: per-block validity counts differ")
-        check(float(gfk[2]) == float(gfr[2]) > 0,
-              f"gn_fused level {li}: Σvalid {float(gfk[2])} vs "
-              f"{float(gfr[2])}")
-        launch["gn_fused"] = lambda: gn_fused.gn_fused_partials(*fargs,
-                                                               done=carry)
+        check(torch.equal(again, fck),
+              f"gn_fused level {li}: not the same bits again")
+        check(torch.equal(fd.view(torch.int32), fd_before.view(torch.int32))
+              and bool((fdg == 3.0).all()),
+              f"gn_fused level {li}: wrote after DONE")
+        check(int(gn_step.scratch(dev)[0]) == 0, "gn_fused: ticket left")
+        # timed as the loop launches it: is_last False, so DONE is never set
+        fused_carry, fused_gate = carry.clone(), gn_fused.gate_buffer(dev)
+        fmid = ftail[1:]
+        launch["gn_fused"] = lambda: gn_fused.gn_fused_step(
+            *fsrc, fused_carry, fused_gate, True, *fgeo, False, *fmid)
         times["gn_fused"] = (
             time_ms(launch["gn_fused"]),
-            time_ms(lambda: gn_fused.gn_fused_partials_reference(*fargs)))
+            time_ms(lambda: gn_fused.gn_fused_step_reference(
+                *fsrc, carry, fused_gate, True, *fgeo, False, *fmid),
+                    reps=20))
+        flat = gn_fused.association_rows_ordered(T, pts, K_l, h, w)
         # device time of one full launch (the profile's averages over a
         # frame, phase 10, include the launches after DONE, which return
         # at once)
@@ -866,8 +960,9 @@ def main() -> int:
                 nbytes(pts, src.mask, nrm, ck.q, ck.n, ck.w, ck.idx)
                 + 12 * 4 + row_bytes * torch.unique(ck.idx).numel(),
                 (OPS_TRANSFORM + OPS_ROTATE + OPS_CORRESPOND) * x.shape[0]),
-            "gn_partials": bound(nbytes(x, ck.q, ck.n, ck.w, pk),
-                                 OPS_GN_PARTIALS * x.shape[0]),
+            "gn_partials": bound(nbytes(pts, ck.q, ck.n, ck.w, pk) + 12 * 4,
+                                 (OPS_GN_PARTIALS + OPS_TRANSFORM)
+                                 * x.shape[0]),
             "gn_epilogue": bound(
                 nbytes(pk, nvs, ek_step) + 2 * nbytes(carry),
                 pk.shape[0] * gn_partials.NUM_SUMS + OPS_EPILOGUE_SOLVE),
@@ -875,10 +970,11 @@ def main() -> int:
                 nbytes(pts, ck.q, ck.n, ck.w, nvs) + 2 * nbytes(carry),
                 (OPS_GN_PARTIALS + OPS_TRANSFORM) * x.shape[0]
                 + OPS_EPILOGUE_SOLVE),
+            # the carry read and written, the gate pose written
             "gn_fused": bound(
-                nbytes(src.points, src.normals, src.mask, flat, T, T_res, gk)
+                nbytes(pts, nrm, src.mask, nvs) + 2 * nbytes(carry) + 12 * 4
                 + row_bytes * torch.unique(flat).numel(),
-                OPS_GN_FUSED * x.shape[0]),
+                OPS_GN_FUSED * x.shape[0] + OPS_EPILOGUE_SOLVE),
         }
         for name, (ms, plain_ms) in times.items():
             stats[name][li] = {"ms": ms, "plain_ms": plain_ms,
@@ -894,10 +990,13 @@ def main() -> int:
         log(f"[kernels] level {li}: w mismatch share {w_mis}, partials rel "
             f"{p_rel:.3e}, epilogue T {t_err:.3e} H rel {h_rel:.3e}, "
             f"gn_step T {s_err:.3e} H rel {s_hrel:.3e} (same bits again, "
-            f"nothing written after DONE), gn_fused rel {g_rel:.3e} Σvalid "
-            f"{float(gfk[2]):.0f} (per block equal)")
+            f"nothing written after DONE), posed gn_partials bit-equal to "
+            f"the unposed call at the ordered x, gn_fused T {g_err:.3e} H rel "
+            f"{g_hrel:.3e} Σvalid {g_valid:.0f} (per block equal, gate "
+            f"buffer equal, same bits again, nothing written after DONE)")
         if li == 0:
             step_ab = gn_step_ab(card, src, x, T, ck, carry, nvs, icp)
+            ring_partials = partials_at_ring_size(card, pts, ck, carry, icp)
     ring_stats = ring_nn_phase(dev, card)
 
     # ---- 4. uint16 divide ----
@@ -982,11 +1081,24 @@ def main() -> int:
     check(res_f["poses_finite"], "fused: non-finite poses")
     check(res_f["ate_rmse_m"] < 1e-3,
           f"fused: ATE {res_f['ate_rmse_m']} ≥ 1 mm")
-    check(launches_f["gn_fused"] > 0 and launches_f["gn_epilogue"] > 0,
+    # one launch a solve: no standalone reduction or epilogue
+    check(launches_f["gn_fused"] > 0
+          and launches_f["gn_epilogue"] == launches_f["gn_partials"] == 0,
           f"fused: launches {launches_f}")
     check(all(v == 0 for v in plain_f.values()),
           f"fused: plain calls {plain_f}")
-    del orbit
+    d_o = torch.as_tensor(orbit[2], device=dev)
+    reset_counts()
+    scan_odometry(d_o, K_o, SLAMConfig(
+        height=480, width=640, icp=ICPConfig(fused_gn=True)).validate())
+    torch.cuda.synchronize()
+    fused_launches, _ = read_counts()
+    per_frame_fused = {k: v / d_o.shape[0] for k, v in fused_launches.items()}
+    log("[fused] launches a frame on the orbit (one scan): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in per_frame_fused.items()))
+    check(fused_launches["gn_epilogue"] == fused_launches["correspond"] == 0,
+          f"fused: launches {fused_launches}")
+    del orbit, d_o
 
     # ---- 8. small slam: GPU kernels vs CPU twins on the 48-frame loop ----
     from tpuslam_torch.config import PoseGraphConfig, VoxelConfig
@@ -1055,17 +1167,17 @@ def main() -> int:
             check(m["closures"] >= 1, f"slam {fused} {mode}: no closure")
         check(r["sync"]["closure_pairs"] == r["deferred"]["closure_pairs"],
               f"slam fused={fused}: sync and deferred closures differ")
-        need = (("gn_fused", "gn_epilogue") if fused else
-                ("correspond", "gn_step"))
+        need = ("gn_fused",) if fused else ("correspond", "gn_step")
         check(all(ran[k] > 0 for k in need),
               f"slam fused={fused}: launches {ran}")
-        check(ran["gn_partials"] == 0 and (fused or ran["gn_epilogue"] == 0),
+        check(ran["gn_partials"] == ran["gn_epilogue"] == 0,
               f"slam fused={fused}: standalone GN kernels ran {ran}")
         log(f"[slam] fused_gn={fused} launches {ran}")
     launches_slam, plain_slam = read_counts()
     log(f"[slam] launches {launches_slam} plain calls {plain_slam}")
     check(all(launches_slam[k] > 0 for k in frame_kernels
-              if k != "gn_partials"), f"slam: launches {launches_slam}")
+              if k not in ("gn_partials", "gn_epilogue")),
+          f"slam: launches {launches_slam}")
     check(all(v == 0 for v in plain_slam.values()),
           f"slam: plain calls {plain_slam}")
 
@@ -1073,6 +1185,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     odo_us: dict = {}
+    fused_us: dict = {}
+    gemms_by: dict = {}
 
     d8 = torch.as_tensor(depths_np, device=dev)
     d8 = d8[[0, 1] * 4]
@@ -1089,13 +1203,28 @@ def main() -> int:
         rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
         if busy > 0:
+            gemms_by[fused] = count_ops(rows, "gemm")
             log(f"[profile] fused_gn={fused}, 8 frames: wall {wall_us:.1f} us "
                 f"(profiled), device busy {busy:.1f} us, idle share "
                 f"{1 - busy / wall_us:.4f}, device ops "
-                f"{sum(r[1] for r in rows)} ({card})")
+                f"{sum(r[1] for r in rows)}, GEMMs {gemms_by[fused]} "
+                f"({card})")
             for dt, cnt, key in rows[:15]:
                 log(f"[profile]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
-            if not fused:
+            if fused:
+                # each fused solve is one launch: no standalone epilogue,
+                # and no GEMM in the loop (no more than the plain orbit's,
+                # none of which is the loop's)
+                fused_us = {k: per_launch_us(rows, k) for k in KERNEL_SYMBOLS}
+                log("[profile] device us a launch, fused odometry: "
+                    + ", ".join(f"{k} {v[0]:.3f} ({v[1]}x)"
+                                for k, v in fused_us.items() if v is not None))
+                check(fused_us["gn_fused"] is not None
+                      and fused_us["gn_epilogue"] is None,
+                      f"profile fused: launches {fused_us}")
+                check(gemms_by[True] <= gemms_by.get(False, 0),
+                      f"profile: the fused orbit ran {gemms_by}")
+            else:
                 odo_us = {k: per_launch_us(rows, k) for k in KERNEL_SYMBOLS}
                 log("[profile] device us a launch, odometry: " + ", ".join(
                     f"{k} {v[0]:.3f} ({v[1]}x)" for k, v in odo_us.items()
@@ -1207,17 +1336,20 @@ def main() -> int:
         "ring_nn": ("tpuslam_torch/csrc/ring_nn.cu",
                     "tpuslam/kernels/pallas_ring.py:100"),
     }
-    # timings at level 0 (ring_nn: its own phase, one full hop); launches
-    # on the map path (phase 12), or for gn_fused, which that path does not
-    # run, on the SLAM path with fused_gn (phase 9); beside them launches a
-    # frame on the odometry orbit (phase 6), device µs a launch there
-    # averaged over all launches (phase 10) and device µs of one full
-    # launch at level 0 (phase 3).
+    # timings at level 0 (ring_nn: its own phase, one full hop; gn_partials
+    # also at the ring's size, `ring_size`); launches on the map path (phase
+    # 12), or for gn_fused, which that path does not run, on the SLAM path
+    # with fused_gn (phase 9); beside them launches a frame on the odometry
+    # orbit (phase 6; gn_fused: the fused orbit, phase 7), device µs a
+    # launch there averaged over all launches (phase 10) and device µs of
+    # one full launch at level 0 (phase 3).
     # No single PyTorch call computes any of these functions, so
     # library_ms is null.
     summary = {k: dict(stats[k][0], max_abs_err=max(
         v["max_abs_err"] for v in stats[k].values())) for k in frame_kernels}
     summary["ring_nn"] = ring_stats
+    odo_launch = dict(per_frame_odo, gn_fused=per_frame_fused["gn_fused"])
+    odo_dev = dict(odo_us, gn_fused=fused_us.get("gn_fused"))
     kernels = []
     for name, (src_path, replaces) in sources.items():
         s = summary[name]
@@ -1230,10 +1362,11 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
-            "odometry_launches_per_frame": per_frame_odo[name],
+            "odometry_launches_per_frame": odo_launch[name],
             "odometry_device_us_per_launch": (
-                odo_us[name][0] if odo_us.get(name) else None),
+                odo_dev[name][0] if odo_dev.get(name) else None),
             "device_us_full_launch": s["device_us_full_launch"],
+            **({"ring_size": ring_partials} if name == "gn_partials" else {}),
         })
     log(json.dumps({"gn_step_ab": step_ab}))
     log(json.dumps({"kernels": kernels}))

@@ -18,7 +18,6 @@ from tpuslam_torch.data.synthetic import orbit_trajectory, render_depth
 from tpuslam_torch.frontend import preprocess, scan_odometry
 from tpuslam_torch.geom import se3
 from tpuslam_torch.icp import (
-    _association_rows,
     align_frames,
     pack_pyramid,
     select_level_source,
@@ -251,7 +250,7 @@ def test_gn_step_repeated_launches_are_bit_identical(dev):
         outs.append(c)
     torch.cuda.synchronize()
     assert all(torch.equal(o, outs[0]) for o in outs)
-    ticket, _ = gn_step._scratch(pts[0].device)
+    ticket, _ = gn_step.scratch(pts[0].device)
     assert int(ticket) == 0
 
 
@@ -263,7 +262,7 @@ def test_gn_step_done_writes_nothing(dev):
     gn_step.gn_step(*pts, carry, *step_args(nvs))
     torch.cuda.synchronize()
     assert torch.equal(carry.view(torch.int32), before.view(torch.int32))
-    ticket, _ = gn_step._scratch(pts[0].device)
+    ticket, _ = gn_step.scratch(pts[0].device)
     assert int(ticket) == 0
 
 
@@ -287,12 +286,10 @@ def test_gn_step_non_finite_sum(dev):
     assert float(ck[e.DONE]) == float(cr[e.DONE]) == 1.0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("level", [0, 1, 2])
-@pytest.mark.parametrize("case", ["f16", "f32", "normal_gate_off"])
-def test_gn_fused_kernel_matches_twin(dev, level, case):
-    """Gates at T_gate ≠ T_res: the per-block validity counts are exact
-    (w bit-equal to the twin's), the folded sums agree to 1e-4 relative."""
+def fused_inputs(dev, level: int, case: str, first: bool):
+    """A 120×160 frame pair's source at `level`, the target's table, and
+    the fused step's carry (at T_res) and gate buffer (NaN on `is_first`,
+    when the kernel must not read it; else T_gate's rows)."""
     d = torch.as_tensor(depths(4), device=dev)
     icp = dataclasses.replace(CFG.icp, packed_dtype="float32"
                               if case == "f32" else "float16")
@@ -300,31 +297,114 @@ def test_gn_fused_kernel_matches_twin(dev, level, case):
     packed = pack_pyramid(pyr_a, icp)[level]
     src = select_level_source(pyr_b, level, icp)
     h, w, _ = pyr_b[level].points.shape
-    K_l = K.scaled(1.0 / 2 ** level)
     T_gate = se3.exp(torch.tensor([0.01, -0.01, 0.01, 0.01, 0.0, -0.01],
                                   device=dev))
-    T_res = se3.exp(torch.tensor([0.002, 0.0, -0.001, 0.001, -0.002, 0.0],
-                                 device=dev)) @ T_gate
-    flat = _association_rows(T_gate, src.points, K_l, h, w)
-    args = (src.points, src.normals, src.mask, packed, flat, T_gate, T_res,
-            K_l, w, h, 0.25, -2.0 if case == "normal_gate_off" else 0.5,
-            0.05)
-    pk = gn_fused.gn_fused_partials(*args)
-    pr = gn_fused.gn_fused_partials_reference(*args)
+    T_res = T_gate if first else se3.exp(torch.tensor(
+        [0.002, 0.0, -0.001, 0.001, -0.002, 0.0], device=dev)) @ T_gate
+    gate = (torch.full((12,), float("nan"), device=dev) if first
+            else T_gate[:3].reshape(12).clone())
+    ndmin = -2.0 if case == "normal_gate_off" else 0.5
+    args = (src.points.contiguous(), src.normals.contiguous(),
+            src.mask.contiguous(), packed)
+    geo = (K.scaled(1.0 / 2 ** level), w, h, 0.25, ndmin, 0.05,
+           torch.sum(src.mask.to(torch.float32)), *ARGS)
+    return args, geo, gn_epilogue.init_carry(T_res, 12), gate, T_gate
+
+
+def fused_step(args, geo, carry, gate, first, is_last=True):
+    return gn_fused.gn_fused_step(*args, carry, gate, first, *geo, is_last,
+                                  2, 12, 1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [True, False],
+                         ids=["is_first", "gate_ne_carry"])
+@pytest.mark.parametrize("case", ["f16", "f32", "normal_gate_off"])
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_gn_fused_step_kernel_matches_twin(dev, level, case, first):
+    """One fused solve against its twin: each block's Σvalid exact (the
+    row index and w are bit-equal, and the twin's rows are in the kernel's
+    grouping), the carry within gn_step's tolerances, the gate buffer
+    bit-equal (on `is_first` the carry's T)."""
+    args, geo, carry0, gate0, T_gate = fused_inputs(dev, level, case, first)
+    ck, gk = carry0.clone(), gate0.clone()
+    out = fused_step(args, geo, ck, gk, first)
+    _, rows = gn_step.scratch(dev)
+    nb = gn_step.num_blocks(args[0].shape[0])
+    kernel_valid = rows[:nb, 28].clone()
+    cr, gr = gn_fused.gn_fused_step_reference(*args, carry0, gate0, first,
+                                              *geo, True, 2, 12, 1e-8)
+    twin_rows = gn_fused.fused_rows(
+        *args, T_gate[:3], carry0[gn_epilogue.T_SLICE].reshape(4, 4),
+        *geo[:6], nb)
     torch.cuda.synchronize()
-    valid = gn_fused.fused_terms(src.points, src.normals, src.mask,
-                                 packed[flat.long()], *args[5:])[:, 28]
-    n = valid.shape[0]
-    block = (torch.arange(n, device=dev) // gn_partials.BLOCK_THREADS
-             ) % gn_partials.num_blocks(n)
-    assert torch.equal(torch.zeros(pk.shape[0], device=dev).index_add_(
-        0, block, valid), pk[:, 28])
+    assert out is ck
+    assert torch.equal(kernel_valid, twin_rows[:, 28])
+    assert_step_close(ck, cr)
+    assert torch.equal(gk, gr)
+    assert torch.equal(gk, T_gate[:3].reshape(12))
+    assert float(ck[gn_epilogue.NUM_INLIERS]) > 0.3 * float(geo[6])
+
+
+@pytest.mark.cuda
+def test_gn_fused_step_repeated_launches_are_bit_identical(dev):
+    """50 launches on fresh copies of one carry give the same bits; the
+    ticket is back at 0."""
+    args, geo, carry0, gate0, _ = fused_inputs(dev, 0, "f16", False)
+    outs = []
+    for _ in range(50):
+        c = carry0.clone()
+        fused_step(args, geo, c, gate0.clone(), False)
+        outs.append(c)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    ticket, _ = gn_step.scratch(dev)
+    assert int(ticket) == 0
+
+
+@pytest.mark.cuda
+def test_gn_fused_step_done_writes_nothing(dev):
+    args, geo, carry, gate, _ = fused_inputs(dev, 1, "f16", True)
+    carry = gn_epilogue.init_carry(carry[gn_epilogue.T_SLICE].reshape(4, 4), 0)
+    gate.fill_(3.0)
+    before = carry.clone(), gate.clone()
+    for first in (True, False):
+        fused_step(args, geo, carry, gate, first)
+    torch.cuda.synchronize()
+    assert torch.equal(carry.view(torch.int32), before[0].view(torch.int32))
+    assert torch.equal(gate, before[1])
+    ticket, _ = gn_step.scratch(dev)
+    assert int(ticket) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5000, 16384, 153600])
+def test_posed_partials_kernel_matches_twin(dev, n):
+    """The ring ICP's reduction at the carry's pose: the folded sums within
+    1e-4 of the twin's; the same bits as the reference-shaped call on the
+    points moved in the kernel's order; zero rows after DONE.  16,384 is
+    the ring's frame shard on one rank."""
+    p, q, nn, w = (torch.as_tensor(a, device=dev)
+                   for a in random_points(n, seed=3))
+    T = se3.exp(torch.tensor([0.02, -0.01, 0.03, 0.01, -0.02, 0.01],
+                             device=dev))
+    carry = gn_epilogue.init_carry(T, 12)
+    ts = carry[gn_epilogue.T_SLICE]
+    pk = gn_partials.gn_reduce_partials_at_pose(p, q, nn, w, ts, 0.05,
+                                                done=carry)
+    pr = gn_partials.gn_reduce_partials_at_pose_reference(p, q, nn, w, T,
+                                                          0.05)
+    pu = gn_partials.gn_reduce_partials(
+        se3.transform_points_ordered(T, p), q, nn, w, 0.05)
+    done = gn_epilogue.init_carry(T, 0)
+    pd = gn_partials.gn_reduce_partials_at_pose(
+        p, q, nn, w, done[gn_epilogue.T_SLICE], 0.05, done=done)
+    torch.cuda.synchronize()
     for a, b in zip(gn_partials.fold_partials(pk),
                     gn_partials.fold_partials(pr)):
         assert rel(a, b) <= 1e-4
-    assert float(pk[:, 28].sum()) > 0.3 * float(src.mask.sum())
-    done = gn_epilogue.init_carry(T_gate, 0)
-    assert torch.all(gn_fused.gn_fused_partials(*args, done=done) == 0)
+    assert torch.equal(pk, pu)
+    assert torch.all(pd == 0)
 
 
 @pytest.mark.cuda
@@ -358,7 +438,7 @@ def test_scan_gpu_matches_cpu_twins_and_counts_launches(dev):
     assert all(c.launches > 0 and c.plain_calls == 0 for c in counters)
     # one association and two solves an outer iteration, ⌈12/2⌉ + ⌈8/2⌉ +
     # ⌈8/2⌉ = 14 outer iterations a tracked frame; the standalone
-    # reduction and epilogue are the ring's and the fused path's
+    # reduction and epilogue are the ring's
     assert gn_step.counter.launches == 2 * correspond.counter.launches
     assert correspond.counter.launches % 14 == 0
     assert gn_partials.counter.launches == gn_epilogue.counter.launches == 0
@@ -401,12 +481,14 @@ def test_slam_gpu_matches_cpu_twins(dev, fused):
                 [(c.i, c.j) for c in slam.closures], slam.trajectory()[1])
 
     kc, cc, ec = run("cpu")
-    counters = ((gn_fused.counter, gn_epilogue.counter) if fused else
+    counters = ((gn_fused.counter,) if fused else
                 (correspond.counter, gn_step.counter))
-    for c in counters:
+    for c in counters + (gn_partials.counter, gn_epilogue.counter):
         c.reset()
     kg, cg, eg = run(dev)
     assert all(c.launches > 0 and c.plain_calls == 0 for c in counters)
+    # the standalone reduction and epilogue are the ring's alone
+    assert gn_partials.counter.launches == gn_epilogue.counter.launches == 0
     assert kg == kc and cg == cc and len(cc) >= 1
     assert float(np.abs(eg - ec).max()) <= 1e-4
 

@@ -1,15 +1,19 @@
 """The port's fused GN step (tpuslam_torch/kernels/gn_fused.py) and its ICP
 loop against the reference.
 
-On the CPU `gn_fused_partials` runs its plain twin; the twin is held here
-to the reference's oracle `gn_fused_reference` and to its Pallas kernel in
-interpret mode, on the same numpy inputs as tests/test_gn_fused.py: a bumpy
-organized target with invalid rows and outliers, gates at T_gate ≠ T_res,
-the normal gate disabled (threshold -2) and float16 rows.  Tolerances:
-the validity sum (Σvalid) is exact; H, b and Σw·r² agree to 1e-5 relative
-(same elementwise formulation, summed in another order).  The fused ICP
-loop (`align_frames` with `fused_gn=True`) must give the reference's
-iteration count and convergence exactly and T within 5e-5, the bound of
+On the CPU `gn_fused_step` runs its plain twin.  Its per-point terms
+(`fused_terms`, `gn_fused_reference`) are held to the reference's oracle
+`gn_fused_reference` and to its Pallas kernel in interpret mode, on the
+same numpy inputs as tests/test_gn_fused.py: a bumpy organized target with
+invalid rows and outliers, gates at T_gate ≠ T_res, the normal gate
+disabled (threshold -2) and float16 rows.  Tolerances: the validity sum
+(Σvalid) is exact; H, b and Σw·r² agree to 1e-5 relative (same elementwise
+formulation, summed in another order).  The whole solve — the row index
+from the kernel's own projection, the gather, the sums, the fold, the
+damped solve and the carry — is held to the reference's fused solve at
+the three levels of a frame pair (below).  The fused ICP loop
+(`align_frames` with `fused_gn=True`) must give the reference's iteration
+count and convergence exactly and T within 5e-5, the bound of
 tests/test_torch_icp.py.
 """
 
@@ -31,10 +35,13 @@ from tpuslam.geom.normals import organized_normals as r_normals
 from tpuslam.kernels.correspond import pack_organized_target as r_pack
 from tpuslam.kernels.gn_fused import gn_fused_pallas as r_pallas
 from tpuslam.kernels.gn_fused import gn_fused_reference as r_ref
+from tpuslam.kernels.gn_reduce import solve_gn_step as r_solve
 from tpuslam_torch import config as pc
 from tpuslam_torch.geom.backproject import backproject as p_backproject
 from tpuslam_torch.geom.normals import organized_normals as p_normals
-from tpuslam_torch.kernels import gn_fused, gn_partials
+from tpuslam_torch.kernels.correspond import pack_organized_target
+from tpuslam_torch.kernels import gn_epilogue as ep
+from tpuslam_torch.kernels import gn_fused, gn_partials, gn_step
 
 # The tests run in several worker processes on one machine: one intra-op
 # thread each keeps PyTorch's CPU thread pools from oversubscribing the
@@ -47,6 +54,7 @@ PK = pc.Intrinsics(*K)
 T_GATE = [0.02, -0.01, 0.015, 0.01, -0.02, 0.005]
 T_STEP = [0.0, 0.01, 0.0, 0.005, 0.0, -0.01]
 REL = 1e-5
+ARGS = (1e-6, 1e-4, 0.3, 0.3)   # damping, damping_abs, max_trans, max_rot
 
 
 def t(a) -> torch.Tensor:
@@ -150,20 +158,22 @@ def test_twin_matches_pallas_interpret(case):
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
 def test_partials_gather_flat_and_fold(dtype):
-    """`gn_fused_partials` on the CPU: gathers packed[flat] itself, and its
-    (num_blocks, 32) table folds to the oracle's sums."""
+    """The fused step's rows before its fold (`fused_rows`): it computes
+    the association's row itself (here the reference's index, point for
+    point), and its (num_blocks, 32) rows in the kernel's grouping fold to
+    the oracle's sums."""
     packed, src, sn, m = organized_scene(seed=2)
     Tg, Tr = poses(False)
     flat = flat_rows(packed, src, Tg)
     table = packed.astype(dtype)
-    before = gn_fused.counter.plain_calls
-    partials = gn_fused.gn_fused_partials(
-        t(src), t(sn), t(m), t(table), t(flat.astype(np.int32)),
-        t(Tg).reshape(16), t(Tr).reshape(16), PK, W, H, 0.25, 0.5, 0.05)
-    assert gn_fused.counter.plain_calls == before + 1
-    assert partials.shape == (gn_partials.num_blocks(src.shape[0]), 32)
-    assert torch.all(partials[:, 30:] == 0)
-    Hm, b, ninl, wsq, _ = gn_partials.fold_partials(partials)
+    own = gn_fused.association_rows_ordered(t(Tg), t(src), PK, H, W)
+    np.testing.assert_array_equal(own.numpy(), flat)
+    nb = gn_step.num_blocks(src.shape[0])
+    rows = gn_fused.fused_rows(t(src), t(sn), t(m), t(table), t(Tg), t(Tr),
+                               PK, W, H, 0.25, 0.5, 0.05, nb)
+    assert rows.shape == (nb, 32)
+    assert torch.all(rows[:, 30:] == 0)
+    Hm, b, ninl, wsq, _ = gn_partials.fold_partials(rows)
     ref = r_ref(jnp.asarray(src), jnp.asarray(sn), jnp.asarray(m),
                 jnp.asarray(table[flat]), jnp.asarray(Tg), jnp.asarray(Tr),
                 K, W, H, 0.25, 0.5, 0.05)
@@ -174,12 +184,12 @@ def test_other_devices_raise():
     meta = torch.device("meta")
     x = torch.empty((8, 3), device=meta)
     with pytest.raises(ValueError, match="no kernel"):
-        gn_fused.gn_fused_partials(
+        gn_fused.gn_fused_step(
             x, x, torch.empty(8, dtype=torch.bool, device=meta),
             torch.empty((H * W, 8), dtype=torch.float16, device=meta),
-            torch.empty(8, dtype=torch.int32, device=meta),
-            torch.empty(16, device=meta), torch.empty(16, device=meta), PK,
-            W, H, 0.25, 0.5, 0.05)
+            torch.empty(64, device=meta), torch.empty(12, device=meta), True,
+            PK, W, H, 0.25, 0.5, 0.05, torch.empty((), device=meta), *ARGS,
+            True, 2, 12, 1e-8)
 
 
 # ------------------------------------------------------------ fused ICP loop
@@ -231,3 +241,152 @@ def test_align_frames_fused_matches_reference(pair, case):
     np.testing.assert_allclose(float(pr.inlier_fraction),
                                float(rr.inlier_fraction), atol=1e-4)
     np.testing.assert_allclose(pr.T.numpy(), Tb, atol=4e-3)
+
+
+# ------------------------------------------------- one fused solve, one launch
+#
+# `gn_fused_step` on the CPU runs its twin: the association's row from the
+# kernel's own projection at the gate pose, the gather, the gates, the
+# residual at the carry's pose, the 30 sums in the kernel's grouping, the
+# fold and the epilogue.  It is held to the reference's fused solve
+# (tpuslam/icp.py:257-291): the reference's index at T_gate, the gather,
+# `gn_fused_reference`, `solve_gn_step` and `se3.exp(δ) @ T_res`, on the
+# same numpy inputs at the three levels of the frame pair.  Tolerances, as
+# tests/test_torch_gn_step.py's: T within 1e-5 and H within 1e-6 of max |H|
+# (the same terms summed in another order); Σvalid, `it` and DONE exactly.
+# The in-kernel index agrees with the reference's for every point of these
+# levels (test_in_kernel_flat_matches_reference_index), so both solve the
+# same system.
+
+STEP = [0.004, -0.003, 0.002, 0.003, -0.002, 0.001]   # one GN update
+TOL_SQ = 1e-8
+
+
+def level_inputs(pair, level: int, table: str):
+    """Level `level` as numpy: frame b's source cloud, frame a's table, the
+    level's intrinsics and shape, and a gate pose near the pair's motion."""
+    (_, pa), (_, pb), Tb = pair
+    src = picp.build_pyramid(pb, 3)[level].as_cloud()
+    tgt = picp.build_pyramid(pa, 3)[level]
+    packed = pack_organized_target(
+        tgt.points, tgt.normals, tgt.mask,
+        dtype=torch.float16 if table == "f16" else torch.float32)
+    h, w = tgt.mask.shape
+    Kl = FK.scaled(1.0 / 2 ** level)
+    Tg = (np.asarray(rse3.exp(jnp.asarray([0.003, 0.002, -0.002, 0.002,
+                                             -0.001, 0.002])))
+          @ Tb).astype(np.float32)
+    return ([a.numpy() for a in src], packed.numpy(), Kl, h, w, Tg)
+
+
+def reference_index(pts, Tg, Kl, h, w):
+    """tpuslam/icp.py:257-262: transform, project, round, clip."""
+    uv, _ = r_project(rse3.transform_points(jnp.asarray(Tg),
+                                            jnp.asarray(pts)), Kl)
+    ui = jnp.round(uv[..., 0]).astype(jnp.int32)
+    vi = jnp.round(uv[..., 1]).astype(jnp.int32)
+    return np.asarray(jnp.clip(vi, 0, h - 1) * w + jnp.clip(ui, 0, w - 1))
+
+
+def reference_solve(src, packed, Kl, h, w, Tg, Tr, ndmin):
+    """The reference's fused solve: (H, num_inliers, T_new, δ²)."""
+    pts, nrm, m = src
+    flat = reference_index(pts, Tg, Kl, h, w)
+    Hr, br, ninl, _ = r_ref(jnp.asarray(pts), jnp.asarray(nrm),
+                            jnp.asarray(m), jnp.asarray(packed[flat]),
+                            jnp.asarray(Tg), jnp.asarray(Tr), Kl, w, h, 0.25,
+                            ndmin, 0.05)
+    delta = r_solve(Hr, br, *ARGS)
+    T_new = rse3.exp(delta) @ jnp.asarray(Tr)
+    return (np.asarray(Hr), float(ninl), np.asarray(T_new),
+            float(jnp.sum(delta * delta)))
+
+
+def port_step(src, packed, Kl, h, w, carry, gate, is_first, ndmin,
+              is_last=True):
+    pts, nrm, m = (t(a) for a in src)
+    return gn_fused.gn_fused_step(
+        pts, nrm, m, t(packed), carry, gate, is_first, pc.Intrinsics(*Kl), w,
+        h, 0.25, ndmin, 0.05, torch.sum(m.to(torch.float32)), *ARGS, is_last,
+        2, 12, TOL_SQ)
+
+
+def assert_solve_close(carry, ref, it0=0.0):
+    Hr, ninl, T_new, dsq = ref
+    np.testing.assert_allclose(carry[ep.T_SLICE].reshape(4, 4).numpy(), T_new,
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(carry[ep.H_SLICE].numpy(), Hr.reshape(36),
+                               rtol=0, atol=1e-6 * float(np.abs(Hr).max()))
+    assert float(carry[ep.NUM_INLIERS]) == ninl
+    assert float(carry[ep.IT]) == it0 + 2
+    assert float(carry[ep.DONE]) == float(not (it0 + 2 < 12 and dsq > TOL_SQ))
+
+
+STEP_CASES = {"f16": ("f16", 0.5), "f32": ("f32", 0.5),
+              "normal_gate_off": ("f16", -2.0)}
+
+
+@pytest.mark.parametrize("first", [True, False],
+                         ids=["is_first", "gate_ne_carry"])
+@pytest.mark.parametrize("case", list(STEP_CASES))
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_step_twin_matches_reference_solve(pair, level, case, first):
+    """`is_first`: the gate pose is the carry's T (the buffer, full of NaN,
+    is not read) and is stored in the buffer; otherwise the gate pose is
+    the buffer's and the carry's T is one GN update past it."""
+    table, ndmin = STEP_CASES[case]
+    src, packed, Kl, h, w, Tg = level_inputs(pair, level, table)
+    Tr = Tg if first else (np.asarray(rse3.exp(jnp.asarray(STEP)))
+                           @ Tg).astype(np.float32)
+    carry = ep.init_carry(t(Tr), 12)
+    gate = (torch.full((12,), float("nan")) if first
+            else t(Tg[:3].reshape(12)))
+    port_step(src, packed, Kl, h, w, carry, gate, first, ndmin)
+    assert_solve_close(carry, reference_solve(src, packed, Kl, h, w, Tg, Tr,
+                                              ndmin))
+    np.testing.assert_array_equal(gate.numpy(), Tg[:3].reshape(12))
+    assert float(carry[ep.NUM_INLIERS]) > 0.3 * float(src[2].sum())
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_in_kernel_flat_matches_reference_index(pair, level):
+    """The kernel's row index (its ordered transform and the projection
+    that gates the point) against the reference's (XLA's transform and
+    projection, tpuslam/icp.py:257-262): the share of points whose row
+    differs stays at most 1e-3 (ROADMAP.md Queue 3 records the count)."""
+    (pts, _, _), _, Kl, h, w, Tg = level_inputs(pair, level, "f16")
+    own = gn_fused.association_rows_ordered(t(Tg), t(pts),
+                                            pc.Intrinsics(*Kl), h, w)
+    differ = int((own.numpy() != reference_index(pts, Tg, Kl, h, w)).sum())
+    print(f"level {level}: {differ} of {pts.shape[0]} rows differ")
+    assert differ <= 1e-3 * pts.shape[0]
+
+
+def test_gate_buffer_and_carry_follow_one_outer_iteration(pair):
+    """One outer iteration of two solves against the reference's loop body
+    (tpuslam/icp.py:252-301): the first solve stores state.T in the buffer
+    and moves the carry's T to the first T_new; the second gates at the
+    buffer's pose and ends the iteration (it, H, Σvalid, DONE).  With DONE
+    set a solve writes nothing."""
+    src, packed, Kl, h, w, T0 = level_inputs(pair, 1, "f16")
+    carry = ep.init_carry(t(T0), 12)
+    gate = torch.full((12,), float("nan"))
+    port_step(src, packed, Kl, h, w, carry, gate, True, 0.5, is_last=False)
+    np.testing.assert_array_equal(gate.numpy(), T0[:3].reshape(12))
+    _, _, T1, _ = reference_solve(src, packed, Kl, h, w, T0, T0, 0.5)
+    np.testing.assert_allclose(carry[ep.T_SLICE].reshape(4, 4).numpy(), T1,
+                               rtol=0, atol=1e-5)
+    assert float(carry[ep.IT]) == 0.0 and float(carry[ep.DONE]) == 0.0
+    # the reference's second solve: gates at state.T, residuals at T_new
+    T1_port = carry[ep.T_SLICE].reshape(4, 4).numpy().copy()
+    port_step(src, packed, Kl, h, w, carry, gate, False, 0.5)
+    np.testing.assert_array_equal(gate.numpy(), T0[:3].reshape(12))
+    assert_solve_close(carry, reference_solve(src, packed, Kl, h, w, T0,
+                                              T1_port, 0.5))
+
+    done = ep.init_carry(t(T0), 0)
+    full = torch.full((12,), 3.0)
+    before = (done.clone(), full.clone())
+    for first in (True, False):
+        port_step(src, packed, Kl, h, w, done, full, first, 0.5)
+    assert torch.equal(done, before[0]) and torch.equal(full, before[1])

@@ -215,7 +215,7 @@ def test_other_devices_raise():
 
 def test_icp_loop_takes_one_step_a_solve():
     """`_icp_loop` solves through gn_step alone: the standalone reduction
-    and epilogue are left to the ring and the fused path."""
+    and epilogue are left to the ring."""
     from tpuslam_torch.config import ICPConfig, Intrinsics, SLAMConfig
     from tpuslam_torch.data.synthetic import orbit_trajectory, render_depth
     from tpuslam_torch.frontend import preprocess

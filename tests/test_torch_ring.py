@@ -24,6 +24,10 @@ against the reference.
   the reference's on a 4-device mesh, shard for shard (points 1e-5,
   normals 1e-4: the port sums voxels in float64, the reference in
   float32).
+- The ring ICP's reduction moves the frame points by the carry's pose
+  itself: bit-equal to the reference-shaped reduction at the x the hops
+  associate at, and a one-rank ring ICP calls no se3 product (pose within
+  1e-4 of the reference's on a one-device mesh).
 """
 
 import os
@@ -55,6 +59,7 @@ from tpuslam_torch.dist import map_fusion, ring_map
 from tpuslam_torch.dist.mesh import make_mesh, pad_to_multiple, shard_cloud
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.kernels import gn_epilogue as ep
+from tpuslam_torch.kernels import gn_partials
 from tpuslam_torch.kernels import ring_nn as pring
 
 # The tests run in several worker processes on one machine: one intra-op
@@ -295,6 +300,81 @@ def test_ring_correspond_hop_other_devices_raise():
             torch.empty((16, 8), device=meta),
             pring.ring_state(8, meta), torch.empty(64, device=meta), True,
             True, 0.05)
+
+
+# ---------------------------------------------------- the ring ICP's reduction
+
+
+@pytest.mark.parametrize("n", [1, 5000, 16384])
+def test_posed_partials_twin_bit_equal(n):
+    """The ring ICP's reduction at the carry's pose on the CPU
+    (`gn_reduce_partials_at_pose`, which moves the frame points itself) is
+    bit-equal to the reference-shaped reduction of `transform_points_ordered
+    (T, p)`, the x the ring's hops associate at (that reduction's twin is
+    held to `gn_reduce_partials_pallas` by tests/test_torch_kernels.py).
+    16,384 is the ring's frame shard on one rank.  It counts one twin call
+    and no launch."""
+    rng = np.random.default_rng(n)
+    T = np.array(rse3.exp(jnp.asarray(POSE)))
+    pn = rng.normal(size=(n, 3)).astype(np.float32)
+    qn = pn @ T[:3, :3].T + T[:3, 3] + rng.normal(scale=0.03, size=(n, 3))
+    nn = rng.normal(size=(n, 3))
+    nn /= np.linalg.norm(nn, axis=1, keepdims=True)
+    p, q, nrm = (torch.as_tensor(a.astype(np.float32)) for a in (pn, qn, nn))
+    w = torch.as_tensor((rng.uniform(size=n) < 0.8).astype(np.float32))
+    carry = ep.init_carry(torch.as_tensor(T), 12)
+    counter = gn_partials.counter
+    before = (counter.launches, counter.plain_calls)
+    got = gn_partials.gn_reduce_partials_at_pose(p, q, nrm, w,
+                                                 carry[ep.T_SLICE], 0.05,
+                                                 done=carry)
+    assert (counter.launches, counter.plain_calls) == (before[0],
+                                                       before[1] + 1)
+    expect = gn_partials.gn_reduce_partials_reference(
+        pring.transform_points_ordered(torch.as_tensor(T), p), q, nrm, w,
+        0.05)
+    assert torch.equal(got, expect)
+    assert got.shape == (gn_partials.num_blocks(n), 32)
+
+
+def test_posed_partials_other_devices_raise():
+    meta = torch.device("meta")
+    x = torch.empty((8, 3), device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        gn_partials.gn_reduce_partials_at_pose(
+            x, x, x, torch.empty(8, device=meta),
+            torch.empty(16, device=meta), 0.05)
+
+
+def test_one_rank_ring_icp_solves_without_a_transform(monkeypatch):
+    """The ring ICP on a one-rank CPU mesh ("kernel" backend) calls no se3
+    product: the hops and the reductions move the frame points by the
+    carry's pose themselves.  Its pose is the reference's
+    `align_to_map_ring` on a one-device mesh within POSE_TOL."""
+    src_world, dst = make_clouds(n=1024)
+    T_true = rse3.exp(jnp.array([0.03, -0.02, 0.04, 0.015, -0.02, 0.02]))
+    src = src_world.transform(rse3.inv(T_true))
+    cfg = RICPConfig(max_iters=25, max_corr_dist=0.3, huber_delta=0.1)
+    ref = r_align_ring(src, dst, jnp.eye(4), cfg, r_make_mesh(1),
+                       backend="pallas")
+
+    def no_product(*a, **k):
+        raise AssertionError("the ring ICP called an se3 product")
+
+    monkeypatch.setattr(ring_map.se3, "transform_points", no_product)
+    monkeypatch.setattr(ring_map.se3, "rotate_vectors", no_product)
+
+    def cloud(c):
+        return PointCloud(*(torch.as_tensor(np.array(a))
+                            for a in (c.points, c.normals, c.mask)))
+
+    before = gn_partials.counter.plain_calls
+    res = ring_map.align_to_map_ring(cloud(src), cloud(dst), torch.eye(4),
+                                     cfg, make_mesh("cpu"))
+    assert gn_partials.counter.plain_calls - before >= int(res.iters) > 0
+    np.testing.assert_allclose(res.T.numpy(), np.asarray(ref.T),
+                               atol=POSE_TOL)
+    assert int(res.iters) == int(ref.iters)
 
 
 def test_mix32_and_owner_bit_for_bit():

@@ -32,10 +32,10 @@
 //   registers, the elimination spread over its lanes (one row a lane).
 //   Everything the old ~100 tiny XLA ops did is this one launch.
 //
-// The ICP loop on one card calls gn_step.cu, which does this fold and solve
-// in the same launch as the reduction.  This kernel serves the ring ICP
-// (after the all-reduce of gn_partials.cu's rows) and the fused path
-// (after gn_fused.cu).
+// The ICP loop on one card calls gn_step.cu, and the fused loop gn_fused.cu,
+// each of which does this fold and solve in the same launch as its
+// reduction.  This kernel serves only the ring ICP, after the all-reduce of
+// gn_partials.cu's rows.
 
 #include <cuda_runtime.h>
 

@@ -1,58 +1,84 @@
-// Fused projective GN step: gates + residual + Huber + 30-sum reduction,
-// with the association's row gather inside the kernel.
+// One Gauss-Newton solve of the fused projective ICP loop in one launch:
+// each source point's association row, its gates at the association pose,
+// its residual at the current pose, the 30-sum reduction, then the last
+// block's fold and solve and the carry's update in place.
 //
-// Replaces: tpuslam/kernels/gn_fused.py, _kernel (via gn_fused_pallas; math
-//   in _gates_and_residual and _reduce_outputs).  Per source point:
-//     x_g = R_g p + t_g                    gate-time transform (association pose)
-//     u, v = round(project(x_g)); bounds   in-bounds gate, re-derived here
-//     row  = table[flat]                   16-byte float16 (or 32-byte float32) row
-//     n_r  = R_g n_src                     normal-compatibility gate
-//     w    = mask * row_valid * gates      {0, 1} validity
-//     x_r  = R_r p + t_r                   residual-time transform (current pose)
-//     r    = n.(x_r - q); Huber; J = [n, x_r x n]
-//   reduced to the 30 sums of gn_partials.cu (21 upper-triangle H, 6 b,
-//   sum w r^2, sum validity, sum w), same order, same (num_blocks, 32) table,
-//   which gn_epilogue.cu then folds and solves.
+// Replaces: tpuslam/kernels/gn_fused.py, _kernel (called at :301 through
+//   gn_fused_pallas; math in _gates_and_residual and _reduce_outputs), and
+//   what surrounds it in the reference's fused loop (tpuslam/icp.py:252-290):
+//   the association index (transform, project, round, clip), the gather
+//   packed[flat], and solve_gn_step + se3.exp after every solve.  Per point:
+//     x_g  = R_g p + t_g                 gate-time transform (association pose)
+//     u, v = round(project(x_g))         in-bounds gate
+//     flat = clip(v) * W + clip(u)       the association's row index
+//     row  = table[flat]                 16-byte float16 (32-byte float32) row
+//     n_r  = R_g n_src                   normal-compatibility gate
+//     w    = mask * row_valid * gates    {0, 1} validity
+//     x_r  = R_r p + t_r                 residual-time transform (current pose)
+//     r    = n.(x_r - q); Huber; J = [n, x_r x n]; the 30 sums
+//   then gn_solve.cuh's fold and solve, as in gn_step.cu.
 //
-// What bounds it on the H100: bytes and one dependent random read.  Per
-//   point it reads 28 B of source data (p, n_src, mask), 4 B of row index
-//   and one 16 B table row, ~210 flops; the finest level's 153,600 points
-//   are ~7 MB, about 2 us at 3.35 TB/s.  The table (4.9 MB at 640x480,
-//   float16) stays in the 50 MB L2 across an ICP loop.
+// The poses come from the device.  The residual pose is the carry's T (rows
+//   0-2).  The gate pose is the carry's T on the first solve of an outer
+//   iteration (is_first); that solve's last block also stores it in a
+//   12-float buffer, from which the outer iteration's later solves read it.
 //
-// What the design does about it: one thread per point in a grid-stride
-//   loop, the row gather is a single 16-byte load into registers (the
-//   reference materializes an (N, 8) gathered array between two passes;
-//   here it never leaves registers), and the 30 accumulators stay in
-//   registers until the fixed-order block reduction of gn_partials.cu (warp
-//   shuffles, then warps in order).  No atomics: bitwise reproducible.
+// What bounds it on the H100: bytes and two dependent memory trips a point.
+//   A point reads 41 B: p 12, n_src 12, mask 1 and one 16 B table row (the
+//   old design also read a 4 B row index, which a cuBLAS transform and ~19
+//   small ops wrote first).  The finest level's 153,600 points are 6.3 MB,
+//   1.9 us at 3.35 TB/s; ~170 flops a point.  The table (4.9 MB at 640x480
+//   in float16) stays in the 50 MB L2 across an ICP loop, so the gather hits
+//   L2, but it waits on the projection, which waits on the point's own
+//   load.  After the reduction come the last block's fold and the one-warp
+//   solve (about 4.5 us of dependent steps, gn_step.cu's).
 //
-// The two poses are read from device memory (T_gate: the pose at the
-//   association, T_res: the freshly updated pose; rows 0-2 of row-major 4x4
-//   matrices), so an ICP loop never builds a parameter vector on the host.
+// What the design does about it:
+//   - One launch a solve and nothing else an outer iteration: the index
+//     array, its transform, the carry's copy, the partials' allocation and
+//     the standalone epilogue launch of the old design are gone.
+//   - One point a thread per grid-stride step; its row gather is one
+//     16-byte load into registers.  A variant with two points in flight a
+//     thread (both points' loads and gathers issued before either was
+//     added) was no faster on the card and took more registers.
+//   - The grid is one block an SM (kernels/gn_step.py): the last block
+//     folds half the rows of a two-blocks-an-SM grid.
+//   - Each block reduces its 30 accumulators to one 32-float row (warp
+//     shuffles, warps in order), fences and draws a ticket; atomicInc with
+//     the limit gridDim.x - 1 gives the last block that ticket and stores 0
+//     for the next launch.  The last block folds every row in a fixed order
+//     and warp 0 solves and updates the carry (gn_solve.cuh), so every run
+//     gives the same bits.
+//   - After DONE (carry[0] != 0 at entry) every block returns before it
+//     reads a point, touches the ticket or writes anything.  In place is
+//     safe: every block reads the poses and DONE before it draws its
+//     ticket, only the last block writes, and the gate buffer is read only
+//     by solves that do not write it (is_first false).
 //
-// Numerics: the gate-time transform, the projection and the gate products
-//   are written with __fmul_rn / __fadd_rn / __fdiv_rn in the reference's
-//   left-to-right order, so nvcc cannot contract them into FMAs, and the
-//   rounding is rintf (round half to even, like jnp.round / torch.round).
-//   The validity w is then bit-equal to the plain PyTorch twin's
-//   (kernels/gn_fused.py).  The projection here is not the one that chose
-//   `flat` (the caller's); a point on a half-pixel boundary can be gated
-//   against its neighbour's row, as in the reference (tpuslam/icp.py:268).
+// Numerics: the transforms, the projection and the gate products are
+//   written with __fmul_rn / __fadd_rn / __fdiv_rn in the reference's
+//   left-to-right order (se3.transform_points_ordered's for the
+//   transforms), so nvcc cannot contract them into FMAs, and the rounding
+//   is rintf (round half to even, like jnp.round / torch.round).  The
+//   validity w and the row index are then bit-equal to the plain PyTorch
+//   twin's (kernels/gn_fused.py).  The index comes from the projection that
+//   gates the point, so a point is always gated against its own row; the
+//   reference derives its index from another projection (XLA's) and can
+//   gate a point on an exact half-pixel boundary against its neighbour's
+//   row (tpuslam/icp.py:268-278).  The two indices differ for a measured
+//   share of points (tests/test_torch_gn_fused.py, ROADMAP.md Queue 3).
 //
-// When *done != 0 (the ICP loop's device-side early exit) each block writes
-// a zero row and reads no input.
+// One stream: the ticket word and the rows' scratch are kernels/gn_step.py's,
+// one of each per device, so two launches of these kernels must not run
+// concurrently on one device.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "gn_solve.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSums = 30;
-constexpr int kRow = 32;
+namespace {
 
 // ((r[0]*a + r[1]*b) + r[2]*c) + t with every operation rounded on its own.
 __device__ __forceinline__ float affine_row(const float* r, float a, float b,
@@ -69,137 +95,134 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
                    __fmul_rn(a2, b2));
 }
 
-__global__ void __launch_bounds__(kThreads) gn_fused_kernel(
+struct FusedArgs {
+  int n, height, width, table_f16, is_first;
+  float fx, fy, cx, cy, max_d2, nd_min, huber;
+};
+
+__global__ void __launch_bounds__(gn::kThreads) gn_fused_step_kernel(
     const float* __restrict__ pts, const float* __restrict__ nrm,
     const uint8_t* __restrict__ mask, const void* __restrict__ table,
-    int table_f16, const int* __restrict__ flat, int n,
-    const float* __restrict__ T_gate, const float* __restrict__ T_res,
-    float fx, float fy, float cx, float cy, float u_max, float v_max,
-    float max_d2, float nd_min, float huber, const float* __restrict__ done,
-    float* __restrict__ partials) {
-  __shared__ float warp_sums[kWarps][kRow];
-  float acc[kSums];
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+    FusedArgs fa, float* carry, float* gate,
+    const float* __restrict__ nvalid_src, gn::SolveArgs args,
+    float* __restrict__ partials, unsigned int* __restrict__ ticket) {
+  __shared__ float pose[24];  // rows 0..2 of the gate pose, then of T
+  __shared__ float warp_sums[gn::kWarps][gn::kRow];
+  __shared__ float sums[gn::kRow];
+  __shared__ bool is_last;
 
-  const bool skip = (done != nullptr) && (done[0] != 0.0f);
-  if (!skip) {
-    float rg[9], tg[3], rr[9], tr[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        rg[3 * a + b] = T_gate[4 * a + b];
-        rr[3 * a + b] = T_res[4 * a + b];
-      }
-      tg[a] = T_gate[4 * a + 3];
-      tr[a] = T_res[4 * a + 3];
-    }
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += gridDim.x * blockDim.x) {
-      const float p0 = pts[3 * i], p1 = pts[3 * i + 1], p2 = pts[3 * i + 2];
-      const float s0 = nrm[3 * i], s1 = nrm[3 * i + 1], s2 = nrm[3 * i + 2];
-
-      // gate-time transform and projection gates
-      const float xg0 = affine_row(rg + 0, p0, p1, p2, tg[0]);
-      const float xg1 = affine_row(rg + 3, p0, p1, p2, tg[1]);
-      const float xg2 = affine_row(rg + 6, p0, p1, p2, tg[2]);
-      const bool in_front = xg2 > 1e-6f;
-      const float zs = in_front ? xg2 : 1.0f;
-      const float u = __fadd_rn(__fmul_rn(__fdiv_rn(xg0, zs), fx), cx);
-      const float v = __fadd_rn(__fmul_rn(__fdiv_rn(xg1, zs), fy), cy);
-      const float ui = rintf(u), vi = rintf(v);
-      const bool in_bounds =
-          (ui >= 0.0f) && (ui <= u_max) && (vi >= 0.0f) && (vi <= v_max);
-
-      // the association's row, widened in registers
-      float row[7];
-      const int f = flat[i];
-      if (table_f16) {
-        const uint4 raw = reinterpret_cast<const uint4*>(table)[f];
-        const __half* h = reinterpret_cast<const __half*>(&raw);
-#pragma unroll
-        for (int k = 0; k < 7; ++k) row[k] = __half2float(h[k]);
-      } else {
-        const float4* t = reinterpret_cast<const float4*>(table) + 2 * f;
-        const float4 a = t[0], b = t[1];
-        row[0] = a.x; row[1] = a.y; row[2] = a.z; row[3] = a.w;
-        row[4] = b.x; row[5] = b.y; row[6] = b.z;
-      }
-      const float q0 = row[0], q1 = row[1], q2 = row[2];
-      const float n0 = row[3], n1 = row[4], n2 = row[5];
-
-      // distance and normal-compatibility gates at the gate-time pose
-      const float dq0 = __fsub_rn(xg0, q0), dq1 = __fsub_rn(xg1, q1),
-                  dq2 = __fsub_rn(xg2, q2);
-      const float d2 = dot3(dq0, dq1, dq2, dq0, dq1, dq2);
-      const float nr0 = dot3(rg[0], rg[1], rg[2], s0, s1, s2);
-      const float nr1 = dot3(rg[3], rg[4], rg[5], s0, s1, s2);
-      const float nr2 = dot3(rg[6], rg[7], rg[8], s0, s1, s2);
-      const float ndot = dot3(n0, n1, n2, nr0, nr1, nr2);
-      const bool valid = (mask[i] != 0) && (row[6] > 0.5f) && in_front &&
-                         in_bounds && (d2 < max_d2) && (ndot > nd_min);
-      const float wv = valid ? 1.0f : 0.0f;
-
-      // residual-time transform, residual, Huber, Jacobian
-      const float xr0 = affine_row(rr + 0, p0, p1, p2, tr[0]);
-      const float xr1 = affine_row(rr + 3, p0, p1, p2, tr[1]);
-      const float xr2 = affine_row(rr + 6, p0, p1, p2, tr[2]);
-      const float r = n0 * (xr0 - q0) + n1 * (xr1 - q1) + n2 * (xr2 - q2);
-      const float ar = fabsf(r);
-      const float hub = (ar <= huber) ? 1.0f : huber / fmaxf(ar, 1e-12f);
-      const float w = wv * hub;
-      const float j[6] = {n0, n1, n2, xr1 * n2 - xr2 * n1,
-                          xr2 * n0 - xr0 * n2, xr0 * n1 - xr1 * n0};
-      int k = 0;
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        const float wja = w * j[a];
-#pragma unroll
-        for (int b = a; b < 6; ++b) acc[k++] += wja * j[b];
-      }
-      const float wr = w * r;
-#pragma unroll
-      for (int a = 0; a < 6; ++a) acc[21 + a] += wr * j[a];
-      acc[27] += wr * r;
-      acc[28] += wv;
-      acc[29] += w;
-    }
-  }
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_sums[warp][k] = v;
+  if (carry[gn::kDone] != 0.0f) return;
+  if (threadIdx.x < 12) {
+    const float t = carry[gn::kT + threadIdx.x];
+    pose[12 + threadIdx.x] = t;
+    pose[threadIdx.x] = fa.is_first ? t : gate[threadIdx.x];
   }
   __syncthreads();
-  if (threadIdx.x < kRow) {
-    const int k = threadIdx.x;
-    float s = 0.0f;
-    if (k < kSums) {
-      for (int wp = 0; wp < kWarps; ++wp) s += warp_sums[wp][k];
+  float rg[9], tg[3], rr[9], tr[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      rg[3 * a + b] = pose[4 * a + b];
+      rr[3 * a + b] = pose[12 + 4 * a + b];
     }
-    partials[blockIdx.x * kRow + k] = s;
+    tg[a] = pose[4 * a + 3];
+    tr[a] = pose[12 + 4 * a + 3];
+  }
+  const float u_max = (float)(fa.width - 1), v_max = (float)(fa.height - 1);
+
+  float acc[gn::kSums];
+#pragma unroll
+  for (int k = 0; k < gn::kSums; ++k) acc[k] = 0.0f;
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < fa.n; i += stride) {
+    const float p0 = pts[3 * i], p1 = pts[3 * i + 1], p2 = pts[3 * i + 2];
+    const float s0 = nrm[3 * i], s1 = nrm[3 * i + 1], s2 = nrm[3 * i + 2];
+    const bool msk = mask[i] != 0;
+    // gate-time transform, projection, in-bounds gate and the row index
+    float xg[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      xg[a] = affine_row(rg + 3 * a, p0, p1, p2, tg[a]);
+    const bool front = xg[2] > 1e-6f;
+    const float zs = front ? xg[2] : 1.0f;
+    const float u = __fadd_rn(__fmul_rn(__fdiv_rn(xg[0], zs), fa.fx), fa.cx);
+    const float v = __fadd_rn(__fmul_rn(__fdiv_rn(xg[1], zs), fa.fy), fa.cy);
+    const float ui = rintf(u), vi = rintf(v);
+    const bool inb =
+        (ui >= 0.0f) && (ui <= u_max) && (vi >= 0.0f) && (vi <= v_max);
+    // the pixel clipped to the image; a NaN coordinate clips to 0, as XLA's
+    // float-to-int conversion gives it
+    const int uc = (int)fminf(fmaxf(ui, 0.0f), u_max);
+    const int vc = (int)fminf(fmaxf(vi, 0.0f), v_max);
+    const int flat = vc * fa.width + uc;
+    float row[7];
+    if (fa.table_f16) {
+      const uint4 raw = reinterpret_cast<const uint4*>(table)[flat];
+      const __half* h = reinterpret_cast<const __half*>(&raw);
+#pragma unroll
+      for (int c = 0; c < 7; ++c) row[c] = __half2float(h[c]);
+    } else {
+      const float4* t = reinterpret_cast<const float4*>(table) + 2 * flat;
+      const float4 a = t[0], b = t[1];
+      row[0] = a.x; row[1] = a.y; row[2] = a.z; row[3] = a.w;
+      row[4] = b.x; row[5] = b.y; row[6] = b.z;
+    }
+    // a gated point is added with w = 0 (so a non-finite point still turns
+    // the sums non-finite)
+    const float q0 = row[0], q1 = row[1], q2 = row[2];
+    const float n0 = row[3], n1 = row[4], n2 = row[5];
+    const float dq0 = __fsub_rn(xg[0], q0), dq1 = __fsub_rn(xg[1], q1),
+                dq2 = __fsub_rn(xg[2], q2);
+    const float d2 = dot3(dq0, dq1, dq2, dq0, dq1, dq2);
+    const float nr0 = dot3(rg[0], rg[1], rg[2], s0, s1, s2);
+    const float nr1 = dot3(rg[3], rg[4], rg[5], s0, s1, s2);
+    const float nr2 = dot3(rg[6], rg[7], rg[8], s0, s1, s2);
+    const float ndot = dot3(n0, n1, n2, nr0, nr1, nr2);
+    const bool valid = msk && (row[6] > 0.5f) && front && inb &&
+                       (d2 < fa.max_d2) && (ndot > fa.nd_min);
+    float xr[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      xr[a] = affine_row(rr + 3 * a, p0, p1, p2, tr[a]);
+    gn::accumulate_point(acc, xr[0], xr[1], xr[2], q0, q1, q2, n0, n1, n2,
+                         valid ? 1.0f : 0.0f, fa.huber);
+  }
+  gn::block_reduce_row(acc, warp_sums, partials + blockIdx.x * gn::kRow);
+
+  // the last block to finish folds every block's row and solves
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  gn::fold_rows(partials, gridDim.x, warp_sums, sums);
+  if (threadIdx.x < 32) {
+    // the association pose, for the outer iteration's later solves
+    if (fa.is_first && threadIdx.x < 12) gate[threadIdx.x] = pose[threadIdx.x];
+    gn::solve_and_update(sums, carry, nvalid_src[0], args, carry, nullptr);
   }
 }
 
 }  // namespace
 
-extern "C" int tpuslam_gn_fused(
+extern "C" int tpuslam_gn_fused_step(
     const void* pts, const void* nrm, const void* mask, const void* table,
-    int table_f16, const void* flat, int n, const void* T_gate,
-    const void* T_res, float fx, float fy, float cx, float cy, float u_max,
-    float v_max, float max_d2, float nd_min, float huber, const void* done,
-    void* partials, int num_blocks, void* stream) {
-  gn_fused_kernel<<<num_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)pts, (const float*)nrm, (const uint8_t*)mask, table,
-      table_f16, (const int*)flat, n, (const float*)T_gate,
-      (const float*)T_res, fx, fy, cx, cy, u_max, v_max, max_d2, nd_min, huber,
-      (const float*)done, (float*)partials);
+    int table_f16, int n, int height, int width, float fx, float fy, float cx,
+    float cy, float max_d2, float nd_min, float huber, void* carry, void* gate,
+    int is_first, const void* nvalid_src, float damping, float damping_abs,
+    float max_trans, float max_rot, int is_last, int inner, int max_iters,
+    float tol_sq, void* partials, void* ticket, int num_blocks,
+    void* stream) {
+  const FusedArgs fa{n,  height, width, table_f16, is_first, fx,
+                     fy, cx,     cy,    max_d2,    nd_min,   huber};
+  const gn::SolveArgs args{damping, damping_abs, max_trans, max_rot,
+                           is_last, inner, max_iters, tol_sq};
+  gn_fused_step_kernel<<<num_blocks, gn::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)pts, (const float*)nrm, (const uint8_t*)mask, table, fa,
+      (float*)carry, (float*)gate, (const float*)nvalid_src, args,
+      (float*)partials, (unsigned int*)ticket);
   return (int)cudaGetLastError();
 }

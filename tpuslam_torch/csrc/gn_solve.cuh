@@ -2,9 +2,11 @@
 // of it exists once:
 //   gn_partials.cu  — accumulate_point + block_reduce_row (the reduction
 //                     the ring ICP all-reduces across ranks);
-//   gn_epilogue.cu  — fold_rows + solve_and_update (after gn_partials on
-//                     the ring, after gn_fused on the fused path);
-//   gn_step.cu      — all four in one launch (the ICP loop's GN solve).
+//   gn_epilogue.cu  — fold_rows + solve_and_update (after gn_partials and
+//                     the all-reduce on the ring, its only caller);
+//   gn_step.cu      — all four in one launch (the ICP loop's GN solve);
+//   gn_fused.cu     — all four in one launch, with the association's row
+//                     and gates inside (the fused ICP loop's GN solve).
 //
 // Everything here is __forceinline__: the solve's arrays are indexed only
 // by compile-time constants after unrolling, so they live in registers.

@@ -28,9 +28,10 @@ transfer overlaps the compute (NCCL runs it on its own stream).  With one
 rank there are no transfers.
 
 The ICP loop is `icp._icp_loop`'s: a fixed budget of ⌈max_iters/inner⌉
-outer iterations whose GN steps are the partials kernel, an `all_reduce`
-of the partials and the epilogue kernel, which keeps the carry — pose,
-stats and a DONE flag — on the device.  Every rank runs the same number
+outer iterations whose GN steps are the partials kernel (which moves the
+frame points by the carry's pose itself), an `all_reduce` of the partials
+and the epilogue kernel, which keeps the carry — pose, stats and a DONE
+flag — on the device.  Every rank runs the same number
 of collectives whatever its data: a host-side early exit could let the
 ranks disagree on it and deadlock.  (Only a one-rank mesh on the CPU
 stops at DONE, as `_icp_loop` does.)  The epilogue's Gauss elimination
@@ -51,7 +52,7 @@ from tpuslam_torch.geom import se3
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.icp import ICPResult, _result, flat_icp_scalars
 from tpuslam_torch.kernels import gn_epilogue as ep
-from tpuslam_torch.kernels.gn_partials import gn_reduce_partials
+from tpuslam_torch.kernels.gn_partials import gn_reduce_partials_at_pose
 from tpuslam_torch.kernels.ring_nn import (
     ROW_DIM,
     init_best,
@@ -136,20 +137,20 @@ def _ring_icp(frame: PointCloud, shard: torch.Tensor, T0: torch.Tensor,
         if may_stop and bool(carry[ep.DONE] != 0):
             break
         if backend == "kernel":
-            # the hops move the points by the carry's pose and write x (at
-            # that pose), q, n and w into `state`
+            # the hops move the points by the carry's pose and write q, n
+            # and w into `state`
             _ring_hops(mesh, shard, spare, visit)
-            x, q, n, w = state.x, state.q, state.n, state.w
+            q, n, w = state.q, state.n, state.w
         else:
             x = se3.transform_points(carry[ep.T_SLICE].reshape(4, 4), points)
             q, n, w = _ops_correspond(x, mask, shard, spare,
                                       cfg.max_corr_dist, mesh)
         for k in range(inner):
-            if k > 0:
-                x = se3.transform_points(carry[ep.T_SLICE].reshape(4, 4),
-                                         points)
-            partials = mesh.all_reduce(gn_reduce_partials(
-                x, q, n, w, cfg.huber_delta, done=carry))
+            # the reduction moves the points by the carry's current pose
+            # (in the hops' order: the first solve sees the x they matched)
+            partials = mesh.all_reduce(gn_reduce_partials_at_pose(
+                points, q, n, w, carry[ep.T_SLICE], cfg.huber_delta,
+                done=carry))
             carry, _ = ep.gn_epilogue(
                 partials, carry, num_valid_src, cfg.damping, cfg.damping_abs,
                 cfg.max_trans_step, cfg.max_rot_step, is_last=k == inner - 1,

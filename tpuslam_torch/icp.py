@@ -16,9 +16,10 @@ the loop.  (On CPU tensors, where reading the flag waits for nothing, the
 loop stops at DONE: the remaining iterations would leave the carry as it
 is.)
 
-With `ICPConfig.fused_gn` each GN solve is one fused kernel instead
-(kernels/gn_fused.py: gates, residual, Huber and the reduction with the
-row gather inside) followed by the epilogue (kernels/gn_epilogue.py).
+With `ICPConfig.fused_gn` each GN solve is one launch of the fused kernel
+instead (kernels/gn_fused.py: the association's row, its gates, the
+residual, Huber, the reduction, the solve and the carry update), and an
+outer iteration issues nothing else.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from tpuslam_torch.kernels.correspond import (
     pack_organized_target,
     projective_correspond_at_pose,
 )
-from tpuslam_torch.kernels.gn_fused import gn_fused_partials
+from tpuslam_torch.kernels.gn_fused import gate_buffer, gn_fused_step
 from tpuslam_torch.kernels.gn_step import gn_step
 
 
@@ -201,19 +202,6 @@ def _result(carry: torch.Tensor, tol_sq: float) -> ICPResult:
     )
 
 
-def _association_rows(T: torch.Tensor, points: torch.Tensor, K: Intrinsics,
-                      height: int, width: int) -> torch.Tensor:
-    """(N,) int32 row index of each point's projective association at pose
-    T — the reference's index computation (tpuslam/icp.py:257-262:
-    transform, project, round, clip; no gates)."""
-    uv, _ = project(se3.transform_points(T, points), K)
-    # the clamp keeps the float→int conversion defined; any value it
-    # changes is clipped to the border either way
-    uvi = torch.round(uv).clamp(-2.0 ** 30, 2.0 ** 30).to(torch.int32)
-    return (torch.clamp(uvi[..., 1], 0, height - 1) * width
-            + torch.clamp(uvi[..., 0], 0, width - 1))
-
-
 def _icp_loop_projective_fused(packed: torch.Tensor, height: int,
                                width: int, K: Intrinsics, src: PointCloud,
                                T0: torch.Tensor, cfg: ICPConfig,
@@ -223,13 +211,13 @@ def _icp_loop_projective_fused(packed: torch.Tensor, height: int,
     """Projective ICP with the fused GN step (kernels/gn_fused.py).
 
     The reference's semantics (`_icp_loop_projective_fused`): per outer
-    iteration one association (`flat`) at the current pose, then `inner`
-    solves whose gates use that pose (T_gate, a copy of the carry taken at
-    the association) and whose residuals use the freshly updated one (the
-    carry's T).  The solve is the epilogue kernel, whose twin is held to
-    the reference's `solve_gn_step` + `se3.exp`; both poses stay on the
-    device and the fixed budget with the DONE flag replaces the
-    while-loop, as in `_icp_loop`.
+    iteration one association at the current pose, then `inner` solves
+    whose gates use that pose and whose residuals use the freshly updated
+    one (the carry's T).  Each solve is one `gn_fused_step` launch: the
+    first of an outer iteration takes the carry's T as its gate pose and
+    keeps it in `gate` for the others, and each computes the association's
+    row itself, from the projection that gates it.  The fixed budget with
+    the DONE flag replaces the while-loop, as in `_icp_loop`.
     """
     inner = max(1, int(cfg.inner_steps if inner_steps is None
                        else inner_steps))
@@ -240,22 +228,21 @@ def _icp_loop_projective_fused(packed: torch.Tensor, height: int,
     # the kernel always applies the normal gate; cosines are ≥ -1 and a
     # zero normal gives 0 > -2, so -2 disables it (tpuslam/icp.py:245)
     ndmin = cfg.normal_dot_min if cfg.normal_dot_min > 0.0 else -2.0
+    points = src.points.contiguous()
+    normals = src.normals.contiguous()
+    mask = src.mask.contiguous()
     carry = ep.init_carry(T0, max_iters)
+    gate = gate_buffer(points.device)
     for _ in range(outer):
         if _finished(carry):
             break
-        gate = carry.clone()
-        flat = _association_rows(gate[ep.T_SLICE].reshape(4, 4), src.points,
-                                 K, height, width)
         for k in range(inner):
-            partials = gn_fused_partials(
-                src.points, src.normals, src.mask, packed, flat,
-                gate[ep.T_SLICE], carry[ep.T_SLICE], K, width, height,
-                cfg.max_corr_dist, ndmin, cfg.huber_delta, done=carry)
-            carry, _ = ep.gn_epilogue(
-                partials, carry, num_valid_src, cfg.damping, cfg.damping_abs,
-                cfg.max_trans_step, cfg.max_rot_step, is_last=k == inner - 1,
-                inner=inner, max_iters=max_iters, tol_sq=tol_sq)
+            gn_fused_step(points, normals, mask, packed, carry, gate, k == 0,
+                          K, width, height, cfg.max_corr_dist, ndmin,
+                          cfg.huber_delta, num_valid_src, cfg.damping,
+                          cfg.damping_abs, cfg.max_trans_step,
+                          cfg.max_rot_step, is_last=k == inner - 1,
+                          inner=inner, max_iters=max_iters, tol_sq=tol_sq)
     return _result(carry, tol_sq)
 
 

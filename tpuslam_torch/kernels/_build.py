@@ -38,13 +38,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "tpuslam_correspond": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                            _F, _F, _I, _P, _P, _P, _P, _P, _P],
-    "tpuslam_gn_partials": [_P, _P, _P, _P, _I, _F, _P, _P, _I, _P],
+    "tpuslam_gn_partials": [_P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _P],
     "tpuslam_gn_epilogue": [_P, _I, _P, _P, _F, _F, _F, _F, _I, _I, _I, _F,
                             _P, _P, _P],
     "tpuslam_gn_step": [_P, _P, _P, _P, _I, _F, _P, _P, _F, _F, _F, _F, _I,
                         _I, _I, _F, _P, _P, _I, _P],
-    "tpuslam_gn_fused": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _F, _F, _F, _F,
-                         _F, _F, _F, _F, _F, _P, _P, _I, _P],
+    "tpuslam_gn_fused_step": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                              _F, _F, _F, _F, _P, _P, _I, _P, _F, _F, _F,
+                              _F, _I, _I, _I, _F, _P, _P, _I, _P],
     "tpuslam_ring_nn": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                         _F, _P, _P, _P, _P, _P],
     "tpuslam_ring_nn_slices": [_I, _I],

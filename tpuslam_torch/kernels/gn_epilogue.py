@@ -10,7 +10,8 @@ loop's carry on the device.  On a CUDA tensor it launches
 `gn_epilogue_reference`, which follows the reference op for op.  Both
 fold the partials rows in the kernel's order (`fold_rows`).  The ICP loop
 on one card runs the same fold and solve inside `kernels/gn_step.py`'s
-launch; this wrapper serves the ring ICP and the fused path.
+launch, and the fused loop inside `kernels/gn_fused.py`'s; this wrapper
+serves the ring ICP.
 
 The carry is one float32[64] tensor (layout below).  It stands for the
 reference's `lax.while_loop` state plus the loop predicate: once DONE is

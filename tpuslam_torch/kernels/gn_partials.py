@@ -3,23 +3,28 @@
 
 `gn_reduce_partials` reduces matched points to a (num_blocks, 32) float32
 table: row = one block's 30 sums (21 upper-triangle H entries in row-major
-order, 6 b entries, Σw·r², Σvalid, Σw) and two zero columns.  On a CUDA
-tensor it launches `csrc/gn_partials.cu`; on a CPU tensor it runs the plain
-twin `gn_reduce_partials_reference`.  The two assign points to blocks
-differently, so they agree after the fold to the order of summation
-(rel 1e-4), not bit for bit.  `fold_partials` gives (H, b, stats) like the
-reference's `gn_reduce_pallas`.
+order, 6 b entries, Σw·r², Σvalid, Σw) and two zero columns.
+`gn_reduce_partials_at_pose` does the same from the untransformed source
+points and a pose on the device (the carry's T), which the kernel applies
+in `transform_points_ordered`'s order.  On a CUDA tensor both launch
+`csrc/gn_partials.cu`; on a CPU tensor they run the plain twins
+`gn_reduce_partials_reference` and `gn_reduce_partials_at_pose_reference`.
+The kernel and the twins assign points to blocks differently, so they
+agree after the fold to the order of summation (rel 1e-4), not bit for
+bit.  `fold_partials` gives (H, b, stats) like the reference's
+`gn_reduce_pallas`.
 
 The ICP loop on one card reduces through `kernels/gn_step.py`, which
-merges this reduction with the epilogue; this wrapper serves the ring ICP
-(`dist/ring_map.py`), which all-reduces the partials across ranks before
-the solve.
+merges this reduction with the epilogue; the posed reduction serves the
+ring ICP (`dist/ring_map.py`), which all-reduces the partials across ranks
+before the solve.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpuslam_torch.geom.se3 import transform_points_ordered
 from tpuslam_torch.kernels import _build
 
 counter = _build.LaunchCounter()
@@ -75,6 +80,15 @@ def gn_reduce_partials_reference(x, q, n, w_valid,
     return partial_rows(x, q, n, w_valid, huber_delta, num_blocks(x.shape[0]))
 
 
+def gn_reduce_partials_at_pose_reference(points, q, n, w_valid, T,
+                                         huber_delta: float) -> torch.Tensor:
+    """Plain twin of the posed kernel: the ordered transform (the kernel's
+    rounding, bit for bit), then `gn_reduce_partials_reference`."""
+    return gn_reduce_partials_reference(
+        transform_points_ordered(T.reshape(4, 4), points), q, n, w_valid,
+        huber_delta)
+
+
 def gn_reduce_partials(x: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
                        w_valid: torch.Tensor, huber_delta: float,
                        done: torch.Tensor | None = None) -> torch.Tensor:
@@ -91,12 +105,43 @@ def gn_reduce_partials(x: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
     """
     if x.device.type == "cpu":
         return gn_reduce_partials_reference(x, q, n, w_valid, huber_delta)
+    return _launch("gn_reduce_partials", x, None, q, n, w_valid, huber_delta,
+                   done)
+
+
+def gn_reduce_partials_at_pose(points: torch.Tensor, q: torch.Tensor,
+                               n: torch.Tensor, w_valid: torch.Tensor,
+                               T: torch.Tensor, huber_delta: float,
+                               done: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """`gn_reduce_partials` at x = T·points, the transform in the kernel.
+
+    Args:
+      points: (N, 3) float32 untransformed source points.
+      q, n, w_valid, huber_delta, done: as `gn_reduce_partials`.
+      T: 16 contiguous float32, a (4, 4) pose or the ICP loop carry's T
+        slice (rows 0-2 are read).
+    """
+    if points.device.type == "cpu":
+        return gn_reduce_partials_at_pose_reference(points, q, n, w_valid, T,
+                                                    huber_delta)
+    _build.require(T, "T", dtype=torch.float32, device=points.device)
+    if T.numel() != 16:
+        raise ValueError(f"T: {T.numel()} elements, kernel takes 16")
+    return _launch("gn_reduce_partials_at_pose", points, T.data_ptr(), q, n,
+                   w_valid, huber_delta, done)
+
+
+def _launch(name, x, pose_ptr, q, n, w_valid, huber_delta: float,
+            done) -> torch.Tensor:
+    """Check the inputs and launch the kernel; `pose_ptr` None means `x`
+    is already transformed."""
     if x.device.type != "cuda":
-        raise ValueError(f"gn_reduce_partials: no kernel for {x.device}")
+        raise ValueError(f"{name}: no kernel for {x.device}")
     dev = x.device
     n_pts = x.shape[0]
-    for name, t in (("x", x), ("q", q), ("n", n)):
-        _build.require(t, name, dtype=torch.float32, shape=(n_pts, 3),
+    for label, t in (("x", x), ("q", q), ("n", n)):
+        _build.require(t, label, dtype=torch.float32, shape=(n_pts, 3),
                        device=dev)
     _build.require(w_valid, "w_valid", dtype=torch.float32, shape=(n_pts,),
                    device=dev)
@@ -105,9 +150,10 @@ def gn_reduce_partials(x: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
     nb = num_blocks(n_pts)
     partials = torch.empty((nb, ROW), dtype=torch.float32, device=dev)
     err = _build.library().tpuslam_gn_partials(
-        x.data_ptr(), q.data_ptr(), n.data_ptr(), w_valid.data_ptr(), n_pts,
-        huber_delta, done.data_ptr() if done is not None else None,
-        partials.data_ptr(), nb, _build.stream_handle(x))
+        x.data_ptr(), pose_ptr, q.data_ptr(), n.data_ptr(),
+        w_valid.data_ptr(), n_pts, huber_delta,
+        done.data_ptr() if done is not None else None, partials.data_ptr(),
+        nb, _build.stream_handle(x))
     _build.check_launch(err, "gn_partials")
     counter.launches += 1
     return partials

@@ -19,8 +19,9 @@ summation, not bit for bit.
 
 The kernel's last block folds the other blocks' rows after an atomic
 ticket.  The ticket word and the rows' scratch are one persistent buffer
-each per device, owned by this module, so launches on one device must not
-run concurrently (one stream, as everywhere in the port).
+each per device, owned by this module and shared with
+`kernels/gn_fused.py`'s kernel, so launches on one device must not run
+concurrently (one stream, as everywhere in the port).
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def gn_step_reference(points, q, n, w_valid, carry, num_valid_src,
     return carry_out
 
 
-def _scratch(dev: torch.device):
+def scratch(dev: torch.device):
     """The device's ticket word (zero between launches) and rows."""
     key = (dev.type, dev.index)
     if key not in _workspace:
@@ -115,7 +116,7 @@ def gn_step(points: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
     nb = blocks or num_blocks(n_pts)
     if not 1 <= nb <= SCRATCH_ROWS:
         raise ValueError(f"blocks: {nb}, kernel takes 1..{SCRATCH_ROWS}")
-    ticket, rows = _scratch(dev)
+    ticket, rows = scratch(dev)
     err = _build.library().tpuslam_gn_step(
         points.data_ptr(), q.data_ptr(), n.data_ptr(), w_valid.data_ptr(),
         n_pts, huber_delta, carry.data_ptr(), num_valid_src.data_ptr(),
