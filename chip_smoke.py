@@ -76,6 +76,29 @@ Phases, in order (any failure raises and the script exits non-zero):
                 the association nor the ring's solves transform the points
                 outside a kernel; sharded: fewer extra fills than ring
                 hops, which allocate and fill nothing)
+ 13. cli      — the user's entry point, `python -m tpuslam_torch.cli`, in
+                process: a 120-frame 640×480 two-lap sequence written in
+                TUM's layout, run_slam with chunks of 8 (sub-chunks of 4),
+                the deferred backend, --upload-raw and a checkpoint every
+                48 frames (ATE < 1 mm, ≥ 1 closure, correspond and gn_step
+                launched, no twin called; fps and fps_steady beside phase
+                9's deferred fps); the same with the float32 upload and no
+                checkpoint (the same trajectory bits; its fps is decode and
+                upload without the saves); a resume from the checkpoint (within
+                1e-5 of the uninterrupted run); run_odometry; eval of the
+                written trajectory (its ATE); run_slam --track-against-map
+                --sharded-map on the first 48 frames (one rank, no process
+                group: ring_nn, gn_partials, gn_epilogue launched);
+                bench_loader's decode and cached fps with the decoder; and
+                each decoder's fps on a PNG of each row filter (OpenCV
+                writes them), after a byte-exact decode
+ 14. scale    — bench_scale: BASELINE config 5, 2,000 frames at 320×240,
+                chunks of 32 (graph_nodes > 256 = keyframes, retained clouds
+                ≤ 48 + 24, ≥ 2 closures, ATE < 0.02 m), beside the
+                reference's TPU outcome
+ 15. pathology — bench_pathology: 60 degraded frames at 640×480 with a
+                rotation burst (ATE < 0.04 m, no frame lost), beside the
+                reference's TPU ATE
 Then one JSON line with the kernels, and last a JSON line with the device.
 No JAX is imported.
 """
@@ -84,6 +107,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -101,6 +125,14 @@ TOL_MAP_POSE = 1e-4         # GPU vs CPU twins, 16-frame map-tracking loop
 # differ in their last float32 bits (the GN sums' order differs)
 TOL_MAP_SIZE_REL = 1e-3
 MAP_ATE_M = 0.02            # tests/test_slam.py's bound for map tracking
+TOL_RESUME = 1e-5           # tests/test_fault_recovery.py's resume bound
+SCALE_ATE_M = 0.02          # tests/test_config5_scale.py:70-82
+PATHOLOGY_ATE_M = 0.04      # tests/test_pathology.py:108
+# the reference's outcome on the TPU (BASELINE.md:28, round 5): accuracy
+# and counts only, never a speed of the port
+REF_SCALE = {"graph_nodes": 310, "loop_closures": 172, "ate_rmse_m": 2.64e-3,
+             "lost_frames": 0}
+REF_PATHOLOGY_ATE_M = 3.9e-3
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense).
 # A kernel's bound is the larger of its bytes over the memory rate (each
@@ -670,6 +702,266 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
         dist.destroy_process_group()
 
 
+def host_libraries() -> dict:
+    """Which of the depth decoders' and viz's dependencies this host has:
+    OpenCV, PIL, matplotlib (imports) and libpng's headers (g++ -E)."""
+    import importlib.util
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("cv2", "PIL", "matplotlib")}
+    try:
+        proc = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                              input="#include <png.h>\n", text=True,
+                              capture_output=True, timeout=60)
+        have["png.h"] = proc.returncode == 0
+    except OSError:
+        have["png.h"] = False
+    return have
+
+
+def png_filter_rates(reps: int = 3) -> dict:
+    """Decode fps on this host of a 640×480 16-bit depth PNG whose rows all
+    use one filter, by decoder; OpenCV writes the five filters, so without
+    it the rates are not measured ({})."""
+    import tempfile
+    import zlib
+
+    try:
+        import cv2
+    except ImportError:
+        return {}
+    from tpuslam_torch.bench.harness import _intrinsics
+    from tpuslam_torch.data import tum
+    from tpuslam_torch.data.synthetic import orbit_trajectory, render_depth
+
+    counts = np.round(render_depth(orbit_trajectory(2)[1],
+                                   _intrinsics(480, 640), 480, 640)
+                      * 5000.0).astype(np.uint16)
+    names = [d for d in tum.DECODERS
+             if d != "native" or tum.depth_decoder() == "native"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for code, filt in enumerate(("NONE", "SUB", "UP", "AVG", "PAETH")):
+            path = f"{tmp}/{filt}.png"
+            cv2.imwrite(path, counts, [cv2.IMWRITE_PNG_FILTER,
+                                       getattr(cv2, f"IMWRITE_PNG_FILTER_{filt}")])
+            # each row's first byte is its filter type (one IDAT stream)
+            data = open(path, "rb").read()
+            idat, pos = b"", 8
+            while pos < len(data):
+                n = int.from_bytes(data[pos:pos + 4], "big")
+                if data[pos + 4:pos + 8] == b"IDAT":
+                    idat += data[pos + 8:pos + 8 + n]
+                pos += 12 + n
+            rows = set(zlib.decompress(idat)[::1 + 640 * 2])
+            check(rows <= {0, code} and (code in rows or code == 0),
+                  f"png {filt}: OpenCV wrote row filters {rows}")
+            out[filt] = {}
+            for name in names:
+                dec = tum._DECODE[name]
+                check(np.array_equal(dec(path), counts),
+                      f"png {filt}: {name} decoded other counts")
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    dec(path)
+                out[filt][name] = reps / (time.perf_counter() - t0)
+    return out
+
+
+def cli_phase(card: str, counters, slam_fps: float) -> dict:
+    """The user's entry point at full width (module doc, phase 13).  Returns
+    the kernels' launches, {"run_slam": …, "sharded": …}: run_slam (the main
+    path) and the sharded run."""
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from tpuslam_torch import cli
+    from tpuslam_torch.bench.harness import (
+        _intrinsics,
+        bench_loader,
+        slam_bench_config,
+    )
+    from tpuslam_torch.data import tum
+    from tpuslam_torch.data.synthetic import (
+        loop_trajectory,
+        write_tum_sequence,
+    )
+
+    def counts():
+        return ({k: c.launches for k, c in counters.items()},
+                {k: c.plain_calls for k, c in counters.items()})
+
+    def run(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(buf):
+            rc = cli.main(list(argv))
+        check(rc == 0, f"cli {' '.join(argv)}: exit code {rc}")
+        return (json.loads(buf.getvalue().strip().splitlines()[-1]),
+                time.perf_counter() - t0)
+
+    # the poses each run writes, to compare bits (the file holds 6 digits)
+    written = {}
+    write_trajectory = tum.write_trajectory
+
+    def capture(path, ts, poses):
+        written[path] = np.array(poses)
+        write_trajectory(path, ts, poses)
+
+    log(f"[cli] depth decoder: {tum.decoder_note()}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, cfg_path, ck = f"{tmp}/seq", f"{tmp}/cfg.json", f"{tmp}/ck.npz"
+        t0 = time.perf_counter()
+        write_tum_sequence(seq, 120, _intrinsics(480, 640), 480, 640,
+                           poses=loop_trajectory(120, cycles=2, radius=0.35))
+        log(f"[cli] wrote 120 frames 640×480 in TUM's layout in "
+            f"{time.perf_counter() - t0:.3f} s")
+        with open(cfg_path, "w") as f:
+            f.write(slam_bench_config(480, 640, False).to_json())
+        common = ("run_slam", "--sequence", seq, "--config", cfg_path,
+                  "--chunk", "8", "--chunk-sub", "4", "--async-backend")
+        traj = {k: f"{tmp}/{k}.txt" for k in ("raw", "f32", "resumed", "odo",
+                                              "sharded")}
+        tum.write_trajectory = capture
+        try:
+            for c in counters.values():
+                c.reset()
+            raw, wall = run(*common, "--upload-raw", "--checkpoint", ck,
+                            "--checkpoint-every", "48", "--traj-out",
+                            traj["raw"], "--log-jsonl", f"{tmp}/log.jsonl")
+            launches, plain = counts()
+            out["run_slam"] = launches
+            log(f"[cli] run_slam --upload-raw: {json.dumps(raw)}")
+            log(f"[cli] run_slam --upload-raw: fps {raw['fps']:.3f}, "
+                f"fps_steady {raw.get('fps_steady', float('nan')):.3f} "
+                f"(run_slam_bench deferred, phase 9: {slam_fps:.3f}), ATE "
+                f"{raw['ate_rmse_m']:.4e} m, closures {raw['loop_closures']}, "
+                f"keyframes {raw['keyframes']}, {wall:.3f} s in all ({card})")
+            log(f"[cli] run_slam launches {launches} plain calls {plain}")
+            check(raw["frames"] == 120, f"cli: {raw['frames']} frames")
+            check(raw["ate_rmse_m"] < 1e-3, f"cli: ATE {raw['ate_rmse_m']}")
+            check(raw["loop_closures"] >= 1, "cli: no closure")
+            check(launches["correspond"] > 0 and launches["gn_step"] > 0,
+                  f"cli: launches {launches}")
+            check(all(v == 0 for v in plain.values()), f"cli: plain {plain}")
+
+            # no checkpoint: the fps of decode and upload alone, and the
+            # saves' drains must not change the trajectory either
+            f32, wall = run(*common, "--traj-out", traj["f32"])
+            same = np.array_equal(written[traj["raw"]], written[traj["f32"]])
+            log(f"[cli] run_slam float32 upload, no checkpoint: fps "
+                f"{f32['fps']:.3f}, "
+                f"fps_steady {f32.get('fps_steady', float('nan')):.3f}, "
+                f"ATE {f32['ate_rmse_m']:.4e} m; trajectory bit-equal to "
+                f"--upload-raw: {same} ({card})")
+            check(same, "cli: --upload-raw differs from the float32 upload")
+
+            res, wall = run(*common, "--upload-raw", "--resume", ck,
+                            "--traj-out", traj["resumed"])
+            err = float(np.abs(written[traj["resumed"]]
+                               - written[traj["raw"]]).max())
+            log(f"[cli] resumed from the checkpoint at frame 96 "
+                f"({os.path.getsize(ck) / 2 ** 20:.2f} MiB): "
+                f"{json.dumps(res)}; pose max err vs the uninterrupted run "
+                f"{err:.3e}")
+            check(err <= TOL_RESUME, f"cli: resume err {err}")
+
+            odo, wall = run("run_odometry", "--sequence", seq, "--config",
+                            cfg_path, "--traj-out", traj["odo"])
+            log(f"[cli] run_odometry: fps {odo['fps']:.3f}, ATE "
+                f"{odo['ate_rmse_m']:.4e} m, keyframes {odo['keyframes']} "
+                f"({card})")
+            check(odo["ate_rmse_m"] < 1e-3, f"cli odometry: ATE "
+                  f"{odo['ate_rmse_m']}")
+
+            ev, _ = run("eval", "--trajectory", traj["raw"], "--groundtruth",
+                        f"{seq}/groundtruth.txt")
+            d_ate = abs(ev["ate"]["rmse"] - raw["ate_rmse_m"])
+            log(f"[cli] eval of the run_slam trajectory file: ATE "
+                f"{ev['ate']['rmse']:.4e} m (run_slam's summary "
+                f"{raw['ate_rmse_m']:.4e} m; the file holds 6 decimals)")
+            check(d_ate <= 1e-6, f"cli eval: ATE differs by {d_ate}")
+
+            for c in counters.values():
+                c.reset()
+            sh, wall = run("run_slam", "--sequence", seq, "--config",
+                           cfg_path, "--stop", "48", "--track-against-map",
+                           "--sharded-map", "--traj-out", traj["sharded"])
+            launches, plain = counts()
+            out["sharded"] = launches
+            log(f"[cli] run_slam --track-against-map --sharded-map, 48 "
+                f"frames: fps {sh['fps']:.3f}, ATE {sh['ate_rmse_m']:.4e} m "
+                f"({card}); launches {launches} plain calls {plain}")
+            check(sh["ate_rmse_m"] < MAP_ATE_M, f"cli sharded: ATE "
+                  f"{sh['ate_rmse_m']}")
+            check(all(launches[k] > 0 for k in ("ring_nn", "gn_partials",
+                                                "gn_epilogue")),
+                  f"cli sharded: launches {launches}")
+            check(all(v == 0 for v in plain.values()),
+                  f"cli sharded: plain {plain}")
+        finally:
+            tum.write_trajectory = write_trajectory
+    loader = bench_loader(480, 640)
+    log(f"[cli] bench_loader 640×480, 40 frames: {json.dumps(loader)} "
+        f"({card})")
+    rates = png_filter_rates()
+    log(f"[cli] depth PNG decode fps on this host by row filter, 640×480 "
+        f"16-bit, one thread: "
+        f"{json.dumps(rates) if rates else 'not measured (no OpenCV)'}")
+    return out
+
+
+def scale_phase(card: str, counters) -> None:
+    """bench_scale at its own config (phase 14)."""
+    from tpuslam_torch.bench.harness import bench_scale
+
+    for c in counters.values():
+        c.reset()
+    r = bench_scale()
+    launches = {k: c.launches for k, c in counters.items()}
+    plain = {k: c.plain_calls for k, c in counters.items()}
+    log(f"[scale] {json.dumps(r)}")
+    log(f"[scale] {r['frames']} frames {r['resolution']}: fps {r['fps']:.3f},"
+        f" graph nodes {r['graph_nodes']} (capacity {r['node_capacity']}), "
+        f"keyframes {r['keyframes']}, retained clouds "
+        f"{r['retained_clouds']}, closures {r['loop_closures']}, ATE "
+        f"{r['ate_rmse_m']:.4e} m, lost {r['lost_frames']} ({card}); the "
+        f"reference on the TPU: {REF_SCALE}")
+    log(f"[scale] launches {launches} plain calls {plain}")
+    check(r["graph_nodes"] > 256, f"scale: {r['graph_nodes']} nodes")
+    check(r["keyframes"] == r["graph_nodes"], "scale: keyframes ≠ nodes")
+    check(r["retained_clouds"] <= 48 + 24,
+          f"scale: {r['retained_clouds']} clouds")
+    check(r["loop_closures"] >= 2, f"scale: {r['loop_closures']} closures")
+    check(r["ate_rmse_m"] < SCALE_ATE_M, f"scale: ATE {r['ate_rmse_m']}")
+    check(r["poses_finite"], "scale: non-finite poses")
+    check(launches["correspond"] > 0 and launches["gn_step"] > 0,
+          f"scale: launches {launches}")
+    check(all(v == 0 for v in plain.values()), f"scale: plain {plain}")
+
+
+def pathology_phase(card: str, counters) -> None:
+    """bench_pathology at its own size (phase 15)."""
+    from tpuslam_torch.bench.harness import bench_pathology
+
+    for c in counters.values():
+        c.reset()
+    r = bench_pathology()
+    plain = {k: c.plain_calls for k, c in counters.items()}
+    log(f"[pathology] {json.dumps(r)}")
+    log(f"[pathology] {r['frames']} frames {r['resolution']}: fps "
+        f"{r['fps']:.3f}, ATE {r['ate_rmse_m']:.4e} m (the reference on the "
+        f"TPU: {REF_PATHOLOGY_ATE_M:.1e} m), lost {r['lost_frames']}, "
+        f"closures {r['loop_closures']}, keyframes {r['keyframes']} "
+        f"({card})")
+    check(r["ate_rmse_m"] < PATHOLOGY_ATE_M,
+          f"pathology: ATE {r['ate_rmse_m']}")
+    check(r["lost_frames"] == 0, f"pathology: {r['lost_frames']} lost")
+    check(all(v == 0 for v in plain.values()), f"pathology: plain {plain}")
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -713,6 +1005,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     card = gpu_line()
     log(f"[device] {card}")
+    log(f"[device] host libraries: {json.dumps(host_libraries())}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"count {torch.cuda.device_count()}")
 
@@ -1319,6 +1612,16 @@ def main() -> int:
                              slam_res[False]["sync"]["ate_rmse_m"])
     del loop
 
+    # ---- 13-15. the CLI (this slice's main path), scale, pathology ----
+    t0 = time.perf_counter()
+    launches_cli = cli_phase(card, counters,
+                             slam_res[False]["deferred"]["fps"])
+    log(f"[cli] phase took {time.perf_counter() - t0:.3f} s")
+    for name, fn in (("scale", scale_phase), ("pathology", pathology_phase)):
+        t0 = time.perf_counter()
+        fn(card, counters)
+        log(f"[{name}] phase took {time.perf_counter() - t0:.3f} s")
+
     # ---- result lines ----
     sources = {
         "correspond": ("tpuslam_torch/csrc/correspond.cu",
@@ -1366,6 +1669,9 @@ def main() -> int:
             "odometry_device_us_per_launch": (
                 odo_dev[name][0] if odo_dev.get(name) else None),
             "device_us_full_launch": s["device_us_full_launch"],
+            # the CLI's launches (phase 13): run_slam, and the sharded run
+            "cli_launches": {"run_slam": launches_cli["run_slam"][name],
+                             "sharded": launches_cli["sharded"][name]},
             **({"ring_size": ring_partials} if name == "gn_partials" else {}),
         })
     log(json.dumps({"gn_step_ab": step_ab}))

@@ -1,0 +1,214 @@
+"""The port's command line (python -m tpuslam_torch.cli, on the CPU with
+--device cpu) against the reference's (tpuslam/cli.py), plus its viz,
+profiling and metrics modules.
+
+The Tier-1 CLI smoke (make_synthetic 16 frames 120×160 → run_slam → eval)
+runs through both CLIs: the summaries agree in frames, keyframes, closures,
+graph nodes and retained clouds, the ATEs (≈ 5e-5 m) within 1e-5 of each
+other, and the per-frame JSONL records have the same keys and the same
+ICP iteration counts.  Each flag whose code is not ported exits with 2 and
+names its ROADMAP item.
+"""
+
+import io
+import json
+import os
+from contextlib import redirect_stdout
+
+import numpy as np
+import pytest
+import torch
+
+from tpuslam.cli import main as ref_main
+from tpuslam_torch import cli as pcli
+
+torch.set_num_threads(1)
+
+SUMMARY_EQUAL = ("frames", "keyframes", "loop_closures", "graph_nodes",
+                 "retained_clouds")
+ATE_TOL = 1e-5
+
+
+def last_json(capsys) -> dict:
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.fixture(scope="module")
+def seq_dirs(tmp_path_factory):
+    return tmp_path_factory.mktemp("cli")
+
+
+@pytest.fixture(scope="module")
+def smoke(seq_dirs):
+    """The Tier-1 smoke through each CLI, each on the sequence its own
+    make_synthetic wrote: {cli: (summary, eval, jsonl records, traj)}."""
+    out = {}
+    for name, main, extra in (("reference", ref_main, []),
+                              ("port", pcli.main, ["--device", "cpu"])):
+        d = seq_dirs / name
+        seq, traj, log = str(d / "seq"), str(d / "t.txt"), str(d / "l.jsonl")
+        os.makedirs(d)
+        results = []
+        for argv in (["make_synthetic", "--out", seq, "--frames", "16",
+                      "--height", "120", "--width", "160"],
+                     ["run_slam", "--sequence", seq, "--traj-out", traj,
+                      "--log-jsonl", log, *extra],
+                     ["eval", "--trajectory", traj, "--groundtruth",
+                      os.path.join(seq, "groundtruth.txt")]):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                assert main(argv) == 0
+            results.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
+        out[name] = (results[1], results[2], jsonl(log), traj, seq)
+    return out
+
+
+def test_tier1_smoke_matches_reference(smoke):
+    rs, rev, rlog, _, rseq = smoke["reference"]
+    ps, pev, plog, _, pseq = smoke["port"]
+    for k in SUMMARY_EQUAL:
+        assert ps[k] == rs[k], k
+    assert set(ps) == set(rs) and "fps_steady" in ps
+    assert ps["ate_rmse_m"] < 1e-4
+    assert abs(ps["ate_rmse_m"] - rs["ate_rmse_m"]) < ATE_TOL
+    assert abs(pev["ate"]["rmse"] - rev["ate"]["rmse"]) < ATE_TOL
+    assert set(pev) == set(rev) == {"ate", "rpe"}
+    assert len(plog) == len(rlog) == 16
+    for p, r in zip(plog, rlog):
+        assert set(p) == set(r)
+        assert p["iters"] == r["iters"] and p["frame"] == r["frame"]
+    # the two writers made the same sequence
+    for name in ("depth.txt", "groundtruth.txt", "intrinsics.txt"):
+        assert (open(os.path.join(pseq, name)).read()
+                == open(os.path.join(rseq, name)).read())
+
+
+def test_port_cli_reads_reference_sequence_and_eval(smoke, tmp_path, capsys):
+    """run_odometry on the reference's sequence; `eval` of its trajectory
+    prints the summary's ATE."""
+    rseq = smoke["reference"][4]
+    traj = str(tmp_path / "odo.txt")
+    assert pcli.main(["run_odometry", "--sequence", rseq, "--traj-out", traj,
+                      "--device", "cpu"]) == 0
+    s = last_json(capsys)
+    assert s["frames"] == 16 and s["ate_rmse_m"] < 1e-4
+    assert pcli.main(["eval", "--trajectory", traj, "--groundtruth",
+                      os.path.join(rseq, "groundtruth.txt")]) == 0
+    ev = last_json(capsys)
+    assert abs(ev["ate"]["rmse"] - s["ate_rmse_m"]) < 1e-6
+
+
+def test_chunked_raw_upload_and_resume(smoke, tmp_path, capsys):
+    """Chunks of 8 (sub-chunks of 4) with the deferred backend: the uint16
+    upload gives the float32 upload's trajectory bit for bit, and a run
+    stopped after 8 frames and resumed from its checkpoint ends within
+    1e-5 of the uninterrupted one."""
+    seq = smoke["port"][4]
+    common = ["run_slam", "--sequence", seq, "--device", "cpu", "--chunk", "8",
+              "--chunk-sub", "4", "--async-backend"]
+    paths = {}
+    for tag, extra in (("raw", ["--upload-raw"]), ("f32", []),
+                       ("f16", ["--upload-f16"])):
+        paths[tag] = str(tmp_path / f"{tag}.txt")
+        assert pcli.main(common + extra + ["--traj-out", paths[tag]]) == 0
+        assert last_json(capsys)["frames"] == 16
+    text = {k: open(p).read() for k, p in paths.items()}
+    assert text["raw"] == text["f32"]
+    from tpuslam_torch.data.tum import read_trajectory
+
+    _, f32 = read_trajectory(paths["f32"])
+    _, f16 = read_trajectory(paths["f16"])
+    assert np.abs(f16 - f32).max() < 5e-3          # ~1.5 mm quantization
+    ck = str(tmp_path / "ck.npz")
+    assert pcli.main(common + ["--stop", "8", "--checkpoint", ck,
+                               "--checkpoint-every", "8"]) == 0
+    capsys.readouterr()
+    resumed = str(tmp_path / "resumed.txt")
+    assert pcli.main(common + ["--resume", ck, "--traj-out", resumed]) == 0
+    err = capsys.readouterr().err
+    assert "resumed at frame 8" in err and "depth decoder: " in err
+    _, a = read_trajectory(resumed)
+    assert a.shape == f32.shape
+    np.testing.assert_allclose(a, f32, atol=1e-5)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--map-ba"], "item 15"),
+    (["--map-track-mode", "grid"], "item 9a"),
+    (["--lc-descriptor"], "item 11"),
+    (["--async-backend", "--chunk-mode", "inline"], "item 17"),
+    (None, "item 17"),
+    (["--devices", "2"], "item 16"),
+], ids=["map-ba", "grid", "lc-descriptor", "async-inline", "coldstart",
+        "devices"])
+def test_unported_flags_exit_2(smoke, capsys, flags, item):
+    seq = smoke["port"][4]
+    if flags is None:
+        argv = ["bench", "--coldstart", "--device", "cpu"]
+    elif flags[0] == "--devices":
+        argv = ["bench", *flags, "--frames", "2", "--height", "48",
+                "--width", "64", "--device", "cpu"]
+    else:
+        argv = ["run_slam", "--sequence", seq, "--device", "cpu", *flags]
+    assert pcli.main(argv) == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and f"ROADMAP Queue 1 {item})" in err
+
+
+def test_viz_dir(smoke, tmp_path, capsys):
+    pytest.importorskip("matplotlib")
+    seq = smoke["port"][4]
+    out = str(tmp_path / "viz")
+    assert pcli.main(["run_slam", "--sequence", seq, "--device", "cpu",
+                      "--stop", "6", "--viz-dir", out]) == 0
+    files = last_json(capsys)["viz_files"]
+    assert files == [os.path.join(out, "trajectory.png")]
+    assert os.path.getsize(files[0]) > 1000
+
+
+def test_viz_images(tmp_path):
+    pytest.importorskip("matplotlib")
+    from tpuslam_torch import viz
+
+    rng = np.random.default_rng(0)
+    poses = np.tile(np.eye(4), (20, 1, 1))
+    poses[:, :3, 3] = np.cumsum(rng.normal(scale=0.02, size=(20, 3)), axis=0)
+    paths = [
+        viz.plot_trajectory(str(tmp_path / "t.png"), poses, poses[::-1],
+                            keyframe_indices=[0, 10]),
+        viz.plot_map(str(tmp_path / "m.png"), rng.normal(size=(500, 3)),
+                     poses),
+        viz.save_depth_image(str(tmp_path / "d.png"),
+                             np.abs(rng.normal(2.0, 0.3, (24, 32)))),
+        viz.save_normal_image(str(tmp_path / "n.png"),
+                              rng.normal(size=(24, 32, 3))),
+    ]
+    assert all(os.path.getsize(p) > 1000 for p in paths)
+
+
+def test_profiling_and_metrics(tmp_path):
+    from tpuslam_torch.utils import metrics, profiling
+
+    with profiling.trace(str(tmp_path / "trace")) as path:
+        with profiling.scope("stage"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "stage" for e in events)
+    assert profiling.device_memory_stats() == {} or torch.cuda.is_available()
+    log = str(tmp_path / "m.jsonl")
+    with metrics.JsonlLogger(log) as lg:
+        lg.write(frame=0, ms=1.5)
+        lg.write(frame=1, ms=2.5)
+    assert jsonl(log) == [{"frame": 0, "ms": 1.5}, {"frame": 1, "ms": 2.5}]
+    t = metrics.Timer()
+    for _ in range(3):
+        with t:
+            pass
+    s = t.summary()
+    assert s["count"] == 3 and s["max_ms"] >= s["p50_ms"] >= 0

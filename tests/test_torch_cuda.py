@@ -716,3 +716,63 @@ def test_ring_correspond_hop_done_writes_nothing(dev):
     assert all(torch.equal(a, b) for a, b in zip(state, before))
     tickets, _ = ring_nn._scratch(dev, 1, 1)
     assert not bool(tickets.any())
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_keeps_uint16(dev):
+    from tpuslam_torch.data.tum import TumFrame
+    from tpuslam_torch.frontend import prefetch_to_device
+
+    raw = np.round(depths(3) * CFG.depth_scale).astype(np.uint16)
+    frames = [TumFrame(timestamp=i / 30.0, depth=raw[i], gt_pose=None)
+              for i in range(3)]
+    out = list(prefetch_to_device(frames, lookahead=2, device=dev))
+    for f, r in zip(out, raw):
+        assert f.depth.device == dev and f.depth.dtype == torch.uint16
+        assert np.array_equal(f.depth.cpu().numpy(), r)
+    # preprocess divides on the device: bit-equal to host-divided float32
+    host = raw[0].astype(np.float32) / np.float32(CFG.depth_scale)
+    pu = preprocess(out[0].depth, K, CFG)
+    pf = preprocess(torch.as_tensor(host, device=dev), K, CFG)
+    assert all(torch.equal(u, v) for a, b in zip(pu, pf) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_on", ["cuda", "cpu"])
+def test_checkpoint_moves_between_card_and_cpu(dev, tmp_path, save_on):
+    """A SlamSystem checkpoint saved on one device resumes on the other:
+    the same keyframes, tables and graph, and the continued run's poses
+    within the GPU-vs-twin tolerance of the saver's own continuation."""
+    from tpuslam_torch.slam import SlamSystem
+    from tpuslam_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    d = depths(16)
+    load_on = "cpu" if save_on == "cuda" else dev
+    save_dev = dev if save_on == "cuda" else "cpu"
+
+    def new(device):
+        return SlamSystem(K, CFG, chunk_mode="boundary", async_backend=True,
+                          device=device)
+
+    def feed(slam, lo, hi):
+        x = torch.as_tensor(d[lo:hi], device=slam.device)
+        slam.process_chunk(x, np.arange(lo, hi) / 30.0)
+        return slam
+
+    a = feed(new(save_dev), 0, 8)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, a, a.odo.frame_idx)
+    b = new(load_on)
+    assert load_checkpoint(path, b) == 8
+    for ra, rb in zip(a.odo.keyframes, b.odo.keyframes):
+        assert rb.verify.packed.device == b.device
+        assert rb.verify.packed.dtype == torch.float16
+        assert torch.equal(ra.verify.packed.cpu(), rb.verify.packed.cpu())
+        assert all(torch.equal(x.cpu(), y.cpu())
+                   for x, y in zip(ra.cloud, rb.cloud))
+    feed(a, 8, 16).finalize()
+    feed(b, 8, 16).finalize()
+    assert ([r.index for r in a.odo.keyframes]
+            == [r.index for r in b.odo.keyframes])
+    np.testing.assert_allclose(a.trajectory()[1], b.trajectory()[1],
+                               atol=1e-4)

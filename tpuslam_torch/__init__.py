@@ -4,7 +4,10 @@ A second package beside `tpuslam/` (the JAX reference, which it never
 imports).  Module paths mirror the reference's so each counterpart is easy
 to find.  It covers frame-to-keyframe odometry (`frontend.scan_odometry`,
 `frontend.Odometry`) and the SLAM system (`slam.SlamSystem`: boundary
-chunks, deferred loop closure, pose graph, relocalization).  The
+chunks, deferred loop closure, pose graph, relocalization, frame-to-map
+tracking), driven by its command line (`python -m tpuslam_torch.cli`) over
+TUM sequences on disk (`data/tum.py`), with checkpoints either package
+reads (`utils/checkpoint.py`).  The
 association gather, the GN reduction, the GN epilogue and the fused GN
 step are hand-written CUDA kernels (`csrc/*.cu`, built at first use by
 `kernels/_build.py`).  On CPU tensors every kernel wrapper runs its plain

@@ -1,6 +1,8 @@
-"""Benchmarks of the port — `run_bench` (odometry) and `run_slam_bench`
-(the full SLAM system), ports of the odometry block and of `bench_slam` in
-`tpuslam/bench/harness.py`.
+"""Benchmarks of the port — `run_bench` (odometry), `run_slam_bench` (the
+full SLAM system), `run_map_bench` (frame-to-map tracking), `bench_loader`
+(the TUM loader), `bench_scale` and `bench_pathology`: ports of the
+odometry block, `bench_slam`, `bench_loader`, `bench_scale` and
+`bench_pathology` of `tpuslam/bench/harness.py`.
 
 `run_bench` measures full-sequence frame-to-keyframe odometry throughput
 (frames/s and ms/frame of `frontend.scan_odometry` on device-resident
@@ -20,6 +22,12 @@ uncounted pass, plus closures, keyframes and ATE of the best pass.
 frame with `track_against_map=True` over the same loop, the map unsharded
 or sharded (the ring ICP), with its map size, refinement gate share and
 every kernel's launches.
+
+`bench_scale` is BASELINE config 5's capacity run: 2,000 frames of a
+five-lap loop at 320×240 with tight promotion thresholds, a pose graph
+that starts at 32 nodes and must double, and a cloud budget of 48.
+`bench_pathology` runs the degraded sensor (Kinect z² noise, dropout
+holes, 2% pixel dropout) through a fast-rotation burst at 640×480.
 
 Every result names the device it ran on; timings on a GPU are fenced with
 `torch.cuda.synchronize()`.
@@ -77,18 +85,33 @@ def _device_name(dev: torch.device) -> str:
 
 def run_bench(frames: int = 240, height: int = 480, width: int = 640,
               device: str = "cuda", warmup: int = 1, reps: int = 3,
-              fused_gn: bool = False, sequence=None) -> dict:
+              fused_gn: bool = False, sequence=None,
+              config_path: str | None = None,
+              devices: int | None = None) -> dict:
     """Odometry throughput, ATE and ICP-iteration latency (module doc).
 
     `sequence`: optionally the `_render_sequence` output for these frames
-    and size, so several runs share one rendering."""
+    and size, so several runs share one rendering.  `config_path`: a JSON
+    SLAMConfig (partial) in place of the defaults; `fused_gn=True` turns
+    the fused solve on over it.  `devices` > 1 (the reference's sharded
+    ICP scaling) is not ported."""
     from tpuslam_torch.eval.ate import ate_rmse
     from tpuslam_torch.frontend import preprocess, scan_odometry
     from tpuslam_torch.icp import align_frames
+    from tpuslam_torch.slam import _not_ported
 
+    if devices is not None and devices > 1:
+        raise _not_ported("multi-device ICP scaling (bench --devices)",
+                          "Queue 1 item 16")
     dev = torch.device(device)
-    cfg = SLAMConfig(height=height, width=width,
-                     icp=ICPConfig(fused_gn=fused_gn)).validate()
+    cfg = SLAMConfig()
+    if config_path:
+        with open(config_path) as f:
+            cfg = SLAMConfig.from_json(f.read())
+    cfg = cfg.replace(height=height, width=width)
+    if fused_gn:
+        cfg = cfg.replace(icp=dataclasses.replace(cfg.icp, fused_gn=True))
+    cfg = cfg.validate()
 
     K, gt_poses, depths_np = (sequence if sequence is not None else
                               _render_sequence(frames, height, width))
@@ -99,7 +122,7 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
         "device": _device_name(dev),
         "frames": frames,
         "resolution": [height, width],
-        "fused_gn": fused_gn,
+        "fused_gn": cfg.icp.fused_gn,
     }
 
     # --- full-sequence odometry throughput (the headline number) ---
@@ -201,7 +224,6 @@ def run_slam_bench(frames: int = 120, height: int = 480, width: int = 640,
     depths = torch.as_tensor(depths_np, device=dev)
     _fence(dev)
     ts = np.arange(frames) / 30.0
-    full = frames - frames % chunk
 
     def one_pass(deferred: bool):
         slam = SlamSystem(K, cfg, enable_loop_closure=True,
@@ -209,11 +231,7 @@ def run_slam_bench(frames: int = 120, height: int = 480, width: int = 640,
                           chunk_sub=4, device=dev)
         _fence(dev)
         t0 = time.perf_counter()
-        for i in range(0, full, chunk):
-            slam.process_chunk(depths[i:i + chunk], ts[i:i + chunk])
-        for i in range(full, frames):
-            slam.process(depths[i], timestamp=ts[i])
-        slam.finalize()
+        _run_chunked(slam, depths, ts, chunk)
         _fence(dev)
         return time.perf_counter() - t0, slam
 
@@ -307,4 +325,174 @@ def run_map_bench(frames: int = 120, height: int = 480, width: int = 640,
         "dropped_total": getattr(slam.map, "dropped_total", 0),
         "launches": {k: c.launches for k, c in counters.items()},
         "plain_calls": {k: c.plain_calls for k, c in counters.items()},
+    }
+
+
+def bench_loader(height: int, width: int, frames: int = 40) -> dict:
+    """Host TUM loader throughput on a sequence written to a temporary
+    directory: PNG decode on the loader's thread pool (`decode_fps`, after
+    one pass that warms the page cache), the decode-once sidecar's memmap
+    stream (`cached_fps`), and the decoder that ran."""
+    import tempfile
+
+    from tpuslam_torch.data import tum
+    from tpuslam_torch.data.synthetic import write_tum_sequence
+
+    with tempfile.TemporaryDirectory() as root:
+        K = Intrinsics(525.0, 525.0, width / 2 - 0.5, height / 2 - 0.5)
+        write_tum_sequence(root, frames, K, height, width)
+        seq = tum.TumSequence(root, depth_cache=False)
+        for _ in seq.frames():         # warm the page cache
+            pass
+        t0 = time.perf_counter()
+        n = sum(1 for _ in seq.frames())
+        wall = time.perf_counter() - t0
+        for _ in tum.TumSequence(root).frames():     # build + publish
+            pass
+        t0 = time.perf_counter()
+        nc = sum(1 for _ in tum.TumSequence(root).frames())
+        wall_c = time.perf_counter() - t0
+    return {"decode_fps": n / wall, "cached_fps": nc / wall_c,
+            "native": tum.depth_decoder() == "native",
+            "decoder": tum.decoder_note()}
+
+
+def _run_chunked(slam, depths: torch.Tensor, ts: np.ndarray,
+                 chunk: int) -> None:
+    """Whole chunks through process_chunk, the remainder per frame, then
+    finalize (the reference's bench loop)."""
+    frames = depths.shape[0]
+    full = frames - frames % chunk
+    for i in range(0, full, chunk):
+        slam.process_chunk(depths[i:i + chunk], ts[i:i + chunk])
+    for i in range(full, frames):
+        slam.process(depths[i], timestamp=ts[i])
+    slam.finalize()
+
+
+def bench_scale(frames: int = 2000, height: int = 240, width: int = 320,
+                chunk: int = 32, chunk_mode: str = "boundary",
+                async_backend: bool = True, chunk_sub: int = 1,
+                device: str = "cuda") -> dict:
+    """BASELINE config 5 at scale on the device (module doc): the five-lap
+    loop through `SlamSystem.process_chunk` (boundary chunks of `chunk`,
+    the deferred backend, promotion sub-chunks of 1 — this config promotes
+    every ~5 frames) on device-resident depth, one pass.  Reports fps, the
+    graph's nodes and capacity, keyframes, retained clouds, closures, ATE
+    and lost frames."""
+    from tpuslam_torch.data.synthetic import loop_trajectory, render_depth
+    from tpuslam_torch.eval.ate import ate_rmse
+    from tpuslam_torch.slam import SlamSystem
+
+    from tpuslam_torch.config import KeyframeConfig, PoseGraphConfig
+
+    dev = torch.device(device)
+    K = _intrinsics(height, width)
+    # tests/test_config5_scale.py's config with the default ICP: tight
+    # promotion (~310 keyframes over 2,000 frames), a cloud budget of 48, a
+    # graph that starts at 32 nodes and 64 edges and must double
+    cfg = SLAMConfig(
+        height=height, width=width,
+        keyframe=KeyframeConfig(max_translation=0.015, max_rotation=0.03,
+                                max_keyframes=48, sparsify_protect_recent=4),
+        posegraph=PoseGraphConfig(max_nodes=32, max_edges=64, gn_iters=15,
+                                  solver="auto", dense_max_nodes=256,
+                                  lc_min_gap=20, lc_max_dist=0.08,
+                                  lc_max_residual=0.05, lc_min_inliers=0.3),
+        voxel=VoxelConfig(capacity=1 << 12, map_capacity=1 << 15),
+    ).validate()
+    gt = loop_trajectory(frames, cycles=5)
+    t0 = time.perf_counter()
+    depths_np = np.stack([render_depth(gt[i], K, height, width, seed=i)
+                          for i in range(frames)]).astype(np.float32)
+    render_s = time.perf_counter() - t0
+    depths = torch.as_tensor(depths_np, device=dev)
+    _fence(dev)
+    ts = np.arange(frames) / 30.0
+    slam = SlamSystem(K, cfg, enable_loop_closure=True, chunk_mode=chunk_mode,
+                      async_backend=async_backend, chunk_sub=chunk_sub,
+                      device=dev)
+    t0 = time.perf_counter()
+    _run_chunked(slam, depths, ts, chunk)
+    _fence(dev)
+    wall = time.perf_counter() - t0
+    t_est, est = slam.trajectory()
+    return {
+        "device": _device_name(dev),
+        "frames": frames,
+        "resolution": [height, width],
+        "chunk": chunk,
+        "chunk_mode": chunk_mode,
+        "async_backend": async_backend,
+        "fps": frames / wall,
+        "wall_s": wall,
+        "render_s": render_s,
+        "graph_nodes": slam._num_graph_nodes,
+        "node_capacity": slam.graph.node_capacity,
+        "keyframes": len(slam.odo.keyframes),
+        "retained_clouds": sum(1 for r in slam.odo.keyframes
+                               if r.cloud is not None),
+        "loop_closures": len(slam.closures),
+        "ate_rmse_m": ate_rmse(t_est, est, ts, gt,
+                               max_difference=0.005)["rmse"],
+        "lost_frames": sum(1 for s in slam.odo.stats if s.get("lost")),
+        "poses_finite": bool(np.all(np.isfinite(est))),
+    }
+
+
+KINECT_NOISE = 0.0019      # bench_pathology's z² coefficient (the reference's)
+
+
+def bench_pathology(frames: int = 60, height: int = 480, width: int = 640,
+                    device: str = "cuda") -> dict:
+    """The degraded-sensor run (module doc) at the device's production
+    shapes: Kinect z² noise, 3 dropout holes, 2% pixel dropout, and an
+    8-frame burst of 0.05 rad/frame extra yaw halfway; boundary chunks of
+    8 with the deferred backend (a chunk that loses tracking replays per
+    frame).  One uncounted pass, then the timed one."""
+    from tpuslam_torch.data.synthetic import (
+        burst_trajectory,
+        degrade_depth,
+        render_depth,
+    )
+    from tpuslam_torch.eval.ate import ate_rmse
+    from tpuslam_torch.slam import SlamSystem
+
+    dev = torch.device(device)
+    K = _intrinsics(height, width)
+    cfg = SLAMConfig(height=height, width=width).validate()
+    gt = burst_trajectory(frames, burst_start=frames // 2, burst_len=8,
+                          burst_rate=0.05)
+    depths_np = np.stack([
+        degrade_depth(render_depth(gt[i], K, height, width, seed=i),
+                      seed=100 + i, z_noise_coeff=KINECT_NOISE,
+                      dropout_holes=3, edge_dropout=0.02)
+        for i in range(frames)]).astype(np.float32)
+    depths = torch.as_tensor(depths_np, device=dev)
+    _fence(dev)
+    ts = np.arange(frames) / 30.0
+
+    def run():
+        slam = SlamSystem(K, cfg, enable_loop_closure=True,
+                          chunk_mode="boundary", async_backend=True,
+                          device=dev)
+        t0 = time.perf_counter()
+        _run_chunked(slam, depths, ts, 8)
+        _fence(dev)
+        return time.perf_counter() - t0, slam
+
+    run()                                         # uncounted: first use
+    wall, slam = run()
+    t_est, est = slam.trajectory()
+    return {
+        "device": _device_name(dev),
+        "frames": frames,
+        "resolution": [height, width],
+        "fps": frames / wall,
+        "ate_rmse_m": ate_rmse(t_est, est, ts, gt,
+                               max_difference=0.005)["rmse"],
+        "lost_frames": sum(1 for s in slam.odo.stats if s.get("lost")),
+        "loop_closures": len(slam.closures),
+        "keyframes": len(slam.odo.keyframes),
+        "poses_finite": bool(np.all(np.isfinite(est))),
     }

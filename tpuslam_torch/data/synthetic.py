@@ -8,10 +8,10 @@ CI; SURVEY.md §4 "a tiny checked-in TUM-format micro-sequence").
 The scene is a small "room corner": back wall, side wall, floor, and a
 sphere — enough geometry to constrain all 6 DoF of point-to-plane ICP.
 
-Vendored from `tpuslam/data/synthetic.py` (numpy only), minus the TUM
-sequence writer, which needs the TUM loader and is not ported yet.  The
-renderer must stay byte-identical to the reference's
-(tests/test_torch_geom.py).
+Vendored from `tpuslam/data/synthetic.py` (numpy only).  The renderer must
+stay byte-identical to the reference's (tests/test_torch_geom.py).
+`write_tum_sequence` writes PNGs with OpenCV when it is installed, else
+with the numpy codec (`data/png.py`).
 """
 
 from __future__ import annotations
@@ -255,4 +255,91 @@ def orbit_trajectory(num_frames: int, radius: float = 0.05,
         poses[i, :3, :3] = rot
         poses[i, :3, 3] = t
         poses[i, 3, 3] = 1.0
+    return poses
+
+
+def _write_png(path: str, img: np.ndarray) -> None:
+    """(H, W) uint16 or (H, W, 3) uint8 RGB → PNG, by OpenCV when it is
+    installed, else by the numpy codec (filter None)."""
+    try:
+        import cv2
+    except ImportError:
+        from tpuslam_torch.data.png import write_png
+
+        write_png(path, img)
+        return
+    if not cv2.imwrite(path, img[..., ::-1] if img.ndim == 3 else img):
+        raise IOError(f"failed to write {path}")
+
+
+def write_tum_sequence(
+    root: str,
+    num_frames: int,
+    K: Intrinsics,
+    height: int,
+    width: int,
+    depth_scale: float = 5000.0,
+    noise: float = 0.0,
+    fps: float = 30.0,
+    rgb: bool = False,
+    poses: np.ndarray | None = None,
+) -> np.ndarray:
+    """Write a synthetic TUM-format sequence (depth PNGs + depth.txt +
+    groundtruth.txt + intrinsics.txt; optionally rgb PNGs + rgb.txt) to
+    `root`; returns the (F, 4, 4) groundtruth poses (`poses`, or the orbit).
+
+    The on-disk layout is a real TUM download's, so the loader and the CLI
+    run end to end without the dataset.  RGB frames are a depth-shaded
+    rendering whose timestamps lag depth's by 4 ms, as TUM's do.
+    """
+    import os
+
+    from tpuslam_torch.data.tum import matrix_to_quaternion
+
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    if rgb:
+        os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    if poses is None:
+        poses = orbit_trajectory(num_frames)
+    if poses.shape[0] != num_frames:
+        raise ValueError(f"{poses.shape[0]} poses for {num_frames} frames")
+    scene = default_scene()
+    depth_lines = ["# depth maps", "# timestamp filename"]
+    rgb_lines = ["# color images", "# timestamp filename"]
+    gt_lines = ["# ground truth", "# timestamp tx ty tz qx qy qz qw"]
+    for i in range(num_frames):
+        ts = 1000.0 + i / fps
+        depth = render_depth(poses[i], K, height, width, scene,
+                             noise=noise, seed=i)
+        counts = np.clip(np.round(depth * depth_scale), 0,
+                         65535).astype(np.uint16)
+        rel = f"depth/{ts:.6f}.png"
+        _write_png(os.path.join(root, rel), counts)
+        depth_lines.append(f"{ts:.6f} {rel}")
+        if rgb:
+            ts_rgb = ts + 0.004
+            shade = np.where(depth > 0, depth / max(depth.max(), 1e-6), 0.0)
+            img = (np.stack([shade, shade ** 2, 1.0 - shade], axis=-1)
+                   * 255.0).astype(np.uint8)
+            rel_rgb = f"rgb/{ts_rgb:.6f}.png"
+            _write_png(os.path.join(root, rel_rgb), img)
+            rgb_lines.append(f"{ts_rgb:.6f} {rel_rgb}")
+        q = matrix_to_quaternion(poses[i, :3, :3])
+        t = poses[i, :3, 3]
+        gt_lines.append(
+            f"{ts:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+            f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}"
+        )
+    with open(os.path.join(root, "depth.txt"), "w") as f:
+        f.write("\n".join(depth_lines) + "\n")
+    # the render camera, so the loader does not guess VGA Freiburg
+    # intrinsics for a synthetic sequence
+    with open(os.path.join(root, "intrinsics.txt"), "w") as f:
+        f.write("# fx fy cx cy\n")
+        f.write(f"{K.fx:.6f} {K.fy:.6f} {K.cx:.6f} {K.cy:.6f}\n")
+    if rgb:
+        with open(os.path.join(root, "rgb.txt"), "w") as f:
+            f.write("\n".join(rgb_lines) + "\n")
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        f.write("\n".join(gt_lines) + "\n")
     return poses

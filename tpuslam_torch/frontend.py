@@ -46,7 +46,7 @@ from tpuslam_torch.icp import (
     align_frames_packed,
     pack_pyramid,
 )
-from tpuslam_torch.transfer import resolve_device
+from tpuslam_torch.transfer import resolve_device, upload
 
 
 def damped_velocity(delta: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -202,6 +202,28 @@ def promote_bundle_jit(depth: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
                              cfg.voxel.capacity, cfg.voxel.origin,
                              cfg.voxel.extent)
     return pyr, packed, cloud, None
+
+
+def prefetch_to_device(frames, lookahead: int = 2, device="cuda"):
+    """Re-yield a TumFrame stream with each depth array already copied to
+    `device`, `lookahead` frames ahead of the consumer.
+
+    The copies go through `transfer.upload`: the host array is copied into
+    pinned memory and sent without waiting for the device, so a frame's
+    transfer overlaps the previous frame's tracking, and the loader may
+    reuse its array at once.  The dtype is kept (uint16 counts stay uint16:
+    `preprocess` divides them on the device).
+    """
+    from collections import deque
+
+    dev = resolve_device(device)
+    pending: deque = deque()
+    for f in frames:
+        pending.append(f._replace(depth=upload(f.depth, dev)))
+        if len(pending) >= max(1, lookahead):
+            yield pending.popleft()
+    while pending:
+        yield pending.popleft()
 
 
 class VerifyTable(NamedTuple):

@@ -128,7 +128,7 @@ class SlamSystem:
         if async_backend and chunk_mode == "inline":
             raise _not_ported("the worker-thread async backend of the "
                               "inline chunk mode (async means the deferred "
-                              "drain of boundary mode)", "Queue 1 item 12")
+                              "drain of boundary mode)", "Queue 1 item 17")
         if chunk_sub < 1:
             raise ValueError("chunk_sub must be ≥ 1")
         self.cfg = cfg
