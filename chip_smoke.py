@@ -4,7 +4,7 @@
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device   — require a CUDA device; print its name and power limit
-  2. build    — build the six CUDA kernels from tpuslam_torch/csrc (one
+  2. build    — build the seven CUDA kernels from tpuslam_torch/csrc (one
                 nvcc per source, in parallel), with ptxas's registers,
                 stack frames and spills
   3. kernels  — each kernel against its plain PyTorch twin at the main
@@ -24,9 +24,14 @@ Phases, in order (any failure raises and the script exits non-zero):
                 gates bit-equal to its twin in score, row, x, q, n and w,
                 four hops over four shards against one hop, DONE, a NaN
                 point, an all-invalid shard, the tickets back at zero, and
-                the bare hop), with each one's time beside its twin's and
+                the bare hop; grid_correspond at 16,384 queries against a
+                131,072-row index with ~150 points to a cell, posed and
+                pose-less bit-equal in q, n, w, idx, nothing written after
+                DONE, a query outside the grid and one without a
+                candidate), with each one's time beside its twin's and
                 its bound and its device µs of one full launch at level 0
-                (ring_nn: one full hop) under torch.profiler; at level 0
+                (ring_nn: one full hop; grid_correspond: one full probe)
+                under torch.profiler; at level 0
                 gn_step against the unmerged pair (gn_partials +
                 gn_epilogue, with and without the transform) in turns, by
                 CUDA events and under torch.profiler, on grids of 132 and
@@ -65,7 +70,15 @@ Phases, in order (any failure raises and the script exits non-zero):
  11. small map — SlamSystem(track_against_map=True) on a 16-frame 120×160
                 loop, unsharded and sharded (one rank, no process group),
                 on the GPU against the CPU twins: same keyframes, map size
-                and refinement gates, poses within 1e-4
+                and refinement gates, poses within 1e-4; then
+                map_track_mode="grid" with map_ba=True: at 0.1 m map
+                voxels the same keyframes, gates, control points and
+                observations, BA's cost within a relative 1e-4, poses
+                within 1e-4; at 0.02 m the
+                GPU's last refinement and its map BA replayed on the CPU
+                twins with the same inputs (iterations equal, T within
+                1e-4; BA's counts equal, cost within a relative 1e-4, poses
+                within 1e-4)
  12. map      — run_map_bench: frame-to-map tracking, 120 frames at
                 640×480, unsharded and sharded, under a one-rank NCCL
                 group; ATE < 0.02 m, refinement ok share > 0.5, no point
@@ -76,6 +89,16 @@ Phases, in order (any failure raises and the script exits non-zero):
                 the association nor the ring's solves transform the points
                 outside a kernel; sharded: fewer extra fills than ring
                 hops, which allocate and fill nothing)
+ 12b. grid    — this slice's path: run_map_bench with
+                map_track_mode="grid" and map BA, 120 frames at 640×480
+                (ATE < 0.02 m, refinement ok share > 0.5, map BA over
+                > 100 observations, ATE after BA < max(1.5 × before,
+                0.02 m), grid_correspond, correspond and gn_step launched,
+                no twin called; fps beside phase 12's unsharded fps); then
+                frames 40-47's stages on the host clock (refinement, index
+                build, insert), frames 48-55 under torch.profiler (idle
+                share, grid_correspond's device µs a launch) and map BA's
+                time, one probe launch
  13. cli      — the user's entry point, `python -m tpuslam_torch.cli`, in
                 process: a 120-frame 640×480 two-lap sequence written in
                 TUM's layout, run_slam with chunks of 8 (sub-chunks of 4),
@@ -89,6 +112,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                 written trajectory (its ATE); run_slam --track-against-map
                 --sharded-map on the first 48 frames (one rank, no process
                 group: ring_nn, gn_partials, gn_epilogue launched);
+                run_slam --track-against-map --map-track-mode grid --map-ba
+                on the first 48 frames (map BA in the summary, ATE < 0.02 m,
+                grid_correspond launched);
                 bench_loader's decode and cached fps with the decoder; and
                 each decoder's fps on a PNG of each row filter (OpenCV
                 writes them), after a byte-exact decode
@@ -121,6 +147,7 @@ TOL_EPILOGUE_H_REL = 1e-6
 TOL_SMALL_POSE = 1e-4       # GPU kernels vs CPU twins over 12 frames
 TOL_SLAM_POSE = 1e-4        # GPU vs CPU twins, 48-frame SLAM loop
 TOL_MAP_POSE = 1e-4         # GPU vs CPU twins, 16-frame map-tracking loop
+TOL_MAP_BA_COST_REL = 1e-4  # GPU vs CPU twins, map BA's cost
 # a voxel-boundary point may fuse one voxel over when two keyframe poses
 # differ in their last float32 bits (the GN sums' order differs)
 TOL_MAP_SIZE_REL = 1e-3
@@ -150,6 +177,10 @@ OPS_GN_FUSED = 166        # gate and residual transforms, gates, row index,
 OPS_EPILOGUE_SOLVE = 300  # 6×7 elimination, trust region, SE(3) exp
 OPS_TRANSFORM = 18        # x = R p + t: 9 products and 9 sums
 OPS_RING_NN_CELL = 6      # (2x)·q as a product and two FMAs, then cst − g
+OPS_GRID_CELL = 3         # cell coordinate: a subtraction, a divide, floor
+OPS_GRID_STEP = 2         # a binary-search step: a compare and a halving
+OPS_GRID_CANDIDATE = 10   # a slot: key compare, 3 differences, 3 squares,
+                          # 2 sums, the < against the best
 
 
 def log(msg: str) -> None:
@@ -225,7 +256,8 @@ KERNEL_SYMBOLS = {"correspond": "correspond_kernel",
                   "gn_epilogue": "gn_epilogue_kernel",
                   "gn_step": "gn_step_kernel",
                   "gn_fused": "gn_fused_step_kernel",
-                  "ring_nn": "ring_nn_kernel"}
+                  "ring_nn": "ring_nn_kernel",
+                  "grid_correspond": "grid_correspond_kernel"}
 
 
 def count_ops(rows, word: str) -> int:
@@ -499,6 +531,145 @@ def ring_nn_phase(dev, card: str) -> dict:
             "device_us_full_launch": full_us, **b}
 
 
+def grid_surface(dev, m: int, seed: int = 0):
+    """A room corner of m rows (floor and two walls, 4 m a side, 10% of
+    the rows masked out): ~150 points to a 0.25 m cell, as a map of
+    0.02 m voxels holds, so the probe's 16-slot cut is the common case."""
+    from tpuslam_torch.geom.cloud import PointCloud
+
+    rng = np.random.default_rng(seed)
+    k = m // 3
+    uv = rng.uniform(-2.0, 2.0, (m, 2))
+    pts = np.zeros((m, 3))
+    nrm = np.zeros((m, 3))
+    pts[:k, 0:2], nrm[:k, 2] = uv[:k], 1.0                     # floor z=-2
+    pts[:k, 2] = -2.0
+    pts[k:2 * k, 1:3], nrm[k:2 * k, 0] = uv[k:2 * k], 1.0     # wall x=-2
+    pts[k:2 * k, 0] = -2.0
+    pts[2 * k:, 0:3:2], nrm[2 * k:, 1] = uv[2 * k:], 1.0      # wall y=-2
+    pts[2 * k:, 1] = -2.0
+    mask = rng.uniform(size=m) > 0.1
+    return PointCloud(*(torch.as_tensor(a, device=dev) for a in (
+        pts.astype(np.float32), nrm.astype(np.float32), mask)))
+
+
+def grid_probe_work(x, index) -> tuple:
+    """(cells searched, slots scanned, index bytes needed) of the kernel on
+    these queries: an in-grid cell is one binary search, then up to 16
+    slots of its key (the scan stops at the first other key).  The bytes
+    the probe needs from the index are, for each distinct cell it scans,
+    the key and the 32-byte row of its first min(count, 16) slots; masked
+    rows (sorted last) and a crowded cell's later rows are never read, and
+    the binary searches' key reads are left out (a lower bound)."""
+    from tpuslam_torch.kernels import correspond
+
+    c = correspond._cell_coords(x, index.origin, index.cell)
+    searched = scanned = 0
+    touched = []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                cc = c + torch.tensor([dx, dy, dz], dtype=torch.int32,
+                                      device=x.device)
+                ok = torch.all((cc >= 0) & (cc < 256), dim=-1)
+                key = (cc[:, 0] << 16) | (cc[:, 1] << 8) | cc[:, 2]
+                cnt = (torch.searchsorted(index.keys, key, right=True)
+                       - torch.searchsorted(index.keys, key))
+                searched += int(ok.sum())
+                scanned += int(torch.where(ok, cnt.clamp(max=16), 0).sum())
+                touched.append(key[ok & (cnt > 0)])
+    cells = torch.unique(torch.cat(touched))
+    rows = int((torch.searchsorted(index.keys, cells, right=True)
+                - torch.searchsorted(index.keys, cells)).clamp(max=16).sum())
+    row_bytes = index.rows.shape[1] * index.rows.element_size()
+    return searched, scanned, rows * (row_bytes + index.keys.element_size())
+
+
+def grid_correspond_phase(dev, card: str) -> dict:
+    """grid_correspond against its twins at the grid path's shapes:
+    VoxelConfig.capacity queries (a frame's cloud) against a
+    map_capacity-row index with ~150 points to a cell (grid_surface), one
+    query outside the grid and one with no candidate; posed (the carry's
+    pose) and pose-less (map BA's call) bit-equal in q, n, w, idx; nothing
+    written after DONE."""
+    from tpuslam_torch.config import ICPConfig, VoxelConfig
+    from tpuslam_torch.geom import se3
+    from tpuslam_torch.kernels import correspond, gn_epilogue
+
+    n, m = VoxelConfig().capacity, VoxelConfig().map_capacity
+    radius = ICPConfig().max_corr_dist
+    target = grid_surface(dev, m)
+    index = correspond.build_grid_index(target, radius)
+    keys = index.keys[index.keys != correspond._INVALID_KEY]
+    per_cell = torch.unique_consecutive(keys, return_counts=True)[1]
+    rng = np.random.default_rng(1)
+    pick = torch.as_tensor(rng.integers(0, m, n), device=dev)
+    x = (target.points[pick] + torch.as_tensor(
+        rng.normal(scale=0.02, size=(n, 3)).astype(np.float32), device=dev))
+    x[0] += 1000.0                                  # outside the grid
+    x[1] = torch.tensor([1.0, 1.0, 1.0], device=dev)  # nothing within 0.75 m
+    xm = torch.as_tensor(rng.uniform(size=n) > 0.05, device=dev)
+    T = se3.exp(torch.tensor([0.004, -0.003, 0.002, 0.01, -0.01, 0.005],
+                             device=dev))
+    carry = gn_epilogue.init_carry(T, 12)
+    ck = correspond.grid_correspond_at_pose(x, xm, index, radius, carry)
+    cr = correspond.grid_correspond_at_pose_reference(x, xm, index, radius,
+                                                      T)
+    xt = se3.transform_points_ordered(T, x)
+    uk = correspond.grid_hash_correspond(xt, xm, index, radius)
+    ur = correspond.grid_hash_correspond_reference(xt, xm, index, radius)
+    out = correspond.correspondence_buffers(n, dev)
+    for t_ in out:
+        t_.fill_(7)
+    correspond.grid_correspond_at_pose(x, xm, index, radius,
+                                       gn_epilogue.init_carry(T, 0), out=out)
+    torch.cuda.synchronize()
+    err = max(float((a.double() - b.double()).abs().max())
+              for k, t in ((ck, cr), (uk, ur)) for a, b in zip(k, t))
+    check(all(torch.equal(a, b) for a, b in zip(ck, cr)),
+          "grid_correspond: posed launch not bit-equal to its twin")
+    check(all(torch.equal(a, b) for a, b in zip(uk, ur))
+          and all(torch.equal(a, b) for a, b in zip(uk, ck)),
+          "grid_correspond: pose-less launch not bit-equal to its twin or "
+          "to the posed one")
+    check(all(bool((t_ == 7).all()) for t_ in out),
+          "grid_correspond: wrote after DONE")
+    check(not bool(ck.w[:2].any()) and not bool(ck.q[:2].any())
+          and not bool(ck.n[:2].any()) and not bool(ck.idx[:2].any()),
+          "grid_correspond: a query without a candidate must give q = n = 0,"
+          " idx = 0, w = 0")
+    check(bool(torch.isfinite(ck.q).all()) and 0.5 < float(ck.w.mean()) < 1,
+          f"grid_correspond: w mean {float(ck.w.mean())}")
+
+    def launch():
+        correspond.grid_correspond_at_pose(x, xm, index, radius, carry,
+                                           out=out)
+    ms = time_ms(launch)
+    plain_ms = time_ms(lambda: correspond.grid_correspond_at_pose_reference(
+        x, xm, index, radius, T), reps=3)
+    full_us = full_launch_us(launch, "grid_correspond")
+    searched, scanned, index_bytes = grid_probe_work(xt, index)
+    steps = int(np.ceil(np.log2(m + 1)))
+    b = bound(nbytes(x, xm, index.origin, *ck) + index_bytes + 12 * 4,
+              (OPS_TRANSFORM + 3 * OPS_GRID_CELL) * n
+              + OPS_GRID_STEP * steps * searched
+              + OPS_GRID_CANDIDATE * scanned)
+    crowded = float((per_cell > 16).float().mean())
+    log(f"[kernels] grid_correspond {n} queries × {m} rows ({keys.numel()} "
+        f"valid, {int(per_cell.max())} at most and "
+        f"{float(per_cell.float().mean()):.1f} on average to a cell, "
+        f"{crowded:.3f} of the cells above 16), posed: kernel {ms:.5f} ms, "
+        f"device {fmt_us(full_us)} us a full launch, plain {plain_ms:.5f} ms,"
+        f" bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+        f"({b['bound_ms'] / ms:.4f} of it; {searched / n:.1f} cells searched "
+        f"and {scanned / n:.1f} slots scanned a query, {index_bytes} bytes "
+        f"of the index needed), bit-equal posed and pose-less in q, n, w, "
+        f"idx (max abs err {err}, {int(ck.w.sum())} matches); DONE, the "
+        f"out-of-grid and the unmatched query hold ({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "device_us_full_launch": full_us, **b}
+
+
 def map_config():
     """tests/test_torch_map_slam.py's reduced map-tracking config."""
     from tpuslam_torch.config import (
@@ -522,7 +693,8 @@ def map_config():
 
 def small_map_phase(dev, counters) -> None:
     """Map tracking on a 16-frame 120×160 loop: GPU kernels vs CPU twins,
-    unsharded and sharded on a one-rank mesh without a process group."""
+    unsharded and sharded on a one-rank mesh without a process group; then
+    the grid refinement with map BA (grid_map_ba_small)."""
     from tpuslam_torch.config import Intrinsics
     from tpuslam_torch.data.synthetic import loop_trajectory, render_depth
     from tpuslam_torch.slam import SlamSystem
@@ -566,6 +738,125 @@ def small_map_phase(dev, counters) -> None:
         log(f"[small map] sharded={sharded}: GPU vs CPU twins identical "
             f"keyframes ({len(kg)}) and gates ({sum(og)}/{len(og)} ok), map "
             f"size {sg} vs {sc}, pose max err {err:.3e}; launches {launches}")
+    grid_map_ba_small(dev, counters, K, d_np)
+
+
+def grid_map_ba_small(dev, counters, K, d_np) -> None:
+    """map_track_mode="grid" with map BA on the 16-frame loop, GPU vs the
+    CPU twins.  The whole run at 0.1 m map voxels (a cell holds a few
+    points: the probe is the exact nearest neighbour, and the run does not
+    hinge on the last bit of a point): the same keyframes, gates and
+    control points, map size to TOL_MAP_SIZE_REL, the same observations,
+    BA's cost within TOL_MAP_BA_COST_REL, poses within TOL_MAP_POSE.  Then,
+    at the default 0.02 m (cells far above 16 points, where a one-voxel
+    difference between the two runs' clouds moves a refinement by
+    1e-4-1e-3), the GPU run's last refinement and its BA replayed through
+    the CPU twins on the same inputs: iterations and convergence equal, T
+    within TOL_EPILOGUE_T × 10; BA's counts equal, cost within
+    TOL_MAP_BA_COST_REL, poses within TOL_MAP_POSE."""
+    import dataclasses as dc
+
+    import tpuslam_torch.slam as slam_mod
+    from tpuslam_torch.backend import map_ba
+    from tpuslam_torch.backend.posegraph import PoseGraph
+    from tpuslam_torch.geom.cloud import PointCloud
+    from tpuslam_torch.icp import align_to_index
+    from tpuslam_torch.kernels.correspond import GridIndex
+    from tpuslam_torch.slam import SlamSystem
+
+    base = map_config()
+    frames = d_np.shape[0]
+
+    def run(device, cfg, record=None):
+        slam = SlamSystem(K, cfg, enable_loop_closure=False,
+                          track_against_map=True, map_track_mode="grid",
+                          map_ba=True, device=device)
+        d = torch.as_tensor(d_np, device=device)
+        for i in range(frames):
+            slam.process(d[i], timestamp=i / 30.0)
+        slam.finalize()
+        return ([r.index for r in slam.odo.keyframes], slam.map.size(),
+                [s["ok"] for s in slam.map_refine_stats],
+                slam.trajectory()[1], slam.map_ba_stats)
+
+    cfg = base.replace(voxel=dc.replace(base.voxel, map_voxel_size=0.1))
+    for c in counters.values():
+        c.reset()
+    kg, sg, og, eg, bg = run(dev, cfg)
+    launches = {k: c.launches for k, c in counters.items()}
+    plain = {k: c.plain_calls for k, c in counters.items()}
+    kc, sc, oc, ec, bc = run("cpu", cfg)
+    err = float(np.abs(eg - ec).max())
+    tag = "small map grid + map BA"
+    check(kg == kc and len(kg) >= 4, f"{tag}: keyframes {kg} vs {kc}")
+    check(abs(sg - sc) <= TOL_MAP_SIZE_REL * sc, f"{tag}: map {sg} vs {sc}")
+    check(og == oc and np.mean(og) > 0.5, f"{tag}: gates {og} vs {oc}")
+    check(bg["num_control"] == bc["num_control"]
+          and bg["num_obs"] == bc["num_obs"]
+          and abs(bg["cost"] - bc["cost"])
+          <= TOL_MAP_BA_COST_REL * bc["cost"],
+          f"{tag}: map BA {bg} vs {bc}")
+    check(err <= TOL_MAP_POSE, f"{tag}: pose err {err}")
+    check(launches["grid_correspond"] > 0 and launches["gn_step"] > 0,
+          f"{tag}: launches {launches}")
+    check(all(v == 0 for v in plain.values()), f"{tag}: plain {plain}")
+    log(f"[small map] grid + map BA, 0.1 m map voxels: GPU vs CPU twins "
+        f"identical keyframes ({len(kg)}) and gates ({sum(og)}/{len(og)} "
+        f"ok), map size {sg} vs {sc}, map BA {bg} vs {bc}, pose max err "
+        f"{err:.3e}; launches {launches}")
+
+    # the default map voxels: the last refinement and BA, replayed
+    seen = {}
+    names = ("align_to_index", "build_map_ba_problem", "optimize_map_ba")
+    saved = {n: getattr(slam_mod, n) for n in names}
+
+    def recorder(name):
+        def rec(*a, **kw):
+            out = saved[name](*a, **kw)
+            seen[name] = (a, kw, out)
+            return out
+        return rec
+
+    for n in names:
+        setattr(slam_mod, n, recorder(n))
+    try:
+        _, _, _, _, bg = run(dev, base)
+    finally:
+        for n, fn in saved.items():
+            setattr(slam_mod, n, fn)
+
+    def cpu(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        if isinstance(v, (PointCloud, PoseGraph, GridIndex)):
+            return type(v)(*(cpu(f) for f in v))
+        return v
+
+    (cloud, index, T0, icp), _, rg = seen["align_to_index"]
+    rc = align_to_index(cpu(cloud), cpu(index), cpu(T0), icp)
+    t_err = float((rg.T.cpu() - rc.T).abs().max())
+    check(int(rg.iters) == int(rc.iters)
+          and bool(rg.converged) == bool(rc.converged)
+          and t_err <= 10 * TOL_EPILOGUE_T,
+          f"{tag}: the last refinement replayed on the CPU: iters "
+          f"{int(rg.iters)} vs {int(rc.iters)}, T err {t_err}")
+    args, kw, _ = seen["build_map_ba_problem"]
+    (graph, _, pg_cfg), okw, (gposes, _, _) = seen["optimize_map_ba"]
+    prob = map_ba.build_map_ba_problem(*(cpu(a) for a in args),
+                                       **{k: cpu(v) for k, v in kw.items()})
+    poses, _, cost = map_ba.optimize_map_ba(cpu(graph), prob, pg_cfg, **okw)
+    ba_err = float((poses - gposes.cpu()).abs().max())
+    num_obs = int(float(prob.obs_w.sum()))
+    check(num_obs == bg["num_obs"]
+          and abs(float(cost) - bg["cost"])
+          <= TOL_MAP_BA_COST_REL * abs(bg["cost"])
+          and ba_err <= TOL_MAP_POSE,
+          f"{tag}: BA replayed on the CPU: obs {num_obs} vs {bg['num_obs']},"
+          f" cost {float(cost)} vs {bg['cost']}, pose err {ba_err}")
+    log(f"[small map] grid + map BA, 0.02 m map voxels: the GPU's last "
+        f"refinement on the CPU twins: iters {int(rc.iters)} equal, T err "
+        f"{t_err:.3e}; its BA on the CPU twins: obs {num_obs} equal, cost "
+        f"{float(cost):.6e} vs {bg['cost']:.6e}, pose err {ba_err:.3e}")
 
 
 def free_port() -> int:
@@ -577,9 +868,9 @@ def free_port() -> int:
 
 
 def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
-    """This slice's main path: frame-to-map tracking at 640×480, unsharded
-    and sharded, under a one-rank NCCL group.  Returns the path's launches
-    (both runs) by kernel."""
+    """Frame-to-map tracking at 640×480, unsharded and sharded, under a
+    one-rank NCCL group.  Returns the path's launches (both runs) by
+    kernel, and the unsharded fps."""
     import torch.distributed as dist
 
     from tpuslam_torch.bench.harness import run_map_bench, slam_bench_config
@@ -590,6 +881,7 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
                            rank=0, backend="nccl", timeout_s=60)
     try:
         total = dict.fromkeys(counters, 0)
+        fps = {}
         for sharded in (False, True):
             for c in counters.values():
                 c.reset()
@@ -600,6 +892,7 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
             for k, v in launches.items():
                 total[k] += v
             tag = f"map sharded={sharded}"
+            fps[sharded] = r["fps"]
             log(f"[map] {json.dumps(r)}")
             log(f"[map] sharded={sharded}: fps {r['fps']:.3f}, ATE "
                 f"{r['ate_rmse_m']:.4e} m (run_slam_bench's: {slam_ate:.4e} m)"
@@ -622,6 +915,8 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
                   f"{tag}: launches {launches}")
             check(sharded or all(launches[k] == 0 for k in ring),
                   f"{tag}: ring kernels ran unsharded {launches}")
+            check(launches["grid_correspond"] == 0,
+                  f"{tag}: the grid probe ran in projective mode {launches}")
             check(all(v == 0 for v in plain.values()),
                   f"{tag}: plain calls {plain}")
 
@@ -697,9 +992,111 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
                   f"{launched} launches")
             check(not sharded or fills[True] - fills[False] < launched,
                   f"map profile: {fills} fills against {launched} hops")
-        return total
+        return total, fps[False]
     finally:
         dist.destroy_process_group()
+
+
+def grid_phase(dev, card: str, counters, loop, map_fps: float) -> dict:
+    """The grid path at full width (phase 12b): run_map_bench's 120 frames
+    at 640×480 with map_track_mode="grid" and map BA at the end
+    (unsharded).  Returns the timed pass's launches by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch.bench.harness import run_map_bench, slam_bench_config
+    from tpuslam_torch.kernels import correspond
+    from tpuslam_torch.slam import SlamSystem
+
+    r = run_map_bench(120, 480, 640, device="cuda", sequence=loop,
+                      map_track_mode="grid", map_ba=True)
+    launches, plain = r["launches"], r["plain_calls"]
+    ba = r["map_ba"] or {}
+    log(f"[grid] {json.dumps(r)}")
+    log(f"[grid] fps {r['fps']:.3f} (projective, phase 12 unsharded: "
+        f"{map_fps:.3f}), ATE {r['ate_rmse_m']:.4e} m (before map BA "
+        f"{r['ate_before_ba_m']:.4e}), keyframes {r['keyframes']}, closures "
+        f"{r['closures']}, map size {r['map_size']}, refine ok share "
+        f"{r['refine_ok_share']:.4f} of {r['map_refinements']}, map BA {ba};"
+        f" grid_correspond {launches['grid_correspond'] / 120:.3f} launches "
+        f"a frame ({card})")
+    log(f"[grid] launches {launches} plain calls {plain}")
+    check(r["poses_finite"], "grid: non-finite poses")
+    check(r["ate_rmse_m"] < MAP_ATE_M, f"grid: ATE {r['ate_rmse_m']}")
+    check(r["refine_ok_share"] > 0.5,
+          f"grid: refine ok share {r['refine_ok_share']}")
+    check(ba.get("num_obs", 0) > 100, f"grid: map BA {ba}")
+    # tests/test_slam.py:90-107: BA must not blow up the trajectory
+    check(r["ate_rmse_m"] < max(1.5 * r["ate_before_ba_m"], MAP_ATE_M),
+          f"grid: ATE after map BA {r['ate_rmse_m']} against "
+          f"{r['ate_before_ba_m']} before")
+    check(all(launches[k] > 0 for k in ("grid_correspond", "correspond",
+                                        "gn_step")),
+          f"grid: launches {launches}")
+    check(all(v == 0 for v in plain.values()), f"grid: plain {plain}")
+
+    # frames 40-47 on the host clock, each stage fenced: the refinement
+    # (which includes the index build after a keyframe), the index build,
+    # the map insert; frames 48-55 under torch.profiler; then map BA
+    K, _, d_np = loop
+    d = torch.as_tensor(d_np, device=dev)
+    ts = np.arange(d.shape[0]) / 30.0
+    slam = SlamSystem(K, slam_bench_config(480, 640, False),
+                      enable_loop_closure=True, track_against_map=True,
+                      map_track_mode="grid", map_ba=True, device=dev)
+    for i in range(40):
+        slam.process(d[i], timestamp=ts[i])
+    spans: dict = {}
+    fenced_spans(spans, slam.odo, ("process",))
+    fenced_spans(spans, slam.map, ("insert", "build_index"))
+    fenced_spans(spans, slam, ("_attempt_loop_closure",
+                               "_refine_against_map"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(40, 48):
+        slam.process(d[i], timestamp=ts[i])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    outer = sum(v for n, v in spans.items() if n != "build_index") * 1e3
+    log(f"[grid stages] frames 40-47: {wall:.3f} ms;"
+        + ", ".join(f" {n} {v * 1e3:.3f} ms" for n, v in spans.items())
+        + f" (build_index inside _refine_against_map); the rest "
+        f"{wall - outer:.3f} ms ({card})")
+    for n in ("_attempt_loop_closure", "_refine_against_map"):
+        delattr(slam, n)
+    delattr(slam.odo, "process")
+    for n in ("insert", "build_index"):
+        delattr(slam.map, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(48, 56):
+            slam.process(d[i], timestamp=ts[i])
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_rows(prof)
+    busy = sum(r_[0] for r_ in rows)
+    hit = per_launch_us(rows, "grid_correspond")
+    log(f"[grid profile] frames 48-55: wall {wall_us:.1f} us (profiled), "
+        f"device busy {busy:.1f} us, idle share "
+        f"{1 - busy / wall_us if busy else float('nan'):.4f}; "
+        + (f"grid_correspond {hit[0]:.3f} us a launch, {hit[1]} launches"
+           if hit else "grid_correspond: not seen") + f" ({card})")
+    for dt, cnt, key in rows[:10]:
+        log(f"[grid profile]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
+    check(hit is not None, "grid profile: no grid_correspond launch")
+    correspond.grid_counter.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ran = slam.refine_map_ba()
+    torch.cuda.synchronize()
+    log(f"[grid] map BA over {slam._num_graph_nodes} keyframes after frame "
+        f"55: {(time.perf_counter() - t0) * 1e3:.3f} ms on the host clock, "
+        f"{correspond.grid_counter.launches} probe launch, stats "
+        f"{slam.map_ba_stats} ({card})")
+    check(ran and correspond.grid_counter.launches == 1,
+          "grid: map BA did not run through one probe launch")
+    return launches
 
 
 def host_libraries() -> dict:
@@ -770,8 +1167,8 @@ def png_filter_rates(reps: int = 3) -> dict:
 
 def cli_phase(card: str, counters, slam_fps: float) -> dict:
     """The user's entry point at full width (module doc, phase 13).  Returns
-    the kernels' launches, {"run_slam": …, "sharded": …}: run_slam (the main
-    path) and the sharded run."""
+    the kernels' launches, {"run_slam": …, "sharded": …, "grid": …}:
+    run_slam (the main path), the sharded run and the grid run."""
     import io
     import tempfile
     from contextlib import redirect_stdout
@@ -823,7 +1220,7 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
         common = ("run_slam", "--sequence", seq, "--config", cfg_path,
                   "--chunk", "8", "--chunk-sub", "4", "--async-backend")
         traj = {k: f"{tmp}/{k}.txt" for k in ("raw", "f32", "resumed", "odo",
-                                              "sharded")}
+                                              "sharded", "grid")}
         tum.write_trajectory = capture
         try:
             for c in counters.values():
@@ -901,6 +1298,28 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
                   f"cli sharded: launches {launches}")
             check(all(v == 0 for v in plain.values()),
                   f"cli sharded: plain {plain}")
+
+            for c in counters.values():
+                c.reset()
+            gr, wall = run("run_slam", "--sequence", seq, "--config",
+                           cfg_path, "--stop", "48", "--track-against-map",
+                           "--map-track-mode", "grid", "--map-ba",
+                           "--traj-out", traj["grid"])
+            launches, plain = counts()
+            out["grid"] = launches
+            log(f"[cli] run_slam --track-against-map --map-track-mode grid "
+                f"--map-ba, 48 frames: fps {gr['fps']:.3f}, ATE "
+                f"{gr['ate_rmse_m']:.4e} m, map BA {gr.get('map_ba')} "
+                f"({card}); launches {launches} plain calls {plain}")
+            check("map_ba" in gr and gr["map_ba"]["num_obs"] > 100,
+                  f"cli grid: map BA {gr.get('map_ba')}")
+            check(gr["ate_rmse_m"] < MAP_ATE_M, f"cli grid: ATE "
+                  f"{gr['ate_rmse_m']}")
+            check(all(launches[k] > 0 for k in ("grid_correspond",
+                                                "correspond", "gn_step")),
+                  f"cli grid: launches {launches}")
+            check(all(v == 0 for v in plain.values()),
+                  f"cli grid: plain {plain}")
         finally:
             tum.write_trajectory = write_trajectory
     loader = bench_loader(480, 640)
@@ -1291,6 +1710,7 @@ def main() -> int:
             step_ab = gn_step_ab(card, src, x, T, ck, carry, nvs, icp)
             ring_partials = partials_at_ring_size(card, pts, ck, carry, icp)
     ring_stats = ring_nn_phase(dev, card)
+    grid_stats = grid_correspond_phase(dev, card)
 
     # ---- 4. uint16 divide ----
     raw = np.round(depths_np * cfg.depth_scale).astype(np.uint16)
@@ -1607,9 +2027,14 @@ def main() -> int:
     # ---- 11. small map: GPU kernels vs CPU twins ----
     small_map_phase(dev, counters)
 
-    # ---- 12. map: frame-to-map tracking (this slice's main path) ----
-    launches_map = map_phase(dev, card, counters, loop,
-                             slam_res[False]["sync"]["ate_rmse_m"])
+    # ---- 12. map: frame-to-map tracking (the projective and ring paths) ----
+    launches_map, map_fps = map_phase(dev, card, counters, loop,
+                                      slam_res[False]["sync"]["ate_rmse_m"])
+
+    # ---- 12b. grid: the grid path at full width (this slice's path) ----
+    t0 = time.perf_counter()
+    launches_grid = grid_phase(dev, card, counters, loop, map_fps)
+    log(f"[grid] phase took {time.perf_counter() - t0:.3f} s")
     del loop
 
     # ---- 13-15. the CLI (this slice's main path), scale, pathology ----
@@ -1638,6 +2063,9 @@ def main() -> int:
                      "tpuslam/kernels/gn_fused.py:160"),
         "ring_nn": ("tpuslam_torch/csrc/ring_nn.cu",
                     "tpuslam/kernels/pallas_ring.py:100"),
+        "grid_correspond": ("tpuslam_torch/csrc/grid_correspond.cu",
+                            "tpuslam/kernels/correspond.py:220 (XLA, not "
+                            "Pallas: grid_hash_correspond)"),
     }
     # timings at level 0 (ring_nn: its own phase, one full hop; gn_partials
     # also at the ring's size, `ring_size`); launches on the map path (phase
@@ -1646,32 +2074,40 @@ def main() -> int:
     # orbit (phase 6; gn_fused: the fused orbit, phase 7), device µs a
     # launch there averaged over all launches (phase 10) and device µs of
     # one full launch at level 0 (phase 3).
-    # No single PyTorch call computes any of these functions, so
-    # library_ms is null.
+    # grid_correspond: its own phase's timing (16,384 × 131,072), launches
+    # on the grid path (phase 12b).
+    # No single PyTorch call computes any of these functions (the probe: no
+    # call takes a truncated 27-cell scan with its tie rule), so library_ms
+    # is null.
     summary = {k: dict(stats[k][0], max_abs_err=max(
         v["max_abs_err"] for v in stats[k].values())) for k in frame_kernels}
     summary["ring_nn"] = ring_stats
+    summary["grid_correspond"] = grid_stats
     odo_launch = dict(per_frame_odo, gn_fused=per_frame_fused["gn_fused"])
     odo_dev = dict(odo_us, gn_fused=fused_us.get("gn_fused"))
     kernels = []
     for name, (src_path, replaces) in sources.items():
         s = summary[name]
-        on_map = name != "gn_fused"
+        launches, path = ((launches_grid[name], "grid (phase 12b)")
+                          if name == "grid_correspond" else
+                          (launches_slam[name], "slam (phase 9)")
+                          if name == "gn_fused" else
+                          (launches_map[name], "map (phase 12)"))
         kernels.append({
             "name": name, "route": "cuda", "source": src_path,
-            "replaces": replaces,
-            "launches": launches_map[name] if on_map else launches_slam[name],
-            "path": "map (phase 12)" if on_map else "slam (phase 9)",
+            "replaces": replaces, "launches": launches, "path": path,
+            "grid_launches_per_frame": launches_grid[name] / 120,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
-            "odometry_launches_per_frame": odo_launch[name],
+            "odometry_launches_per_frame": odo_launch.get(name, 0.0),
             "odometry_device_us_per_launch": (
                 odo_dev[name][0] if odo_dev.get(name) else None),
             "device_us_full_launch": s["device_us_full_launch"],
             # the CLI's launches (phase 13): run_slam, and the sharded run
             "cli_launches": {"run_slam": launches_cli["run_slam"][name],
-                             "sharded": launches_cli["sharded"][name]},
+                             "sharded": launches_cli["sharded"][name],
+                             "grid": launches_cli["grid"][name]},
             **({"ring_size": ring_partials} if name == "gn_partials" else {}),
         })
     log(json.dumps({"gn_step_ab": step_ab}))

@@ -776,3 +776,226 @@ def test_checkpoint_moves_between_card_and_cpu(dev, tmp_path, save_on):
             == [r.index for r in b.odo.keyframes])
     np.testing.assert_allclose(a.trajectory()[1], b.trajectory()[1],
                                atol=1e-4)
+
+
+def grid_target(m, seed=0):
+    """Two 2 m planes of m points (cells of 0.25 m hold ~m/128: > 16 at
+    the map's sizes), a tenth masked out, an eighth duplicates (ties), a
+    few rows far outside the grid."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (m // 2, 2))
+    b = rng.uniform(-1.0, 1.0, (m - m // 2, 2))
+    pts = np.concatenate([np.c_[a, np.zeros(m // 2)],
+                          np.c_[np.ones(m - m // 2), b]]).astype(np.float32)
+    nrm = np.zeros_like(pts)
+    nrm[: m // 2, 2] = 1.0
+    nrm[m // 2:, 0] = -1.0
+    dup = m // 8
+    if dup:
+        pts[-dup:] = pts[rng.integers(0, m - dup, dup)]
+    pts[:5] += 200.0
+    return pts, nrm, rng.uniform(size=m) > 0.1
+
+
+def grid_queries(pts, n, seed=1):
+    rng = np.random.default_rng(seed)
+    x = (pts[rng.integers(0, pts.shape[0], n)]
+         + rng.normal(scale=0.06, size=(n, 3))).astype(np.float32)
+    x[:3] += 500.0                     # outside the grid
+    x[3] = np.nan
+    return x, rng.uniform(size=n) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("posed", [True, False], ids=["posed", "pose-less"])
+@pytest.mark.parametrize("n,m", [(1, 1), (300, 1000), (16384, 131072)])
+def test_grid_correspond_bit_equal_to_twin(dev, n, m, posed):
+    """The 27-cell probe: q, n, w and idx bit-equal to the twin on the same
+    device, posed (the carry's T, the transform in the kernel's order) and
+    pose-less; a query outside the grid or NaN matches nothing."""
+    from tpuslam_torch.geom.cloud import PointCloud
+
+    pts, nrm, mask = grid_target(max(m, 8))
+    pts, nrm, mask = pts[:m], nrm[:m], mask[:m]
+    index = correspond.build_grid_index(
+        PointCloud(*(torch.as_tensor(a, device=dev) for a in (pts, nrm,
+                                                             mask))), 0.25)
+    x, xm = grid_queries(np.concatenate([pts, pts]), max(n, 4))
+    x, xm = (torch.as_tensor(a[:n], device=dev) for a in (x, xm))
+    T = se3.exp(torch.tensor([0.01, -0.02, 0.015, 0.02, -0.01, 0.03],
+                             device=dev))
+    correspond.grid_counter.reset()
+    if posed:
+        ck = correspond.grid_correspond_at_pose(
+            x, xm, index, 0.2, gn_epilogue.init_carry(T, 10))
+        cr = correspond.grid_correspond_at_pose_reference(x, xm, index, 0.2,
+                                                          T)
+    else:
+        ck = correspond.grid_hash_correspond(x, xm, index, 0.2)
+        cr = correspond.grid_hash_correspond_reference(x, xm, index, 0.2)
+    torch.cuda.synchronize()
+    assert correspond.grid_counter.launches == 1
+    for a, b in zip(ck, cr):
+        assert torch.equal(a, b)
+    if n >= 4:
+        assert not bool(ck.w[:4].any()) and not bool(ck.idx[:4].any())
+        assert bool(torch.isfinite(ck.q).all())
+    if n > 1000:
+        assert 0.5 < float(ck.w.mean()) < 1.0
+
+
+@pytest.mark.cuda
+def test_grid_correspond_done_writes_nothing(dev):
+    from tpuslam_torch.geom.cloud import PointCloud
+
+    pts, nrm, mask = grid_target(4096)
+    index = correspond.build_grid_index(
+        PointCloud(*(torch.as_tensor(a, device=dev) for a in (pts, nrm,
+                                                             mask))), 0.25)
+    x, xm = (torch.as_tensor(a, device=dev) for a in grid_queries(pts, 512))
+    out = correspond.correspondence_buffers(512, dev)
+    for t in out:
+        t.fill_(7)
+    correspond.grid_correspond_at_pose(
+        x, xm, index, 0.2, gn_epilogue.init_carry(torch.eye(4, device=dev),
+                                                  0), out=out)
+    torch.cuda.synchronize()
+    assert all(bool((t == 7).all()) for t in out)
+
+
+@pytest.mark.cuda
+def test_grid_index_on_card_equals_cpu(dev):
+    """The stable sort on the card gives the CPU's keys and rows bit for
+    bit (the origin given; from the centroid within 1e-5)."""
+    from tpuslam_torch.geom.cloud import PointCloud
+
+    pts, nrm, mask = grid_target(131072)
+    cpu = PointCloud(*(torch.as_tensor(a) for a in (pts, nrm, mask)))
+    ic = correspond.build_grid_index(cpu, 0.25)
+    ig = correspond.build_grid_index(
+        PointCloud(*(t.to(dev) for t in cpu)), 0.25,
+        origin=ic.origin.to(dev))
+    assert torch.equal(ig.keys.cpu(), ic.keys)
+    assert torch.equal(ig.rows.cpu(), ic.rows)
+    og = correspond.build_grid_index(PointCloud(*(t.to(dev) for t in cpu)),
+                                     0.25).origin
+    assert float((og.cpu() - ic.origin).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_grid", [True, False], ids=["grid", "brute"])
+def test_align_clouds_gpu_matches_cpu_twins(dev, use_grid):
+    from tpuslam_torch.data.synthetic import default_scene, sample_cloud
+    from tpuslam_torch.geom.cloud import PointCloud
+    from tpuslam_torch.icp import align_clouds
+
+    n = 4096 if use_grid else 1536
+    dst_p, dst_n = sample_cloud(default_scene(), n, seed=0)
+    src_p, src_n = sample_cloud(default_scene(), n, seed=1)
+    T_true = se3.exp(torch.tensor([0.04, -0.03, 0.05, 0.02, -0.03, 0.025]))
+    src = PointCloud.from_points(torch.as_tensor(src_p),
+                                 torch.as_tensor(src_n)).transform(
+        se3.inv(T_true))
+    dst = PointCloud.from_points(torch.as_tensor(dst_p),
+                                 torch.as_tensor(dst_n))
+    cfg = ICPConfig(max_iters=30, max_corr_dist=0.3, huber_delta=0.1)
+    rc = align_clouds(src, dst, torch.eye(4), cfg, use_grid=use_grid)
+    correspond.grid_counter.reset()
+    rg = align_clouds(PointCloud(*(t.to(dev) for t in src)),
+                      PointCloud(*(t.to(dev) for t in dst)),
+                      torch.eye(4, device=dev), cfg, use_grid=use_grid)
+    assert (correspond.grid_counter.launches > 0) == use_grid
+    assert correspond.grid_counter.plain_calls == 0
+    assert int(rg.iters) == int(rc.iters)
+    assert bool(rg.converged) == bool(rc.converged)
+    assert float((rg.T.cpu() - rc.T).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_map_ba_gpu_matches_cpu_on_the_same_inputs(dev):
+    """build_map_ba_problem (one pose-less probe launch) and optimize_map_ba
+    on the card against the CPU twins on the same inputs."""
+    from tpuslam_torch.backend import map_ba
+    from tpuslam_torch.backend.posegraph import GraphHost
+    from tpuslam_torch.config import PoseGraphConfig
+
+    rng = np.random.default_rng(4)
+    pts, nrm, mask = grid_target(3000)
+    N, C = 6, 512
+    poses, kf_pts = [], []
+    for _ in range(N):
+        T = se3.exp(torch.as_tensor(0.1 * rng.normal(size=6),
+                                    dtype=torch.float32)).numpy()
+        Ti = np.linalg.inv(T.astype(np.float64))
+        pw = pts[rng.integers(5, 3000, C)] + 0.01 * rng.normal(size=(C, 3))
+        poses.append(T)
+        kf_pts.append(pw @ Ti[:3, :3].T + Ti[:3, 3])
+    args = [np.stack(poses).astype(np.float32),
+            np.stack(kf_pts).astype(np.float32),
+            rng.uniform(size=(N, C)) > 0.05, pts, nrm, mask]
+    cfg = PoseGraphConfig(max_nodes=8, max_edges=16, gn_iters=10)
+
+    def run(device):
+        g = GraphHost(cfg, device=device)
+        for T in args[0]:
+            g.add_node(T)
+        for i in range(1, N):
+            g.add_edge(i - 1, i, np.linalg.inv(args[0][i - 1]) @ args[0][i],
+                       weight=1.0)
+        prob = map_ba.build_map_ba_problem(
+            *(torch.as_tensor(a, device=device) for a in args), max_dist=0.1)
+        return prob, map_ba.optimize_map_ba(g.graph(), prob, cfg)
+
+    pc_, (tc, mc, cc) = run("cpu")
+    correspond.grid_counter.reset()
+    pg, (tg, mg, cg) = run(dev)
+    assert correspond.grid_counter.launches == 1
+    same = ((pg.obs_map.cpu() == pc_.obs_map) & (pg.obs_w.cpu() == pc_.obs_w))
+    assert float(same.float().mean()) >= 0.999
+    np.testing.assert_allclose(float(cg), float(cc), rtol=1e-4)
+    assert float((tg.cpu() - tc).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_grid_map_tracking_and_map_ba_gpu_matches_cpu_twins(dev):
+    """SlamSystem(track_against_map=True, map_track_mode="grid",
+    map_ba=True) on a 16-frame loop at 0.1 m map voxels (the probe exact,
+    tests/test_torch_grid.py): the card takes the CPU twins' keyframes and
+    gates, the same control points, observations within 1%, poses within
+    1e-3, and launches grid_correspond, no twin."""
+    from tpuslam_torch.config import PoseGraphConfig, VoxelConfig
+    from tpuslam_torch.data.synthetic import loop_trajectory
+    from tpuslam_torch.slam import SlamSystem
+
+    cfg = SLAMConfig(
+        height=H, width=W, icp=CFG.icp,
+        keyframe=KeyframeConfig(max_translation=0.08, max_rotation=0.12),
+        posegraph=PoseGraphConfig(max_nodes=64, max_edges=256),
+        voxel=VoxelConfig(capacity=1 << 11, map_capacity=1 << 13,
+                          map_voxel_size=0.1),
+        map_refine_min_inliers=100)
+    gt = loop_trajectory(16, cycles=1, radius=0.35)
+    d = np.stack([render_depth(gt[i], K, H, W, seed=i)
+                  for i in range(16)]).astype(np.float32)
+
+    def run(device):
+        slam = SlamSystem(K, cfg, enable_loop_closure=False,
+                          track_against_map=True, map_track_mode="grid",
+                          map_ba=True, device=device)
+        dd = torch.as_tensor(d, device=device)
+        for i in range(16):
+            slam.process(dd[i], timestamp=i / 30.0)
+        slam.finalize()
+        return ([r.index for r in slam.odo.keyframes],
+                [s["ok"] for s in slam.map_refine_stats],
+                slam.trajectory()[1], slam.map_ba_stats)
+
+    kc, oc, ec, sc = run("cpu")
+    correspond.grid_counter.reset()
+    kg, og, eg, sg = run(dev)
+    assert correspond.grid_counter.launches > 0
+    assert correspond.grid_counter.plain_calls == 0
+    assert kg == kc and og == oc and np.mean(oc) > 0.5
+    assert sg["num_control"] == sc["num_control"]
+    assert abs(sg["num_obs"] - sc["num_obs"]) <= 0.01 * sc["num_obs"]
+    assert float(np.abs(eg - ec).max()) <= 1e-3

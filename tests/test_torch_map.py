@@ -4,7 +4,8 @@ default device.
 
 - `VoxelMap`: the same valid voxels after three fusions (sorted points
   within 1e-5, normals 1e-4: the port sums voxels in float64, the
-  reference in float32), the same count.
+  reference in float32), the same count; its grid-hash index
+  (`build_index`) the same keys, its rows to the same tolerances.
 - `align_map_to_frame`, `fused_gn` False and True, against the reference's
   kernel path in interpret mode (TPUSLAM_FORCE_PALLAS=1): identical
   iteration count and convergence, the same inlier count to ±2 points,
@@ -32,6 +33,7 @@ from tpuslam_torch import config as pc
 from tpuslam_torch.backend.posegraph import GraphHost
 from tpuslam_torch.frontend import Odometry
 from tpuslam_torch.geom.cloud import PointCloud
+from tpuslam_torch.kernels.correspond import build_grid_index
 from tpuslam_torch.mapping import VoxelMap
 from tpuslam_torch.slam import SlamSystem
 
@@ -81,8 +83,20 @@ def test_voxel_map_matches_reference():
     np.testing.assert_allclose(n, rn, atol=1e-4)
     np.testing.assert_allclose(np.sort(port.points(), axis=0),
                                np.sort(ref.points(), axis=0), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9a"):
-        port.build_index(cell=0.25)
+    # the grid-hash index over the map: at the reference's origin the same
+    # keys and rows to the map's own tolerances; the origin from the
+    # centroid within 1e-5 (the centroid sums the float32 map)
+    ri = ref.build_index(cell=0.25)
+    pi = port.build_index(cell=0.25)
+    np.testing.assert_allclose(pi.origin.numpy(), np.asarray(ri.origin),
+                               atol=1e-5)
+    pi = build_grid_index(port.cloud, 0.25,
+                          origin=torch.as_tensor(np.asarray(ri.origin)))
+    np.testing.assert_array_equal(pi.keys.numpy(), np.asarray(ri.keys))
+    np.testing.assert_allclose(pi.points.numpy(), np.asarray(ri.points),
+                               atol=1e-5)
+    np.testing.assert_allclose(pi.normals.numpy(), np.asarray(ri.normals),
+                               atol=1e-4)
 
 
 def frame_at(T_world_cam):
@@ -137,12 +151,16 @@ def test_align_map_to_frame_matches_reference(map_and_frame, monkeypatch,
 
 
 def test_map_options_not_ported_raise():
+    """The grid mode and map BA are ported: they build a system with a map
+    (map BA alone enables it, as in the reference); an unknown mode still
+    raises."""
     cfg = pc.SLAMConfig(height=H, width=W)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9a"):
-        SlamSystem(PK, cfg, track_against_map=True, map_track_mode="grid",
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-        SlamSystem(PK, cfg, map_ba=True, device="cpu")
+    grid = SlamSystem(PK, cfg, track_against_map=True, map_track_mode="grid",
+                      device="cpu")
+    assert grid.map_track_mode == "grid" and isinstance(grid.map, VoxelMap)
+    ba = SlamSystem(PK, cfg, map_ba=True, device="cpu")
+    assert ba.map_ba and isinstance(ba.map, VoxelMap)
+    assert ba.map_ba_stats is None and not ba.refine_map_ba()
     with pytest.raises(ValueError, match="map_track_mode"):
         SlamSystem(PK, cfg, track_against_map=True, map_track_mode="xyz",
                    device="cpu")

@@ -169,8 +169,6 @@ def test_not_ported_options_raise():
     cfg = config_from_reference(CFG)
     pk = PIntrinsics(*K)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSlam(pk, cfg, map_ba=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         PSlam(pk, cfg, async_backend=True, chunk_mode="inline", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PSlam(pk, dataclasses.replace(cfg, posegraph=dataclasses.replace(

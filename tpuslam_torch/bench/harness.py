@@ -187,7 +187,8 @@ def kernel_counters() -> dict:
             "gn_partials": gn_partials.counter,
             "gn_epilogue": gn_epilogue.counter,
             "gn_step": gn_step.counter,
-            "gn_fused": gn_fused.counter, "ring_nn": ring_nn.counter}
+            "gn_fused": gn_fused.counter, "ring_nn": ring_nn.counter,
+            "grid_correspond": correspond.grid_counter}
 
 
 def slam_bench_config(height: int, width: int,
@@ -263,7 +264,9 @@ def run_slam_bench(frames: int = 120, height: int = 480, width: int = 640,
 def run_map_bench(frames: int = 120, height: int = 480, width: int = 640,
                   sharded: bool = False, device: str = "cuda",
                   cycles: int = 2, warmup: int = 1, sequence=None,
-                  voxel: VoxelConfig | None = None) -> dict:
+                  voxel: VoxelConfig | None = None,
+                  map_track_mode: str = "projective",
+                  map_ba: bool = False) -> dict:
     """Frame-to-map tracking (BASELINE config 4): `SlamSystem.process` per
     frame over the `cycles`-lap loop with `track_against_map=True` and
     `slam_bench_config` (fused_gn off), the map unsharded (VoxelMap +
@@ -275,6 +278,10 @@ def run_map_bench(frames: int = 120, height: int = 480, width: int = 640,
     gates, the fusion's dropped points, and every kernel's launches and
     plain-twin calls in the timed pass.  `sequence` is as in `run_bench`;
     `voxel` replaces the config's cloud and map capacities (small runs).
+    `map_track_mode="grid"` refines by the grid probe against a sorted map
+    index; with `map_ba` `finalize` ends with map BA, and the result adds
+    its stats and the ATE before it (`ate_before_ba_m`, read inside the
+    timed pass).
     """
     from tpuslam_torch.eval.ate import ate_rmse
     from tpuslam_torch.slam import SlamSystem
@@ -294,22 +301,29 @@ def run_map_bench(frames: int = 120, height: int = 480, width: int = 640,
     def one_pass():
         slam = SlamSystem(K, cfg, enable_loop_closure=True,
                           track_against_map=True, sharded_map=sharded,
+                          map_track_mode=map_track_mode, map_ba=map_ba,
                           device=dev)
         _fence(dev)
         t0 = time.perf_counter()
         for i in range(frames):
             slam.process(depths[i], timestamp=ts[i])
+        before = slam.trajectory() if map_ba else None
         slam.finalize()
         _fence(dev)
-        return time.perf_counter() - t0, slam
+        return time.perf_counter() - t0, slam, before
 
     for _ in range(warmup):
         one_pass()
     for c in counters.values():
         c.reset()
-    wall, slam = one_pass()
+    wall, slam, before = one_pass()
     t_est, est = slam.trajectory()
     refine_ok = [s["ok"] for s in slam.map_refine_stats]
+    extra = {}
+    if map_ba:
+        extra = {"map_ba": slam.map_ba_stats,
+                 "ate_before_ba_m": ate_rmse(*before, ts, gt,
+                                             max_difference=0.005)["rmse"]}
     return {
         "device": _device_name(dev), "frames": frames,
         "resolution": [height, width], "sharded": sharded,
@@ -325,6 +339,7 @@ def run_map_bench(frames: int = 120, height: int = 480, width: int = 640,
         "dropped_total": getattr(slam.map, "dropped_total", 0),
         "launches": {k: c.launches for k, c in counters.items()},
         "plain_calls": {k: c.plain_calls for k, c in counters.items()},
+        "map_track_mode": map_track_mode, **extra,
     }
 
 

@@ -11,14 +11,14 @@ Subcommands:
 
 Every flag of the reference is accepted, plus `--device` (default
 `cuda`; `cpu` runs the plain PyTorch twins).  A flag whose code is not
-ported yet (`--map-ba`, `--map-track-mode grid`, `--lc-descriptor`,
-`--async-backend` with `--chunk-mode inline`, `bench --coldstart`,
-`bench --devices` > 1) exits with code 2 and the ROADMAP item it waits on.
+ported yet (`--lc-descriptor`, `--async-backend` with `--chunk-mode
+inline`, `bench --coldstart`, `bench --devices` > 1) exits with code 2 and
+the ROADMAP item it waits on.
 
 Per-frame JSONL records (pose-free: frame, timestamp, ms, ICP iterations,
 rms, inlier fraction, promotion, loss) go to --log-jsonl; one JSON summary
 line (frames, keyframes, fps, fps_steady, closures, graph nodes, retained
-clouds, ATE) goes to stdout; the depth decoder in use goes to stderr.
+clouds, map BA's cost and counts with --map-ba, ATE) goes to stdout; the depth decoder in use goes to stderr.
 """
 
 from __future__ import annotations
@@ -54,12 +54,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--map-track-mode", default="projective",
                    choices=("projective", "grid"),
                    help="frame-to-map association: reverse projective "
-                        "(default) or grid-hash index probe (not ported)")
+                        "(default) or grid-hash index probe")
     p.add_argument("--sharded-map", action="store_true",
                    help="shard the voxel map over the process group's ranks: "
                         "all-to-all fusion + ring frame-to-map tracking")
     p.add_argument("--map-ba", action="store_true",
-                   help="final map bundle adjustment (not ported)")
+                   help="final Schur-complement map bundle adjustment over "
+                        "all keyframes (backend/map_ba.py)")
     p.add_argument("--progress", action="store_true",
                    help="print a live per-frame status line to stderr")
     p.add_argument("--async-backend", action="store_true",
@@ -288,6 +289,8 @@ def _run_pipeline(args, use_slam: bool) -> int:
         # bounded by KeyframeConfig.max_keyframes + protected anchors
         summary["retained_clouds"] = sum(
             1 for r in odo.keyframes if r.cloud is not None)
+        if system.map_ba_stats is not None:
+            summary["map_ba"] = system.map_ba_stats
     if seq.groundtruth:
         gt_ts, gt_poses = [], []
         for i in range(len(seq)):

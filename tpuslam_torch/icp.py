@@ -1,11 +1,13 @@
-"""Projective point-to-plane ICP — port of the frame path of `tpuslam/icp.py`.
+"""Point-to-plane ICP — port of `tpuslam/icp.py`.
 
 Per pyramid level (coarsest → finest) an ICP loop runs, each outer
-iteration: one projective row gather at the carry's pose (one launch,
-kernels/correspond.py, which transforms the source itself), then
-`inner_steps` GN solves against that association, each one launch
-(kernels/gn_step.py) that transforms the source by the current pose,
-reduces, solves, updates the pose and keeps the loop carry on the device.
+iteration: one association at the carry's pose (one launch that
+transforms the source itself: the projective row gather of
+kernels/correspond.py against an organized target, or the 27-cell grid
+probe against a sorted index), then `inner_steps` GN solves against that
+association, each one launch (kernels/gn_step.py) that transforms the
+source by the current pose, reduces, solves, updates the pose and keeps
+the loop carry on the device.
 
 The reference's `lax.while_loop` exits early once ‖δ‖ ≤ tol.  Here the
 loop runs a fixed budget of ⌈max_iters / inner⌉ outer iterations; the
@@ -16,10 +18,11 @@ the loop.  (On CPU tensors, where reading the flag waits for nothing, the
 loop stops at DONE: the remaining iterations would leave the carry as it
 is.)
 
-With `ICPConfig.fused_gn` each GN solve is one launch of the fused kernel
-instead (kernels/gn_fused.py: the association's row, its gates, the
-residual, Huber, the reduction, the solve and the carry update), and an
-outer iteration issues nothing else.
+With `ICPConfig.fused_gn` each GN solve of a projective loop is one launch
+of the fused kernel instead (kernels/gn_fused.py: the association's row,
+its gates, the residual, Huber, the reduction, the solve and the carry
+update), and an outer iteration issues nothing else.  The unorganized
+paths (`align_to_index`, `align_clouds`) have no fused form.
 """
 
 from __future__ import annotations
@@ -34,7 +37,11 @@ from tpuslam_torch.geom.backproject import project
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.kernels import gn_epilogue as ep
 from tpuslam_torch.kernels.correspond import (
+    GridIndex,
+    brute_force_correspond,
+    build_grid_index,
     correspondence_buffers,
+    grid_correspond_at_pose,
     pack_organized_target,
     projective_correspond_at_pose,
 )
@@ -155,11 +162,22 @@ def _finished(carry: torch.Tensor) -> bool:
     return carry.device.type == "cpu" and bool(carry[ep.DONE] != 0)
 
 
-def _icp_loop(packed: torch.Tensor, height: int, width: int, K: Intrinsics,
-              src: PointCloud, T0: torch.Tensor, cfg: ICPConfig,
+def _projective(packed: torch.Tensor, height: int, width: int,
+                K: Intrinsics, cfg: ICPConfig):
+    """The ICP loop's association against an organized target's table."""
+    def associate(points, mask, normals, carry, out):
+        projective_correspond_at_pose(
+            points, mask, normals, packed, height, width, K,
+            cfg.max_corr_dist, cfg.normal_dot_min, carry, out=out)
+    return associate
+
+
+def _icp_loop(associate, src: PointCloud, T0: torch.Tensor, cfg: ICPConfig,
               max_iters: int, inner_steps: int | None = None,
               tol_delta: float | None = None) -> ICPResult:
-    """Projective ICP against one packed table, carry on the device."""
+    """ICP with the carry on the device.  `associate(points, mask,
+    normals, carry, out)` writes the association at the carry's pose into
+    `out` (`correspondence_buffers`), transforming the source itself."""
     inner = max(1, int(cfg.inner_steps if inner_steps is None
                        else inner_steps))
     tol = cfg.tol_delta if tol_delta is None else tol_delta
@@ -174,10 +192,7 @@ def _icp_loop(packed: torch.Tensor, height: int, width: int, K: Intrinsics,
     for _ in range(outer):
         if _finished(carry):
             break
-        # the association at the carry's pose, the transform in the kernel
-        projective_correspond_at_pose(
-            points, mask, normals, packed, height, width, K,
-            cfg.max_corr_dist, cfg.normal_dot_min, carry, out=corr)
+        associate(points, mask, normals, carry, corr)
         for k in range(inner):
             # frozen association; the step transforms the source by the
             # carry's current pose (inner/outer ICP) and updates the carry
@@ -246,6 +261,21 @@ def _icp_loop_projective_fused(packed: torch.Tensor, height: int,
     return _result(carry, tol_sq)
 
 
+def _projective_loop(packed: torch.Tensor, height: int, width: int,
+                     K: Intrinsics, src: PointCloud, T0: torch.Tensor,
+                     cfg: ICPConfig, max_iters: int,
+                     inner_steps: int | None = None,
+                     tol_delta: float | None = None) -> ICPResult:
+    """ICP against an organized target's table: the fused loop with
+    `cfg.fused_gn`, else `_icp_loop` over the projective gather."""
+    if cfg.fused_gn:
+        return _icp_loop_projective_fused(packed, height, width, K, src, T0,
+                                          cfg, max_iters, inner_steps,
+                                          tol_delta)
+    return _icp_loop(_projective(packed, height, width, K, cfg), src, T0,
+                     cfg, max_iters, inner_steps, tol_delta)
+
+
 def align_cloud_to_organized(src: PointCloud, packed: torch.Tensor,
                              height: int, width: int, K: Intrinsics,
                              T0: torch.Tensor, cfg: ICPConfig) -> ICPResult:
@@ -257,10 +287,8 @@ def align_cloud_to_organized(src: PointCloud, packed: torch.Tensor,
     Estimates T s.t. target_point ≈ T·src_point.  `inlier_fraction` is
     measured against all valid source points.
     """
-    if cfg.fused_gn:
-        return _icp_loop_projective_fused(packed, height, width, K, src, T0,
-                                          cfg, cfg.max_iters)
-    return _icp_loop(packed, height, width, K, src, T0, cfg, cfg.max_iters)
+    return _projective_loop(packed, height, width, K, src, T0, cfg,
+                            cfg.max_iters)
 
 
 def align_map_to_frame(map_cloud: PointCloud, frame: Frame, K: Intrinsics,
@@ -292,8 +320,7 @@ def align_map_to_frame(map_cloud: PointCloud, frame: Frame, K: Intrinsics,
     )
     src = PointCloud(points=map_cloud.points, normals=map_cloud.normals,
                      mask=map_cloud.mask & in_view)
-    loop = _icp_loop_projective_fused if cfg.fused_gn else _icp_loop
-    res = loop(packed, h, w, K, src, S0, cfg, cfg.max_iters)
+    res = _projective_loop(packed, h, w, K, src, S0, cfg, cfg.max_iters)
     return res._replace(T=se3.inv(res.T))
 
 
@@ -305,7 +332,6 @@ def align_frames_packed(src_pyr, dst_packed: tuple, K: Intrinsics,
     image geometry is taken from `src_pyr` (both sides of a tracking pair
     share the pyramid shapes).
     """
-    loop = _icp_loop_projective_fused if cfg.fused_gn else _icp_loop
     T = T0
     result = None
     for li in range(len(src_pyr) - 1, -1, -1):  # coarsest → finest
@@ -323,8 +349,8 @@ def align_frames_packed(src_pyr, dst_packed: tuple, K: Intrinsics,
         ipl, tpl = cfg.inner_steps_per_level, cfg.tol_delta_per_level
         inner = ipl[li] if ipl is not None and li < len(ipl) else None
         tol = tpl[li] if tpl is not None and li < len(tpl) else None
-        result = loop(packed, h, w, K_l, src_cloud, T, cfg, iters,
-                      inner_steps=inner, tol_delta=tol)
+        result = _projective_loop(packed, h, w, K_l, src_cloud, T, cfg,
+                                  iters, inner_steps=inner, tol_delta=tol)
         T = result.T
     return result
 
@@ -339,3 +365,41 @@ def align_frames(src_pyr, dst_pyr, K: Intrinsics, T0: torch.Tensor,
     """
     return align_frames_packed(src_pyr, pack_pyramid(dst_pyr, cfg), K, T0,
                                cfg)
+
+
+def _build_index(dst: PointCloud, cfg: ICPConfig) -> GridIndex:
+    # cell edge ≥ the correspondence radius: the 27-cell probe suffices
+    return build_grid_index(dst, cell=float(cfg.max_corr_dist))
+
+
+def align_to_index(src: PointCloud, index: GridIndex, T0: torch.Tensor,
+                   cfg: ICPConfig) -> ICPResult:
+    """Align a cloud against a prebuilt grid index (frame-to-map tracking
+    with `map_track_mode="grid"`): each outer iteration probes the index
+    at the carry's pose in one launch (kernels/correspond.py
+    `grid_correspond_at_pose`).  The index is built once per map update,
+    not per frame.  Estimates T s.t. target_point ≈ T·src_point;
+    `inlier_fraction` is measured against all valid source points."""
+    def associate(points, mask, normals, carry, out):
+        grid_correspond_at_pose(points, mask, index, cfg.max_corr_dist,
+                                carry, out=out)
+    return _icp_loop(associate, src, T0, cfg, cfg.max_iters)
+
+
+def align_clouds(src: PointCloud, dst: PointCloud, T0: torch.Tensor,
+                 cfg: ICPConfig, use_grid: bool = True) -> ICPResult:
+    """Align two unorganized clouds (the reference's per-pair path).
+
+    `use_grid=False` selects the O(N·M) brute-force oracle (tests, tiny
+    clouds), which moves the source by the carry's pose in the kernels'
+    order and is plain PyTorch on any device."""
+    if use_grid:
+        return align_to_index(src, _build_index(dst, cfg), T0, cfg)
+
+    def associate(points, mask, normals, carry, out):
+        x = se3.transform_points_ordered(carry[ep.T_SLICE].reshape(4, 4),
+                                         points)
+        corr = brute_force_correspond(x, mask, dst, cfg.max_corr_dist)
+        for o, c in zip(out, corr):
+            o.copy_(c)
+    return _icp_loop(associate, src, T0, cfg, cfg.max_iters)

@@ -14,10 +14,12 @@ import json
 import numpy as np
 import torch
 
+from tpuslam_torch.backend.map_ba import MapBAProblem
 from tpuslam_torch.backend.posegraph import PoseGraph
 from tpuslam_torch.config import SLAMConfig
 from tpuslam_torch.frontend import KeyframeRecord, ScanState, VerifyTable
 from tpuslam_torch.geom.cloud import PointCloud
+from tpuslam_torch.kernels.correspond import GridIndex
 from tpuslam_torch.transfer import upload
 
 
@@ -72,3 +74,24 @@ def keyframe_record_from_reference(rec, device) -> KeyframeRecord:
                           T_world_kf=np.array(rec.T_world_kf,
                                               dtype=np.float32),
                           cloud=cloud, verify=verify)
+
+
+def grid_index_from_reference(index, device) -> GridIndex:
+    """The port's GridIndex from the reference's `kernels.correspond
+    .GridIndex`: the same keys, and its points and normals as the port's
+    (M, 8) rows in the same order."""
+    points = np.asarray(index.points, dtype=np.float32)
+    rows = np.zeros((points.shape[0], 8), dtype=np.float32)
+    rows[:, 0:3] = points
+    rows[:, 3:6] = np.asarray(index.normals, dtype=np.float32)
+    return GridIndex(keys=upload(np.asarray(index.keys, dtype=np.int32),
+                                 device),
+                     rows=upload(rows, device),
+                     origin=upload(np.asarray(index.origin,
+                                              dtype=np.float32), device),
+                     cell=float(np.asarray(index.cell)))
+
+
+def map_ba_problem_from_reference(prob, device) -> MapBAProblem:
+    """The port's MapBAProblem from the reference's (field by field)."""
+    return MapBAProblem(*(upload(np.asarray(f), device) for f in prob))

@@ -1,5 +1,6 @@
 """Build and bind the port's CUDA kernels (`tpuslam_torch/csrc/*.cu`):
-correspond, gn_partials, gn_epilogue, gn_step, gn_fused and ring_nn.
+correspond, gn_partials, gn_epilogue, gn_step, gn_fused, ring_nn and
+grid_correspond.
 
 The sources have a plain C interface: nvcc compiles them into one shared
 library for `sm_90a`, which `ctypes` loads.  That takes seconds, where an
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("correspond.cu", "gn_partials.cu", "gn_epilogue.cu",
-           "gn_step.cu", "gn_fused.cu", "ring_nn.cu")
+           "gn_step.cu", "gn_fused.cu", "ring_nn.cu", "grid_correspond.cu")
 HEADERS = ("gn_solve.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -48,6 +49,8 @@ _SIGNATURES = {
                               _F, _I, _I, _I, _F, _P, _P, _I, _P],
     "tpuslam_ring_nn": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                         _F, _P, _P, _P, _P, _P],
+    "tpuslam_grid_correspond": [_P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _P,
+                                _P, _P, _P, _P, _P],
     "tpuslam_ring_nn_slices": [_I, _I],
     "tpuslam_ring_nn_query_tiles": [_I],
 }

@@ -1,17 +1,29 @@
-"""Projective correspondence — port of the organized-target path of
-`tpuslam/kernels/correspond.py`.
+"""Correspondence search — port of `tpuslam/kernels/correspond.py`.
 
-`pack_organized_target` packs a keyframe level into one (H·W, 8) float16
-row table ``[q, n, mask·has_normal, 0]``.  `projective_correspond_at_pose`
-moves each source point (and normal) into the target camera by the ICP
-loop carry's pose, projects it, rounds to a pixel and gathers that one
-16-byte row: the ICP loop's association, one launch.
-`projective_correspond_packed` is the reference-shaped call, on points
-already in the target camera.  On a CUDA tensor both are the hand kernel
-`csrc/correspond.cu`; on a CPU tensor they are the plain twins
+Organized targets: `pack_organized_target` packs a keyframe level into one
+(H·W, 8) float16 row table ``[q, n, mask·has_normal, 0]``.
+`projective_correspond_at_pose` moves each source point (and normal) into
+the target camera by the ICP loop carry's pose, projects it, rounds to a
+pixel and gathers that one 16-byte row: the ICP loop's association, one
+launch.  `projective_correspond_packed` is the reference-shaped call, on
+points already in the target camera.  On a CUDA tensor both are the hand
+kernel `csrc/correspond.cu`; on a CPU tensor they are the plain twins
 `projective_correspond_at_pose_reference` and
 `projective_correspond_packed_reference`, which have the same semantics
 and rounding (q, n, flat and w are bit-equal on the card).
+
+Unorganized targets (a voxel map, map-BA control points):
+`build_grid_index` sorts the target by a packed 256³ cell key (a stable
+sort) into one (M, 8) float32 row table ``[p, n, 0, 0]``.
+`grid_correspond_at_pose` (posed, the ICP loop's association) and
+`grid_hash_correspond` (the reference-shaped call, on points already in the
+target's frame) probe the 27 cells around each query: a binary search of
+the sorted keys, then up to 16 slots of the cell.  On a CUDA tensor both
+are the hand kernel `csrc/grid_correspond.cu`; on a CPU tensor the plain
+twins `grid_correspond_at_pose_reference` and
+`grid_hash_correspond_reference`, which follow the reference's loop (q, n,
+w and idx are bit-equal on the card).  `brute_force_correspond` is the
+reference's O(N·M) oracle, plain PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -21,7 +33,8 @@ from typing import NamedTuple
 import torch
 
 from tpuslam_torch.config import Intrinsics
-from tpuslam_torch.geom.backproject import project
+from tpuslam_torch.geom.backproject import device_scalar, project
+from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.geom.se3 import (
     rotate_vectors_ordered,
     transform_points_ordered,
@@ -29,14 +42,27 @@ from tpuslam_torch.geom.se3 import (
 from tpuslam_torch.kernels import _build
 from tpuslam_torch.kernels import gn_epilogue as ep
 
-counter = _build.LaunchCounter()
+counter = _build.LaunchCounter()           # csrc/correspond.cu
+grid_counter = _build.LaunchCounter()      # csrc/grid_correspond.cu
 
 
 class Correspondence(NamedTuple):
     q: torch.Tensor      # (N, 3) matched target points
     n: torch.Tensor      # (N, 3) matched target normals
     w: torch.Tensor      # (N,) validity weight in {0, 1}
-    idx: torch.Tensor    # (N,) int32 flat pixel index of the match
+    idx: torch.Tensor    # (N,) int32 index of the match in the target's
+    #                      storage: flat pixel (projective), sorted row
+    #                      (grid), target row (brute force)
+
+
+def _copy_into(out: Correspondence | None,
+               corr: Correspondence) -> Correspondence:
+    """`corr`, or `corr` copied into `out` when one is given."""
+    if out is None:
+        return corr
+    for o, c in zip(out, corr):
+        o.copy_(c)
+    return out
 
 
 def pack_organized_target(dst_points: torch.Tensor, dst_normals: torch.Tensor,
@@ -189,14 +215,9 @@ def projective_correspond_at_pose(
     """
     if points.device.type == "cpu":
         T = carry[ep.T_SLICE].reshape(4, 4)
-        corr = projective_correspond_at_pose_reference(
+        return _copy_into(out, projective_correspond_at_pose_reference(
             points, mask, normals, packed, height, width, K, max_dist,
-            normal_dot_min, T)
-        if out is None:
-            return corr
-        for o, c in zip(out, corr):
-            o.copy_(c)
-        return out
+            normal_dot_min, T))
     _build.require(carry, "carry", dtype=torch.float32,
                    shape=(ep.CARRY_SIZE,), device=points.device)
     return _launch("projective_correspond_at_pose", points, mask,
@@ -257,4 +278,247 @@ def _launch(name, pts, mask, normals, pose_ptr, packed, height, width, K,
         _build.stream_handle(pts))
     _build.check_launch(err, "correspond")
     counter.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Unorganized targets: brute force and the grid-hash probe.
+# ---------------------------------------------------------------------------
+
+
+def brute_force_correspond(x: torch.Tensor, x_mask: torch.Tensor,
+                           dst: PointCloud, max_dist: float
+                           ) -> Correspondence:
+    """Exact NN via a full (N, M) distance matrix (the reference's test
+    oracle; small clouds only).  Plain PyTorch on any device."""
+    d2 = torch.sum((x[:, None, :] - dst.points[None, :, :]) ** 2, dim=-1)
+    d2 = torch.where(dst.mask[None, :], d2, float("inf"))
+    j = torch.argmin(d2, dim=1)
+    best = torch.gather(d2, 1, j[:, None])[:, 0]
+    q = dst.points[j]
+    n = dst.normals[j]
+    has_normal = torch.sum(n * n, dim=-1) > 0.5
+    valid = (x_mask & (best < max_dist * max_dist) & torch.isfinite(best)
+             & has_normal)
+    return Correspondence(q=q, n=n, w=valid.to(x.dtype),
+                          idx=j.to(torch.int32))
+
+
+_GRID_DIMS = 256          # per-axis cells; 8 bits each pack into an int32
+_INVALID_KEY = torch.iinfo(torch.int32).max
+CANDIDATES_PER_CELL = 16
+
+
+class GridIndex(NamedTuple):
+    """A target cloud sorted by packed cell key (the reference's
+    `GridIndex`).  Each row holds a point and its normal in 32 bytes, so a
+    candidate costs the kernel one memory sector."""
+
+    keys: torch.Tensor     # (M,) int32 sorted packed cell keys
+    rows: torch.Tensor     # (M, 8) float32 [p, n, 0, 0] in key order
+    origin: torch.Tensor   # (3,) float32 grid anchor
+    cell: float            # cell edge length (float32 in the arithmetic)
+
+    @property
+    def points(self) -> torch.Tensor:
+        return self.rows[:, 0:3]
+
+    @property
+    def normals(self) -> torch.Tensor:
+        return self.rows[:, 3:6]
+
+
+def _cell_coords(points: torch.Tensor, origin: torch.Tensor,
+                 cell: float) -> torch.Tensor:
+    """floor((p − origin) / cell) as int32, by a true divide (a Python
+    divisor is a reciprocal multiply on CUDA).  The float is clamped to
+    [−2, 257] (NaN to −2) before the cast, whose result is undefined out of
+    range: a clamped coordinate and its ±1 neighbours stay outside the
+    grid, as the unclamped ones are."""
+    c = torch.floor((points - origin) / device_scalar(cell, points))
+    return torch.nan_to_num(c, nan=-2.0).clamp(-2.0, 257.0).to(torch.int32)
+
+
+def _pack_keys(points: torch.Tensor, mask: torch.Tensor, cell: float,
+               origin: torch.Tensor):
+    """Quantize to the local 256³ grid anchored at `origin`; pack to int32
+    (cx << 16 | cy << 8 | cz); rows outside the grid or masked out get
+    `_INVALID_KEY`, so they sort last."""
+    c = _cell_coords(points, origin, cell)
+    ok = torch.all((c >= 0) & (c < _GRID_DIMS), dim=-1) & mask
+    c = torch.clamp(c, 0, _GRID_DIMS - 1)
+    key = (c[..., 0] << 16) | (c[..., 1] << 8) | c[..., 2]
+    return torch.where(ok, key, _INVALID_KEY), c, ok
+
+
+def build_grid_index(dst: PointCloud, cell: float,
+                     origin: torch.Tensor | None = None) -> GridIndex:
+    """Sort the target cloud by packed cell key.
+
+    The sort is stable: points of one cell keep their input order, which
+    decides which 16 of a crowded cell the probe scans (the reference's
+    `lax.sort` keeps it too).  `origin` defaults to the centroid less half
+    the grid's span, so the 256³ grid covers a room-scale cloud.
+    """
+    if origin is None:
+        origin = dst.centroid() - float(0.5 * _GRID_DIMS * cell)
+    origin = origin.to(torch.float32)
+    keys, _, _ = _pack_keys(dst.points, dst.mask, cell, origin)
+    order = torch.sort(keys, stable=True).indices
+    pad = torch.zeros((dst.points.shape[0], 2), dtype=torch.float32,
+                      device=dst.points.device)
+    rows = torch.cat([dst.points, dst.normals, pad], dim=1)[order]
+    return GridIndex(keys=keys[order].contiguous(), rows=rows.contiguous(),
+                     origin=origin.contiguous(), cell=float(cell))
+
+
+def grid_hash_correspond_reference(x: torch.Tensor, x_mask: torch.Tensor,
+                                   index: GridIndex,
+                                   max_dist: float) -> Correspondence:
+    """Plain twin of the grid kernel: the reference's loop over the 27
+    cells (dz innermost), each a searchsorted-left of the cell's key and
+    16 slots clipped to the last row; the first of equal minima inside a
+    cell, a strict `<` across cells.  d2 is ((dx² + dy²) + dz²), each step
+    rounded, as the kernel computes it."""
+    grid_counter.plain_calls += 1
+    kq = CANDIDATES_PER_CELL
+    dev = x.device
+    c = _cell_coords(x, index.origin, index.cell)
+    best_d2 = torch.full(x.shape[:1], float("inf"), dtype=x.dtype,
+                         device=dev)
+    best_q = torch.zeros_like(x)
+    best_n = torch.zeros_like(x)
+    best_i = torch.zeros(x.shape[:1], dtype=torch.int32, device=dev)
+    m = index.keys.shape[0]
+    slots = torch.arange(kq, dtype=torch.int64, device=dev)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                cc = c + torch.tensor([dx, dy, dz], dtype=torch.int32,
+                                      device=dev)
+                ok = torch.all((cc >= 0) & (cc < _GRID_DIMS), dim=-1)
+                key = (cc[..., 0] << 16) | (cc[..., 1] << 8) | cc[..., 2]
+                start = torch.searchsorted(index.keys, key)
+                idx = torch.clamp(start[:, None] + slots[None, :], 0, m - 1)
+                cand_ok = (index.keys[idx] == key[:, None]) & ok[:, None]
+                cand = index.rows[idx]                        # (N, kq, 8)
+                d = x[:, None, :] - cand[..., 0:3]
+                d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+                    + d[..., 2] * d[..., 2]
+                d2 = torch.where(cand_ok, d2, float("inf"))
+                jbest = torch.argmin(d2, dim=1, keepdim=True)
+                dbest = torch.gather(d2, 1, jbest)[:, 0]
+                rbest = torch.gather(
+                    cand, 1, jbest[:, :, None].expand(-1, 1, 8))[:, 0]
+                ibest = torch.gather(idx, 1, jbest)[:, 0]
+                better = dbest < best_d2
+                best_d2 = torch.where(better, dbest, best_d2)
+                best_q = torch.where(better[:, None], rbest[:, 0:3], best_q)
+                best_n = torch.where(better[:, None], rbest[:, 3:6], best_n)
+                best_i = torch.where(better, ibest.to(torch.int32), best_i)
+    has_normal = (best_n[:, 0] * best_n[:, 0] + best_n[:, 1] * best_n[:, 1]
+                  + best_n[:, 2] * best_n[:, 2]) > 0.5
+    valid = (x_mask & torch.isfinite(best_d2)
+             & (best_d2 < max_dist * max_dist) & has_normal)
+    return Correspondence(q=best_q, n=best_n, w=valid.to(x.dtype),
+                          idx=best_i)
+
+
+def grid_correspond_at_pose_reference(points: torch.Tensor,
+                                      mask: torch.Tensor, index: GridIndex,
+                                      max_dist: float, T: torch.Tensor
+                                      ) -> Correspondence:
+    """Plain twin of the posed kernel: the ordered transform (the kernel's
+    rounding), then `grid_hash_correspond_reference`."""
+    return grid_hash_correspond_reference(
+        transform_points_ordered(T, points), mask, index, max_dist)
+
+
+def grid_hash_correspond(x: torch.Tensor, x_mask: torch.Tensor,
+                         index: GridIndex, max_dist: float) -> Correspondence:
+    """Approximate NN of points already in the index's frame, by probing
+    the 27 cells around each (the reference-shaped, pose-less call; map BA
+    probes every keyframe point with one launch of it).
+
+    Exact within `max_dist` where the index's cell ≥ `max_dist` and no
+    cell holds more than 16 points; in a crowded cell only the first 16 in
+    the index's order are scanned.
+    """
+    if x.device.type == "cpu":
+        return grid_hash_correspond_reference(x, x_mask, index, max_dist)
+    return _grid_launch("grid_hash_correspond", x, x_mask, None, index,
+                        max_dist, None, None)
+
+
+def grid_correspond_at_pose(points: torch.Tensor, mask: torch.Tensor,
+                            index: GridIndex, max_dist: float,
+                            carry: torch.Tensor,
+                            out: Correspondence | None = None
+                            ) -> Correspondence:
+    """The grid ICP loop's association at the carry's pose, in one launch.
+
+    Args:
+      points: (N, 3) float32 source points in the source frame; the kernel
+        applies the carry's pose T (x = R p + t, in registers, in
+        `transform_points_ordered`'s order).
+      mask: (N,) bool source validity.
+      index: `build_grid_index` of the target.
+      max_dist: Euclidean rejection radius.
+      carry: (64,) float32 ICP loop carry (layout in kernels/gn_epilogue.py):
+        the pose is read from its T and, once its DONE is set, the kernel
+        reads and writes nothing.  The CPU twin ignores DONE.
+      out: optional `correspondence_buffers(N)` to write into (and return).
+    """
+    if points.device.type == "cpu":
+        T = carry[ep.T_SLICE].reshape(4, 4)
+        return _copy_into(out, grid_correspond_at_pose_reference(
+            points, mask, index, max_dist, T))
+    _build.require(carry, "carry", dtype=torch.float32,
+                   shape=(ep.CARRY_SIZE,), device=points.device)
+    return _grid_launch("grid_correspond_at_pose", points, mask,
+                        carry.data_ptr() + 4 * ep.T_SLICE.start, index,
+                        max_dist, carry, out)
+
+
+def _grid_launch(name, pts, mask, pose_ptr, index: GridIndex, max_dist,
+                 done, out) -> Correspondence:
+    """Check the inputs and launch the grid kernel; `pose_ptr` None means
+    `pts` is in the index's frame, `out` None allocates the outputs."""
+    if pts.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {pts.device}")
+    dev = pts.device
+    n_pts = pts.shape[0]
+    m = index.keys.shape[0]
+    _build.require(pts, "points", dtype=torch.float32, shape=(n_pts, 3),
+                   device=dev)
+    _build.require(mask, "mask", dtype=torch.bool, shape=(n_pts,), device=dev)
+    _build.require(index.keys, "keys", dtype=torch.int32, shape=(m,),
+                   device=dev)
+    _build.require(index.rows, "rows", dtype=torch.float32, shape=(m, 8),
+                   device=dev)
+    _build.require(index.origin, "origin", dtype=torch.float32, shape=(3,),
+                   device=dev)
+    if index.rows.data_ptr() % 16:
+        raise ValueError("rows: must be 16-byte aligned")
+    if m < 1:
+        raise ValueError("index: no rows")
+    if out is None:
+        out = correspondence_buffers(n_pts, dev)
+    q, n, w, idx = out
+    for t, dtype, shape in ((q, torch.float32, (n_pts, 3)),
+                            (n, torch.float32, (n_pts, 3)),
+                            (w, torch.float32, (n_pts,)),
+                            (idx, torch.int32, (n_pts,))):
+        _build.require(t, "out", dtype=dtype, shape=shape, device=dev)
+    if n_pts == 0:
+        return out
+    err = _build.library().tpuslam_grid_correspond(
+        pts.data_ptr(), mask.data_ptr(), pose_ptr, index.keys.data_ptr(),
+        index.rows.data_ptr(), m, index.origin.data_ptr(), index.cell,
+        n_pts, max_dist * max_dist,
+        done.data_ptr() if done is not None else None,
+        q.data_ptr(), n.data_ptr(), w.data_ptr(), idx.data_ptr(),
+        _build.stream_handle(pts))
+    _build.check_launch(err, "grid_correspond")
+    grid_counter.launches += 1
     return out

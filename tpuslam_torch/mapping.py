@@ -4,8 +4,9 @@ The map is a fixed-capacity masked `PointCloud` in the world frame, on the
 device.  Fusing a keyframe is the sort-based voxel reduction
 (geom/voxel.py) of `concat(map, transformed cloud)`: static shapes, no
 hash table, no host synchronisation.  Frame-to-map tracking reads it
-through `icp.align_map_to_frame` (reverse projective association); the
-reference's grid-hash index is not ported.
+through `icp.align_map_to_frame` (reverse projective association) or,
+with `map_track_mode="grid"`, through the grid-hash index that
+`build_index` sorts (kernels/correspond.py).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from tpuslam_torch.config import VoxelConfig
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.geom.voxel import voxel_downsample
+from tpuslam_torch.kernels.correspond import GridIndex, build_grid_index
 from tpuslam_torch.transfer import resolve_device, upload
 
 
@@ -53,11 +55,13 @@ class VoxelMap:
                            self.cfg.extent)
         self.num_insertions += 1
 
-    def build_index(self, cell: float):
-        raise NotImplementedError(
-            "the grid-hash map index (grid_hash_correspond) is not ported "
-            "yet (ROADMAP Queue 1 item 9a); frame-to-map tracking uses "
-            "icp.align_map_to_frame")
+    def build_index(self, cell: float) -> GridIndex:
+        """Grid-hash index over the current map (for frame-to-map ICP).
+
+        Rebuilt per map update, not per frame; anchored at the map centroid
+        so the 256³ local grid (cell·256 span) covers a room-scale map.
+        """
+        return build_grid_index(self.cloud, cell=cell)
 
     def size(self) -> int:
         return int(self.cloud.count())

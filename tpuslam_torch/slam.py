@@ -15,13 +15,17 @@ With `track_against_map` every keyframe is fused into a world voxel map
 (mapping.VoxelMap, or dist/map_fusion.ShardedVoxelMap over the ranks of
 the default process group with `sharded_map`) and each frame's tracked
 pose is refined against that map, one frame at a time: by reverse
-projective association (icp.align_map_to_frame) or, sharded, by the ring
-ICP (dist/ring_map.py, whose hops are the ring_nn kernel).
+projective association (icp.align_map_to_frame), with
+`map_track_mode="grid"` by the grid probe against a sorted index of the
+map (icp.align_to_index, the index rebuilt lazily after each insert) or,
+sharded, by the ring ICP (dist/ring_map.py, whose hops are the ring_nn
+kernel).  With `map_ba` `finalize` ends with a Schur-complement map BA
+over all keyframes (`refine_map_ba`, backend/map_ba.py).
 
-Not in this port yet (each raises NotImplementedError): map BA, the
-grid-hash map tracking mode, the worker-thread async backend of the inline
-chunk mode, descriptor loop-closure proposal, and the grid-hash
-verification fallback for keyframes without verification tables.
+Not in this port yet (each raises NotImplementedError): the worker-thread
+async backend of the inline chunk mode, descriptor loop-closure proposal,
+and the grid-hash verification fallback for keyframes without
+verification tables.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from tpuslam_torch.backend.loopclosure import (
     gate_rows,
     propose_attempt,
 )
+from tpuslam_torch.backend.map_ba import build_map_ba_problem, optimize_map_ba
 from tpuslam_torch.backend.posegraph import GraphHost, optimize, resolve_solver
 from tpuslam_torch.backend.relocalize import relocalize
 from tpuslam_torch.backend.verify import ROW_SIZE
@@ -56,7 +61,13 @@ from tpuslam_torch.frontend import (
     scan_chunk,
     scan_superchunk_frozen,
 )
-from tpuslam_torch.icp import FlatICP, align_map_to_frame, flat_icp_scalars
+from tpuslam_torch.geom.voxel import voxel_downsample
+from tpuslam_torch.icp import (
+    FlatICP,
+    align_map_to_frame,
+    align_to_index,
+    flat_icp_scalars,
+)
 from tpuslam_torch.mapping import VoxelMap
 from tpuslam_torch.transfer import upload
 
@@ -114,14 +125,9 @@ class SlamSystem:
                  chunk_mode: str = "inline",
                  chunk_sub: int = 8,
                  device="cuda"):
-        if map_ba:
-            raise _not_ported("map BA (map_ba)", "Queue 1 item 15")
         if map_track_mode not in ("projective", "grid"):
             raise ValueError(f"map_track_mode must be 'projective' or 'grid',"
                              f" got {map_track_mode!r}")
-        if map_track_mode == "grid":
-            raise _not_ported("grid-hash frame-to-map tracking "
-                              "(map_track_mode='grid')", "Queue 1 item 9a")
         if chunk_mode not in ("inline", "boundary"):
             raise ValueError(f"chunk_mode must be 'inline' or 'boundary', "
                              f"got {chunk_mode!r}")
@@ -136,7 +142,9 @@ class SlamSystem:
         self.device = self.odo.device
         self.graph = GraphHost(cfg.posegraph, device=self.device)
         self.enable_loop_closure = enable_loop_closure
-        enable_map = enable_map or track_against_map
+        self.map_ba = map_ba
+        self.map_ba_stats: Optional[dict] = None
+        enable_map = enable_map or track_against_map or map_ba
         self.sharded_map = sharded_map
         if enable_map and sharded_map:
             # the map is sharded over the default process group's ranks:
@@ -149,6 +157,10 @@ class SlamSystem:
         else:
             self.map = None
         self.track_against_map = track_against_map
+        # "projective": reverse projective association against the current
+        # frame's table; "grid": the grid probe against a sorted map index
+        self.map_track_mode = map_track_mode
+        self._map_index = None
         self.map_refine_stats: list[dict] = []
         self._known_edges: set[tuple[int, int]] = set()
         # pairs that FAILED verification: skipped until the next graph
@@ -183,6 +195,8 @@ class SlamSystem:
             self._attempt_loop_closure()
         if self.graph.num_edges > 0:
             self._optimize()
+        if self.map_ba:
+            self.refine_map_ba()
 
     def _sync_graph_with_keyframes(self) -> bool:
         """Add any newly promoted keyframes as nodes + odometry edges."""
@@ -210,6 +224,7 @@ class SlamSystem:
             added = True
             if self.map is not None and rec.cloud is not None:
                 self.map.insert(rec.cloud, rec.T_world_kf)
+                self._map_index = None     # stale: rebuilt lazily
         return added
 
     def _refine_against_map(self) -> None:
@@ -228,9 +243,16 @@ class SlamSystem:
             cloud = odo._kf_cloud(odo.last_pyr)   # current frame, camera
             _res, flat = make_ring_align_fn(self._map_mesh, self.cfg.icp)(
                 cloud, self.map.cloud_shards, T0)
-        else:
+        elif self.map_track_mode == "projective":
             flat = flat_icp_scalars(align_map_to_frame(
                 self.map.cloud, odo.last_pyr[0], odo.K, T0, self.cfg.icp))
+        else:
+            if self._map_index is None:
+                self._map_index = self.map.build_index(
+                    cell=float(self.cfg.icp.max_corr_dist))
+            cloud = odo._kf_cloud(odo.last_pyr)   # current frame, camera
+            flat = flat_icp_scalars(align_to_index(cloud, self._map_index,
+                                                   T0, self.cfg.icp))
         s = flat.cpu().numpy()                    # the one host sync
         T_est = s[FlatICP.T].reshape(4, 4)
         ok = (bool(s[FlatICP.CONVERGED] > 0.5)
@@ -374,6 +396,67 @@ class SlamSystem:
         poses, _cost = optimize(graph, self.cfg.posegraph,
                                 live_nodes=self.graph.num_nodes)
         self._apply_poses(poses.cpu().numpy().astype(np.float32))
+
+    def refine_map_ba(self, max_control: int = 4096,
+                      points_per_kf: int = 512) -> bool:
+        """Global Schur-complement map BA over all keyframes.
+
+        Re-voxelizes the live map into ≤ `max_control` control points,
+        associates a subsample of every retained keyframe cloud with them
+        and refines keyframe poses and control-point offsets jointly
+        (backend/map_ba.py).  The poses are written back into the graph,
+        the keyframe records and the tracking origin; the dense map stays
+        the running fusion.  Returns whether BA ran and was finite.
+
+        A deferred loop-closure attempt still pending is drained first: the
+        reference leaves it pending, and the next chunk would then apply
+        its pre-BA poses over BA's.
+        """
+        self._drain_pending()
+        n = self._num_graph_nodes
+        if self.map is None or n < 2 or self.map.num_insertions < 2:
+            return False
+        map_cloud = (self.map.gather() if self.sharded_map
+                     else self.map.cloud)
+        v = self.cfg.voxel
+        ctrl = voxel_downsample(map_cloud, 2.0 * v.map_voxel_size,
+                                max_control, origin=v.origin,
+                                extent=v.extent)
+        # keyframes whose clouds were sparsified away contribute no map
+        # observations; the graph's edges still constrain their poses
+        kf_points, kf_mask, kf_poses, kf_ids = [], [], [], []
+        for kid, rec in enumerate(self.odo.keyframes[:n]):
+            if rec.cloud is None:
+                continue
+            stride = max(1, rec.cloud.points.shape[0] // points_per_kf)
+            kf_points.append(rec.cloud.points[::stride][:points_per_kf])
+            kf_mask.append(rec.cloud.mask[::stride][:points_per_kf])
+            kf_poses.append(rec.T_world_kf.astype(np.float32))
+            kf_ids.append(kid)
+        if len(kf_ids) < 2:
+            return False
+        dev = self.device
+        prob = build_map_ba_problem(
+            upload(np.stack(kf_poses), dev), torch.stack(kf_points),
+            torch.stack(kf_mask), ctrl.points, ctrl.normals, ctrl.mask,
+            max_dist=float(self.cfg.icp.max_corr_dist),
+            kf_ids=upload(np.asarray(kf_ids, dtype=np.int32), dev))
+        poses, _map_pts, cost = optimize_map_ba(
+            self.graph.graph(bucketed=True), prob, self.cfg.posegraph,
+            huber_delta=self.cfg.icp.huber_delta)
+        # one readback: the poses, the cost and the two counts
+        flat = torch.cat([poses.reshape(-1).to(torch.float32), torch.stack([
+            cost.to(torch.float32), prob.obs_w.sum().to(torch.float32),
+            ctrl.mask.sum().to(torch.float32)])]).cpu().numpy()
+        poses = flat[:-3].reshape(poses.shape)
+        if not np.all(np.isfinite(poses)):
+            return False
+        self.map_ba_stats = {"cost": float(flat[-3]),
+                             "num_obs": int(flat[-2]),
+                             "num_control": int(flat[-1])}
+        # BA moved every initial guess: failed closure pairs may verify
+        self._apply_poses(poses)
+        return True
 
     def _attempt_relocalization(self) -> Optional[bool]:
         """Re-anchor the current (lost) frame on a stored keyframe.

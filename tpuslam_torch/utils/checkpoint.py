@@ -221,4 +221,5 @@ def _restore(z, system) -> int:
         for rec in odo.keyframes:
             if rec.cloud is not None:
                 system.map.insert(rec.cloud, rec.T_world_kf)
+        system._map_index = None
     return int(z["frame_idx"])
