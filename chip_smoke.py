@@ -53,11 +53,32 @@ Phases, in order (any failure raises and the script exits non-zero):
   8. small slam — SlamSystem on the 48-frame 120×160 two-lap loop
                 (boundary chunks, deferred backend, fused_gn False and
                 True) on the GPU against the CPU twins: same keyframes and
-                closure pairs, poses within 1e-4
+                closure pairs, poses within 1e-4; then the drifted loop of
+                tests/test_descriptor_lc.py with lc_descriptor (sync): the
+                same keyframes and closure pairs, poses within 1e-4, every
+                descriptor a numpy array
   9. slam     — run_slam_bench: 120 frames at 640×480, boundary chunks,
                 backend sync and deferred, fused_gn False and True; ATE
                 < 1 mm, ≥ 1 closure, every kernel launched, no twin called,
                 no standalone gn_epilogue or gn_partials
+ 9b. drift    — slam-drift-vga: SlamSystem on phase 9's 120-frame 640×480
+                loop, boundary chunks of 8 (sub-chunks of 4), the deferred
+                backend, 0.012 m of world-anchor drift injected before
+                every chunk (tests/test_descriptor_lc.py:62-78) and that
+                test's gates (lc_max_dist 0.02 m); lc_descriptor off and
+                on: on closes ≥ 1 loop and more than off, ATE on < 0.5 ×
+                ATE off, every descriptor a numpy array, correspond and
+                gn_step launched, no twin called; fps of both beside
+                phase 9's deferred fps
+ 9c. fallback — the grid-hash verification fallbacks at full width: the
+                drift run with descriptors saved after 24 frames under
+                verify_level=2 and resumed at verify_level=1 (tables of
+                two shapes), run on: ≥ 1 closure verified by the grid
+                attempt, grid_correspond and gn_step launched, no twin
+                called, each grid attempt's time on the host clock and
+                its probe launches; then relocalize with K=None (2
+                candidates × 2 guesses) against its CPU twin: the same
+                keyframe, T within 1e-4
  10. profile  — device time by kernel over a few odometry frames (device
                 µs a launch of each kernel of the path, averaged over all
                 its launches, those after DONE included; fewer GEMMs than
@@ -114,7 +135,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                 group: ring_nn, gn_partials, gn_epilogue launched);
                 run_slam --track-against-map --map-track-mode grid --map-ba
                 on the first 48 frames (map BA in the summary, ATE < 0.02 m,
-                grid_correspond launched);
+                grid_correspond launched); run_slam --lc-descriptor on the
+                whole sequence (chunks of 8, deferred; ATE < 1 mm, ≥ 1
+                closure, correspond and gn_step launched, no twin called);
                 bench_loader's decode and cached fps with the decoder; and
                 each decoder's fps on a PNG of each row filter (OpenCV
                 writes them), after a byte-exact decode
@@ -1099,6 +1122,236 @@ def grid_phase(dev, card: str, counters, loop, map_fps: float) -> dict:
     return launches
 
 
+DRIFT_PER_CHUNK = 0.012     # m a chunk, tests/test_descriptor_lc.py:33
+
+
+def drift_config(lc_descriptor: bool, verify_level: int = 1):
+    """slam-drift-vga's config: the SLAM benchmark's at 640×480 with
+    tests/test_descriptor_lc.py's loop-closure gates (lc_min_gap 3;
+    lc_max_dist 0.02 m, far below the injected drift: proximity cannot
+    nominate the revisit)."""
+    from tpuslam_torch.bench.harness import slam_bench_config
+
+    base = slam_bench_config(480, 640, False)
+    return base.replace(
+        keyframe=dataclasses.replace(base.keyframe,
+                                     verify_level=verify_level),
+        posegraph=dataclasses.replace(
+            base.posegraph, lc_min_gap=3, lc_max_dist=0.02,
+            lc_max_residual=0.05, lc_min_inliers=0.3,
+            lc_descriptor=lc_descriptor))
+
+
+def drive_drifted(slam, d, ts, lo: int, hi: int, chunk: int = 8) -> None:
+    """tests/test_descriptor_lc.py:62-78's loop: boundary chunks, a world
+    anchor bias composed onto the live keyframe before every chunk but the
+    first (tracking stays exact, keyframe poses drift)."""
+    bias = np.eye(4, dtype=np.float32)
+    bias[2, 3] = DRIFT_PER_CHUNK
+    for i in range(lo, hi, chunk):
+        if i > 0:
+            slam.odo.T_world_kf = bias @ slam.odo.T_world_kf.astype(
+                np.float32)
+        slam.process_chunk(d[i:i + chunk], ts[i:i + chunk])
+
+
+def drift_phase(dev, card: str, counters, loop, deferred_fps: float):
+    """slam-drift-vga (phase 9b): run_slam_bench's 120-frame 640×480
+    two-lap loop, boundary chunks of 8, the deferred backend, the drift
+    injected before every chunk; descriptor proposal off and on.  Returns
+    the descriptor run's launches."""
+    from tpuslam_torch.eval.ate import ate_rmse
+    from tpuslam_torch.slam import SlamSystem
+
+    K, gt, d_np = loop
+    d = torch.as_tensor(d_np, device=dev)
+    ts = np.arange(d.shape[0]) / 30.0
+    res = {}
+    for on in (False, True):
+        slam = SlamSystem(K, drift_config(on), enable_loop_closure=True,
+                          async_backend=True, chunk_mode="boundary",
+                          chunk_sub=4, device=dev)
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drive_drifted(slam, d, ts, 0, d.shape[0])
+        slam.finalize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        plain = {k: c.plain_calls for k, c in counters.items()}
+        t_est, est = slam.trajectory()
+        res[on] = {
+            "fps": d.shape[0] / wall, "closures": len(slam.closures),
+            "closure_pairs": [[c.i, c.j] for c in slam.closures],
+            "keyframes": len(slam.odo.keyframes),
+            "ate_rmse_m": ate_rmse(t_est, est, ts, gt,
+                                   max_difference=0.005)["rmse"],
+            "poses_finite": bool(np.all(np.isfinite(est))),
+            "launches": launches, "plain_calls": plain}
+        descs = [r.desc for r in slam.odo.keyframes if r.cloud is not None]
+        log(f"[drift] lc_descriptor={on}: {json.dumps(res[on])}")
+        check(res[on]["poses_finite"], f"drift {on}: non-finite poses")
+        check(launches["correspond"] > 0 and launches["gn_step"] > 0,
+              f"drift {on}: launches {launches}")
+        check(all(v == 0 for v in plain.values()),
+              f"drift {on}: plain calls {plain}")
+        if on:
+            check(descs and all(isinstance(x, np.ndarray) for x in descs),
+                  "drift: a descriptor is not a numpy array: "
+                  f"{sorted({type(x).__name__ for x in descs})}")
+        else:
+            check(all(x is None for x in descs), "drift off: descriptors")
+    off, on = res[False], res[True]
+    log(f"[drift] 120 frames 640×480, {DRIFT_PER_CHUNK} m of drift a chunk: "
+        f"closures off {off['closures']} / on {on['closures']}, ATE off "
+        f"{off['ate_rmse_m']:.4e} m / on {on['ate_rmse_m']:.4e} m, fps off "
+        f"{off['fps']:.3f} / on {on['fps']:.3f} (one pass each; "
+        f"run_slam_bench deferred, phase 9: {deferred_fps:.3f}) ({card})")
+    check(on["closures"] >= 1, "drift: the descriptor run closed no loop")
+    check(on["ate_rmse_m"] < 0.5 * off["ate_rmse_m"],
+          f"drift: ATE on {on['ate_rmse_m']} not below half of off "
+          f"{off['ate_rmse_m']}")
+    check(off["closures"] < on["closures"],
+          f"drift: off closed {off['closures']}, on {on['closures']}")
+    return on["launches"]
+
+
+def fallback_phase(dev, card: str, counters, loop) -> dict:
+    """The grid-hash verification fallbacks at full width (phase 9c):
+    slam-drift-vga with descriptors saved after 24 frames under
+    verify_level=2 and resumed at verify_level=1 (the attempts then hold
+    tables of two shapes), then one relocalization with K=None on the card
+    against its CPU twin.  Returns the resumed run's launches."""
+    import tempfile
+
+    from tpuslam_torch.backend.relocalize import relocalize
+    from tpuslam_torch.geom import se3
+    from tpuslam_torch.slam import SlamSystem
+    from tpuslam_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    K, _, d_np = loop
+    d = torch.as_tensor(d_np, device=dev)
+    ts = np.arange(d.shape[0]) / 30.0
+    cut = 24
+
+    def new(level):
+        return SlamSystem(K, drift_config(True, level),
+                          enable_loop_closure=True, async_backend=True,
+                          chunk_mode="boundary", chunk_sub=4, device=dev)
+
+    writer = new(2)
+    drive_drifted(writer, d, ts, 0, cut)
+    slam = new(1)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(f"{tmp}/l2.npz", writer, writer.odo.frame_idx)
+        check(load_checkpoint(f"{tmp}/l2.npz", slam) == cut,
+              "fallback: resume frame")
+    # each grid attempt, fenced on the host clock (and inside it the
+    # verification and the pose-graph solve), its probe launches, and the
+    # closures its drain accepts
+    import tpuslam_torch.slam as slam_mod
+
+    grid = {"ms": [], "probes": [], "packed": [], "closures": 0,
+            "verify_ms": [], "solve_ms": []}
+    real_chain = slam._chain_attempt_fallback
+    real_drain = slam._drain_closure_attempt
+    probe = counters["grid_correspond"]
+    stages = {"verify_batch_grid": "verify_ms", "optimize": "solve_ms"}
+
+    def chain(*a):
+        saved = {n: getattr(slam_mod, n) for n in stages}
+        spans: dict = {}
+        fenced_spans(spans, slam_mod, stages)
+        torch.cuda.synchronize()
+        n0, t0 = probe.launches, time.perf_counter()
+        try:
+            out = real_chain(*a)
+            torch.cuda.synchronize()
+        finally:
+            for n, fn in saved.items():
+                setattr(slam_mod, n, fn)
+        grid["ms"].append((time.perf_counter() - t0) * 1e3)
+        for n, key in stages.items():
+            grid[key].append(spans.get(n, 0.0) * 1e3)
+        grid["probes"].append(probe.launches - n0)
+        grid["packed"].append(out)
+        return out
+
+    def drain(p, flat=None):
+        n0 = len(slam.closures)
+        out = real_drain(p, flat)
+        if any(p.packed is x for x in grid["packed"]):
+            grid["closures"] += len(slam.closures) - n0
+        return out
+
+    slam._chain_attempt_fallback = chain
+    slam._drain_closure_attempt = drain
+    for c in counters.values():
+        c.reset()
+    drive_drifted(slam, d, ts, cut, d.shape[0])
+    slam.finalize()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    plain = {k: c.plain_calls for k, c in counters.items()}
+    levels = sorted({r.verify.level for r in slam.odo.keyframes
+                     if r.verify is not None})
+    def ms(key):
+        return ", ".join(f"{v:.3f}" for v in grid[key])
+
+    log(f"[fallback] resumed at frame {cut} (verify_level 2 → 1, table "
+        f"levels {levels}): {len(slam.closures)} closures, "
+        f"{len(grid['ms'])} grid attempts accepting {grid['closures']}; "
+        f"an attempt {ms('ms')} ms on the host clock (the verification "
+        f"{ms('verify_ms')} ms, the pose-graph solve {ms('solve_ms')} ms), "
+        f"grid_correspond launches an attempt {grid['probes']} ({card})")
+    log(f"[fallback] launches {launches} plain calls {plain}")
+    check(levels == [1, 2], f"fallback: table levels {levels}")
+    check(grid["closures"] >= 1,
+          f"fallback: the grid attempt verified no closure ({grid['ms']})")
+    check(all(launches[k] > 0 for k in ("grid_correspond", "gn_step")),
+          f"fallback: launches {launches}")
+    check(all(v == 0 for v in plain.values()),
+          f"fallback: plain calls {plain}")
+
+    # relocalization without tables: keyframe 1's cloud seen from an
+    # offset pose (tests/test_reloc.py), two candidates from two guesses
+    kfs = slam.odo.keyframes
+    T_off = se3.exp(torch.tensor([0.02, -0.015, 0.01, 0.01, -0.01, 0.008],
+                                 device=dev))
+    q = kfs[1].cloud.transform(T_off)
+    T_last = kfs[1].T_world_kf.astype(np.float64) @ np.linalg.inv(
+        T_off.cpu().numpy().astype(np.float64))
+    cpu_kfs = [r._replace(
+        cloud=None if r.cloud is None else type(r.cloud)(
+            *(t.cpu() for t in r.cloud)),
+        verify=None) for r in kfs]
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rg = relocalize(q, kfs, T_last, slam.cfg.icp, slam.cfg.posegraph,
+                    max_candidates=2, K=None)
+    reloc_ms = (time.perf_counter() - t0) * 1e3
+    probes = counters["grid_correspond"].launches
+    plain = {k: c.plain_calls for k, c in counters.items()}
+    rc = relocalize(type(q)(*(t.cpu() for t in q)), cpu_kfs, T_last,
+                    slam.cfg.icp, slam.cfg.posegraph, max_candidates=2,
+                    K=None)
+    check(rg is not None and rc is not None, f"reloc: {rg} / {rc}")
+    err = float(np.abs(rg.T_kf_cam - rc.T_kf_cam).max())
+    log(f"[fallback] relocalize K=None, ≤ 2 candidates × 2 guesses: keyframe "
+        f"{rg.kf_id} (CPU twin {rc.kf_id}), T max err {err:.3e}, "
+        f"{reloc_ms:.3f} ms on the host clock, {probes} grid_correspond "
+        f"launches ({card})")
+    check(rg.kf_id == rc.kf_id, f"reloc: keyframe {rg.kf_id} vs {rc.kf_id}")
+    check(err <= TOL_SLAM_POSE, f"reloc: T err {err}")
+    check(probes > 0 and all(v == 0 for v in plain.values()),
+          f"reloc: probes {probes}, plain calls {plain}")
+    return launches
+
+
 def host_libraries() -> dict:
     """Which of the depth decoders' and viz's dependencies this host has:
     OpenCV, PIL, matplotlib (imports) and libpng's headers (g++ -E)."""
@@ -1320,6 +1573,23 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
                   f"cli grid: launches {launches}")
             check(all(v == 0 for v in plain.values()),
                   f"cli grid: plain {plain}")
+
+            for c in counters.values():
+                c.reset()
+            lc, wall = run(*common, "--lc-descriptor", "--traj-out",
+                           f"{tmp}/lc.txt")
+            launches, plain = counts()
+            out["lc_descriptor"] = launches
+            log(f"[cli] run_slam --lc-descriptor: fps {lc['fps']:.3f}, ATE "
+                f"{lc['ate_rmse_m']:.4e} m, closures {lc['loop_closures']} "
+                f"({card}); launches {launches} plain calls {plain}")
+            check(lc["ate_rmse_m"] < 1e-3, f"cli lc-descriptor: ATE "
+                  f"{lc['ate_rmse_m']}")
+            check(lc["loop_closures"] >= 1, "cli lc-descriptor: no closure")
+            check(launches["correspond"] > 0 and launches["gn_step"] > 0,
+                  f"cli lc-descriptor: launches {launches}")
+            check(all(v == 0 for v in plain.values()),
+                  f"cli lc-descriptor: plain {plain}")
         finally:
             tum.write_trajectory = write_trajectory
     loader = bench_loader(480, 640)
@@ -1856,6 +2126,39 @@ def main() -> int:
             f"keyframes ({len(kg)}) and closure pairs ({len(cg)}), pose max "
             f"err {err:.3e}")
 
+    # the drifted loop of tests/test_descriptor_lc.py: descriptor proposal
+    cfg_d = cfg_l.replace(
+        icp=ICPConfig(pyramid_levels=3, iters_per_level=(12, 8, 8)),
+        posegraph=dataclasses.replace(
+            cfg_l.posegraph, gn_iters=20, lc_max_dist=0.02,
+            lc_descriptor=True))
+
+    def drifted_loop(device):
+        slam = SlamSystem(Ks, cfg_d, chunk_mode="boundary", device=device)
+        drive_drifted(slam, torch.as_tensor(d_l, device=device), ts_l, 0, 48)
+        slam.finalize()
+        return ([r.index for r in slam.odo.keyframes],
+                [(c.i, c.j) for c in slam.closures], slam.trajectory()[1],
+                [r.desc for r in slam.odo.keyframes])
+
+    from tpuslam_torch.frontend import host_descriptor
+
+
+    kg, cg, eg, dg = drifted_loop(dev)
+    kc, cc, ec, dc_ = drifted_loop("cpu")
+    err = float(np.abs(eg - ec).max())
+    check(all(isinstance(x, np.ndarray) for x in dg if x is not None),
+          "small slam drifted: a descriptor is not a numpy array")
+    d_err = max(float(np.abs(host_descriptor(a) - host_descriptor(b)).max())
+                for a, b in zip(dg, dc_) if a is not None)
+    check(kg == kc, f"small slam drifted: keyframes {kg} vs {kc}")
+    check(cg == cc and len(cc) >= 1,
+          f"small slam drifted: closures {cg} vs {cc}")
+    check(err <= TOL_SLAM_POSE, f"small slam drifted: pose {err}")
+    log(f"[small slam] drifted, lc_descriptor: GPU vs CPU twins identical "
+        f"keyframes ({len(kg)}) and closure pairs {cg}, pose max err "
+        f"{err:.3e}, descriptor max err {d_err:.3e}")
+
     # ---- 9. slam: the full system at 640×480 (this slice's main path) ----
     loop = _render_sequence(120, 480, 640, loop_cycles=2)
     reset_counts()
@@ -1893,6 +2196,15 @@ def main() -> int:
           f"slam: launches {launches_slam}")
     check(all(v == 0 for v in plain_slam.values()),
           f"slam: plain calls {plain_slam}")
+
+    # ---- 9b-9c. pose-free loop closure and the grid-hash fallbacks ----
+    t0 = time.perf_counter()
+    launches_drift = drift_phase(dev, card, counters, loop,
+                                 slam_res[False]["deferred"]["fps"])
+    log(f"[drift] phase took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    launches_fallback = fallback_phase(dev, card, counters, loop)
+    log(f"[fallback] phase took {time.perf_counter() - t0:.3f} s")
 
     # ---- 10. profile ----
     from torch.profiler import ProfilerActivity, profile
@@ -2108,6 +2420,13 @@ def main() -> int:
             "cli_launches": {"run_slam": launches_cli["run_slam"][name],
                              "sharded": launches_cli["sharded"][name],
                              "grid": launches_cli["grid"][name]},
+            # the pose-free loop closure paths (phases 9b, 9c and 13):
+            # slam-drift-vga with descriptors, its resumed grid-fallback
+            # run, and run_slam --lc-descriptor
+            "verify_launches": {
+                "drift": launches_drift[name],
+                "grid_fallback": launches_fallback[name],
+                "cli_lc_descriptor": launches_cli["lc_descriptor"][name]},
             **({"ring_size": ring_partials} if name == "gn_partials" else {}),
         })
     log(json.dumps({"gn_step_ab": step_ab}))

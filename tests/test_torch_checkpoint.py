@@ -223,8 +223,9 @@ def test_load_drops_a_pending_attempt(loop, files, monkeypatch):
 
 
 def test_v1_layout_and_descriptors(tmp_path, files):
-    """A v1 file (a dense cloud stack without ids) loads; a file holding
-    keyframe descriptors raises, citing ROADMAP item 11."""
+    """A v1 file (a dense cloud stack without ids) loads; keyframe
+    descriptors in a file load onto their records as float32 host arrays
+    and are written back as they were read."""
     _, port_path, _ = files
     z = dict(np.load(port_path))
     n_kf = len(z["kf_indices"])
@@ -241,8 +242,21 @@ def test_v1_layout_and_descriptors(tmp_path, files):
     pck.load_checkpoint(str(tmp_path / "v1.npz"), s1)
     for a, b in zip(s1.odo.keyframes, want):
         assert all(torch.equal(x, y) for x, y in zip(a.cloud, b))
-    z["kf_desc_ids"] = np.arange(n_kf, dtype=np.int32)
-    z["kf_desc"] = np.zeros((n_kf, 48), dtype=np.float32)
+    ids = np.arange(0, n_kf, 2, dtype=np.int32)
+    rows = np.random.default_rng(0).random((len(ids), 2 * 6 * 8),
+                                           dtype=np.float32)
+    z["kf_desc_ids"], z["kf_desc"] = ids, rows
     np.savez(str(tmp_path / "desc.npz"), **z)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pck.load_checkpoint(str(tmp_path / "desc.npz"), new_port())
+    s2 = new_port()
+    pck.load_checkpoint(str(tmp_path / "desc.npz"), s2)
+    for k, rec in enumerate(s2.odo.keyframes):
+        if k % 2:
+            assert rec.desc is None
+        else:
+            assert isinstance(rec.desc, np.ndarray)
+            np.testing.assert_array_equal(rec.desc, rows[k // 2])
+    pck.save_checkpoint(str(tmp_path / "again.npz"), s2, s2.odo.frame_idx)
+    z2 = np.load(str(tmp_path / "again.npz"))
+    np.testing.assert_array_equal(z2["kf_desc_ids"], ids)
+    np.testing.assert_array_equal(z2["kf_desc"], rows)
+    assert z2["kf_desc"].dtype == np.float32

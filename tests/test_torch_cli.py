@@ -6,9 +6,9 @@ The Tier-1 CLI smoke (make_synthetic 16 frames 120×160 → run_slam → eval)
 runs through both CLIs: the summaries agree in frames, keyframes, closures,
 graph nodes and retained clouds, the ATEs (≈ 5e-5 m) within 1e-5 of each
 other, and the per-frame JSONL records have the same keys and the same
-ICP iteration counts.  `--map-ba` and `--map-track-mode grid` run through
-both CLIs alike.  Each flag whose code is not ported exits with 2 and names
-its ROADMAP item.
+ICP iteration counts.  `--map-ba`, `--map-track-mode grid` and
+`--lc-descriptor` run through both CLIs alike.  Each flag whose code is not
+ported exits with 2 and names its ROADMAP item.
 """
 
 import io
@@ -138,12 +138,30 @@ def test_chunked_raw_upload_and_resume(smoke, tmp_path, capsys):
     np.testing.assert_allclose(a, f32, atol=1e-5)
 
 
+def test_lc_descriptor_matches_reference(smoke, tmp_path, capsys):
+    """`--lc-descriptor` (once exit 2 in the port) on the Tier-1 smoke
+    through both CLIs: the same frames, keyframes, closures and graph
+    nodes, the ATEs within the smoke's 1e-5."""
+    out = {}
+    for name, main, extra in (("reference", ref_main, []),
+                              ("port", pcli.main, ["--device", "cpu"])):
+        assert main(["run_slam", "--sequence", smoke[name][4],
+                     "--lc-descriptor", "--traj-out",
+                     str(tmp_path / f"{name}.txt"), *extra]) == 0
+        out[name] = last_json(capsys)
+    r, p = out["reference"], out["port"]
+    for k in ("frames", "keyframes", "loop_closures", "graph_nodes"):
+        assert p[k] == r[k], k
+    assert set(p) == set(r)
+    assert p["ate_rmse_m"] < 1e-4
+    assert abs(p["ate_rmse_m"] - r["ate_rmse_m"]) < ATE_TOL
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--lc-descriptor"], "item 11"),
     (["--async-backend", "--chunk-mode", "inline"], "item 17"),
     (None, "item 17"),
     (["--devices", "2"], "item 16"),
-], ids=["lc-descriptor", "async-inline", "coldstart", "devices"])
+], ids=["async-inline", "coldstart", "devices"])
 def test_unported_flags_exit_2(smoke, capsys, flags, item):
     seq = smoke["port"][4]
     if flags is None:

@@ -999,3 +999,186 @@ def test_grid_map_tracking_and_map_ba_gpu_matches_cpu_twins(dev):
     assert sg["num_control"] == sc["num_control"]
     assert abs(sg["num_obs"] - sc["num_obs"]) <= 0.01 * sc["num_obs"]
     assert float(np.abs(eg - ec).max()) <= 1e-3
+
+
+def drift_cfg(verify_level=1):
+    """tests/test_descriptor_lc.py's config: descriptor proposal on,
+    lc_max_dist far below the injected drift."""
+    from tpuslam_torch.config import PoseGraphConfig, VoxelConfig
+
+    return SLAMConfig(
+        height=H, width=W,
+        icp=ICPConfig(pyramid_levels=3, iters_per_level=(12, 8, 8)),
+        keyframe=KeyframeConfig(max_translation=0.08, max_rotation=0.12,
+                                verify_level=verify_level),
+        posegraph=PoseGraphConfig(max_nodes=64, max_edges=256, gn_iters=20,
+                                  lc_min_gap=3, lc_max_dist=0.02,
+                                  lc_max_residual=0.05, lc_min_inliers=0.3,
+                                  lc_descriptor=True),
+        voxel=VoxelConfig(capacity=1 << 13, map_capacity=1 << 15))
+
+
+def loop_depths(n=48):
+    from tpuslam_torch.data.synthetic import loop_trajectory
+
+    gt = loop_trajectory(n, cycles=2, radius=0.35)
+    return np.stack([render_depth(gt[i], K, H, W, seed=i)
+                     for i in range(n)]).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_depth_descriptor_on_card_equals_cpu(dev):
+    from tpuslam_torch.frontend import depth_descriptor, promote_bundle_jit
+
+    for i, d in enumerate(loop_depths(12)[::3]):
+        pc = preprocess(torch.as_tensor(d), K, CFG)
+        pg = preprocess(torch.as_tensor(d, device=dev), K, CFG)
+        want = depth_descriptor(pc[-1].points, pc[-1].mask)
+        got = depth_descriptor(pg[-1].points, pg[-1].mask)
+        assert got.device == dev
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-6, atol=0)
+        *_, desc = promote_bundle_jit(torch.as_tensor(d, device=dev), K,
+                                      CFG, True)
+        assert torch.equal(desc, got), i
+
+
+@pytest.mark.cuda
+def test_descriptor_is_host_memory_read_straight_after_promotion(dev):
+    """Promotion on the card starts the descriptor's copy without waiting;
+    the record holds a numpy array, never a device tensor, and reading it
+    at once (the event's wait) gives the device's value — also with a long
+    queue of work issued after the promotion."""
+    from tpuslam_torch.frontend import (
+        Odometry,
+        depth_descriptor,
+        host_descriptor,
+    )
+
+    d = torch.as_tensor(loop_depths(4), device=dev)
+    odo = Odometry(K, drift_cfg(), device=dev)
+    for i in range(d.shape[0]):
+        odo._promote(preprocess(d[i], K, odo.cfg), float(i))
+        rec = odo.keyframes[-1]
+        assert isinstance(rec.desc, np.ndarray)
+        busy = torch.randn(2048, 2048, device=dev)
+        for _ in range(20):                 # queued after the copy
+            busy = busy @ busy / 2048.0
+        got = host_descriptor(rec.desc)
+        pyr = preprocess(d[i], K, odo.cfg)
+        want = depth_descriptor(pyr[-1].points, pyr[-1].mask).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+    torch.cuda.synchronize()
+
+
+def card_records(records, dev):
+    """The same keyframe records with their tensors on the card."""
+    out = []
+    for r in records:
+        cloud = (None if r.cloud is None else
+                 type(r.cloud)(*(t.to(dev) for t in r.cloud)))
+        verify = (None if r.verify is None else
+                  r.verify._replace(packed=r.verify.packed.to(dev)))
+        out.append(r._replace(cloud=cloud, verify=verify))
+    return out
+
+
+@pytest.mark.cuda
+def test_grid_find_closures_and_relocalize_on_card_match_cpu(dev):
+    """The grid-hash verification batch (`find_closures` with K=None) and
+    relocalization without tables, on the card against the CPU twins on
+    the same records: the same closures and anchor, T within 1e-4, through
+    grid_correspond and gn_step only."""
+    import dataclasses as dc
+
+    from tpuslam_torch.backend.loopclosure import find_closures
+    from tpuslam_torch.backend.relocalize import relocalize
+    from tpuslam_torch.frontend import Odometry
+
+    d = loop_depths(16)
+    odo = Odometry(K, drift_cfg(), device="cpu")
+    for i in range(d.shape[0]):
+        odo.process(d[i], timestamp=i / 30.0)
+    kfs = odo.keyframes
+    assert len(kfs) >= 4
+    pg = dc.replace(odo.cfg.posegraph, lc_min_gap=1, lc_max_dist=2.0,
+                    lc_descriptor=False)
+    poses = [r.T_world_kf.astype(np.float64) for r in kfs]
+    want, _ = find_closures(kfs, poses, odo.cfg.icp, pg, K=None)
+    for c in (correspond.grid_counter, gn_step.counter, correspond.counter):
+        c.reset()
+    got, _ = find_closures(card_records(kfs, dev), poses, odo.cfg.icp, pg,
+                           K=None)
+    assert correspond.grid_counter.launches > 0
+    assert gn_step.counter.launches > 0 and correspond.counter.launches == 0
+    assert correspond.grid_counter.plain_calls == 0
+    assert gn_step.counter.plain_calls == 0
+    assert [(c.i, c.j) for c in got] == [(c.i, c.j) for c in want]
+    assert len(want) >= 1
+    for g, w in zip(got, want):
+        assert np.abs(g.T_ij - w.T_ij).max() <= 1e-4
+    # keyframe 1's cloud seen from an offset pose (tests/test_reloc.py)
+    T_off = se3.exp(torch.tensor([0.02, -0.015, 0.01, 0.01, -0.01, 0.008]))
+    q = kfs[1].cloud.transform(T_off)
+    T_last = kfs[1].T_world_kf.astype(np.float64) @ np.linalg.inv(
+        T_off.numpy().astype(np.float64))
+    rc = relocalize(q, kfs, T_last, odo.cfg.icp, pg, K=None)
+    rg = relocalize(type(q)(*(t.to(dev) for t in q)), card_records(kfs, dev),
+                    T_last, odo.cfg.icp, pg, K=None)
+    assert rc is not None and rg is not None and rg.kf_id == rc.kf_id
+    assert np.abs(rg.T_kf_cam - rc.T_kf_cam).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_grid_fallback_attempt_on_card_matches_cpu(dev, tmp_path):
+    """A SlamSystem at verify_level=1 resumed from a verify_level=2 file
+    (tables of two shapes: the grid attempt) on the 48-frame loop of
+    tests/test_torch_verify_resume.py, descriptor proposal on, on the card
+    against the CPU twins: the same closure pairs, poses within 1e-4, the
+    grid attempt run on both."""
+    import dataclasses as dc
+
+    from tpuslam_torch.slam import SlamSystem
+    from tpuslam_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    d = loop_depths(48)
+    ts = np.arange(48) / 30.0
+
+    def cfg_at(level):
+        c = drift_cfg(level)
+        return c.replace(
+            icp=dc.replace(c.icp, max_corr_dist=0.25, huber_delta=0.05),
+            posegraph=dc.replace(c.posegraph, gn_iters=15, lc_max_dist=0.6))
+
+    def feed(slam, lo, hi):
+        x = torch.as_tensor(d, device=slam.device)
+        for i in range(lo, hi, 8):
+            slam.process_chunk(x[i:i + 8], ts[i:i + 8])
+        return slam
+
+    w = feed(SlamSystem(K, cfg_at(2), chunk_mode="boundary",
+                        device="cpu"), 0, 8)
+    path = str(tmp_path / "level2.npz")
+    save_checkpoint(path, w, w.odo.frame_idx)
+    out = {}
+    for device in ("cpu", dev):
+        slam = SlamSystem(K, cfg_at(1), chunk_mode="boundary",
+                          device=device)
+        load_checkpoint(path, slam)
+        grid = []
+        real = slam._chain_attempt_fallback
+
+        def counted(*a, _real=real, _grid=grid):
+            _grid.append(1)
+            return _real(*a)
+
+        slam._chain_attempt_fallback = counted
+        feed(slam, 8, 48).finalize()
+        out[str(device)] = ([(c.i, c.j) for c in slam.closures],
+                            slam.trajectory()[1], len(grid),
+                            [r.desc for r in slam.odo.keyframes])
+    (cc, ec, nc, _), (cg, eg, ng, descs) = out["cpu"], out[str(dev)]
+    assert nc >= 1 and ng == nc
+    assert cg == cc and len(cc) >= 1
+    assert np.abs(eg - ec).max() <= 1e-4
+    assert all(isinstance(x, np.ndarray) for x in descs if x is not None)

@@ -166,21 +166,31 @@ def test_slam_bench_runs_small_on_cpu():
 
 
 def test_not_ported_options_raise():
+    """The inline-mode worker thread raises, citing its ROADMAP item;
+    descriptor proposal (once raising) constructs."""
     cfg = config_from_reference(CFG)
     pk = PIntrinsics(*K)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PSlam(pk, cfg, async_backend=True, chunk_mode="inline", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSlam(pk, dataclasses.replace(cfg, posegraph=dataclasses.replace(
-            cfg.posegraph, lc_descriptor=True)), device="cpu")
+    slam = PSlam(pk, dataclasses.replace(cfg, posegraph=dataclasses.replace(
+        cfg.posegraph, lc_descriptor=True)), device="cpu")
+    assert slam.cfg.posegraph.lc_descriptor
 
 
-def test_chunk_paths_read_back_once_per_chunk(loop, monkeypatch):
+@pytest.mark.parametrize("lc_descriptor", [False, True],
+                         ids=["proximity", "descriptor"])
+def test_chunk_paths_read_back_once_per_chunk(loop, monkeypatch,
+                                              lc_descriptor):
     """A boundary chunk on a seeded system reads the device back once,
-    and the deferred backend's attempt rides that same readback."""
+    and the deferred backend's attempt rides that same readback; with
+    descriptor proposal too, which reads the descriptors from host memory
+    (their copies started at promotion)."""
     _, depths = loop
-    slam = PSlam(PIntrinsics(*K), config_from_reference(CFG),
-                 chunk_mode="boundary", async_backend=True, device="cpu")
+    cfg = config_from_reference(CFG)
+    cfg = dataclasses.replace(cfg, posegraph=dataclasses.replace(
+        cfg.posegraph, lc_descriptor=lc_descriptor))
+    slam = PSlam(PIntrinsics(*K), cfg, chunk_mode="boundary",
+                 async_backend=True, device="cpu")
     ts = np.arange(FRAMES) / 30.0
     for i in range(0, 32, CHUNK):
         slam.process_chunk(depths[i:i + CHUNK], ts[i:i + CHUNK])
@@ -192,6 +202,20 @@ def test_chunk_paths_read_back_once_per_chunk(loop, monkeypatch):
         reads.append(tuple(self.shape))
         return real_cpu(self, *a, **kw)
 
+    import tpuslam_torch.backend.loopclosure as plc
+
+    proposals = []
+    real_propose = plc.propose_descriptor_candidates
+
+    def counting_propose(*a, **kw):
+        proposals.append(real_propose(*a, **kw))
+        return proposals[-1]
+
+    monkeypatch.setattr(plc, "propose_descriptor_candidates",
+                        counting_propose)
     monkeypatch.setattr(torch.Tensor, "cpu", counting_cpu)
     slam.process_chunk(depths[32:40], ts[32:40])
     assert len(reads) == 1
+    assert len(proposals) == int(lc_descriptor)
+    assert all(isinstance(r.desc, np.ndarray) == lc_descriptor
+               for r in slam.odo.keyframes)

@@ -1,12 +1,14 @@
-"""Relocalization after tracking loss — port of the projective branch of
+"""Relocalization after tracking loss — port of
 `tpuslam/backend/relocalize.py`.
 
 After `reloc_after` consecutive lost frames the SLAM system tries to
 re-anchor the current frame on a stored keyframe: candidates are the
 keyframes nearest the last known camera position, each verified from two
 initial guesses (the current estimate and identity) by aligning the lost
-frame's voxel cloud onto the keyframe's retained organized table, judged
-by the loop-closure gates.  One readback per attempt.
+frame's voxel cloud onto the keyframe's retained organized table or, when
+the candidates carry no uniform tables (or no intrinsics are given), onto
+the keyframe's cloud through the grid-hash probe; judged by the
+loop-closure gates.  One readback per attempt.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from tpuslam_torch.backend.verify import (
     flat_verify_scalars,
     passes_gates,
     uniform_verify_table,
+    verify_grid,
 )
 from tpuslam_torch.config import ICPConfig, Intrinsics, PoseGraphConfig
 from tpuslam_torch.geom.cloud import PointCloud
@@ -44,6 +47,16 @@ def _batch_verify_projective_jit(frame_cloud: PointCloud, tables,
     return torch.stack([flat_verify_scalars(align_cloud_to_organized(
         frame_cloud, table, h, w, K_lvl, T_inits[b], icp_cfg))
         for b, table in enumerate(tables)])
+
+
+def _batch_verify_jit(frame_cloud: PointCloud, kf_clouds,
+                      T_inits: torch.Tensor,
+                      icp_cfg: ICPConfig) -> torch.Tensor:
+    """(B, ROW_SIZE) rows: the lost frame's cloud aligned onto each
+    candidate keyframe's cloud by the grid-hash ICP (`align_clouds`), one
+    alignment after another."""
+    return torch.stack([verify_grid(frame_cloud, cloud, T_inits[b], icp_cfg)
+                        for b, cloud in enumerate(kf_clouds)])
 
 
 def relocalize(
@@ -90,16 +103,17 @@ def relocalize(
 
     v0 = (uniform_verify_table(keyframes, cand_ids)
           if K is not None else None)
-    if v0 is None:
-        raise NotImplementedError(
-            "relocalization without uniform verification tables needs the "
-            "grid-hash verifier, not ported yet (ROADMAP Queue 1 item 11)")
     T_inits = upload(np.stack([T for _, T in combos]).astype(np.float32),
                      frame_cloud.points.device)
-    flat = _batch_verify_projective_jit(
-        frame_cloud, [keyframes[k].verify.packed for k, _ in combos],
-        K.scaled(1.0 / (2 ** v0.level)), T_inits, v0.height, v0.width,
-        icp_cfg)
+    if v0 is not None:
+        flat = _batch_verify_projective_jit(
+            frame_cloud, [keyframes[k].verify.packed for k, _ in combos],
+            K.scaled(1.0 / (2 ** v0.level)), T_inits, v0.height, v0.width,
+            icp_cfg)
+    else:
+        flat = _batch_verify_jit(frame_cloud,
+                                 [keyframes[k].cloud for k, _ in combos],
+                                 T_inits, icp_cfg)
     s = flat.cpu().numpy()            # the ONE host sync of the attempt
     for row_idx, (kf_id, _) in enumerate(combos):
         row = s[row_idx]

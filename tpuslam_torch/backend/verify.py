@@ -15,7 +15,12 @@ import numpy as np
 import torch
 
 from tpuslam_torch.config import PoseGraphConfig
-from tpuslam_torch.icp import FlatICP, ICPResult, flat_icp_scalars
+from tpuslam_torch.icp import (
+    FlatICP,
+    ICPResult,
+    align_clouds,
+    flat_icp_scalars,
+)
 
 # column appended after the FlatICP block: smallest eigenvalue of the
 # normalized inlier normal-coverage matrix (Σw·nnᵀ)/Σw
@@ -54,6 +59,15 @@ def flat_verify_scalars(res: ICPResult) -> torch.Tensor:
     w_sum = torch.clamp(torch.trace(Hr), min=1e-9)
     cov = min_eigenvalue_sym3(Hr / w_sum).to(torch.float32)
     return torch.cat([flat_icp_scalars(res), cov[None]])
+
+
+def verify_grid(src, dst, T_init: torch.Tensor, icp_cfg) -> torch.Tensor:
+    """(ROW_SIZE,) verification row on the device of cloud `src` aligned
+    onto cloud `dst` by the grid-hash ICP (`icp.align_clouds`: dst's
+    sorted index, then the grid_correspond and gn_step kernels) — the
+    verifier for keyframes without uniform tables."""
+    return flat_verify_scalars(
+        align_clouds(src, dst, T_init, icp_cfg, use_grid=True))
 
 
 def uniform_verify_table(records, ids):

@@ -11,9 +11,8 @@ Subcommands:
 
 Every flag of the reference is accepted, plus `--device` (default
 `cuda`; `cpu` runs the plain PyTorch twins).  A flag whose code is not
-ported yet (`--lc-descriptor`, `--async-backend` with `--chunk-mode
-inline`, `bench --coldstart`, `bench --devices` > 1) exits with code 2 and
-the ROADMAP item it waits on.
+ported (`--async-backend` with `--chunk-mode inline`, `bench --coldstart`,
+`bench --devices` > 1) exits with code 2 and the ROADMAP item it waits on.
 
 Per-frame JSONL records (pose-free: frame, timestamp, ms, ICP iterations,
 rms, inlier fraction, promotion, loss) go to --log-jsonl; one JSON summary
@@ -80,7 +79,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "sources)")
     p.add_argument("--lc-descriptor", action="store_true",
                    help="pose-free loop-closure candidates from depth "
-                        "descriptors (not ported)")
+                        "descriptors (drift-robust revisit proposal)")
     p.add_argument("--chunk-sub", type=int, default=8,
                    help="boundary-mode sub-chunk size: the keyframe-"
                         "promotion cadence floor; 1 reproduces per-frame "

@@ -12,8 +12,8 @@ Three loops over one tracking step (`track_step_packed`):
     (C, SIZE) float32 matrix per chunk for the host to read back once.
   * `Odometry` — the host-driven per-frame loop: one `process_frame_jit`
     call and one readback per frame; promotion bookkeeping (keyframe
-    records, their voxel clouds and verification tables, cloud budget) on
-    the host.
+    records, their voxel clouds, verification tables and depth
+    descriptors, cloud budget) on the host.
 
 Where the reference takes a `lax.cond` to re-pack the keyframe only on
 promotion, the port packs unconditionally and selects with `torch.where`
@@ -191,17 +191,16 @@ def process_frame_jit(depth: torch.Tensor, kf_packed: tuple, K: Intrinsics,
 def promote_bundle_jit(depth: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
                        with_desc: bool):
     """Everything a keyframe promotion derives from its depth frame: the
-    pyramid, its packed gather tables and the voxel-downsampled cloud."""
-    if with_desc:
-        raise NotImplementedError(
-            "depth descriptors (PoseGraphConfig.lc_descriptor) are not "
-            "ported yet (ROADMAP Queue 1 item 11)")
+    pyramid, its packed gather tables, the voxel-downsampled cloud and,
+    with `with_desc`, the depth descriptor (on the device)."""
     pyr = preprocess(depth, K, cfg)
     packed = pack_pyramid(pyr, cfg.icp)
     cloud = voxel_downsample(pyr[0].as_cloud(), cfg.voxel.voxel_size,
                              cfg.voxel.capacity, cfg.voxel.origin,
                              cfg.voxel.extent)
-    return pyr, packed, cloud, None
+    desc = (depth_descriptor(pyr[-1].points, pyr[-1].mask)
+            if with_desc else None)
+    return pyr, packed, cloud, desc
 
 
 def prefetch_to_device(frames, lookahead: int = 2, device="cuda"):
@@ -237,6 +236,71 @@ class VerifyTable(NamedTuple):
     level: int                  # pyramid level (scales the intrinsics)
 
 
+DESC_GRID = (6, 8)              # (gh, gw) blocks of the coarsest level
+
+
+def depth_descriptor(points: torch.Tensor, mask: torch.Tensor,
+                     gh: int = DESC_GRID[0],
+                     gw: int = DESC_GRID[1]) -> torch.Tensor:
+    """Pose-free appearance descriptor of a keyframe: the mean depth and
+    the valid fraction of each block of a gh×gw grid over the coarsest
+    pyramid level, (2·gh·gw,) float32 (trailing rows and columns that do
+    not fill a block are left out).
+
+    Proximity proposal cannot nominate a revisit whose drift exceeds
+    `lc_max_dist`; similar descriptors nominate it with no pose term
+    (backend/loopclosure.py `propose_descriptor_candidates`).
+    """
+    z = points[..., 2]
+    h, w = z.shape
+    hc, wc = (h // gh) * gh, (w // gw) * gw
+    zb = torch.where(mask, z, 0.0)[:hc, :wc].reshape(
+        gh, hc // gh, gw, wc // gw)
+    mb = mask[:hc, :wc].reshape(gh, hc // gh, gw, wc // gw).to(z.dtype)
+    cnt = mb.sum(dim=(1, 3))
+    mean_z = zb.sum(dim=(1, 3)) / torch.clamp(cnt, min=1.0)
+    frac = cnt / float((hc // gh) * (wc // gw))
+    return torch.cat([mean_z.reshape(-1),
+                      frac.reshape(-1)]).to(torch.float32)
+
+
+class _InFlight(np.ndarray):
+    """A descriptor's pinned host buffer whose copy from the device may
+    still run: `ready` is the CUDA event recorded after the copy."""
+
+    ready = None
+
+
+def descriptor_to_host(desc: torch.Tensor) -> np.ndarray:
+    """Start the copy of a descriptor to host memory without waiting.
+
+    A CUDA tensor is copied into pinned memory, non-blocking, and a CUDA
+    event is recorded after the copy; the array returned carries it as
+    `ready` until `host_descriptor` has waited on it.  A CPU tensor is
+    copied at once.
+    """
+    if desc.device.type != "cuda":
+        return desc.detach().clone().numpy()
+    buf = torch.empty(desc.shape, dtype=desc.dtype, pin_memory=True)
+    buf.copy_(desc, non_blocking=True)
+    out = buf.numpy().view(_InFlight)   # the view keeps `buf` alive
+    out.ready = torch.cuda.Event()
+    out.ready.record()
+    return out
+
+
+def host_descriptor(desc) -> Optional[np.ndarray]:
+    """A keyframe's descriptor as a float32 numpy array.  The first read
+    of one still in flight waits on its copy's event (that copy and the
+    work queued before it), never on later work of the stream."""
+    if desc is None:
+        return None
+    if getattr(desc, "ready", None) is not None:
+        desc.ready.synchronize()
+        desc.ready = None
+    return np.asarray(desc, dtype=np.float32)
+
+
 class KeyframeRecord(NamedTuple):
     """Host-side record of a promoted keyframe (for the backend)."""
 
@@ -247,6 +311,9 @@ class KeyframeRecord(NamedTuple):
     # retained verification table; dropped together with `cloud` by
     # sparsification
     verify: Optional[VerifyTable] = None
+    # pose-free descriptor (depth_descriptor) in host memory, kept only
+    # with PoseGraphConfig.lc_descriptor and only alongside the cloud; read
+    # it through `host_descriptor`
     desc: Optional[np.ndarray] = None
 
 
@@ -259,10 +326,6 @@ class Odometry:
 
     def __init__(self, K: Intrinsics, cfg: SLAMConfig,
                  keep_keyframe_clouds: bool = True, device="cuda"):
-        if cfg.posegraph.lc_descriptor:
-            raise NotImplementedError(
-                "PoseGraphConfig.lc_descriptor: descriptor proposal is not "
-                "ported yet (ROADMAP Queue 1 item 11)")
         self.K = K
         self.cfg = cfg
         # the concrete device, so that as_depth compares like with like
@@ -310,13 +373,19 @@ class Odometry:
 
     def _promote(self, pyr, timestamp: float) -> None:
         packed = pack_pyramid(pyr, self.cfg.icp)
-        cloud = self._kf_cloud(pyr) if self.keep_keyframe_clouds else None
-        self._promote_from_bundle(pyr, packed, cloud, None, timestamp)
+        cloud = desc = None
+        if self.keep_keyframe_clouds:
+            cloud = self._kf_cloud(pyr)
+            if self.cfg.posegraph.lc_descriptor:
+                desc = depth_descriptor(pyr[-1].points, pyr[-1].mask)
+        self._promote_from_bundle(pyr, packed, cloud, desc, timestamp)
 
     def _promote_from_bundle(self, pyr, packed, cloud, desc,
                              timestamp: float) -> None:
         """Promotion bookkeeping from pre-computed derived state (the
-        boundary chunk path computes it with `promote_bundle_jit`)."""
+        boundary chunk path computes it with `promote_bundle_jit`).  A
+        descriptor, given on the device, starts its copy to the host here
+        (`descriptor_to_host`): the record never holds a device tensor."""
         self.kf_pyr = pyr
         self.kf_packed = packed
         verify = None
@@ -327,6 +396,8 @@ class Odometry:
             h, w, _ = pyr[lvl].points.shape
             verify = VerifyTable(packed=packed[lvl], height=h, width=w,
                                  level=lvl)
+            if desc is not None:
+                desc = descriptor_to_host(desc)
         else:
             cloud = None
             desc = None

@@ -55,10 +55,8 @@ def pose_graph_from_reference(graph, device) -> PoseGraph:
 def keyframe_record_from_reference(rec, device) -> KeyframeRecord:
     """The port's KeyframeRecord from the reference's `frontend
     .KeyframeRecord`: pose, voxel cloud and verification table as arrays
-    on `device`.  Descriptors are not ported and must be absent."""
-    if rec.desc is not None:
-        raise NotImplementedError("keyframe descriptors are not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
+    on `device`, the depth descriptor as a float32 numpy array (the port
+    keeps descriptors in host memory)."""
     cloud = verify = None
     if rec.cloud is not None:
         cloud = PointCloud(*(upload(np.asarray(a), device)
@@ -73,7 +71,9 @@ def keyframe_record_from_reference(rec, device) -> KeyframeRecord:
                           timestamp=float(rec.timestamp),
                           T_world_kf=np.array(rec.T_world_kf,
                                               dtype=np.float32),
-                          cloud=cloud, verify=verify)
+                          cloud=cloud, verify=verify,
+                          desc=(None if rec.desc is None else
+                                np.array(rec.desc, dtype=np.float32)))
 
 
 def grid_index_from_reference(index, device) -> GridIndex:

@@ -22,10 +22,16 @@ sharded, by the ring ICP (dist/ring_map.py, whose hops are the ring_nn
 kernel).  With `map_ba` `finalize` ends with a Schur-complement map BA
 over all keyframes (`refine_map_ba`, backend/map_ba.py).
 
-Not in this port yet (each raises NotImplementedError): the worker-thread
-async backend of the inline chunk mode, descriptor loop-closure proposal,
-and the grid-hash verification fallback for keyframes without
-verification tables.
+With `PoseGraphConfig.lc_descriptor` each promotion also computes the
+keyframe's depth descriptor and starts its copy to the host, and the
+attempt adds pose-free descriptor candidates.  When the candidates'
+keyframes carry no uniform verification tables (restored from a file of
+another `verify_level`, or from one that predates the tables) the attempt
+verifies by the grid-hash probe instead (`_chain_attempt_fallback`), with
+the same gates, solve and readback layout.
+
+Not in this port (it raises NotImplementedError): the worker-thread async
+backend of the inline chunk mode.
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ import numpy as np
 import torch
 
 from tpuslam_torch.backend.loopclosure import (
+    extend_with_candidates,
     fused_attempt_jit,
     gate_rows,
     propose_attempt,
+    verify_batch_grid,
 )
 from tpuslam_torch.backend.map_ba import build_map_ba_problem, optimize_map_ba
 from tpuslam_torch.backend.posegraph import GraphHost, optimize, resolve_solver
@@ -295,10 +303,6 @@ class SlamSystem:
         if not live:
             self._failed_pairs.update(attempted)
             return None
-        if v0 is None:
-            raise _not_ported("loop-closure verification without uniform "
-                              "verification tables (the grid-hash "
-                              "fallback)", "Queue 1 item 11")
         g = self.graph.graph(bucketed=True)
         b = len(padded)
         dev = self.device
@@ -307,20 +311,43 @@ class SlamSystem:
         cand_j = upload(np.asarray([j for _, j, _ in live] + [0] * (b - len(
             live)), dtype=np.int32), dev)
         T_inits = upload(np.stack([T for _, _, T in padded]), dev)
-        use_dense = resolve_solver(self.cfg.posegraph, live_nodes,
-                                   capacity=g.poses.shape[0]) == "dense"
-        packed = fused_attempt_jit(
-            [keyframes[i].verify.packed for i, _, _ in padded],
-            [keyframes[j].cloud.points for _, j, _ in padded],
-            [keyframes[j].cloud.normals for _, j, _ in padded],
-            [keyframes[j].cloud.mask for _, j, _ in padded],
-            self.odo.K.scaled(1.0 / (2 ** v0.level)), T_inits, len(live), g,
-            cand_i, cand_j, v0.height, v0.width, self.cfg.icp,
-            self.cfg.posegraph, use_dense, LC_EDGE_WEIGHT)
+        if v0 is None:
+            packed = self._chain_attempt_fallback(
+                keyframes, padded, live, T_inits, g, cand_i, cand_j,
+                live_nodes)
+        else:
+            use_dense = resolve_solver(self.cfg.posegraph, live_nodes,
+                                       capacity=g.poses.shape[0]) == "dense"
+            packed = fused_attempt_jit(
+                [keyframes[i].verify.packed for i, _, _ in padded],
+                [keyframes[j].cloud.points for _, j, _ in padded],
+                [keyframes[j].cloud.normals for _, j, _ in padded],
+                [keyframes[j].cloud.mask for _, j, _ in padded],
+                self.odo.K.scaled(1.0 / (2 ** v0.level)), T_inits,
+                len(live), g, cand_i, cand_j, v0.height, v0.width,
+                self.cfg.icp, self.cfg.posegraph, use_dense, LC_EDGE_WEIGHT)
         return PendingAttempt(
             live=live, attempted=attempted, packed=packed,
             rows_shape=(b, ROW_SIZE), poses_shape=tuple(g.poses.shape),
             live_nodes=live_nodes)
+
+    def _chain_attempt_fallback(self, keyframes, padded, live, T_inits, g,
+                                cand_i, cand_j,
+                                live_nodes: int) -> torch.Tensor:
+        """The attempt for keyframes without uniform verification tables:
+        grid-hash verification of the candidates (cloud j onto cloud i),
+        the gate-weighted candidate edges and the pose-graph solve, on the
+        device and packed as `fused_attempt_jit` packs them (rows ++
+        poses), so the drain reads it unchanged."""
+        rows = verify_batch_grid([keyframes[i].cloud for i, _, _ in padded],
+                                 [keyframes[j].cloud for _, j, _ in padded],
+                                 T_inits, len(live), self.cfg.icp)
+        g_ext = extend_with_candidates(g, rows, len(live), cand_i, cand_j,
+                                       self.cfg.posegraph, LC_EDGE_WEIGHT)
+        poses_opt, _cost = optimize(g_ext, self.cfg.posegraph,
+                                    live_nodes=live_nodes)
+        return torch.cat([rows.reshape(-1).to(torch.float32),
+                          poses_opt.reshape(-1).to(torch.float32)])
 
     def _drain_closure_attempt(self, p: PendingAttempt,
                                flat: Optional[np.ndarray] = None) -> bool:
@@ -542,6 +569,7 @@ class SlamSystem:
             return np.stack([self.process(depths[i], float(timestamps[i]))
                              for i in range(n)])
         out = []
+        with_desc = bool(self.cfg.posegraph.lc_descriptor)
         base_T = odo.T_world_kf.astype(np.float64)
         for g0 in range(0, n, sub):
             rels = [s[g0 + i][FlatFrozen.REL_T].reshape(4, 4)
@@ -568,12 +596,12 @@ class SlamSystem:
                 out.append(T_world_cam)
             if p >= 0:
                 # the sub-chunk's LAST frame is the new keyframe; its
-                # pyramid, tables and cloud derive from the device-resident
-                # depth without a sync
+                # pyramid, tables, cloud and descriptor derive from the
+                # device-resident depth without a sync
                 odo.T_world_kf = (base_T @ rels[p]).astype(np.float32)
                 with _span("slam.promote_bundle"):
                     pyr, packed, cloud, desc = promote_bundle_jit(
-                        depths[g0 + p], odo.K, self.cfg, False)
+                        depths[g0 + p], odo.K, self.cfg, with_desc)
                 odo._promote_from_bundle(pyr, packed, cloud, desc,
                                          float(timestamps[g0 + p]))
                 odo.keyframes[-1] = odo.keyframes[-1]._replace(

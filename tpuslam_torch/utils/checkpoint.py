@@ -1,14 +1,16 @@
 """Checkpoint / resume — port of `tpuslam/utils/checkpoint.py`.
 
 An npz snapshot of an `Odometry` or `SlamSystem`: keyframe poses, pyramid,
-clouds and verification tables, the pose graph, the per-frame references
-and the frame index.  The keys, dtypes and format version are the
-reference's, so a file written by either package resumes in the other.
+clouds, verification tables and depth descriptors, the pose graph, the
+per-frame references and the frame index.  The keys, dtypes and format
+version are the reference's, so a file written by either package resumes
+in the other.
 
 Host state (poses, the graph's arrays) is numpy in both packages; the
 keyframe pyramid, clouds and verification tables are tensors on the
 system's device, written through `.cpu()` and copied back to the device on
-load (verification tables stay float16).
+load (verification tables stay float16).  Descriptors live in host memory
+in both directions (float32 numpy arrays).
 
 One divergence from the reference: `load_checkpoint` clears the deferred
 backend's pending loop-closure attempt, which the reference leaves in
@@ -23,7 +25,11 @@ import tempfile
 import numpy as np
 import torch
 
-from tpuslam_torch.frontend import KeyframeRecord, VerifyTable
+from tpuslam_torch.frontend import (
+    KeyframeRecord,
+    VerifyTable,
+    host_descriptor,
+)
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.icp import Frame, pack_pyramid
 from tpuslam_torch.transfer import upload
@@ -103,6 +109,14 @@ def save_checkpoint(path: str, system, frame_idx: int) -> None:
         data["kf_verify_packed"] = np.stack([_host(v.packed) for _, v in vt])
         data["kf_verify_meta"] = np.asarray(
             [v0.height, v0.width, v0.level], dtype=np.int32)
+    # pose-free loop-closure descriptors (lc_descriptor), so a resumed run
+    # keeps its drift-robust proposal
+    descs = [(k, r.desc) for k, r in enumerate(odo.keyframes)
+             if r.desc is not None]
+    if descs:
+        data["kf_desc_ids"] = np.asarray([k for k, _ in descs],
+                                         dtype=np.int32)
+        data["kf_desc"] = np.stack([host_descriptor(d) for _, d in descs])
     if _is_slam(system):
         g = system.graph
         data.update(
@@ -138,10 +152,6 @@ def load_checkpoint(path: str, system) -> int:
 def _restore(z, system) -> int:
     if int(z["version"]) not in _READABLE_VERSIONS:
         raise ValueError(f"unknown checkpoint version {z['version']}")
-    if "kf_desc_ids" in z:
-        raise NotImplementedError(
-            "checkpoint holds keyframe depth descriptors, which are not "
-            "ported yet (ROADMAP Queue 1 item 11)")
     odo = system.odo if _is_slam(system) else system
     dev = odo.device
 
@@ -179,6 +189,10 @@ def _restore(z, system) -> int:
         verify_row = {int(k): r for r, k in enumerate(z["kf_verify_ids"])}
         vh, vw, vlvl = (int(v) for v in z["kf_verify_meta"])
         tables = z["kf_verify_packed"]
+    desc_row = {}
+    if "kf_desc_ids" in z:
+        desc_row = {int(k): r for r, k in enumerate(z["kf_desc_ids"])}
+        descs = z["kf_desc"]
     odo.keyframes = []
     for k in range(n_kf):
         cloud = verify = None
@@ -191,7 +205,8 @@ def _restore(z, system) -> int:
             index=int(z["kf_indices"][k]),
             timestamp=float(z["kf_timestamps"][k]),
             T_world_kf=z["kf_poses"][k].astype(np.float32),
-            cloud=cloud, verify=verify))
+            cloud=cloud, verify=verify,
+            desc=descs[desc_row[k]] if k in desc_row else None))
     # the recency sequence is not persisted: restored anchors start equal
     odo.protected_kf_ids = (
         {int(i): 0 for i in z["protected_kf_ids"]}
