@@ -204,6 +204,10 @@ OPS_GRID_CELL = 3         # cell coordinate: a subtraction, a divide, floor
 OPS_GRID_STEP = 2         # a binary-search step: a compare and a halving
 OPS_GRID_CANDIDATE = 10   # a slot: key compare, 3 differences, 3 squares,
                           # 2 sums, the < against the best
+OPS_TABLE_ROW = 2         # the table build: a row's key against the invalid
+                          # key and its predecessor's
+OPS_TABLE_RUN = 3         # a run's insert: the hash's product and shift,
+                          # the compare-and-swap; plus a compare a row counted
 
 
 def log(msg: str) -> None:
@@ -280,7 +284,8 @@ KERNEL_SYMBOLS = {"correspond": "correspond_kernel",
                   "gn_step": "gn_step_kernel",
                   "gn_fused": "gn_fused_step_kernel",
                   "ring_nn": "ring_nn_kernel",
-                  "grid_correspond": "grid_correspond_kernel"}
+                  "grid_correspond": "grid_correspond_kernel",
+                  "grid_table": "grid_table_"}  # its fill and insert
 
 
 def count_ops(rows, word: str) -> int:
@@ -608,23 +613,76 @@ def grid_probe_work(x, index) -> tuple:
     return searched, scanned, rows * (row_bytes + index.keys.element_size())
 
 
-def grid_correspond_phase(dev, card: str) -> dict:
+def table_build_us(fn, builds: int = 20):
+    """Device µs of one table build by fn() (its fill and its insert, over
+    `builds` builds under torch.profiler), or None when none was seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(builds):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(dt for dt, _, key in device_rows(prof)
+             if KERNEL_SYMBOLS["grid_table"] in key)
+    return us / builds if us else None
+
+
+def table_check(index, tag: str) -> int:
+    """The index's table on the card against cell_runs_reference: its
+    filled entries read back, then every valid key and the absent
+    neighbours of the occupied cells looked up on the host by the probe's
+    rule.  Returns the number of cells."""
+    from tpuslam_torch.kernels import correspond
+
+    runs = [t.cpu().long() for t in correspond.cell_runs_reference(
+        index.keys)]
+    table = index.table.cpu()
+    got = correspond.cell_table_entries(table)
+    check(all(torch.equal(a.long(), b) for a, b in zip(got, runs)),
+          f"grid_table {tag}: the table's entries differ from the runs")
+    s, c = correspond.cell_table_lookup(table, runs[0])
+    check(torch.equal(s, runs[1]) and torch.equal(c, runs[2]),
+          f"grid_table {tag}: a valid key's lookup differs from its run")
+    near = torch.unique(torch.cat([runs[0] + d for d in (
+        1, -1, 256, -256, 65536, -65536)] + [torch.tensor([0, 1 << 24])]))
+    absent = near[~torch.isin(near, runs[0])][:8192]
+    s, c = correspond.cell_table_lookup(table, absent)
+    check(not bool(c.any()) and not bool(s.any()),
+          f"grid_table {tag}: an absent key was found")
+    return int(runs[0].numel())
+
+
+def grid_correspond_phase(dev, card: str):
     """grid_correspond against its twins at the grid path's shapes:
     VoxelConfig.capacity queries (a frame's cloud) against a
     map_capacity-row index with ~150 points to a cell (grid_surface), one
     query outside the grid and one with no candidate; posed (the carry's
-    pose) and pose-less (map BA's call) bit-equal in q, n, w, idx; nothing
-    written after DONE."""
+    pose) and pose-less (map BA's call) bit-equal in q, n, w, idx, with the
+    queries in random order and sorted by voxel key (the path's order);
+    nothing written after DONE.  The index's table against
+    cell_runs_reference at 131,072 rows, all rows masked and one row.
+    Returns the probe's and the table build's stats."""
     from tpuslam_torch.config import ICPConfig, VoxelConfig
     from tpuslam_torch.geom import se3
+    from tpuslam_torch.geom.cloud import PointCloud
+    from tpuslam_torch.geom.voxel import voxel_keys
     from tpuslam_torch.kernels import correspond, gn_epilogue
 
-    n, m = VoxelConfig().capacity, VoxelConfig().map_capacity
+    vc = VoxelConfig()
+    n, m = vc.capacity, vc.map_capacity
     radius = ICPConfig().max_corr_dist
     target = grid_surface(dev, m)
     index = correspond.build_grid_index(target, radius)
     keys = index.keys[index.keys != correspond._INVALID_KEY]
     per_cell = torch.unique_consecutive(keys, return_counts=True)[1]
+    cells = table_check(index, f"{m} rows")
+    edge = {"all rows masked": PointCloud(target.points, target.normals,
+                                          torch.zeros_like(target.mask)),
+            "one row": PointCloud(target.points[:1], target.normals[:1],
+                                  torch.ones_like(target.mask[:1]))}
     rng = np.random.default_rng(1)
     pick = torch.as_tensor(rng.integers(0, m, n), device=dev)
     x = (target.points[pick] + torch.as_tensor(
@@ -632,15 +690,48 @@ def grid_correspond_phase(dev, card: str) -> dict:
     x[0] += 1000.0                                  # outside the grid
     x[1] = torch.tensor([1.0, 1.0, 1.0], device=dev)  # nothing within 0.75 m
     xm = torch.as_tensor(rng.uniform(size=n) > 0.05, device=dev)
+    for tag, cloud in edge.items():
+        ei = correspond.build_grid_index(cloud, radius, origin=index.origin)
+        found = table_check(ei, tag)
+        check(found == (0 if tag == "all rows masked" else 1),
+              f"grid_table {tag}: {found} cells")
+        ek = correspond.grid_hash_correspond(x, xm, ei, radius)
+        er = correspond.grid_hash_correspond_reference(x, xm, ei, radius)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(ek, er)),
+              f"grid_correspond {tag}: not bit-equal to its twin")
     T = se3.exp(torch.tensor([0.004, -0.003, 0.002, 0.01, -0.01, 0.005],
                              device=dev))
     carry = gn_epilogue.init_carry(T, 12)
-    ck = correspond.grid_correspond_at_pose(x, xm, index, radius, carry)
-    cr = correspond.grid_correspond_at_pose_reference(x, xm, index, radius,
-                                                      T)
-    xt = se3.transform_points_ordered(T, x)
-    uk = correspond.grid_hash_correspond(xt, xm, index, radius)
-    ur = correspond.grid_hash_correspond_reference(xt, xm, index, radius)
+    # the path's order: a frame cloud leaves voxel_downsample sorted by
+    # voxel key
+    hi, lo, _ = voxel_keys(x, torch.ones_like(xm), vc.voxel_size, vc.origin,
+                           vc.extent)
+    order = torch.sort(hi.long() * 2 ** 31 + lo.long(), stable=True).indices
+    orders = {"random": (x, xm),
+              "voxel-key": (x[order].contiguous(), xm[order].contiguous())}
+    res = {}
+    for name, (xq, xmq) in orders.items():
+        ck = correspond.grid_correspond_at_pose(xq, xmq, index, radius, carry)
+        cr = correspond.grid_correspond_at_pose_reference(xq, xmq, index,
+                                                          radius, T)
+        xt = se3.transform_points_ordered(T, xq)
+        uk = correspond.grid_hash_correspond(xt, xmq, index, radius)
+        ur = correspond.grid_hash_correspond_reference(xt, xmq, index, radius)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(ck, cr)),
+              f"grid_correspond ({name} order): posed launch not bit-equal "
+              f"to its twin")
+        check(all(torch.equal(a, b) for a, b in zip(uk, ur))
+              and all(torch.equal(a, b) for a, b in zip(uk, ck)),
+              f"grid_correspond ({name} order): pose-less launch not "
+              f"bit-equal to its twin or to the posed one")
+        res[name] = (ck, cr, uk, ur, xt)
+    ck, cr, uk, ur, xt = res["random"]
+    check(all(torch.equal(a[order], b) for a, b in zip(ck,
+                                                       res["voxel-key"][0])),
+          "grid_correspond: the voxel-key order's matches are not the "
+          "random order's, permuted")
     out = correspond.correspondence_buffers(n, dev)
     for t_ in out:
         t_.fill_(7)
@@ -649,12 +740,6 @@ def grid_correspond_phase(dev, card: str) -> dict:
     torch.cuda.synchronize()
     err = max(float((a.double() - b.double()).abs().max())
               for k, t in ((ck, cr), (uk, ur)) for a, b in zip(k, t))
-    check(all(torch.equal(a, b) for a, b in zip(ck, cr)),
-          "grid_correspond: posed launch not bit-equal to its twin")
-    check(all(torch.equal(a, b) for a, b in zip(uk, ur))
-          and all(torch.equal(a, b) for a, b in zip(uk, ck)),
-          "grid_correspond: pose-less launch not bit-equal to its twin or "
-          "to the posed one")
     check(all(bool((t_ == 7).all()) for t_ in out),
           "grid_correspond: wrote after DONE")
     check(not bool(ck.w[:2].any()) and not bool(ck.q[:2].any())
@@ -664,13 +749,16 @@ def grid_correspond_phase(dev, card: str) -> dict:
     check(bool(torch.isfinite(ck.q).all()) and 0.5 < float(ck.w.mean()) < 1,
           f"grid_correspond: w mean {float(ck.w.mean())}")
 
-    def launch():
-        correspond.grid_correspond_at_pose(x, xm, index, radius, carry,
-                                           out=out)
-    ms = time_ms(launch)
+    times = {}
+    for name, (xq, xmq) in orders.items():
+        def launch(xq=xq, xmq=xmq):
+            correspond.grid_correspond_at_pose(xq, xmq, index, radius, carry,
+                                               out=out)
+        times[name] = (time_ms(launch),
+                       full_launch_us(launch, "grid_correspond"))
+    ms, full_us = times["random"]
     plain_ms = time_ms(lambda: correspond.grid_correspond_at_pose_reference(
         x, xm, index, radius, T), reps=3)
-    full_us = full_launch_us(launch, "grid_correspond")
     searched, scanned, index_bytes = grid_probe_work(xt, index)
     steps = int(np.ceil(np.log2(m + 1)))
     b = bound(nbytes(x, xm, index.origin, *ck) + index_bytes + 12 * 4,
@@ -689,8 +777,37 @@ def grid_correspond_phase(dev, card: str) -> dict:
         f"of the index needed), bit-equal posed and pose-less in q, n, w, "
         f"idx (max abs err {err}, {int(ck.w.sum())} matches); DONE, the "
         f"out-of-grid and the unmatched query hold ({card})")
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "device_us_full_launch": full_us, **b}
+    ms_v, us_v = times["voxel-key"]
+    log(f"[kernels] grid_correspond, the same queries in voxel-key order: "
+        f"kernel {ms_v:.5f} ms, device {fmt_us(us_v)} us a full launch "
+        f"(random order {ms:.5f} ms, {fmt_us(full_us)} us), bit-equal "
+        f"posed and pose-less ({card})")
+
+    # the table build: a fill and an insert a sorted row
+    def build_table():
+        correspond.with_cell_table(index)
+    table_ms = time_ms(build_table)
+    table_us = table_build_us(build_table)
+    table_plain_ms = time_ms(
+        lambda: correspond.cell_runs_reference(index.keys), reps=20)
+    size = index.table.shape[0]
+    runs = correspond.cell_runs_reference(index.keys)[2]
+    tb = bound(nbytes(index.keys, index.table),
+               OPS_TABLE_ROW * m + OPS_TABLE_RUN * cells
+               + int(runs.sum()))
+    log(f"[kernels] grid_table {m} rows, {cells} cells, {size} entries "
+        f"({nbytes(index.table)} bytes): kernel {table_ms:.5f} ms, device "
+        f"{fmt_us(table_us)} us a build (fill + insert), plain (the runs by "
+        f"unique_consecutive) {table_plain_ms:.5f} ms, bound "
+        f"{tb['bound_ms']:.5f} ms by {tb['bound_by']}; entries and lookups "
+        f"equal to cell_runs_reference at {m} rows, all rows masked and one "
+        f"row ({card})")
+    return ({"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+             "device_us_full_launch": full_us, "ms_voxel_order": ms_v,
+             "device_us_full_launch_voxel_order": us_v, **b},
+            {"ms": table_ms, "plain_ms": table_plain_ms, "max_abs_err": 0.0,
+             "device_us_full_launch": table_us, "table_bytes":
+             nbytes(index.table), "cells": cells, **tb})
 
 
 def map_config():
@@ -1052,8 +1169,8 @@ def grid_phase(dev, card: str, counters, loop, map_fps: float) -> dict:
     check(r["ate_rmse_m"] < max(1.5 * r["ate_before_ba_m"], MAP_ATE_M),
           f"grid: ATE after map BA {r['ate_rmse_m']} against "
           f"{r['ate_before_ba_m']} before")
-    check(all(launches[k] > 0 for k in ("grid_correspond", "correspond",
-                                        "gn_step")),
+    check(all(launches[k] > 0 for k in ("grid_correspond", "grid_table",
+                                        "correspond", "gn_step")),
           f"grid: launches {launches}")
     check(all(v == 0 for v in plain.values()), f"grid: plain {plain}")
 
@@ -1073,16 +1190,23 @@ def grid_phase(dev, card: str, counters, loop, map_fps: float) -> dict:
     fenced_spans(spans, slam.map, ("insert", "build_index"))
     fenced_spans(spans, slam, ("_attempt_loop_closure",
                                "_refine_against_map"))
+    with_cell_table = correspond.with_cell_table
+    fenced_spans(spans, correspond, ("with_cell_table",))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(40, 48):
-        slam.process(d[i], timestamp=ts[i])
-    torch.cuda.synchronize()
+    try:
+        for i in range(40, 48):
+            slam.process(d[i], timestamp=ts[i])
+        torch.cuda.synchronize()
+    finally:
+        correspond.with_cell_table = with_cell_table
     wall = (time.perf_counter() - t0) * 1e3
-    outer = sum(v for n, v in spans.items() if n != "build_index") * 1e3
+    outer = sum(v for n, v in spans.items()
+                if n not in ("build_index", "with_cell_table")) * 1e3
     log(f"[grid stages] frames 40-47: {wall:.3f} ms;"
         + ", ".join(f" {n} {v * 1e3:.3f} ms" for n, v in spans.items())
-        + f" (build_index inside _refine_against_map); the rest "
+        + f" (build_index inside _refine_against_map, the table build "
+        f"with_cell_table inside build_index); the rest "
         f"{wall - outer:.3f} ms ({card})")
     for n in ("_attempt_loop_closure", "_refine_against_map"):
         delattr(slam, n)
@@ -1980,7 +2104,7 @@ def main() -> int:
             step_ab = gn_step_ab(card, src, x, T, ck, carry, nvs, icp)
             ring_partials = partials_at_ring_size(card, pts, ck, carry, icp)
     ring_stats = ring_nn_phase(dev, card)
-    grid_stats = grid_correspond_phase(dev, card)
+    grid_stats, table_stats = grid_correspond_phase(dev, card)
 
     # ---- 4. uint16 divide ----
     raw = np.round(depths_np * cfg.depth_scale).astype(np.uint16)
@@ -2378,6 +2502,9 @@ def main() -> int:
         "grid_correspond": ("tpuslam_torch/csrc/grid_correspond.cu",
                             "tpuslam/kernels/correspond.py:220 (XLA, not "
                             "Pallas: grid_hash_correspond)"),
+        "grid_table": ("tpuslam_torch/csrc/grid_correspond.cu",
+                       "tpuslam/kernels/correspond.py:246 (XLA, not "
+                       "Pallas: the searchsorted of grid_hash_correspond)"),
     }
     # timings at level 0 (ring_nn: its own phase, one full hop; gn_partials
     # also at the ring's size, `ring_size`); launches on the map path (phase
@@ -2389,19 +2516,20 @@ def main() -> int:
     # grid_correspond: its own phase's timing (16,384 × 131,072), launches
     # on the grid path (phase 12b).
     # No single PyTorch call computes any of these functions (the probe: no
-    # call takes a truncated 27-cell scan with its tie rule), so library_ms
-    # is null.
+    # call takes a truncated 27-cell scan with its tie rule; the table: no
+    # call builds a hash of runs), so library_ms is null.
     summary = {k: dict(stats[k][0], max_abs_err=max(
         v["max_abs_err"] for v in stats[k].values())) for k in frame_kernels}
     summary["ring_nn"] = ring_stats
     summary["grid_correspond"] = grid_stats
+    summary["grid_table"] = table_stats
     odo_launch = dict(per_frame_odo, gn_fused=per_frame_fused["gn_fused"])
     odo_dev = dict(odo_us, gn_fused=fused_us.get("gn_fused"))
     kernels = []
     for name, (src_path, replaces) in sources.items():
         s = summary[name]
         launches, path = ((launches_grid[name], "grid (phase 12b)")
-                          if name == "grid_correspond" else
+                          if name.startswith("grid_") else
                           (launches_slam[name], "slam (phase 9)")
                           if name == "gn_fused" else
                           (launches_map[name], "map (phase 12)"))
@@ -2416,6 +2544,10 @@ def main() -> int:
             "odometry_device_us_per_launch": (
                 odo_dev[name][0] if odo_dev.get(name) else None),
             "device_us_full_launch": s["device_us_full_launch"],
+            # the probe in the path's query order; the table's size
+            **{k: s[k] for k in ("ms_voxel_order",
+                                 "device_us_full_launch_voxel_order",
+                                 "table_bytes") if k in s},
             # the CLI's launches (phase 13): run_slam, and the sharded run
             "cli_launches": {"run_slam": launches_cli["run_slam"][name],
                              "sharded": launches_cli["sharded"][name],

@@ -806,24 +806,94 @@ def grid_queries(pts, n, seed=1):
     return x, rng.uniform(size=n) > 0.05
 
 
+def grid_faces_target(m, seed=0):
+    """m points in cells 0-1 and 254-255 of each axis of a 256³ grid at
+    the origin (cell 0.25): the grid's faces and corners."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0.0, 0.5, (m // 2, 3))
+    hi = rng.uniform(63.5, 64.0, (m - m // 2, 3))
+    pts = np.concatenate([lo, hi]).astype(np.float32)
+    nrm = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (m, 1))
+    return pts, nrm, rng.uniform(size=m) > 0.1
+
+
+def grid_last_row_target(m, seed=0):
+    """m − 20 points of the planes, no row masked or outside the grid, and
+    20 points within 0.05 m of (1.6, 1.6, 1.6), beyond them: with the
+    origin at −32 a crowded cell ([1.5, 1.75)³) whose run ends at the last
+    row."""
+    pts, nrm, _ = grid_target(m - 20, seed)
+    pts[:5] -= 200.0
+    rng = np.random.default_rng(seed + 1)
+    crowd = (1.6 + rng.uniform(-0.05, 0.05, (20, 3))).astype(np.float32)
+    return (np.concatenate([pts, crowd]),
+            np.concatenate([nrm, np.tile(nrm[:1], (20, 1))]), np.ones(m, bool))
+
+
+def voxel_order(x):
+    """x's rows in the order voxel_downsample leaves a frame cloud (its
+    voxel key)."""
+    from tpuslam_torch.config import VoxelConfig
+    from tpuslam_torch.geom.voxel import voxel_keys
+
+    vc = VoxelConfig()
+    t = torch.as_tensor(x)
+    hi, lo, _ = voxel_keys(t, torch.ones(t.shape[0], dtype=torch.bool),
+                           vc.voxel_size, vc.origin, vc.extent)
+    return torch.sort(hi.long() * 2 ** 31 + lo.long(), stable=True).indices
+
+
+GRID_CASES = [
+    pytest.param(1, 1, "random", id="1-1"),
+    pytest.param(300, 1000, "random", id="300-1000"),
+    pytest.param(16384, 131072, "random", id="16384-131072"),
+    pytest.param(4096, 8192, "faces", id="faces"),
+    pytest.param(2048, 4096, "last-row", id="last-row"),
+    pytest.param(16384, 131072, "voxel-order", id="voxel-order"),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("posed", [True, False], ids=["posed", "pose-less"])
-@pytest.mark.parametrize("n,m", [(1, 1), (300, 1000), (16384, 131072)])
-def test_grid_correspond_bit_equal_to_twin(dev, n, m, posed):
+@pytest.mark.parametrize("n,m,kind", GRID_CASES)
+def test_grid_correspond_bit_equal_to_twin(dev, n, m, kind, posed):
     """The 27-cell probe: q, n, w and idx bit-equal to the twin on the same
     device, posed (the carry's T, the transform in the kernel's order) and
-    pose-less; a query outside the grid or NaN matches nothing."""
+    pose-less; a query outside the grid or NaN matches nothing.  Also on
+    the grid's faces (cells 0 and 255, queries beyond them), a crowded cell
+    whose run ends at the last row, and queries in voxel-key order."""
     from tpuslam_torch.geom.cloud import PointCloud
 
-    pts, nrm, mask = grid_target(max(m, 8))
-    pts, nrm, mask = pts[:m], nrm[:m], mask[:m]
+    origin = None
+    if kind == "faces":
+        pts, nrm, mask = grid_faces_target(m)
+        origin = torch.zeros(3, device=dev)
+    elif kind == "last-row":
+        pts, nrm, mask = grid_last_row_target(m)
+        origin = torch.full((3,), -32.0, device=dev)
+    else:
+        pts, nrm, mask = grid_target(max(m, 8))
+        pts, nrm, mask = pts[:m], nrm[:m], mask[:m]
     index = correspond.build_grid_index(
         PointCloud(*(torch.as_tensor(a, device=dev) for a in (pts, nrm,
-                                                             mask))), 0.25)
-    x, xm = grid_queries(np.concatenate([pts, pts]), max(n, 4))
-    x, xm = (torch.as_tensor(a[:n], device=dev) for a in (x, xm))
+                                                             mask))), 0.25,
+        origin=origin)
+    if kind == "last-row":
+        keys = index.keys.cpu()
+        assert int((keys == keys[-1]).sum()) == 20
+    src = pts[-20:] if kind == "last-row" else np.concatenate([pts, pts])
+    x, xm = grid_queries(src, max(n, 4))
+    x, xm = x[:n], xm[:n]
+    if kind == "voxel-order":
+        order = voxel_order(x).numpy()
+        x, xm = x[order], xm[order]
+    x, xm = (torch.as_tensor(a, device=dev) for a in (x, xm))
     T = se3.exp(torch.tensor([0.01, -0.02, 0.015, 0.02, -0.01, 0.03],
                              device=dev))
+    if posed and kind == "faces":
+        # 64 m from the origin T moves a point by ~2 m: start the queries
+        # at T⁻¹ so that the pose brings them back onto the faces
+        x = se3.transform_points(se3.inv(T), x).contiguous()
     correspond.grid_counter.reset()
     if posed:
         ck = correspond.grid_correspond_at_pose(
@@ -837,11 +907,74 @@ def test_grid_correspond_bit_equal_to_twin(dev, n, m, posed):
     assert correspond.grid_counter.launches == 1
     for a, b in zip(ck, cr):
         assert torch.equal(a, b)
-    if n >= 4:
+    if n >= 4 and kind != "voxel-order":
         assert not bool(ck.w[:4].any()) and not bool(ck.idx[:4].any())
         assert bool(torch.isfinite(ck.q).all())
     if n > 1000:
         assert 0.5 < float(ck.w.mean()) < 1.0
+    if kind == "last-row":
+        # the crowded cell's first 16 rows are the only candidates
+        assert bool(((ck.idx[4:] >= m - 20) & (ck.idx[4:] < m - 4)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["131072", "masked", "one"])
+def test_grid_table_on_card_equals_runs(dev, kind):
+    """The index's table, read back: its entries are cell_runs_reference's
+    (key, start, count), and the host copy of the probe rule finds every
+    valid key and misses absent ones, at 131,072 rows, with every row
+    masked, and at M = 1."""
+    from tpuslam_torch.geom.cloud import PointCloud
+
+    pts, nrm, mask = grid_target(131072)
+    if kind == "masked":
+        mask = np.zeros_like(mask)
+    elif kind == "one":
+        pts, nrm, mask = pts[5:6], nrm[5:6], np.ones(1, bool)
+    correspond.table_counter.reset()
+    index = correspond.build_grid_index(
+        PointCloud(*(torch.as_tensor(a, device=dev) for a in (pts, nrm,
+                                                             mask))), 0.25,
+        origin=torch.full((3,), -32.0, device=dev))
+    assert correspond.table_counter.launches == 1
+    table = index.table.cpu()
+    assert table.dtype == torch.int64
+    assert table.shape[0] == correspond.cell_table_size(pts.shape[0])
+    cells, start, count = (t.cpu().long() for t in
+                           correspond.cell_runs_reference(index.keys))
+    assert cells.numel() == {"masked": 0, "one": 1}.get(kind, cells.numel())
+    got = correspond.cell_table_entries(table)
+    for a, b in zip(got, (cells, start, count)):
+        assert torch.equal(a.long(), b)
+    s, c = correspond.cell_table_lookup(table, cells)
+    assert torch.equal(s, start) and torch.equal(c, count)
+    near = torch.unique(torch.cat([cells + d for d in (1, -1, 256, -256)]
+                                  + [torch.tensor([0, 1 << 24])]))
+    absent = near[~torch.isin(near, cells)]
+    s, c = correspond.cell_table_lookup(table, absent)
+    assert not bool(c.any()) and not bool(s.any())
+
+
+@pytest.mark.cuda
+def test_grid_index_without_table_raises(dev):
+    """No fallback: the card's probe needs the table."""
+    from tpuslam_torch.geom.cloud import PointCloud
+
+    pts, nrm, mask = grid_target(4096)
+    index = correspond.build_grid_index(
+        PointCloud(*(torch.as_tensor(a, device=dev) for a in (pts, nrm,
+                                                             mask))), 0.25)
+    bare = index._replace(table=None)
+    x, xm = (torch.as_tensor(a, device=dev) for a in grid_queries(pts, 64))
+    correspond.grid_counter.reset()
+    with pytest.raises(ValueError, match="table"):
+        correspond.grid_hash_correspond(x, xm, bare, 0.2)
+    with pytest.raises(ValueError, match="table"):
+        correspond.grid_correspond_at_pose(
+            x, xm, bare, 0.2, gn_epilogue.init_carry(torch.eye(4, device=dev),
+                                                     10))
+    assert correspond.grid_counter.launches == 0
+    assert correspond.grid_counter.plain_calls == 0
 
 
 @pytest.mark.cuda

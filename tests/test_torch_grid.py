@@ -12,6 +12,12 @@ is XLA here, with no Pallas kernel on this path).
   no candidate (q = n = 0, idx = 0, w = 0).  The posed call equals the
   pose-less one at the ordered transform, and moves at most a share of
   1e-3 of the reference's associations (the transform's last bit).
+- The table of occupied cells the card's probe reads: `cell_runs_reference`
+  (what the table returns) against numpy.unique over the reference's
+  sorted keys, exact, on dense and sparse surfaces, an all-masked index,
+  one row and a crowded run ending at the last row; the host copy of the
+  probe rule (`cell_table_lookup`, `cell_table_entries`) on a table built
+  by the kernel's insert rule in numpy; a CPU index carries no table.
 - `brute_force_correspond`: q, n, w, idx bit for bit, d2 at rtol 1e-6.
 - `align_to_index`, `align_clouds` (grid and brute force): iterations and
   convergence equal, T within 5e-5 (tests/test_torch_icp.py's bound).
@@ -180,6 +186,111 @@ def test_grid_correspond_at_pose(probe_case):
     moved = ((posed.idx.numpy() != np.asarray(rr.idx))
              | (posed.w.numpy() != np.asarray(rr.w)))
     assert moved.mean() <= 1e-3, moved.sum()
+
+
+def table_case(kind: str):
+    """Target clouds for the table: the probe surfaces, every row masked,
+    one row, and a crowded cell (40 copies of one point) whose run ends at
+    the last row (its key the largest, no row masked or outside the
+    grid)."""
+    if kind in ("dense", "sparse"):
+        return surface(kind)
+    rng = np.random.default_rng(2)
+    if kind == "masked":
+        pts, nrm, mask = surface("sparse")
+        return pts, nrm, np.zeros_like(mask)
+    if kind == "one":
+        return (np.array([[0.1, 0.2, 0.3]], np.float32),
+                np.array([[0.0, 0.0, 1.0]], np.float32), np.ones(1, bool))
+    pts = np.concatenate([rng.uniform(-1.0, 0.0, (300, 3)),
+                          np.full((40, 3), 1.5)]).astype(np.float32)
+    nrm = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (340, 1))
+    return pts, nrm, np.ones(340, bool)
+
+
+TABLE_CASES = ["dense", "sparse", "masked", "one", "last-row"]
+
+
+def reference_keys(kind):
+    pts, nrm, mask = table_case(kind)
+    rc, _ = both_clouds(pts, nrm, mask)
+    return np.array(rcor.build_grid_index(rc, cell=CELL).keys)
+
+
+@pytest.mark.parametrize("kind", TABLE_CASES)
+def test_cell_runs_reference_matches_numpy_unique(kind):
+    keys = reference_keys(kind)
+    valid = keys[keys != pcor._INVALID_KEY]
+    cells, first, runs = np.unique(valid, return_index=True,
+                                   return_counts=True)
+    pk, ps, pn = pcor.cell_runs_reference(torch.as_tensor(keys))
+    np.testing.assert_array_equal(pk.numpy(), cells)
+    np.testing.assert_array_equal(ps.numpy(), first)
+    np.testing.assert_array_equal(pn.numpy(), np.minimum(runs, 16))
+    if kind == "masked":
+        assert cells.size == 0
+    if kind == "one":
+        assert list(ps.numpy()) == [0] and list(pn.numpy()) == [1]
+    if kind == "last-row":
+        # the crowded run ends at row M − 1; its first 16 rows are scanned
+        assert first[-1] + runs[-1] == keys.size and runs[-1] == 40
+        assert pn.numpy()[-1] == 16
+
+
+def insert_table(keys: np.ndarray) -> np.ndarray:
+    """A table filled by the insert kernel's rule, in row order: each
+    run's first row puts ((start << 5 | count) << 32 | key) in the first
+    empty slot from the top bits of key · 0x9E3779B1."""
+    size = pcor.cell_table_size(keys.size)
+    bits = size.bit_length() - 1
+    table = np.full(size, -1, np.int64)
+    for i, k in enumerate(keys.tolist()):
+        if k == pcor._INVALID_KEY or (i and keys[i - 1] == k):
+            continue
+        count = 1
+        while count < 16 and i + count < keys.size and keys[i + count] == k:
+            count += 1
+        h = ((k * 0x9E3779B1) & 0xFFFFFFFF) >> (32 - bits)
+        while table[h] != -1:
+            h = (h + 1) & (size - 1)
+        table[h] = np.int64(((i << 5) | count) << 32 | k)
+    return table
+
+
+@pytest.mark.parametrize("kind", TABLE_CASES)
+def test_cell_table_lookup_rule(kind):
+    """The host copy of the probe rule finds each cell's run and misses
+    every absent key (neighbours of occupied cells, keys past the grid)."""
+    keys = reference_keys(kind)
+    table = torch.as_tensor(insert_table(keys))
+    assert table.shape[0] >= max(64, 2 * keys.size)
+    cells, start, count = pcor.cell_runs_reference(torch.as_tensor(keys))
+    got = pcor.cell_table_entries(table)
+    for a, b in zip(got, (cells, start, count)):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+    s, c = pcor.cell_table_lookup(table, cells)
+    assert torch.equal(s, start) and torch.equal(c, count)
+    near = torch.unique(torch.cat([cells + 1, cells - 1, cells + 256,
+                                   torch.tensor([0, 1 << 24, -5])]))
+    absent = near[~torch.isin(near, cells)]
+    s, c = pcor.cell_table_lookup(table, absent)
+    assert not bool(c.any()) and not bool(s.any())
+
+
+def test_cpu_grid_index_has_no_table():
+    """The CPU twins search the keys: neither build path makes a table."""
+    pts, nrm, mask = surface("sparse")
+    rc, pcl = both_clouds(pts, nrm, mask)
+    assert pcor.build_grid_index(pcl, cell=CELL).table is None
+    ri = rcor.build_grid_index(rc, cell=CELL)
+    pi = grid_index_from_reference(ri, "cpu")
+    assert pi.table is None
+    # the reference's keys and its points and normals as the port's rows
+    np.testing.assert_array_equal(pi.keys.numpy(), np.asarray(ri.keys))
+    np.testing.assert_array_equal(pi.points.numpy(), np.asarray(ri.points))
+    np.testing.assert_array_equal(pi.normals.numpy(), np.asarray(ri.normals))
+    assert not pi.rows[:, 6:].any()
+    assert pi.cell == CELL
 
 
 def test_brute_force_correspond_bit_equal():

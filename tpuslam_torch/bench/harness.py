@@ -188,7 +188,8 @@ def kernel_counters() -> dict:
             "gn_epilogue": gn_epilogue.counter,
             "gn_step": gn_step.counter,
             "gn_fused": gn_fused.counter, "ring_nn": ring_nn.counter,
-            "grid_correspond": correspond.grid_counter}
+            "grid_correspond": correspond.grid_counter,
+            "grid_table": correspond.table_counter}
 
 
 def slam_bench_config(height: int, width: int,

@@ -2,7 +2,7 @@
 port on a GPU.
 
     python3 tpuslam_torch/bench/profile_odometry.py [--root DIR] [--tag T]
-        [--mode odometry|map|fps|solve] [--fused]
+        [--mode odometry|map|fps|solve|grid] [--fused]
 
 Imports `tpuslam_torch` from `--root` (default: the checkout this file is
 in), so one script measures two commits in one call: unpack the other
@@ -37,6 +37,20 @@ grow its map, then frames 48-55 are timed on the host clock (each frame
 fenced by a synchronize); a second system, run the same way, takes
 frames 48-55 under the profiler.
 
+`--mode grid` measures the grid probe and map-grid-vga through
+`build_grid_index`, `grid_correspond_at_pose` and `run_map_bench(...,
+map_track_mode="grid", map_ba=True)`, which every commit since the grid
+slice has.  One probe at chip_smoke.py's phase-3 shapes (16,384 queries
+against a 131,072-row index of three planes, ~150 points to a 0.25 m
+cell), its queries in random order and sorted by voxel key (the order a
+frame cloud leaves voxel_downsample in): CUDA-event ms a launch (three
+passes of 50) and device µs a launch (20 under the profiler); the index
+build the same way (its device µs: every device operation of a build);
+then map-grid-vga: `run_map_bench` once (fps, ATE, and a SHA-256 of the
+poses after map BA, read at `finalize`, so that two commits' bits can be
+compared), and a second system that takes frames 0-47 and then frames
+48-55 under the profiler (the probe's device µs and launches there).
+
 Prints one JSON line a run (for map: one for each of unsharded and
 sharded): ms a frame (the best of the timed passes), device busy µs a frame, device operations (kernels,
 copies, fills) a frame and fills a frame, for each hand kernel its
@@ -58,7 +72,7 @@ from pathlib import Path
 # (gn_fused_kernel before the fused solve became one launch)
 KERNELS = ("correspond_kernel", "gn_partials_kernel", "gn_epilogue_kernel",
            "gn_step_kernel", "gn_fused_kernel", "gn_fused_step_kernel",
-           "ring_nn_kernel")
+           "ring_nn_kernel", "grid_correspond_kernel", "grid_table_")
 
 
 def profile_rows(prof):
@@ -78,10 +92,11 @@ def profile_rows(prof):
         busy += dt
         ops += ev.count
         rows.append((dt, ev.count, ev.key))
-        for k in KERNELS:
-            if k in ev.key:
-                us, n = kernels.get(k, (0.0, 0))
+        for k in sorted(KERNELS, key=len, reverse=True):
+            if k in ev.key:     # the longest name: grid_correspond holds
+                us, n = kernels.get(k, (0.0, 0))   # correspond's
                 kernels[k] = (us + dt, n + ev.count)
+                break
     return busy, ops, kernels, rows
 
 
@@ -283,13 +298,171 @@ def track_map(args, card, dev) -> None:
         dist.destroy_process_group()
 
 
+GRID_N, GRID_M, GRID_CELL = 16384, 131072, 0.25
+
+
+def grid_inputs(dev):
+    """chip_smoke.py's phase-3 probe inputs: three orthogonal 4 m planes
+    of GRID_M points (a tenth masked), GRID_N queries 2 cm off random
+    target points (one outside the grid, one with nothing near), and a
+    small pose."""
+    import numpy as np
+    import torch
+
+    from tpuslam_torch.geom import se3
+    from tpuslam_torch.geom.cloud import PointCloud
+
+    m, n = GRID_M, GRID_N
+    rng = np.random.default_rng(0)
+    k = m // 3
+    uv = rng.uniform(-2.0, 2.0, (m, 2))
+    pts = np.zeros((m, 3))
+    nrm = np.zeros((m, 3))
+    pts[:k, 0:2], nrm[:k, 2], pts[:k, 2] = uv[:k], 1.0, -2.0
+    pts[k:2 * k, 1:3], nrm[k:2 * k, 0] = uv[k:2 * k], 1.0
+    pts[k:2 * k, 0] = -2.0
+    pts[2 * k:, 0:3:2], nrm[2 * k:, 1] = uv[2 * k:], 1.0
+    pts[2 * k:, 1] = -2.0
+    mask = rng.uniform(size=m) > 0.1
+    target = PointCloud(*(torch.as_tensor(a, device=dev) for a in (
+        pts.astype(np.float32), nrm.astype(np.float32), mask)))
+    rng = np.random.default_rng(1)
+    pick = torch.as_tensor(rng.integers(0, m, n), device=dev)
+    x = target.points[pick] + torch.as_tensor(
+        rng.normal(scale=0.02, size=(n, 3)).astype(np.float32), device=dev)
+    x[0] += 1000.0
+    x[1] = torch.tensor([1.0, 1.0, 1.0], device=dev)
+    xm = torch.as_tensor(rng.uniform(size=n) > 0.05, device=dev)
+    T = se3.exp(torch.tensor([0.004, -0.003, 0.002, 0.01, -0.01, 0.005],
+                             device=dev))
+    return target, x, xm, T
+
+
+def event_and_device_us(fn, symbol=None, runs=50):
+    """(CUDA-event ms a call over three passes of `runs`, device µs a call
+    over 20 calls under the profiler: of the kernels whose name holds
+    `symbol`, or of every device operation when it is None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    event_ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(runs):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        event_ms.append(start.elapsed_time(stop) / runs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    _, _, _, rows = profile_rows(prof)
+    us = sum(dt for dt, _, key in rows if symbol is None or symbol in key)
+    return event_ms, us / 20
+
+
+def grid(args, card, dev) -> None:
+    import hashlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpuslam_torch
+    from tpuslam_torch.bench.harness import (
+        _render_sequence,
+        run_map_bench,
+        slam_bench_config,
+    )
+    from tpuslam_torch.config import VoxelConfig
+    from tpuslam_torch.geom.voxel import voxel_keys
+    from tpuslam_torch.kernels import correspond, gn_epilogue
+    from tpuslam_torch.slam import SlamSystem
+
+    target, x, xm, T = grid_inputs(dev)
+    index = correspond.build_grid_index(target, GRID_CELL)
+    carry = gn_epilogue.init_carry(T, 12)
+    vc = VoxelConfig()
+    hi, lo, _ = voxel_keys(x, torch.ones_like(xm), vc.voxel_size, vc.origin,
+                           vc.extent)
+    order = torch.sort(hi.long() * 2 ** 31 + lo.long(), stable=True).indices
+    probe = {}
+    for name, (xq, xmq) in {"random": (x, xm), "voxel_key": (
+            x[order].contiguous(), xm[order].contiguous())}.items():
+        out = correspond.correspondence_buffers(GRID_N, dev)
+        ms, us = event_and_device_us(
+            lambda xq=xq, xmq=xmq, out=out: correspond.grid_correspond_at_pose(
+                xq, xmq, index, GRID_CELL, carry, out=out),
+            "grid_correspond_kernel")
+        probe[name] = {"event_ms": ms, "device_us": us,
+                       "matches": int(out.w.sum())}
+    ms, us = event_and_device_us(
+        lambda: correspond.build_grid_index(target, GRID_CELL), runs=20)
+    index_build = {"event_ms": ms, "device_us": us}
+
+    seq = _render_sequence(120, 480, 640, loop_cycles=2)
+    poses = {}
+    finalize = SlamSystem.finalize
+
+    def recording_finalize(self, *a, **kw):
+        out = finalize(self, *a, **kw)
+        poses["est"] = np.ascontiguousarray(self.trajectory()[1])
+        return out
+    SlamSystem.finalize = recording_finalize
+    try:
+        r = run_map_bench(120, 480, 640, device=str(dev), sequence=seq,
+                          map_track_mode="grid", map_ba=True)
+    finally:
+        SlamSystem.finalize = finalize
+    K, _, d_np = seq
+    d = torch.as_tensor(d_np[:MAP_WARM + MAP_FRAMES], device=dev)
+    ts = np.arange(d.shape[0]) / 30.0
+    slam = SlamSystem(K, slam_bench_config(480, 640, False),
+                      enable_loop_closure=True, track_against_map=True,
+                      map_track_mode="grid", map_ba=True, device=dev)
+    for i in range(MAP_WARM):
+        slam.process(d[i], timestamp=ts[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(MAP_WARM, MAP_WARM + MAP_FRAMES):
+            slam.process(d[i], timestamp=ts[i])
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    busy, _, kernels, _ = profile_rows(prof)
+    us, launches = kernels.get("grid_correspond_kernel", (0.0, 0))
+    print(json.dumps({
+        "tag": args.tag, "card": card, "package": tpuslam_torch.__file__,
+        "mode": "grid", "shape": [GRID_N, GRID_M],
+        "has_table": getattr(index, "table", None) is not None,
+        "probe": probe, "index_build": index_build,
+        "map_grid_vga": {
+            "fps": r["fps"], "ate_rmse_m": r["ate_rmse_m"],
+            "ate_before_ba_m": r["ate_before_ba_m"], "map_ba": r["map_ba"],
+            "launches": r["launches"],
+            "poses_sha256": hashlib.sha256(poses["est"].tobytes()).hexdigest(),
+            "frames_profiled": [MAP_WARM, MAP_WARM + MAP_FRAMES - 1],
+            "grid_correspond_device_us": us,
+            "grid_correspond_launches": launches,
+            "device_busy_us": busy, "idle_share": 1 - busy / wall_us,
+            "kernels_device_us": {k: v[0] for k, v in kernels.items()}},
+    }), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="")
     ap.add_argument("--frames", type=int, default=32)
-    ap.add_argument("--mode", choices=("odometry", "map", "fps", "solve"),
-                    default="odometry")
+    ap.add_argument("--mode", choices=("odometry", "map", "fps", "solve",
+                                       "grid"), default="odometry")
     ap.add_argument("--fused", action="store_true",
                     help="ICPConfig.fused_gn=True (odometry and fps)")
     args = ap.parse_args()
@@ -305,8 +478,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
-    {"odometry": odometry, "map": track_map, "fps": fps, "solve": solve}[
-        args.mode](args, card, dev)
+    {"odometry": odometry, "map": track_map, "fps": fps, "solve": solve,
+     "grid": grid}[args.mode](args, card, dev)
     return 0
 
 

@@ -19,7 +19,7 @@ from tpuslam_torch.backend.posegraph import PoseGraph
 from tpuslam_torch.config import SLAMConfig
 from tpuslam_torch.frontend import KeyframeRecord, ScanState, VerifyTable
 from tpuslam_torch.geom.cloud import PointCloud
-from tpuslam_torch.kernels.correspond import GridIndex
+from tpuslam_torch.kernels.correspond import GridIndex, with_cell_table
 from tpuslam_torch.transfer import upload
 
 
@@ -84,12 +84,11 @@ def grid_index_from_reference(index, device) -> GridIndex:
     rows = np.zeros((points.shape[0], 8), dtype=np.float32)
     rows[:, 0:3] = points
     rows[:, 3:6] = np.asarray(index.normals, dtype=np.float32)
-    return GridIndex(keys=upload(np.asarray(index.keys, dtype=np.int32),
-                                 device),
-                     rows=upload(rows, device),
-                     origin=upload(np.asarray(index.origin,
-                                              dtype=np.float32), device),
-                     cell=float(np.asarray(index.cell)))
+    return with_cell_table(GridIndex(
+        keys=upload(np.asarray(index.keys, dtype=np.int32), device),
+        rows=upload(rows, device),
+        origin=upload(np.asarray(index.origin, dtype=np.float32), device),
+        cell=float(np.asarray(index.cell))))
 
 
 def map_ba_problem_from_reference(prob, device) -> MapBAProblem:

@@ -1,6 +1,6 @@
 """Build and bind the port's CUDA kernels (`tpuslam_torch/csrc/*.cu`):
 correspond, gn_partials, gn_epilogue, gn_step, gn_fused, ring_nn and
-grid_correspond.
+grid_correspond (with its table of occupied cells).
 
 The sources have a plain C interface: nvcc compiles them into one shared
 library for `sm_90a`, which `ctypes` loads.  That takes seconds, where an
@@ -49,8 +49,9 @@ _SIGNATURES = {
                               _F, _I, _I, _I, _F, _P, _P, _I, _P],
     "tpuslam_ring_nn": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                         _F, _P, _P, _P, _P, _P],
-    "tpuslam_grid_correspond": [_P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _P,
-                                _P, _P, _P, _P, _P],
+    "tpuslam_grid_correspond": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _F, _I,
+                                _F, _P, _P, _P, _P, _P, _P],
+    "tpuslam_grid_table": [_P, _I, _P, _I, _P],
     "tpuslam_ring_nn_slices": [_I, _I],
     "tpuslam_ring_nn_query_tiles": [_I],
 }

@@ -17,13 +17,16 @@ Unorganized targets (a voxel map, map-BA control points):
 sort) into one (M, 8) float32 row table ``[p, n, 0, 0]``.
 `grid_correspond_at_pose` (posed, the ICP loop's association) and
 `grid_hash_correspond` (the reference-shaped call, on points already in the
-target's frame) probe the 27 cells around each query: a binary search of
-the sorted keys, then up to 16 slots of the cell.  On a CUDA tensor both
-are the hand kernel `csrc/grid_correspond.cu`; on a CPU tensor the plain
-twins `grid_correspond_at_pose_reference` and
+target's frame) probe the 27 cells around each query: a lookup of the
+cell's run in the index's table of occupied cells (built with the index on
+the card, `with_cell_table`), then up to 16 slots of the cell.  On a CUDA
+tensor both are the hand kernel `csrc/grid_correspond.cu`; on a CPU tensor
+the plain twins `grid_correspond_at_pose_reference` and
 `grid_hash_correspond_reference`, which follow the reference's loop (q, n,
-w and idx are bit-equal on the card).  `brute_force_correspond` is the
-reference's O(N·M) oracle, plain PyTorch on any device.
+w and idx are bit-equal on the card) and need no table;
+`cell_runs_reference` states what the table returns.
+`brute_force_correspond` is the reference's O(N·M) oracle, plain PyTorch
+on any device.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from tpuslam_torch.kernels import gn_epilogue as ep
 
 counter = _build.LaunchCounter()           # csrc/correspond.cu
 grid_counter = _build.LaunchCounter()      # csrc/grid_correspond.cu
+table_counter = _build.LaunchCounter()     # its table of occupied cells
 
 
 class Correspondence(NamedTuple):
@@ -307,17 +311,22 @@ def brute_force_correspond(x: torch.Tensor, x_mask: torch.Tensor,
 _GRID_DIMS = 256          # per-axis cells; 8 bits each pack into an int32
 _INVALID_KEY = torch.iinfo(torch.int32).max
 CANDIDATES_PER_CELL = 16
+_TABLE_HASH = 0x9E3779B1  # the table's multiplicative hash (top bits)
+_TABLE_EMPTY = 0xFFFFFFFF  # an empty entry's key field (no key is −1)
 
 
 class GridIndex(NamedTuple):
     """A target cloud sorted by packed cell key (the reference's
     `GridIndex`).  Each row holds a point and its normal in 32 bytes, so a
-    candidate costs the kernel one memory sector."""
+    candidate costs the kernel one memory sector.  On the card `table`
+    holds the occupied cells' runs (`with_cell_table`); the CPU twins
+    search the keys and leave it None."""
 
     keys: torch.Tensor     # (M,) int32 sorted packed cell keys
     rows: torch.Tensor     # (M, 8) float32 [p, n, 0, 0] in key order
     origin: torch.Tensor   # (3,) float32 grid anchor
     cell: float            # cell edge length (float32 in the arithmetic)
+    table: torch.Tensor | None = None  # (cell_table_size(M),) int64
 
     @property
     def points(self) -> torch.Tensor:
@@ -368,8 +377,90 @@ def build_grid_index(dst: PointCloud, cell: float,
     pad = torch.zeros((dst.points.shape[0], 2), dtype=torch.float32,
                       device=dst.points.device)
     rows = torch.cat([dst.points, dst.normals, pad], dim=1)[order]
-    return GridIndex(keys=keys[order].contiguous(), rows=rows.contiguous(),
-                     origin=origin.contiguous(), cell=float(cell))
+    return with_cell_table(GridIndex(
+        keys=keys[order].contiguous(), rows=rows.contiguous(),
+        origin=origin.contiguous(), cell=float(cell)))
+
+
+def cell_table_size(m: int) -> int:
+    """Entries of the table of an M-row index: a power of two ≥ 2M (at
+    most half of it is filled) and ≥ 64."""
+    return max(64, 1 << (2 * m - 1).bit_length())
+
+
+def with_cell_table(index: GridIndex) -> GridIndex:
+    """`index` with its table of occupied cells, built on the card by
+    csrc/grid_correspond.cu (a fill, then one thread a sorted row: each
+    run's first row inserts its key with (start << 5 | min(run, 16)) by
+    atomicCAS into an open-addressing hash).  The probe reads a cell's run
+    there in place of a search of the keys.  On the CPU `index` as it is:
+    the plain twins search the keys.  Every index that reaches the probe
+    on the card goes through here."""
+    keys = index.keys
+    if keys.device.type == "cpu":
+        return index
+    if keys.device.type != "cuda":
+        raise ValueError(f"with_cell_table: no kernel for {keys.device}")
+    m = keys.shape[0]
+    _build.require(keys, "keys", dtype=torch.int32, shape=(m,))
+    if m >= 1 << 27:
+        raise ValueError(f"with_cell_table: {m} rows; a run's start takes "
+                         "27 bits")
+    size = cell_table_size(m)
+    table = torch.empty(size, dtype=torch.int64, device=keys.device)
+    err = _build.library().tpuslam_grid_table(
+        keys.data_ptr(), m, table.data_ptr(), size,
+        _build.stream_handle(keys))
+    _build.check_launch(err, "grid_table")
+    table_counter.launches += 1
+    return index._replace(table=table)
+
+
+def cell_runs_reference(keys: torch.Tensor):
+    """What the table returns, in plain PyTorch: (cell keys, start,
+    count) of each distinct valid key of the sorted `keys`, its first row
+    and min(run length, 16).  The probe scans exactly those rows of a
+    cell (the reference's 16 slots less those of another key)."""
+    valid = keys[keys != _INVALID_KEY]       # a prefix: invalid sorts last
+    cells, runs = torch.unique_consecutive(valid, return_counts=True)
+    start = torch.cumsum(runs, 0) - runs
+    return cells, start, runs.clamp(max=CANDIDATES_PER_CELL)
+
+
+def cell_table_lookup(table: torch.Tensor, keys: torch.Tensor):
+    """(start, count) of each key in a table, by the kernel's probe rule
+    in plain PyTorch: the slot is the top log2(size) bits of key ·
+    0x9E3779B1 mod 2³², then the next slot until the key or an empty
+    entry; a key the table lacks gives (0, 0)."""
+    size = table.shape[0]
+    bits = size.bit_length() - 1
+    key = keys.to(torch.int64) & 0xFFFFFFFF
+    h = ((key * _TABLE_HASH) & 0xFFFFFFFF) >> (32 - bits)
+    start = torch.zeros_like(key)
+    count = torch.zeros_like(key)
+    open_ = torch.ones_like(key, dtype=torch.bool)
+    for _ in range(size):
+        e = table[h]
+        k = e & 0xFFFFFFFF
+        hit = open_ & (k == key)
+        run = (e >> 32) & 0xFFFFFFFF
+        start = torch.where(hit, run >> 5, start)
+        count = torch.where(hit, run & 31, count)
+        open_ &= ~hit & (k != _TABLE_EMPTY)
+        if not bool(open_.any()):
+            break
+        h = (h + 1) & (size - 1)
+    return start, count
+
+
+def cell_table_entries(table: torch.Tensor):
+    """(cell keys, start, count) of a table's filled entries in key
+    order: the table's content, whatever its layout."""
+    e = table[(table & 0xFFFFFFFF) != _TABLE_EMPTY]
+    k = e & 0xFFFFFFFF
+    order = torch.argsort(k)
+    run = (e[order] >> 32) & 0xFFFFFFFF
+    return k[order].to(torch.int32), run >> 5, run & 31
 
 
 def grid_hash_correspond_reference(x: torch.Tensor, x_mask: torch.Tensor,
@@ -502,6 +593,12 @@ def _grid_launch(name, pts, mask, pose_ptr, index: GridIndex, max_dist,
         raise ValueError("rows: must be 16-byte aligned")
     if m < 1:
         raise ValueError("index: no rows")
+    if index.table is None:
+        raise ValueError(f"{name}: the index has no table of its cells "
+                         "(build_grid_index or with_cell_table on the card)")
+    size = cell_table_size(m)
+    _build.require(index.table, "table", dtype=torch.int64, shape=(size,),
+                   device=dev)
     if out is None:
         out = correspondence_buffers(n_pts, dev)
     q, n, w, idx = out
@@ -514,7 +611,8 @@ def _grid_launch(name, pts, mask, pose_ptr, index: GridIndex, max_dist,
         return out
     err = _build.library().tpuslam_grid_correspond(
         pts.data_ptr(), mask.data_ptr(), pose_ptr, index.keys.data_ptr(),
-        index.rows.data_ptr(), m, index.origin.data_ptr(), index.cell,
+        index.rows.data_ptr(), m, index.table.data_ptr(), size,
+        index.origin.data_ptr(), index.cell,
         n_pts, max_dist * max_dist,
         done.data_ptr() if done is not None else None,
         q.data_ptr(), n.data_ptr(), w.data_ptr(), idx.data_ptr(),
