@@ -148,6 +148,28 @@ Phases, in order (any failure raises and the script exits non-zero):
  15. pathology — bench_pathology: 60 degraded frames at 640×480 with a
                 rotation burst (ATE < 0.04 m, no frame lost), beside the
                 reference's TPU ATE
+ 16. dist     — the distributed stages (dist/sharded_icp, backend/distba,
+                backend/map_ba's landmark-sharded BA, dist/batch_eval),
+                each held to its single-device call on the card: first on
+                one rank of an NCCL group (align_frames_spmd of phase 6's
+                first 640×480 pair at 3 levels: correspond, gn_partials
+                and gn_epilogue launched, no twin called, T within 1e-5,
+                iterations within ±3; the pose graph, map BA and batched
+                alignment on the one-rank mesh; run_bench(devices=1) over
+                phase 6's orbit), then on 4 gloo ranks sharing the card,
+                each a process of tpuslam_torch/bench/dist_ranks.py on
+                cuda:0 with the kernels this run built (any rank failing
+                or over its limit fails the phase): the sharded ICP of the
+                same pair (~38k of the 153,600 level-0 points a rank; T
+                within 1e-5, iterations ±3), optimize_pose_graph_spmd on
+                phase 14's final graph (poses within 5e-4),
+                optimize_map_ba_spmd on phase 12b's map BA problem (poses
+                and map within 5e-5, dropped observations printed), the
+                batched aligner on 8 pairs of the orbit, 2 a rank (each
+                within 2e-4 of its own alignment), and run_bench on 24
+                frames with devices=4 (its times labelled as one shared
+                card, not scaling); every rank's results equal, each
+                stage's launches per rank, no twin called
 Then one JSON line with the kernels, and last a JSON line with the device.
 No JAX is imported.
 """
@@ -1775,6 +1797,244 @@ def pathology_phase(card: str, counters) -> None:
     check(all(v == 0 for v in plain.values()), f"pathology: plain {plain}")
 
 
+DIST_WORLD = 4             # gloo ranks sharing the one card
+DIST_BATCH = 8             # the batched aligner's pairs, 2 a rank
+DIST_BENCH_FRAMES = 24     # run_bench's frames on each of the 4 ranks
+DIST_TIMEOUT_S = 420       # the 4 ranks' limit (each, and the gloo group)
+TOL_DIST_ICP_T = 1e-5      # tests/test_dist.py:67-71
+TOL_DIST_ICP_ITERS = 3
+TOL_DIST_PG = 5e-4         # tests/test_dist.py:101-103
+TOL_DIST_BA = 5e-5         # tests/test_map_ba.py:194-197
+TOL_DIST_BATCH = 2e-4      # tests/test_batch_eval.py
+
+
+class LastInstance:
+    """Keeps the last instance of `cls` made inside the `with` block (a
+    phase's SlamSystem, whose final state a later phase reads)."""
+
+    def __init__(self, cls):
+        self.cls, self.made = cls, None
+
+    def __enter__(self):
+        init = self.init = self.cls.__init__
+        keep = self
+
+        def wrapped(obj, *a, **k):
+            init(obj, *a, **k)
+            keep.made = obj
+        self.cls.__init__ = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.init
+
+
+def dist_phase(dev, card: str, counters, orbit, pg_in, ba_in) -> dict:
+    """The distributed stages (phase 16): one rank under an NCCL group,
+    then four gloo ranks on the one card (module doc).  `orbit` is phase
+    6's sequence; `pg_in` (graph, PoseGraphConfig) phase 14's final graph;
+    `ba_in` (graph, problem, PoseGraphConfig, huber) phase 12b's map BA.
+    Returns the path kernels' launches: the one-rank sharded ICP, and each
+    gloo rank's sharded ICP and batched alignment."""
+    import tempfile
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from tpuslam_torch.backend.distba import optimize_pose_graph_spmd
+    from tpuslam_torch.backend.map_ba import (
+        optimize_map_ba,
+        optimize_map_ba_spmd,
+        partition_observations,
+    )
+    from tpuslam_torch.backend.posegraph import optimize_pose_graph
+    from tpuslam_torch.bench import dist_ranks
+    from tpuslam_torch.bench.harness import run_bench
+    from tpuslam_torch.config import SLAMConfig
+    from tpuslam_torch.dist.batch_eval import make_batched_aligner
+    from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
+    from tpuslam_torch.dist.sharded_icp import align_frames_spmd
+    from tpuslam_torch.frontend import preprocess
+    from tpuslam_torch.icp import Frame, align_frames
+
+    K, gt, d_np = orbit
+    frames, height, width = d_np.shape
+    cfg = SLAMConfig(height=height, width=width).validate()
+    d = torch.as_tensor(d_np[:DIST_BATCH + 1], device=dev)
+    pyrs = [preprocess(d[i], K, cfg) for i in range(DIST_BATCH + 1)]
+    eye = torch.eye(4, device=dev)
+    pg_graph, pg_cfg = pg_in
+    ba_graph, ba_prob, ba_cfg, ba_huber = ba_in
+    ring = ("correspond", "gn_partials", "gn_epilogue")
+
+    def fenced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def stack(ps):
+        return tuple(Frame(*(torch.stack([p[li][k] for p in ps])
+                             for k in range(3))) for li in range(len(ps[0])))
+
+    # the single-device results on the card, which the ranks are held to
+    icp_ref, icp_ms = fenced(lambda: align_frames(pyrs[1], pyrs[0], K, eye,
+                                                  cfg.icp))
+    pg_ref, pg_ms = fenced(lambda: optimize_pose_graph(pg_graph, pg_cfg)[0])
+    ba_ref, ba_ms = fenced(lambda: optimize_map_ba(
+        ba_graph, ba_prob, ba_cfg, huber_delta=ba_huber))
+    batch_ref = [align_frames(pyrs[b + 1], pyrs[b], K, eye, cfg.icp)
+                 for b in range(DIST_BATCH)]
+    n_live = int((pg_graph.node_mask).sum())
+    log(f"[dist] single device: align_frames {icp_ms:.3f} ms ({int(icp_ref.iters)}"
+        f" iterations at level 0); optimize_pose_graph {pg_ms:.3f} ms "
+        f"({n_live} nodes of {pg_graph.poses.shape[0]}, "
+        f"{int((pg_graph.edge_weight > 0).sum())} edges, {pg_cfg.gn_iters} "
+        f"rounds); optimize_map_ba {ba_ms:.3f} ms "
+        f"({int((ba_prob.obs_w > 0).sum())} observations, "
+        f"{ba_prob.map_points.shape[0]} control points) ({card})")
+
+    # ---- 16.1: one rank, NCCL ----
+    initialize_distributed(f"tcp://localhost:{free_port()}", world_size=1,
+                           rank=0, backend="nccl", timeout_s=60)
+    try:
+        mesh = make_mesh(dev)
+        for c in counters.values():
+            c.reset()
+        res1, ms1 = fenced(lambda: align_frames_spmd(pyrs[1], pyrs[0], K,
+                                                     eye, cfg.icp, mesh))
+        one = {k: c.launches for k, c in counters.items()}
+        plain = {k: c.plain_calls for k, c in counters.items()}
+        _res, warm1 = fenced(lambda: align_frames_spmd(pyrs[1], pyrs[0], K,
+                                                       eye, cfg.icp, mesh))
+        err1 = float((res1.T - icp_ref.T).abs().max())
+        log(f"[dist] one NCCL rank: align_frames_spmd {ms1:.3f} ms (the "
+            f"first, with NCCL's set-up), {warm1:.3f} ms the next, T "
+            f"within {err1:.3e} of align_frames, iterations "
+            f"{int(res1.iters)} / {int(icp_ref.iters)} ({card})")
+        log(f"[dist] one NCCL rank launches {one} plain calls {plain}")
+        check(all(one[k] > 0 for k in ring), f"dist one rank: {one}")
+        check(all(v == 0 for v in plain.values()),
+              f"dist one rank: plain calls {plain}")
+        check(err1 <= TOL_DIST_ICP_T, f"dist one rank: T {err1}")
+        check(abs(int(res1.iters) - int(icp_ref.iters)) <= TOL_DIST_ICP_ITERS,
+              "dist one rank: iterations")
+        (pg1, _c), pg1_ms = fenced(lambda: optimize_pose_graph_spmd(
+            pg_graph, pg_cfg, mesh))
+        (bp1, bm1, _bc), ba1_ms = fenced(lambda: optimize_map_ba_spmd(
+            ba_graph, ba_prob, ba_cfg, mesh, huber_delta=ba_huber))
+        res_b, batch1_ms = fenced(lambda: make_batched_aligner(mesh, cfg.icp)(
+            stack(pyrs[1:]), stack(pyrs[:-1]), K,
+            eye.repeat(DIST_BATCH, 1, 1)))
+        errs = {"pose_graph": float((pg1 - pg_ref).abs().max()),
+                "map_ba_poses": float((bp1 - ba_ref[0]).abs().max()),
+                "map_ba_map": float((bm1 - ba_ref[1]).abs().max()),
+                "batch": max(float((res_b.T[b] - r.T).abs().max())
+                             for b, r in enumerate(batch_ref))}
+        log(f"[dist] one NCCL rank: optimize_pose_graph_spmd {pg1_ms:.3f} ms"
+            f", optimize_map_ba_spmd {ba1_ms:.3f} ms, batched aligner "
+            f"{batch1_ms:.3f} ms ({DIST_BATCH} pairs); max errors {errs} "
+            f"({card})")
+        check(errs["pose_graph"] <= TOL_DIST_PG, f"dist one rank: {errs}")
+        check(max(errs["map_ba_poses"], errs["map_ba_map"]) <= TOL_DIST_BA,
+              f"dist one rank: {errs}")
+        check(errs["batch"] <= TOL_DIST_BATCH, f"dist one rank: {errs}")
+        rb = run_bench(frames, height, width, device=str(dev),
+                       sequence=orbit, devices=1)
+        log(f"[dist] one NCCL rank run_bench({frames}, {height}, {width}, "
+            f"devices=1): "
+            f"spmd_align_ms {rb['spmd_align_ms']:.4f}, single_align_ms "
+            f"{rb['single_align_ms']:.4f}, scaling_efficiency "
+            f"{rb['scaling_efficiency']:.4f}, n_devices {rb['n_devices']}, "
+            f"fps {rb['fps']:.3f} ({card})")
+        check(rb["n_devices"] == 1 and rb["spmd_align_ms"] > 0,
+              f"dist one rank: run_bench {rb}")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 16.2: four gloo ranks sharing the card ----
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = Path(tmp) / "in.npz"
+        dist_ranks.pack_inputs(
+            inp, icp=(pyrs[1], pyrs[0], K, eye, cfg),
+            pg=(pg_graph, SLAMConfig(posegraph=pg_cfg), 0.5),
+            ba=(ba_graph, ba_prob, SLAMConfig(posegraph=ba_cfg), ba_huber,
+                0.5),
+            batch=(stack(pyrs[1:]), stack(pyrs[:-1]), K,
+                   eye.repeat(DIST_BATCH, 1, 1), cfg),
+            bench=(K, gt[:DIST_BENCH_FRAMES], d_np[:DIST_BENCH_FRAMES]))
+        t0 = time.perf_counter()
+        outs = dist_ranks.run(DIST_WORLD, inp, tmp, device=str(dev),
+                              backend="gloo", timeout_s=DIST_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    kernels = [str(k) for k in outs[0]["kernels"]]
+    log(f"[dist] {DIST_WORLD} gloo ranks on {dev}: {wall:.3f} s from spawn "
+        f"to exit ({card})")
+    for key in [k for k in outs[0] if not k.endswith(("_ms", "_launches",
+                                                      "_plain", "json"))
+                and k not in ("kernels", "jax_imported")]:
+        check(all(np.array_equal(o[key], outs[0][key]) for o in outs),
+              f"dist: {key} differs between ranks")
+    check(not any(bool(o["jax_imported"]) for o in outs), "dist: JAX")
+    launches = {}
+    for r, o in enumerate(outs):
+        per = {st: dict(zip(kernels, o[f"{st}_launches"].tolist()))
+               for st in dist_ranks.STAGES}
+        plain = {st: dict(zip(kernels, o[f"{st}_plain"].tolist()))
+                 for st in dist_ranks.STAGES}
+        log(f"[dist] rank {r}: " + ", ".join(
+            f"{st} {float(o[f'{st}_ms']):.3f} ms" for st in dist_ranks.STAGES)
+            + f" ({card}); launches " + json.dumps(
+                {st: {k: v for k, v in p.items() if v}
+                 for st, p in per.items()}))
+        check(all(per["icp"][k] > 0 for k in ring),
+              f"dist rank {r}: sharded ICP launches {per['icp']}")
+        check(per["icp"]["gn_step"] == 0, f"dist rank {r}: {per['icp']}")
+        check(all(per["batch"][k] > 0 for k in ("correspond", "gn_step")),
+              f"dist rank {r}: batch launches {per['batch']}")
+        check(all(v == 0 for p in plain.values() for v in p.values()),
+              f"dist rank {r}: plain calls {plain}")
+        launches[r] = per
+    o = outs[0]
+    icp_err = float(np.abs(o["icp_T"] - icp_ref.T.cpu().numpy()).max())
+    pg_err = float(np.abs(o["pg_poses"] - pg_ref.cpu().numpy()).max())
+    ba_err = (float(np.abs(o["ba_poses"] - ba_ref[0].cpu().numpy()).max()),
+              float(np.abs(o["ba_map"] - ba_ref[1].cpu().numpy()).max()))
+    batch_err = [float(np.abs(o["batch_T"][b] - r.T.cpu().numpy()).max())
+                 for b, r in enumerate(batch_ref)]
+    dropped = int(o["ba_dropped"])
+    log(f"[dist] {DIST_WORLD} ranks against the single device: sharded ICP T"
+        f" {icp_err:.3e} (iterations {int(o['icp_iters'])} / "
+        f"{int(icp_ref.iters)}), pose graph {pg_err:.3e}, map BA poses "
+        f"{ba_err[0]:.3e} map {ba_err[1]:.3e} (dropped {dropped} of "
+        f"{int((ba_prob.obs_w > 0).sum())}; "
+        f"{partition_observations(ba_prob, DIST_WORLD)[1]} control points a "
+        f"rank), batch max {max(batch_err):.3e}")
+    check(icp_err <= TOL_DIST_ICP_T, f"dist: sharded ICP T {icp_err}")
+    check(abs(int(o["icp_iters"]) - int(icp_ref.iters)) <= TOL_DIST_ICP_ITERS,
+          "dist: sharded ICP iterations")
+    check(pg_err <= TOL_DIST_PG, f"dist: pose graph {pg_err}")
+    check(max(ba_err) <= TOL_DIST_BA, f"dist: map BA {ba_err}")
+    check(max(batch_err) <= TOL_DIST_BATCH, f"dist: batch {batch_err}")
+    for r, o in enumerate(outs):
+        rb = json.loads(str(o["bench_json"]))
+        log(f"[dist] rank {r} run_bench({DIST_BENCH_FRAMES}, {height}, "
+            f"{width}, devices={DIST_WORLD}), {DIST_WORLD} gloo ranks "
+            f"time-sharing one"
+            f" card: not a scaling figure: spmd_align_ms "
+            f"{rb['spmd_align_ms']:.4f}, single_align_ms "
+            f"{rb['single_align_ms']:.4f}, scaling_efficiency "
+            f"{rb['scaling_efficiency']:.4f}, fps {rb['fps']:.3f}, ATE "
+            f"{rb['ate_rmse_m']:.3e} m ({card})")
+        check(rb["n_devices"] == DIST_WORLD and rb["ate_rmse_m"] < 1e-3,
+              f"dist rank {r}: run_bench {rb}")
+    return {"nccl_one_rank_icp": one,
+            "gloo_rank_icp": [launches[r]["icp"] for r in range(DIST_WORLD)],
+            "gloo_rank_batch": [launches[r]["batch"]
+                                for r in range(DIST_WORLD)]}
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -2205,7 +2465,7 @@ def main() -> int:
         f"{k} {v:.4f}" for k, v in per_frame_fused.items()))
     check(fused_launches["gn_epilogue"] == fused_launches["correspond"] == 0,
           f"fused: launches {fused_launches}")
-    del orbit, d_o
+    del d_o               # the orbit stays for phase 16
 
     # ---- 8. small slam: GPU kernels vs CPU twins on the 48-frame loop ----
     from tpuslam_torch.config import PoseGraphConfig, VoxelConfig
@@ -2468,8 +2728,20 @@ def main() -> int:
                                       slam_res[False]["sync"]["ate_rmse_m"])
 
     # ---- 12b. grid: the grid path at full width (this slice's path) ----
+    import tpuslam_torch.slam as slam_module
+
     t0 = time.perf_counter()
-    launches_grid = grid_phase(dev, card, counters, loop, map_fps)
+    ba_calls = []
+    optimize_map_ba = slam_module.optimize_map_ba
+
+    def keep_ba(graph, prob, pg_cfg, huber_delta):
+        ba_calls.append((graph, prob, pg_cfg, huber_delta))
+        return optimize_map_ba(graph, prob, pg_cfg, huber_delta=huber_delta)
+    slam_module.optimize_map_ba = keep_ba     # phase 16 re-solves its BA
+    try:
+        launches_grid = grid_phase(dev, card, counters, loop, map_fps)
+    finally:
+        slam_module.optimize_map_ba = optimize_map_ba
     log(f"[grid] phase took {time.perf_counter() - t0:.3f} s")
     del loop
 
@@ -2480,8 +2752,21 @@ def main() -> int:
     log(f"[cli] phase took {time.perf_counter() - t0:.3f} s")
     for name, fn in (("scale", scale_phase), ("pathology", pathology_phase)):
         t0 = time.perf_counter()
-        fn(card, counters)
+        with LastInstance(SlamSystem) as scale_slam:
+            fn(card, counters)
+        if name == "scale":           # phase 16 re-solves its final graph
+            scale_graph = (scale_slam.made.graph.graph(),
+                           scale_slam.made.cfg.posegraph)
         log(f"[{name}] phase took {time.perf_counter() - t0:.3f} s")
+    del scale_slam
+
+    # ---- 16. dist: the distributed stages, one NCCL rank, 4 gloo ranks ----
+    t0 = time.perf_counter()
+    # 12b's first BA is run_map_bench's at finalize (all keyframes)
+    launches_dist = dist_phase(dev, card, counters, orbit, scale_graph,
+                               ba_calls[0])
+    log(f"[dist] phase took {time.perf_counter() - t0:.3f} s")
+    del orbit, ba_calls, scale_graph
 
     # ---- result lines ----
     sources = {
@@ -2560,6 +2845,15 @@ def main() -> int:
                 "grid_fallback": launches_fallback[name],
                 "cli_lc_descriptor": launches_cli["lc_descriptor"][name]},
             **({"ring_size": ring_partials} if name == "gn_partials" else {}),
+            # the distributed stages (phase 16): the sharded ICP on one
+            # NCCL rank, and on each of 4 gloo ranks sharing the card with
+            # their batched alignment
+            "dist_launches": {
+                "nccl_one_rank_icp": launches_dist["nccl_one_rank_icp"][name],
+                "gloo_rank_icp": [p[name] for p in
+                                  launches_dist["gloo_rank_icp"]],
+                "gloo_rank_batch": [p[name] for p in
+                                    launches_dist["gloo_rank_batch"]]},
         })
     log(json.dumps({"gn_step_ab": step_ab}))
     log(json.dumps({"kernels": kernels}))

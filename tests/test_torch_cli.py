@@ -8,7 +8,9 @@ graph nodes and retained clouds, the ATEs (≈ 5e-5 m) within 1e-5 of each
 other, and the per-frame JSONL records have the same keys and the same
 ICP iteration counts.  `--map-ba`, `--map-track-mode grid` and
 `--lc-descriptor` run through both CLIs alike.  Each flag whose code is not
-ported exits with 2 and names its ROADMAP item.
+ported exits with 2 and names its ROADMAP item; `bench --devices 2` without
+a process group of 2 ranks exits with 2 and says so (two processes:
+tests/test_torch_multihost.py).
 """
 
 import io
@@ -160,7 +162,8 @@ def test_lc_descriptor_matches_reference(smoke, tmp_path, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--async-backend", "--chunk-mode", "inline"], "item 17"),
     (None, "item 17"),
-    (["--devices", "2"], "item 16"),
+    # ported since: without a process group of 2 ranks it is a ValueError
+    (["--devices", "2"], None),
 ], ids=["async-inline", "coldstart", "devices"])
 def test_unported_flags_exit_2(smoke, capsys, flags, item):
     seq = smoke["port"][4]
@@ -173,7 +176,10 @@ def test_unported_flags_exit_2(smoke, capsys, flags, item):
         argv = ["run_slam", "--sequence", seq, "--device", "cpu", *flags]
     assert pcli.main(argv) == 2
     err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP Queue 1 {item})" in err
+    if item is None:
+        assert "devices=2, but the process group has 1 rank" in err, err
+    else:
+        assert "not ported yet" in err and f"ROADMAP Queue 1 {item})" in err
 
 
 @pytest.mark.parametrize("flags", [

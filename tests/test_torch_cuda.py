@@ -1315,3 +1315,121 @@ def test_grid_fallback_attempt_on_card_matches_cpu(dev, tmp_path):
     assert cg == cc and len(cc) >= 1
     assert np.abs(eg - ec).max() <= 1e-4
     assert all(isinstance(x, np.ndarray) for x in descs if x is not None)
+
+
+def _graph_and_problem(device, seed=5, N=6, C=512):
+    """A keyframe chain with noisy poses, and its map BA problem built by
+    the grid probe, on `device`."""
+    from tpuslam_torch.backend import map_ba
+    from tpuslam_torch.backend.posegraph import GraphHost
+    from tpuslam_torch.config import PoseGraphConfig
+
+    rng = np.random.default_rng(seed)
+    pts, nrm, mask = grid_target(3000)
+    poses, kf_pts = [], []
+    for _ in range(N):
+        T = se3.exp(torch.as_tensor(0.1 * rng.normal(size=6),
+                                    dtype=torch.float32)).numpy()
+        Ti = np.linalg.inv(T.astype(np.float64))
+        pw = pts[rng.integers(5, 3000, C)] + 0.01 * rng.normal(size=(C, 3))
+        poses.append(T)
+        kf_pts.append(pw @ Ti[:3, :3].T + Ti[:3, 3])
+    cfg = PoseGraphConfig(max_nodes=8, max_edges=16, gn_iters=10)
+    g = GraphHost(cfg, device=device)
+    noise = rng.normal(scale=0.01, size=(N, 3))
+    for i, T in enumerate(poses):
+        T = T.copy()
+        T[:3, 3] += noise[i]
+        g.add_node(T)
+    for i in range(1, N):
+        g.add_edge(i - 1, i, np.linalg.inv(poses[i - 1]) @ poses[i])
+    g.add_edge(0, N - 1, np.linalg.inv(poses[0]) @ poses[N - 1], weight=2.0)
+    prob = map_ba.build_map_ba_problem(
+        *(torch.as_tensor(a, device=device) for a in (
+            np.stack(poses).astype(np.float32),
+            np.stack(kf_pts).astype(np.float32),
+            rng.uniform(size=(N, C)) > 0.05, pts, nrm, mask)), max_dist=0.1)
+    return g.graph(), prob, cfg
+
+
+@pytest.mark.cuda
+def test_sharded_icp_one_rank_on_card_matches_align_frames(dev):
+    """align_frames_spmd on a one-rank mesh (no group) at 3 levels: its
+    kernels launched (correspond, gn_partials at the pose, gn_epilogue),
+    no twin, and the pose of align_frames on the card within 1e-5,
+    iterations within ±3."""
+    from tpuslam_torch.dist.mesh import make_mesh
+    from tpuslam_torch.dist.sharded_icp import align_frames_spmd
+
+    d = torch.as_tensor(depths(2), device=dev)
+    pyr_a, pyr_b = preprocess(d[0], K, CFG), preprocess(d[1], K, CFG)
+    counters = (correspond.counter, gn_partials.counter,
+                gn_epilogue.counter, gn_step.counter)
+    for c in counters:
+        c.reset()
+    res = align_frames_spmd(pyr_b, pyr_a, K, torch.eye(4, device=dev),
+                            CFG.icp, make_mesh(dev))
+    torch.cuda.synchronize()
+    assert all(c.launches > 0 for c in counters[:3])
+    assert gn_step.counter.launches == 0
+    assert all(c.plain_calls == 0 for c in counters)
+    ref = align_frames(pyr_b, pyr_a, K, torch.eye(4, device=dev), CFG.icp)
+    assert res.T.device == dev
+    assert float((res.T - ref.T).abs().max()) <= 1e-5
+    assert abs(int(res.iters) - int(ref.iters)) <= 3
+
+
+@pytest.mark.cuda
+def test_distributed_pose_graph_one_rank_on_card(dev):
+    """optimize_pose_graph_spmd on a one-rank mesh against
+    optimize_pose_graph on the card: poses within 5e-4."""
+    from tpuslam_torch.backend.distba import optimize_pose_graph_spmd
+    from tpuslam_torch.backend.posegraph import optimize_pose_graph
+    from tpuslam_torch.dist.mesh import make_mesh
+
+    graph, _prob, cfg = _graph_and_problem(dev)
+    poses, cost = optimize_pose_graph_spmd(graph, cfg, make_mesh(dev))
+    ref, _ = optimize_pose_graph(graph, cfg)
+    assert poses.device == dev and bool(torch.isfinite(cost))
+    assert float((poses - ref).abs().max()) <= 5e-4
+
+
+@pytest.mark.cuda
+def test_map_ba_spmd_one_rank_on_card(dev):
+    """optimize_map_ba_spmd on a one-rank mesh against optimize_map_ba on
+    the card, on a problem the grid probe built: poses and map within
+    5e-5."""
+    from tpuslam_torch.backend import map_ba
+    from tpuslam_torch.dist.mesh import make_mesh
+
+    graph, prob, cfg = _graph_and_problem(dev)
+    poses, map_pts, _cost = map_ba.optimize_map_ba_spmd(graph, prob, cfg,
+                                                        make_mesh(dev))
+    rp, rm, _rc = map_ba.optimize_map_ba(graph, prob, cfg)
+    assert map_pts.shape == prob.map_points.shape
+    assert float((poses - rp).abs().max()) <= 5e-5
+    assert float((map_pts - rm).abs().max()) <= 5e-5
+
+
+@pytest.mark.cuda
+def test_batched_aligner_one_rank_on_card(dev):
+    """make_batched_aligner on a one-rank mesh: each of 4 pairs within
+    2e-4 of its own align_frames on the card."""
+    from tpuslam_torch.dist.batch_eval import make_batched_aligner
+    from tpuslam_torch.dist.mesh import make_mesh
+    from tpuslam_torch.icp import Frame
+
+    d = torch.as_tensor(depths(5), device=dev)
+    pyrs = [preprocess(d[i], K, CFG) for i in range(5)]
+
+    def stack(ps):
+        return tuple(Frame(*(torch.stack([p[li][k] for p in ps])
+                             for k in range(3))) for li in range(3))
+
+    T0s = torch.eye(4, device=dev).repeat(4, 1, 1)
+    res = make_batched_aligner(make_mesh(dev), CFG.icp)(
+        stack(pyrs[1:]), stack(pyrs[:4]), K, T0s)
+    for b in range(4):
+        ref = align_frames(pyrs[b + 1], pyrs[b], K, T0s[b], CFG.icp)
+        assert float((res.T[b] - ref.T).abs().max()) <= 2e-4
+        assert int(res.iters[b]) == int(ref.iters)

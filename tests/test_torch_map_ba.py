@@ -17,6 +17,11 @@
 - A direct `refine_map_ba` with a deferred attempt pending: the reference
   leaves it pending (the next chunk would apply its pre-BA poses over
   BA's); the port drains it first.
+- The landmark-sharded BA: `optimize_map_ba_spmd` on one rank within
+  5e-5 of the port's and the reference's `optimize_map_ba`
+  (tests/test_map_ba.py:194-197), and `partition_observations` equal to
+  the reference's array for array, `dropped` too, also when buckets
+  overflow (four ranks: tests/test_torch_dist.py).
 """
 
 import jax.numpy as jnp
@@ -31,6 +36,7 @@ from tpuslam.geom import se3 as rse3
 from tpuslam.slam import SlamSystem as RSlam
 from tpuslam_torch.backend import map_ba as pba
 from tpuslam_torch.config import Intrinsics as PIntrinsics
+from tpuslam_torch.dist.mesh import make_mesh
 from tpuslam_torch.interop import (
     config_from_reference,
     map_ba_problem_from_reference,
@@ -224,3 +230,52 @@ def test_refine_map_ba_drains_a_pending_attempt(loop):  # noqa: F811
     ref._drain_pending()
     assert ([(c.i, c.j) for c in port.closures]
             == [(c.i, c.j) for c in ref.closures])
+
+
+# ---- the landmark-sharded BA (optimize_map_ba_spmd); on four gloo ranks
+# in tests/test_torch_dist.py ----
+
+
+def test_map_ba_spmd_one_rank_matches_single_device():
+    """One rank: poses and map within 5e-5 (tests/test_map_ba.py:194-197)
+    of the port's and the reference's single-device BA, on the reference
+    SPMD test's problem (default Huber)."""
+    _gt, _init, prob, graph, cfg, _m = _make_slam_like(
+        np.random.default_rng(1))
+    pg = pose_graph_from_reference(graph, "cpu")
+    pp = map_ba_problem_from_reference(prob, "cpu")
+    poses, map_pts, cost = pba.optimize_map_ba_spmd(pg, pp, cfg,
+                                                    make_mesh("cpu"))
+    assert map_pts.shape == pp.map_points.shape and np.isfinite(float(cost))
+    sp, sm, _sc = pba.optimize_map_ba(pg, pp, cfg)
+    rp, rm, _rc = rba.optimize_map_ba(graph, prob, cfg)
+    for want_p, want_m in ((sp.numpy(), sm.numpy()),
+                           (np.asarray(rp), np.asarray(rm))):
+        np.testing.assert_allclose(poses.numpy(), want_p, atol=5e-5)
+        np.testing.assert_allclose(map_pts.numpy(), want_m, atol=5e-5)
+
+
+@pytest.mark.parametrize("case", ["random", "slam_like", "overflow"])
+@pytest.mark.parametrize("n_dev", [4, 8])
+def test_partition_observations_equals_reference(case, n_dev):
+    """Every array, the landmarks a rank and `dropped` equal to the
+    reference's; "overflow" puts every observation in the first landmarks'
+    block under a tight cap, so buckets fill and drop."""
+    rng = np.random.default_rng(2)
+    if case == "random":
+        _poses, prob = _random_problem(rng, N=3, M=20, obs_per=4)
+    else:
+        _gt, _init, prob, _g, _cfg, _m = _make_slam_like(rng)
+    cap_factor = 0.5 if case == "overflow" else 1.5
+    if case == "overflow":
+        prob = prob._replace(obs_map=prob.obs_map % 7)
+    want, want_m, want_dropped = rba.partition_observations(prob, n_dev,
+                                                            cap_factor)
+    got, m_per, dropped = pba.partition_observations(
+        map_ba_problem_from_reference(prob, "cpu"), n_dev, cap_factor)
+    assert (m_per, dropped) == (want_m, want_dropped)
+    assert case != "overflow" or dropped > 0
+    for name, g, w in zip(got._fields, got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)

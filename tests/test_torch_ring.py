@@ -30,11 +30,7 @@ against the reference.
   1e-4 of the reference's on a one-device mesh).
 """
 
-import os
-import subprocess
-import sys
 from functools import partial
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +41,7 @@ from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 import tpuslam.dist.map_fusion as rfusion
+from tests import torch_dist_worker as worker
 from tests.test_icp_synthetic import make_clouds
 from tpuslam.config import ICPConfig as RICPConfig
 from tpuslam.config import VoxelConfig as RVoxelConfig
@@ -67,7 +64,6 @@ from tpuslam_torch.kernels import ring_nn as pring
 # cores (which slows these small ops down by an order of magnitude).
 torch.set_num_threads(1)
 
-REPO = Path(__file__).resolve().parent.parent
 WORLD = 4
 SCORE_RTOL = 1e-6
 POSE_TOL = 1e-4
@@ -424,28 +420,7 @@ def test_one_rank_mesh_has_no_collectives():
 
 def run_ranks(case, tmp_path, arrays):
     """Start WORLD worker processes on `arrays`; their outputs by rank."""
-    inp = tmp_path / "in.npz"
-    np.savez(inp, **arrays)
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(REPO / "tests" / "torch_dist_worker.py"), case,
-         str(r), str(WORLD), str(tmp_path / "rendezvous"), str(inp),
-         str(tmp_path)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
-    outs = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(WORLD)]
-    assert not any(bool(o["jax_imported"]) for o in outs)
-    return outs
+    return worker.run_ranks(case, tmp_path, arrays, WORLD)
 
 
 def check_ring_icp_four_ranks(tmp_path, T0):

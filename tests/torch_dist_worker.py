@@ -1,13 +1,16 @@
-"""One rank of a gloo process group for tests/test_torch_ring.py.
+"""One rank of a gloo process group for the port's multi-rank tests
+(tests/test_torch_ring.py, tests/test_torch_dist.py, ...).
 
     python tests/torch_dist_worker.py CASE RANK WORLD INIT_FILE IN.npz OUT_DIR
 
 Joins the group through `file://INIT_FILE`, runs CASE on the arrays of
 IN.npz with the port (tpuslam_torch only: this process imports no JAX) and
 writes OUT_DIR/rank<RANK>.npz.  Not a test module: the tests start WORLD
-of these processes and compare what they write with the reference.
+of these processes (`run_ranks`) and compare what they write with the
+reference.
 """
 
+import os
 import sys
 from pathlib import Path
 
@@ -97,6 +100,53 @@ def fusion_case(z, mesh) -> dict:
             "gathered_mask": full.mask.numpy()}
 
 
+def stages_case(z, mesh) -> dict:
+    """The distributed stages of tpuslam_torch/bench/dist_ranks.py (the
+    program the GPU check runs on each rank) on this rank."""
+    from tpuslam_torch.bench.dist_ranks import run_stages
+
+    return run_stages(z, mesh)
+
+
+def partials_case(z, mesh) -> dict:
+    """This rank's block of the points reduced to GN partials, all-reduced
+    (the reference's psum of the sharded gn_reduce), and its fold."""
+    from tpuslam_torch.kernels.gn_epilogue import fold_rows
+    from tpuslam_torch.kernels.gn_partials import gn_reduce_partials
+
+    n = z["x"].shape[0] // mesh.size
+    block = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    partials = mesh.all_reduce(gn_reduce_partials(
+        *(torch.as_tensor(z[k][block]) for k in ("x", "q", "n", "w")),
+        float(z["huber_delta"])))
+    return {"partials": partials.numpy(), "sums": fold_rows(partials).numpy()}
+
+
+CASES = {"ring": ring_case, "ring_hops": ring_hops_case,
+         "fusion": fusion_case, "stages": stages_case,
+         "partials": partials_case}
+
+
+def run_ranks(case, tmp_path, arrays, world: int, timeout_s: float = 240):
+    """Start `world` worker processes on `arrays` (a `file://` rendezvous
+    under `tmp_path`); their outputs by rank.  A failing rank or the time
+    limit ends the others and fails the call."""
+    from tpuslam_torch.bench.dist_ranks import spawn
+
+    inp = Path(tmp_path) / "in.npz"
+    np.savez(inp, **arrays)
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="1")
+    spawn([[sys.executable, str(Path(__file__).resolve()), case, str(r),
+            str(world), str(Path(tmp_path) / "rendezvous"), str(inp),
+            str(tmp_path)] for r in range(world)], tmp_path, timeout_s,
+          env=env)
+    outs = [dict(np.load(Path(tmp_path) / f"rank{r}.npz"))
+            for r in range(world)]
+    assert not any(bool(o["jax_imported"]) for o in outs)
+    return outs
+
+
 def main(argv) -> int:
     case, rank, world, init_file, inp, out_dir = argv
     torch.set_num_threads(1)
@@ -104,8 +154,7 @@ def main(argv) -> int:
                            rank=int(rank), backend="gloo", timeout_s=120)
     mesh = make_mesh("cpu")
     z = np.load(inp)
-    out = {"ring": ring_case, "ring_hops": ring_hops_case,
-           "fusion": fusion_case}[case](z, mesh)
+    out = CASES[case](z, mesh)
     out["jax_imported"] = np.asarray("jax" in sys.modules)
     np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
     torch.distributed.destroy_process_group()

@@ -1,5 +1,5 @@
-"""Schur-complement map bundle adjustment — port of the single-device half
-of `tpuslam/backend/map_ba.py`.
+"""Schur-complement map bundle adjustment — port of
+`tpuslam/backend/map_ba.py`.
 
 Keyframe poses {T_i} and map control points {m_j} are refined jointly
 against point-to-plane observations
@@ -23,15 +23,22 @@ and after each GN round the landmarks are back-substituted.
 control point by the grid probe: all N·C points, moved into the world,
 in one pose-less launch of the grid kernel (kernels/correspond.py).  The
 rest is plain PyTorch, as the reference has no Pallas kernel here.
-Nothing reads a tensor back to the host.  The landmark-sharded variant
-(`optimize_map_ba_spmd`, `partition_observations`) is not ported yet
-(ROADMAP Queue 1 item 16).
+Nothing reads a tensor back to the host.
+
+`optimize_map_ba_spmd` shards the landmarks and their observations over
+the mesh (dist/mesh.py; `partition_observations` buckets the observations
+by the rank that owns their landmark, on the host) and the graph's edges
+as `backend/distba.py` does.  Each rank eliminates its own landmarks,
+adds its edges' system, and one `all_reduce` a GN round sums the reduced
+(6N, 6N) systems and costs; every rank solves the sum and back-substitutes
+only its own landmarks, so no landmark crosses ranks until the end.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tpuslam_torch.backend.posegraph import (
@@ -41,7 +48,9 @@ from tpuslam_torch.backend.posegraph import (
     _scatter_add,
     edge_normal_system,
 )
+from tpuslam_torch.backend.distba import all_reduce_system, shard_edges
 from tpuslam_torch.config import PoseGraphConfig
+from tpuslam_torch.dist.mesh import Mesh, replicate
 from tpuslam_torch.geom import se3
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.kernels.correspond import (
@@ -166,6 +175,103 @@ def optimize_map_ba(graph: PoseGraph, prob: MapBAProblem,
         map_pts = map_pts + ds[:, None] * prob.map_normals
         cost = cost_map + cost_e
     return poses, map_pts, cost
+
+
+def partition_observations(prob: MapBAProblem, n_dev: int,
+                           cap_factor: float = 1.5):
+    """Bucket the observations by the rank that owns their landmark (ranks
+    own contiguous blocks of ⌈M/D⌉ landmarks), on the host, exactly as the
+    reference does.
+
+    Returns (the problem with M padded to a multiple of `n_dev`, the
+    observations reordered into `n_dev` buckets of one capacity
+    ⌈O/D·cap_factor⌉ and `obs_map` rewritten to OWNER-LOCAL indices;
+    landmarks a rank; the count of live observations dropped because their
+    bucket was full), its tensors on `prob`'s device.  Weight-0 rows are
+    left out of the buckets.
+    """
+    M = prob.map_points.shape[0]
+    m_per = -(-M // n_dev)
+    pad = m_per * n_dev - M
+    mp = prob.map_points.cpu().numpy()
+    mn = prob.map_normals.cpu().numpy()
+    mm = prob.map_mask.cpu().numpy()
+    if pad:
+        mp = np.concatenate([mp, np.zeros((pad, 3), mp.dtype)])
+        mn = np.concatenate([mn, np.zeros((pad, 3), mn.dtype)])
+        mm = np.concatenate([mm, np.zeros((pad,), bool)])
+    obs_pose = prob.obs_pose.cpu().numpy()
+    obs_map = prob.obs_map.cpu().numpy()
+    obs_p = prob.obs_p.cpu().numpy()
+    obs_w = prob.obs_w.cpu().numpy()
+    live = obs_w > 0
+    owner = obs_map // m_per
+    cap = int(np.ceil(obs_pose.shape[0] / n_dev * cap_factor))
+    out_pose = np.zeros((n_dev, cap), np.int32)
+    out_map = np.zeros((n_dev, cap), np.int32)
+    out_p = np.zeros((n_dev, cap, 3), obs_p.dtype)
+    out_w = np.zeros((n_dev, cap), obs_w.dtype)
+    dropped = 0
+    for d in range(n_dev):
+        sel = np.nonzero(live & (owner == d))[0]
+        if sel.shape[0] > cap:
+            dropped += sel.shape[0] - cap
+            sel = sel[:cap]
+        k = sel.shape[0]
+        out_pose[d, :k] = obs_pose[sel]
+        out_map[d, :k] = obs_map[sel] - d * m_per
+        out_p[d, :k] = obs_p[sel]
+        out_w[d, :k] = obs_w[sel]
+    dev = prob.map_points.device
+    new_prob = MapBAProblem(*(torch.as_tensor(a, device=dev) for a in (
+        mp, mn, mm, out_pose.reshape(-1), out_map.reshape(-1),
+        out_p.reshape(-1, 3), out_w.reshape(-1))))
+    return new_prob, m_per, dropped
+
+
+def optimize_map_ba_spmd(graph: PoseGraph, prob: MapBAProblem,
+                         cfg: PoseGraphConfig, mesh: Mesh,
+                         huber_delta: float = 0.05,
+                         edge_huber_delta: float = 0.5):
+    """Distributed `optimize_map_ba`: the same inputs and outputs (poses
+    (N, 4, 4), map points (M, 3), the last round's cost ()), whole on every
+    rank and on the mesh's device.
+
+    The landmarks and their observations are split by
+    `partition_observations`, the edges by `distba.shard_edges`.  The sums
+    of the ranks' partial systems are the single-device sums up to the
+    order of float additions; observations over a bucket's capacity are
+    dropped, as in the reference.
+    """
+    M = prob.map_points.shape[0]
+    sprob, m_per, _dropped = partition_observations(prob, mesh.size)
+    cap = sprob.obs_w.shape[0] // mesh.size
+    lm = slice(mesh.rank * m_per, (mesh.rank + 1) * m_per)
+    ob = slice(mesh.rank * cap, (mesh.rank + 1) * cap)
+    graph = replicate(graph, mesh)
+    local = replicate(MapBAProblem(
+        map_points=sprob.map_points[lm], map_normals=sprob.map_normals[lm],
+        map_mask=sprob.map_mask[lm], obs_pose=sprob.obs_pose[ob],
+        obs_map=sprob.obs_map[ob], obs_p=sprob.obs_p[ob],
+        obs_w=sprob.obs_w[ob]), mesh)
+    edge_i, edge_j, edge_T, edge_w = shard_edges(graph, mesh)
+    info = _info_vector(cfg, graph.poses)
+    poses, map_pts = graph.poses, local.map_points
+    cost = torch.full((), float("inf"), device=poses.device)
+    for _ in range(cfg.gn_iters):
+        p = local._replace(map_points=map_pts)
+        H_pp, b_p, U, a, c, cost_map = map_ba_partials(poses, p, huber_delta)
+        # this rank's landmarks eliminated here, then the one all-reduce
+        H_red, b_red = schur_reduce(H_pp, b_p, U, a, c)
+        H_e, b_e, cost_e = edge_normal_system(
+            poses, edge_i, edge_j, edge_T, edge_w, info, edge_huber_delta)
+        H, b, cost = all_reduce_system(mesh, H_red + H_e, b_red + b_e,
+                                       cost_map + cost_e)
+        delta = _solve_gauged(poses, graph.node_mask, H, b, cfg)
+        ds = backsub_landmarks(delta, U, a, c)     # our landmarks only
+        poses = se3.exp(delta.reshape(-1, 6)) @ poses
+        map_pts = map_pts + ds[:, None] * local.map_normals
+    return poses, mesh.all_gather(map_pts)[:M], cost
 
 
 def build_map_ba_problem(kf_poses: torch.Tensor, kf_points: torch.Tensor,

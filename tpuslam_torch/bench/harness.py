@@ -93,16 +93,22 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
     `sequence`: optionally the `_render_sequence` output for these frames
     and size, so several runs share one rendering.  `config_path`: a JSON
     SLAMConfig (partial) in place of the defaults; `fused_gn=True` turns
-    the fused solve on over it.  `devices` > 1 (the reference's sharded
-    ICP scaling) is not ported."""
+    the fused solve on over it.  `devices`: the size of the current
+    process group (its mesh, dist/mesh.py; a ValueError otherwise), and
+    the result gains the point-sharded ICP's time on it against the
+    single-rank `align_frames` (`spmd_align_ms`, `single_align_ms`,
+    `scaling_efficiency`, `n_devices`); with no `devices` a group of more
+    than one rank adds them too, as the reference does for its devices."""
+    from tpuslam_torch.dist.mesh import make_mesh
     from tpuslam_torch.eval.ate import ate_rmse
     from tpuslam_torch.frontend import preprocess, scan_odometry
     from tpuslam_torch.icp import align_frames
-    from tpuslam_torch.slam import _not_ported
 
-    if devices is not None and devices > 1:
-        raise _not_ported("multi-device ICP scaling (bench --devices)",
-                          "Queue 1 item 16")
+    mesh = make_mesh(device)
+    if devices is not None and devices != mesh.size:
+        raise ValueError(f"devices={devices}, but the process group has "
+                         f"{mesh.size} rank(s): start one process a rank "
+                         f"(--coordinator, --num-processes, --process-id)")
     dev = torch.device(device)
     cfg = SLAMConfig()
     if config_path:
@@ -169,6 +175,30 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
     result["icp_iter_latency_ms"] = (
         (time.perf_counter() - t0) / n_align / iter_loops * 1e3)
     result["icp_iter_count"] = int(r.iters.item())
+
+    # --- the point-sharded ICP over the process group's ranks ---
+    if devices is not None or mesh.size > 1:
+        from tpuslam_torch.dist.sharded_icp import make_aligned_spmd_fn
+
+        fn = make_aligned_spmd_fn(mesh, cfg.icp)
+        fn(pyr_b, pyr_a, K, T0)
+        _fence(dev)
+        t0 = time.perf_counter()
+        for _ in range(n_align):
+            r = fn(pyr_b, pyr_a, K, T0)
+        _fence(dev)
+        sharded_ms = (time.perf_counter() - t0) / n_align * 1e3
+        align_frames(pyr_b, pyr_a, K, T0, cfg.icp)
+        _fence(dev)
+        t0 = time.perf_counter()
+        for _ in range(n_align):
+            r = align_frames(pyr_b, pyr_a, K, T0, cfg.icp)
+        _fence(dev)
+        single_ms = (time.perf_counter() - t0) / n_align * 1e3
+        result["spmd_align_ms"] = sharded_ms
+        result["single_align_ms"] = single_ms
+        result["scaling_efficiency"] = single_ms / (sharded_ms * mesh.size)
+        result["n_devices"] = mesh.size
     return result
 
 

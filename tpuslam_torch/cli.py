@@ -11,8 +11,11 @@ Subcommands:
 
 Every flag of the reference is accepted, plus `--device` (default
 `cuda`; `cpu` runs the plain PyTorch twins).  A flag whose code is not
-ported (`--async-backend` with `--chunk-mode inline`, `bench --coldstart`,
-`bench --devices` > 1) exits with code 2 and the ROADMAP item it waits on.
+ported (`--async-backend` with `--chunk-mode inline`, `bench --coldstart`)
+exits with code 2 and the ROADMAP item it waits on.  `bench --devices N`
+runs in each of N processes started with `--coordinator`,
+`--num-processes N` and `--process-id` (one process a GPU, each with its
+own `--device cuda:K`; NCCL on the GPU, gloo with `--device cpu`).
 
 Per-frame JSONL records (pose-free: frame, timestamp, ms, ICP iterations,
 rms, inlier fraction, promotion, loss) go to --log-jsonl; one JSON summary
@@ -412,7 +415,9 @@ def main(argv=None) -> int:
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--config", default=None)
-    p.add_argument("--devices", type=int, default=None)
+    p.add_argument("--devices", type=int, default=None,
+                   help="time the point-sharded ICP over the process "
+                        "group's ranks (must equal --num-processes)")
     p.add_argument("--scale", action="store_true",
                    help="run the BASELINE config-5 capacity benchmark "
                         "instead (multi-lap loop, tight promotion, tiny "

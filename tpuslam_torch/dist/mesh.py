@@ -99,6 +99,36 @@ def make_mesh(device="cuda") -> Mesh:
     return Mesh(group=None, rank=0, size=1, device=dev)
 
 
+def tree_map(fn, tree):
+    """`fn` on every tensor of a tensor, tuple, NamedTuple or list; other
+    leaves (Python numbers, None) as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return tree
+
+
+def replicate(tree, mesh: Mesh):
+    """Every tensor of `tree` whole on this rank's device (the reference's
+    fully replicated `P()` layout)."""
+    return tree_map(lambda t: t.to(mesh.device), tree)
+
+
+def shard_leading(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's contiguous block of dim 0 of `x`, on its device (the
+    reference's `P(axis)` layout).  Like the reference, dim 0 must be a
+    multiple of the mesh size."""
+    n = x.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"leading dimension {n} is not a multiple of the "
+                         f"mesh size {mesh.size}")
+    local = n // mesh.size
+    return x[mesh.rank * local:(mesh.rank + 1) * local].to(mesh.device)
+
+
 def pad_to_multiple(x: torch.Tensor, multiple: int, dim: int = 0,
                     fill=0) -> torch.Tensor:
     """Pad dim `dim` of `x` with `fill` up to a multiple of `multiple`."""
