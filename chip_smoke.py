@@ -170,6 +170,28 @@ Phases, in order (any failure raises and the script exits non-zero):
                 frames with devices=4 (its times labelled as one shared
                 card, not scaling); every rank's results equal, each
                 stage's launches per rank, no twin called
+ 17. backend   — the worker-thread backend and the cold start: (a) gn_step,
+                gn_fused and correspond at level 0 (153,600 points) and
+                ring_nn at 16,384 × 131,072, 100 launches each on each of
+                two streams at once, each stream with inputs of its own
+                (tpuslam_torch/bench/two_streams.py): every result
+                bit-equal to the same launch alone, every ticket zero
+                after; (b) bench_slam: 120 frames at 640×480, its five
+                variants (per frame sync and with the worker thread,
+                boundary chunks sync and deferred, inline chunks), each
+                after an uncounted pass: ATE per frame and inline < 1 mm,
+                each worker pass's ATE < max(2 × per frame, 0.02 m), ≥ 1
+                closure in every pass of the worker and every variant,
+                correspond and gn_step launched, no twin called, the
+                worker streams (not the main stream) launched gn_step and
+                correspond, no worker error; closures and ATEs beside the
+                reference's TPU outcome (BENCH_r05); (c) inline chunks of
+                8 with the worker on the 48-frame 120×160 two-lap loop on
+                the card against the same run synchronous through the CPU
+                twins (the same keyframes, closures ≥ max(1, CPU // 2),
+                ATE < 0.02 m); (d) `python -m tpuslam_torch.cli bench
+                --coldstart` twice, each a fresh process: both load the
+                library phase 2 built (cache_hit), beside phase 2's build
 Then one JSON line with the kernels, and last a JSON line with the device.
 No JAX is imported.
 """
@@ -1941,7 +1963,8 @@ def dist_phase(dev, card: str, counters, orbit, pg_in, ba_in) -> dict:
               f"dist one rank: {errs}")
         check(errs["batch"] <= TOL_DIST_BATCH, f"dist one rank: {errs}")
         rb = run_bench(frames, height, width, device=str(dev),
-                       sequence=orbit, devices=1)
+                       sequence=orbit, devices=1, slam_frames=None,
+                       loader_frames=None)
         log(f"[dist] one NCCL rank run_bench({frames}, {height}, {width}, "
             f"devices=1): "
             f"spmd_align_ms {rb['spmd_align_ms']:.4f}, single_align_ms "
@@ -2035,6 +2058,257 @@ def dist_phase(dev, card: str, counters, orbit, pg_in, ba_in) -> dict:
                                 for r in range(DIST_WORLD)]}
 
 
+# the reference's outcome of bench_slam on the TPU (BENCH_r05.json): closures
+# and ATE only, never a speed of the port
+REF_BENCH_SLAM = {"loop_closures": 38, "loop_closures_chunked_inline": 38,
+                  "loop_closures_chunked": 15, "slam_ate_rmse_m": 7.82e-4,
+                  "slam_chunked_ate_rmse_m": 7.03e-4}
+SLAM_ATE_M = 1e-3           # the reference's SLAM gate
+ASYNC_ATE_FLOOR_M = 0.02    # tests/test_async_backend.py:34
+CHUNKED_ATE_M = 0.02        # tests/test_chunked_slam.py:120
+
+
+class PassLog:
+    """Every pass `bench/harness._slam_pass` makes inside the `with`
+    block: (chunk, the SlamSystem's options, seconds, the system), each
+    system's `finalize` seconds by id (with the worker: the join of the
+    attempts still queued when the last frame was tracked), and the host
+    seconds of each loop-closure attempt by system id (on the worker: its
+    share of the interpreter beside tracking)."""
+
+    def __enter__(self):
+        from tpuslam_torch.bench import harness
+        from tpuslam_torch.slam import SlamSystem
+
+        self.harness, self.made, self.finalize_s = harness, [], {}
+        self.attempt_s: dict = {}
+        run = self.run = harness._slam_pass
+        fin = self.fin = SlamSystem.finalize
+        attempt = self.attempt = SlamSystem._attempt_loop_closure
+
+        def logged(K, cfg, depths, ts, chunk, **system):
+            wall, slam = run(K, cfg, depths, ts, chunk, **system)
+            self.made.append((chunk, system, wall, slam))
+            return wall, slam
+
+        def timed(slam):
+            t0 = time.perf_counter()
+            try:
+                fin(slam)
+            finally:
+                self.finalize_s[id(slam)] = time.perf_counter() - t0
+
+        def timed_attempt(slam, after=None):
+            t0 = time.perf_counter()
+            try:
+                return attempt(slam, after=after)
+            finally:
+                self.attempt_s.setdefault(id(slam), []).append(
+                    time.perf_counter() - t0)
+        harness._slam_pass = logged
+        SlamSystem.finalize = timed
+        SlamSystem._attempt_loop_closure = timed_attempt
+        return self
+
+    def __exit__(self, *exc):
+        from tpuslam_torch.slam import SlamSystem
+
+        self.harness._slam_pass = self.run
+        SlamSystem.finalize = self.fin
+        SlamSystem._attempt_loop_closure = self.attempt
+
+    def split(self) -> dict:
+        """Per variant, means over every pass made: seconds of a pass, of
+        its frames (the pass less finalize), of its finalize, the attempts
+        a pass and one attempt's milliseconds."""
+        by: dict = {}
+        for chunk, system, wall, slam in self.made:
+            name = ("per_frame" if not chunk else system.get(
+                "chunk_mode", "inline")) + (
+                "_async" if system.get("async_backend") else "_sync")
+            fin = self.finalize_s[id(slam)]
+            att = self.attempt_s.get(id(slam), [])
+            by.setdefault(name, []).append(
+                (wall, wall - fin, fin, len(att),
+                 1e3 * float(np.mean(att)) if att else 0.0))
+        return {k: [float(np.mean(c)) for c in zip(*v)]
+                for k, v in by.items()}
+
+
+def coldstart_runs(card: str, build_line: str) -> list:
+    """`python -m tpuslam_torch.cli bench --coldstart` twice, each a fresh
+    process after phase 2's build: both load the library (a hit)."""
+    runs = []
+    for k in range(2):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "tpuslam_torch.cli",
+                            "bench", "--coldstart"], capture_output=True,
+                           text=True, timeout=600,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(p.returncode == 0, f"coldstart run {k}: exit {p.returncode}\n"
+              f"{p.stderr[-3000:]}")
+        r = json.loads(p.stdout.strip().splitlines()[-1])
+        log(f"[backend] coldstart run {k} (a fresh process, "
+            f"{time.perf_counter() - t0:.3f} s on the host clock): "
+            f"{json.dumps(r)} ({card})")
+        check(r["cache_hit"] is True, f"coldstart run {k}: cache miss")
+        check(r["device"] == torch.cuda.get_device_name(0),
+              f"coldstart run {k}: device {r['device']}")
+        runs.append(r)
+    log(f"[backend] the cold start's miss is phase 2's build: {build_line}")
+    return runs
+
+
+def backend_phase(dev, card: str, counters, loop, build_line: str) -> dict:
+    """Phase 17 (module doc): the kernels on two streams, bench_slam's five
+    variants at 640×480 with the worker thread's attempts on a stream of
+    their own, inline chunks with the worker against the CPU twins, and
+    the cold start twice.  Returns the main path's launches (17b) and the
+    worker streams' share."""
+    from tpuslam_torch.bench.harness import bench_slam
+    from tpuslam_torch.bench.two_streams import check_two_streams
+    from tpuslam_torch.config import (
+        ICPConfig,
+        Intrinsics,
+        KeyframeConfig,
+        PoseGraphConfig,
+        SLAMConfig,
+        VoxelConfig,
+    )
+    from tpuslam_torch.data.synthetic import loop_trajectory, render_depth
+    from tpuslam_torch.eval.ate import ate_rmse
+    from tpuslam_torch.slam import SlamSystem
+
+    # (a) four kernels on two streams at once, against each launch alone
+    t0 = time.perf_counter()
+    two = check_two_streams(dev)
+    log(f"[backend] two streams: {json.dumps(two)} ({card})")
+    check(two["tickets_zero"], "two streams: a ticket left non-zero")
+    for name, k in two["kernels"].items():
+        check(k["mismatches"] == 0 and k["launches_per_stream"] >= 100,
+              f"two streams: {name} {k}")
+    log(f"[backend] (a) took {time.perf_counter() - t0:.3f} s")
+
+    # (b) bench_slam at full width: the main path of this phase
+    t0 = time.perf_counter()
+    main_stream = torch.cuda.current_stream(dev).cuda_stream
+    for c in counters.values():
+        c.reset()
+    with PassLog() as passes:
+        r = bench_slam(120, 480, 640, device="cuda", sequence=loop)
+    launches = {k: c.launches for k, c in counters.items()}
+    plain = {k: c.plain_calls for k, c in counters.items()}
+    by_stream = {k: dict(c.by_stream) for k, c in counters.items()}
+    log(f"[backend] bench_slam {json.dumps(r)}")
+    K_l, gt_l, _ = loop
+    ts = np.arange(120) / 30.0
+    workers = [s for c, o, w, s in passes.made
+               if c == 0 and o.get("async_backend")]
+    check(len(workers) == 4, f"backend: {len(workers)} worker passes")
+    for _, _, _, s in passes.made:
+        check(s._backend_error is None and s._backend_thread is None,
+              "backend: a worker error or a worker left running")
+    w_ate = [ate_rmse(*s.trajectory(), ts, gt_l, max_difference=0.005)["rmse"]
+             for s in workers]
+    w_closures = [len(s.closures) for s in workers]
+    w_handles = {s._worker_stream.cuda_stream for s in workers}
+    on_workers = {k: sum(n for h, n in v.items() if h in w_handles)
+                  for k, v in by_stream.items()}
+    log(f"[backend] per frame: sync {r['slam_fps']:.3f} fps, worker "
+        f"{r['slam_fps_async']:.3f} fps, async_gain {r['async_gain']:.4f}; "
+        f"chunked {r['slam_fps_chunked']:.3f}, chunked deferred "
+        f"{r['slam_fps_chunked_async']:.3f}, inline "
+        f"{r['slam_fps_chunked_inline']:.3f} fps; upload "
+        f"{r['upload_fps_equiv']:.1f} fps-equivalent ({card})")
+    log(f"[backend] closures: per frame {r['loop_closures']} (the reference "
+        f"on the TPU: {REF_BENCH_SLAM['loop_closures']}), the worker's "
+        f"passes {w_closures}, inline {r['loop_closures_chunked_inline']} "
+        f"({REF_BENCH_SLAM['loop_closures_chunked_inline']}), boundary "
+        f"{r['loop_closures_chunked']} "
+        f"({REF_BENCH_SLAM['loop_closures_chunked']}), deferred "
+        f"{r['loop_closures_chunked_async']}; ATE per frame "
+        f"{r['slam_ate_rmse_m']:.4e} m "
+        f"({REF_BENCH_SLAM['slam_ate_rmse_m']:.2e}), the worker's "
+        f"{', '.join(f'{a:.4e}' for a in w_ate)}, inline "
+        f"{r['slam_chunked_inline_ate_rmse_m']:.4e}, boundary "
+        f"{r['slam_chunked_ate_rmse_m']:.4e} "
+        f"({REF_BENCH_SLAM['slam_chunked_ate_rmse_m']:.2e}), deferred "
+        f"{r['slam_chunked_async_ate_rmse_m']:.4e}; keyframes "
+        f"{r['keyframes']} / {r['keyframes_chunked']}")
+    log(f"[backend] launches {launches}, on the worker streams "
+        f"{on_workers}, plain calls {plain}")
+    log("[backend] seconds a pass (all passes of a variant): " + "; ".join(
+        f"{k} {w:.4f} = frames {f:.4f} + finalize {z:.4f}, {n:.2f} "
+        f"attempts of {a:.3f} ms" for k, (w, f, z, n, a)
+        in passes.split().items()) + f" ({card})")
+    check(r["slam_ate_rmse_m"] < SLAM_ATE_M,
+          f"backend: per-frame ATE {r['slam_ate_rmse_m']}")
+    check(r["slam_chunked_inline_ate_rmse_m"] < SLAM_ATE_M,
+          f"backend: inline ATE {r['slam_chunked_inline_ate_rmse_m']}")
+    bound_w = max(2 * r["slam_ate_rmse_m"], ASYNC_ATE_FLOOR_M)
+    check(all(a < bound_w for a in w_ate), f"backend: worker ATE {w_ate}")
+    check(min(w_closures) >= 1 and all(r[k] >= 1 for k in (
+        "loop_closures", "loop_closures_chunked",
+        "loop_closures_chunked_async", "loop_closures_chunked_inline")),
+          f"backend: a variant closed no loop ({w_closures})")
+    check(launches["correspond"] > 0 and launches["gn_step"] > 0,
+          f"backend: launches {launches}")
+    check(all(v == 0 for v in plain.values()), f"backend: plain {plain}")
+    check(main_stream not in w_handles and on_workers["gn_step"] > 0
+          and on_workers["correspond"] > 0,
+          f"backend: the worker streams launched {on_workers}")
+    log(f"[backend] (b) took {time.perf_counter() - t0:.3f} s")
+
+    # (c) inline chunks of 8 with the worker on the card against the same
+    # run synchronous through the CPU twins (tests/test_chunked_slam.py)
+    t0 = time.perf_counter()
+    Ks = Intrinsics(160.0, 160.0, 79.5, 59.5)
+    cfg_c = SLAMConfig(
+        height=120, width=160,
+        icp=ICPConfig(pyramid_levels=3, iters_per_level=(12, 8, 8),
+                      max_corr_dist=0.25, huber_delta=0.05),
+        keyframe=KeyframeConfig(max_translation=0.08, max_rotation=0.12),
+        posegraph=PoseGraphConfig(max_nodes=64, max_edges=256, gn_iters=15,
+                                  lc_min_gap=3, lc_max_dist=0.6,
+                                  lc_max_residual=0.05, lc_min_inliers=0.3),
+        voxel=VoxelConfig(capacity=1 << 13, map_capacity=1 << 15))
+    gt_c = loop_trajectory(48, cycles=2, radius=0.35)
+    d_c = np.stack([render_depth(gt_c[i], Ks, 120, 160, seed=i)
+                    for i in range(48)]).astype(np.float32)
+    ts_c = np.arange(48) / 30.0
+
+    def inline(device, worker: bool):
+        slam = SlamSystem(Ks, cfg_c, async_backend=worker,
+                          chunk_mode="inline", device=device)
+        d = torch.as_tensor(d_c, device=device)
+        for i in range(0, 48, 8):
+            slam.process_chunk(d[i:i + 8], ts_c[i:i + 8])
+        slam.finalize()
+        return slam
+
+    card_c, cpu_c = inline(dev, True), inline("cpu", False)
+    kg = [x.index for x in card_c.odo.keyframes]
+    kc = [x.index for x in cpu_c.odo.keyframes]
+    ate_c = ate_rmse(*card_c.trajectory(), ts_c, gt_c,
+                     max_difference=0.005)["rmse"]
+    log(f"[backend] inline chunks of 8, 48 frames 120×160: the worker on "
+        f"the card {len(card_c.closures)} closures, ATE {ate_c:.4e} m; the "
+        f"CPU twins synchronous {len(cpu_c.closures)} closures; keyframes "
+        f"{len(kg)} {'equal' if kg == kc else 'DIFFER'}")
+    check(kg == kc, f"backend small: keyframes {kg} vs {kc}")
+    check(len(card_c.closures) >= max(1, len(cpu_c.closures) // 2),
+          f"backend small: closures {len(card_c.closures)} vs "
+          f"{len(cpu_c.closures)}")
+    check(ate_c < CHUNKED_ATE_M, f"backend small: ATE {ate_c}")
+    log(f"[backend] (c) took {time.perf_counter() - t0:.3f} s")
+
+    # (d) the cold start, twice from fresh processes
+    t0 = time.perf_counter()
+    coldstart_runs(card, build_line)
+    log(f"[backend] (d) took {time.perf_counter() - t0:.3f} s")
+    return {"launches": launches, "worker_streams": on_workers}
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -2086,7 +2360,9 @@ def main() -> int:
     t0 = time.perf_counter()
     path = _build.build(verbose=True)
     _build.library()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.3f} s ({card})")
+    build_line = (f"[build] {path.name} in {time.perf_counter() - t0:.3f} s "
+                  f"({card})")
+    log(build_line)
 
     # ---- 3. kernels vs plain twins at the main path's shapes ----
     cfg = SLAMConfig()
@@ -2403,7 +2679,7 @@ def main() -> int:
     orbit = _render_sequence(240, 480, 640)
     reset_counts()
     res = run_bench(frames=240, height=480, width=640, device="cuda",
-                    sequence=orbit)
+                    sequence=orbit, slam_frames=None, loader_frames=None)
     launches, plain = read_counts()
     log(f"[main] {json.dumps(res)}")
     log(f"[main] fps {res['fps']:.3f}, ms/frame {res['ms_per_frame']:.4f}, "
@@ -2435,7 +2711,8 @@ def main() -> int:
     # ---- 7. fused odometry: gn_fused carries tracking ----
     reset_counts()
     res_f = run_bench(frames=240, height=480, width=640, device="cuda",
-                      fused_gn=True, sequence=orbit)
+                      fused_gn=True, sequence=orbit, slam_frames=None,
+                      loader_frames=None)
     launches_f, plain_f = read_counts()
     log(f"[fused] {json.dumps(res_f)}")
     log(f"[fused] fps {res_f['fps']:.3f} (unfused, phase 6: "
@@ -2743,7 +3020,6 @@ def main() -> int:
     finally:
         slam_module.optimize_map_ba = optimize_map_ba
     log(f"[grid] phase took {time.perf_counter() - t0:.3f} s")
-    del loop
 
     # ---- 13-15. the CLI (this slice's main path), scale, pathology ----
     t0 = time.perf_counter()
@@ -2767,6 +3043,12 @@ def main() -> int:
                                ba_calls[0])
     log(f"[dist] phase took {time.perf_counter() - t0:.3f} s")
     del orbit, ba_calls, scale_graph
+
+    # ---- 17. backend: the worker thread's stream, bench_slam, cold start --
+    t0 = time.perf_counter()
+    backend = backend_phase(dev, card, counters, loop, build_line)
+    log(f"[backend] phase took {time.perf_counter() - t0:.3f} s")
+    del loop
 
     # ---- result lines ----
     sources = {
@@ -2854,6 +3136,11 @@ def main() -> int:
                                   launches_dist["gloo_rank_icp"]],
                 "gloo_rank_batch": [p[name] for p in
                                     launches_dist["gloo_rank_batch"]]},
+            # bench_slam's five variants (phase 17), and of those the
+            # launches on the worker threads' streams
+            "backend_launches": {
+                "bench_slam": backend["launches"][name],
+                "worker_streams": backend["worker_streams"][name]},
         })
     log(json.dumps({"gn_step_ab": step_ab}))
     log(json.dumps({"kernels": kernels}))

@@ -7,10 +7,10 @@ runs through both CLIs: the summaries agree in frames, keyframes, closures,
 graph nodes and retained clouds, the ATEs (≈ 5e-5 m) within 1e-5 of each
 other, and the per-frame JSONL records have the same keys and the same
 ICP iteration counts.  `--map-ba`, `--map-track-mode grid` and
-`--lc-descriptor` run through both CLIs alike.  Each flag whose code is not
-ported exits with 2 and names its ROADMAP item; `bench --devices 2` without
-a process group of 2 ranks exits with 2 and says so (two processes:
-tests/test_torch_multihost.py).
+`--lc-descriptor` and `--async-backend --chunk-mode inline` run through
+both CLIs alike, and `bench --coldstart` prints the cold-start profile;
+`bench --devices 2` without a process group of 2 ranks exits with 2 and
+says so (two processes: tests/test_torch_multihost.py).
 """
 
 import io
@@ -159,27 +159,55 @@ def test_lc_descriptor_matches_reference(smoke, tmp_path, capsys):
     assert abs(p["ate_rmse_m"] - r["ate_rmse_m"]) < ATE_TOL
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--async-backend", "--chunk-mode", "inline"], "item 17"),
-    (None, "item 17"),
-    # ported since: without a process group of 2 ranks it is a ValueError
-    (["--devices", "2"], None),
+COLDSTART_PHASES = {"import_torch", "import_tpuslam_torch", "backend_init",
+                    "build_or_load", "upload_inputs"}
+COLDSTART_KEYS = {"phases", "device", "cache_dir", "cache_entries",
+                  "cache_bytes", "cache_hit", "programs", "total_s"}
+ASYNC_ATE_FLOOR_M = 0.02    # tests/test_async_backend.py:34
+
+
+@pytest.mark.parametrize("flags", [
+    ["--async-backend", "--chunk-mode", "inline"], None, ["--devices", "2"],
 ], ids=["async-inline", "coldstart", "devices"])
-def test_unported_flags_exit_2(smoke, capsys, flags, item):
-    seq = smoke["port"][4]
+def test_unported_flags_exit_2(smoke, tmp_path, capsys, flags):
+    """Each of these once exited 2.  `run_slam --async-backend --chunk-mode
+    inline` (the worker thread) and `bench --coldstart` are ported: the
+    first takes the reference CLI's keyframes with the same flags and an ATE
+    below max(2 × the reference's, 0.02 m) (tests/test_async_backend.py's
+    bound), the second prints every key of the cold-start profile;
+    `bench --devices 2` without a process group of 2 ranks still exits 2
+    and says so."""
     if flags is None:
-        argv = ["bench", "--coldstart", "--device", "cpu"]
+        assert pcli.main(["bench", "--coldstart", "--device", "cpu",
+                          "--frames", "8", "--height", "48", "--width",
+                          "64"]) == 0
+        r = last_json(capsys)
+        assert set(r) == COLDSTART_KEYS and set(r["phases"]) == COLDSTART_PHASES
+        assert r["device"] == "cpu" and r["cache_hit"] is None
+        assert r["phases"]["build_or_load"] is None
+        assert set(r["programs"]) == {"preprocess", "process_frame",
+                                      "scan_superchunk_c8", "scan_odometry_f8"}
+        for rec in r["programs"].values():
+            assert set(rec) == {"first_run_s", "second_run_s"}
+            assert all(v > 0 for v in rec.values())
+        assert r["total_s"] > 0
     elif flags[0] == "--devices":
-        argv = ["bench", *flags, "--frames", "2", "--height", "48",
-                "--width", "64", "--device", "cpu"]
-    else:
-        argv = ["run_slam", "--sequence", seq, "--device", "cpu", *flags]
-    assert pcli.main(argv) == 2
-    err = capsys.readouterr().err
-    if item is None:
+        assert pcli.main(["bench", *flags, "--frames", "2", "--height", "48",
+                          "--width", "64", "--device", "cpu"]) == 2
+        err = capsys.readouterr().err
         assert "devices=2, but the process group has 1 rank" in err, err
     else:
-        assert "not ported yet" in err and f"ROADMAP Queue 1 {item})" in err
+        out = {}
+        for name, main, extra in (("reference", ref_main, []),
+                                  ("port", pcli.main, ["--device", "cpu"])):
+            assert main(["run_slam", "--sequence", smoke[name][4],
+                         "--traj-out", str(tmp_path / f"{name}.txt"),
+                         *flags, *extra]) == 0
+            out[name] = last_json(capsys)
+        r, p = out["reference"], out["port"]
+        for k in ("frames", "keyframes", "graph_nodes"):
+            assert p[k] == r[k], k
+        assert p["ate_rmse_m"] < max(2 * r["ate_rmse_m"], ASYNC_ATE_FLOOR_M)
 
 
 @pytest.mark.parametrize("flags", [

@@ -1433,3 +1433,88 @@ def test_batched_aligner_one_rank_on_card(dev):
         ref = align_frames(pyrs[b + 1], pyrs[b], K, T0s[b], CFG.icp)
         assert float((res.T[b] - ref.T).abs().max()) <= 2e-4
         assert int(res.iters[b]) == int(ref.iters)
+
+
+# ---- two streams: the SLAM backend's worker beside tracking ------------
+
+
+@pytest.mark.cuda
+def test_kernels_bit_equal_on_two_streams(dev):
+    """correspond, gn_step, gn_fused and ring_nn launched 100 times on each
+    of two streams at once (different inputs, the queues held behind a
+    device sleep so the streams' kernels overlap): every result bit-equal
+    to the same launch alone, every ticket back at zero."""
+    from tpuslam_torch.bench.two_streams import check_two_streams
+
+    r = check_two_streams(dev, H, W, ring_n=2048, ring_m=16384)
+    assert r["tickets_zero"], r
+    assert all(k["mismatches"] == 0 and k["launches_per_stream"] == 100
+               for k in r["kernels"].values()), r
+
+
+def worker_loop_cfg():
+    """tests/test_chunked_slam.py's config."""
+    from tpuslam_torch.config import PoseGraphConfig, VoxelConfig
+
+    return SLAMConfig(
+        height=H, width=W,
+        icp=ICPConfig(pyramid_levels=3, iters_per_level=(12, 8, 8),
+                      max_corr_dist=0.25, huber_delta=0.05),
+        keyframe=KeyframeConfig(max_translation=0.08, max_rotation=0.12),
+        posegraph=PoseGraphConfig(max_nodes=64, max_edges=256, gn_iters=15,
+                                  lc_min_gap=3, lc_max_dist=0.6,
+                                  lc_max_residual=0.05, lc_min_inliers=0.3),
+        voxel=VoxelConfig(capacity=1 << 13, map_capacity=1 << 15))
+
+
+def inline_chunks(device, async_backend, d_np):
+    from tpuslam_torch.slam import SlamSystem
+
+    slam = SlamSystem(K, worker_loop_cfg(), async_backend=async_backend,
+                      chunk_mode="inline", device=device)
+    d = torch.as_tensor(d_np, device=device)
+    ts = np.arange(d.shape[0]) / 30.0
+    for i in range(0, d.shape[0], 8):
+        slam.process_chunk(d[i:i + 8], ts[i:i + 8])
+    return slam
+
+
+@pytest.mark.cuda
+def test_worker_attempts_launch_on_their_own_stream(dev):
+    """The worker's attempts launch correspond and gn_step on the worker's
+    stream, tracking on the main stream; no twin is called."""
+    d_np = loop_depths()
+    for c in (correspond.counter, gn_step.counter):
+        c.reset()
+    slam = inline_chunks(dev, True, d_np)
+    worker = slam._worker_stream.cuda_stream
+    main = torch.cuda.current_stream(dev).cuda_stream
+    assert worker != main
+    slam.finalize()
+    for c in (correspond.counter, gn_step.counter):
+        assert c.by_stream.get(worker, 0) > 0, c.by_stream
+        assert c.by_stream.get(main, 0) > 0, c.by_stream
+        assert c.plain_calls == 0
+        assert sum(c.by_stream.values()) == c.launches
+    assert len(slam.closures) >= 1
+
+
+@pytest.mark.cuda
+def test_inline_worker_on_card_matches_cpu_twins(dev):
+    """Inline chunks of 8 with the worker on the card against the same run
+    synchronous through the CPU twins: the same keyframes, closures ≥
+    max(1, sync // 2), ATE < 0.02 m (tests/test_chunked_slam.py:99-122)."""
+    from tpuslam_torch.data.synthetic import loop_trajectory
+    from tpuslam_torch.eval.ate import ate_rmse
+
+    d_np = loop_depths()
+    gt = loop_trajectory(d_np.shape[0], cycles=2, radius=0.35)
+    card = inline_chunks(dev, True, d_np)
+    card.finalize()
+    cpu = inline_chunks("cpu", False, d_np)
+    cpu.finalize()
+    assert ([r.index for r in card.odo.keyframes]
+            == [r.index for r in cpu.odo.keyframes])
+    assert len(card.closures) >= max(1, len(cpu.closures) // 2)
+    ts, est = card.trajectory()
+    assert ate_rmse(ts, est, ts, gt, max_difference=0.005)["rmse"] < 0.02

@@ -220,7 +220,7 @@ def test_harness_runs_small_on_cpu():
     from tpuslam_torch.bench.harness import run_bench
 
     res = run_bench(frames=6, height=120, width=160, device="cpu", warmup=0,
-                    reps=1)
+                    reps=1, slam_frames=None, loader_frames=None)
     assert res["device"] == "cpu" and res["frames"] == 6
     assert res["poses_finite"] and res["ate_rmse_m"] < 1e-3
     assert res["icp_iter_count"] == 50

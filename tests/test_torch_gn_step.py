@@ -248,7 +248,7 @@ def test_source_notes_and_the_header_in_the_build_hash(tmp_path,
     text = (_build.CSRC / "gn_step.cu").read_text()[:4000]
     for key in ("Replaces:", "tpuslam/icp.py:129-139", "pallas_gn.py",
                 "pallas_epilogue.py", "What bounds it on the H100",
-                "What the design does about it", "One stream"):
+                "What the design does about it", "one of each per stream"):
         assert key in text, key
     assert "gn_step.cu" in _build.SOURCES
     assert "gn_solve.cuh" in _build.HEADERS

@@ -166,12 +166,19 @@ def test_slam_bench_runs_small_on_cpu():
 
 
 def test_not_ported_options_raise():
-    """The inline-mode worker thread raises, citing its ROADMAP item;
-    descriptor proposal (once raising) constructs."""
+    """The inline-mode worker thread (once raising) constructs a worker,
+    which `finalize` joins; in boundary mode async means the deferred
+    drain and starts none; descriptor proposal (once raising) constructs."""
     cfg = config_from_reference(CFG)
     pk = PIntrinsics(*K)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSlam(pk, cfg, async_backend=True, chunk_mode="inline", device="cpu")
+    slam = PSlam(pk, cfg, async_backend=True, chunk_mode="inline",
+                 device="cpu")
+    thread = slam._backend_thread
+    assert thread is not None and thread.is_alive()
+    slam.finalize()
+    assert slam._backend_thread is None and not thread.is_alive()
+    assert PSlam(pk, cfg, async_backend=True, chunk_mode="boundary",
+                 device="cpu")._backend_thread is None
     slam = PSlam(pk, dataclasses.replace(cfg, posegraph=dataclasses.replace(
         cfg.posegraph, lc_descriptor=True)), device="cpu")
     assert slam.cfg.posegraph.lc_descriptor

@@ -18,6 +18,7 @@ reference's while-loop exit, without a host round trip.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
@@ -139,6 +140,15 @@ class GraphHost:
 
     def set_poses(self, poses: np.ndarray) -> None:
         self._poses[: self.num_nodes] = poses[: self.num_nodes]
+
+    def snapshot(self) -> "GraphHost":
+        """A copy of the store that later adds and `set_poses` do not reach
+        (the SLAM backend's worker takes one under the system's lock and
+        reads it after releasing the lock)."""
+        snap = copy.copy(self)
+        for name in ("_poses", "_edge_i", "_edge_j", "_edge_T", "_edge_w"):
+            setattr(snap, name, getattr(self, name).copy())
+        return snap
 
 
 def edge_residual(T_i, T_j, T_meas):

@@ -180,7 +180,8 @@ def _bench(z, mesh, dev) -> dict:
     frames, height, width = depths.shape
     r = run_bench(frames, height, width, device=str(dev),
                   sequence=(_intrinsics(z, "bench_K"), z["bench_poses"],
-                            depths), devices=mesh.size)
+                            depths), devices=mesh.size, slam_frames=None,
+                  loader_frames=None)
     return {"bench_json": np.asarray(json.dumps(r))}
 
 

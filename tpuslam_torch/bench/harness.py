@@ -1,8 +1,9 @@
-"""Benchmarks of the port — `run_bench` (odometry), `run_slam_bench` (the
-full SLAM system), `run_map_bench` (frame-to-map tracking), `bench_loader`
-(the TUM loader), `bench_scale` and `bench_pathology`: ports of the
-odometry block, `bench_slam`, `bench_loader`, `bench_scale` and
-`bench_pathology` of `tpuslam/bench/harness.py`.
+"""Benchmarks of the port — `run_bench` (odometry, with the loader and
+`bench_slam` nested), `bench_slam` and `run_slam_bench` (the full SLAM
+system), `run_map_bench` (frame-to-map tracking), `bench_loader` (the TUM
+loader), `bench_scale` and `bench_pathology`: ports of `run_bench`,
+`bench_slam`, `bench_loader`, `bench_scale` and `bench_pathology` of
+`tpuslam/bench/harness.py`.
 
 `run_bench` measures full-sequence frame-to-keyframe odometry throughput
 (frames/s and ms/frame of `frontend.scan_odometry` on device-resident
@@ -12,11 +13,15 @@ means nothing), and the per-ICP-iteration latency of a fixed 50-iteration
 finest-level alignment.  Depth is the synthetic ray-traced orbit at the
 requested resolution.
 
-`run_slam_bench` measures what a user of the SLAM system gets:
-`SlamSystem.process_chunk` in boundary mode (8-frame chunks, promotion
-sub-chunks of 4) over the synthetic two-lap loop, with the backend
-synchronous and deferred, each best of `reps` timed passes after one
-uncounted pass, plus closures, keyframes and ATE of the best pass.
+`bench_slam` is the reference's five variants of the full system over the
+synthetic two-lap loop on device-resident depth: per-frame
+`SlamSystem.process` with the backend synchronous (`slam_fps`) and on the
+worker thread (`slam_fps_async`, `async_gain` = sync wall / worker wall),
+boundary chunks of 8 synchronous and deferred (`slam_fps_chunked`,
+`slam_fps_chunked_async`, best of 5) and inline chunks of 8 synchronous
+(`slam_fps_chunked_inline`), each after one uncounted pass, with each
+variant's ATE, closures and keyframes.  `run_slam_bench` is its boundary
+pair alone, with more per variant (closure pairs, fps of every pass).
 
 `run_map_bench` measures frame-to-map tracking: `SlamSystem.process` per
 frame with `track_against_map=True` over the same loop, the map unsharded
@@ -87,8 +92,12 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
               device: str = "cuda", warmup: int = 1, reps: int = 3,
               fused_gn: bool = False, sequence=None,
               config_path: str | None = None,
-              devices: int | None = None) -> dict:
-    """Odometry throughput, ATE and ICP-iteration latency (module doc).
+              devices: int | None = None, slam_frames: int | None = 120,
+              loader_frames: int | None = 40) -> dict:
+    """Odometry throughput, ATE and ICP-iteration latency (module doc),
+    then, as the reference's, the host loader (`loader`: `bench_loader` on
+    `loader_frames` frames) and the full system (`slam`: `bench_slam` on
+    `slam_frames` frames, with this config); None leaves either out.
 
     `sequence`: optionally the `_render_sequence` output for these frames
     and size, so several runs share one rendering.  `config_path`: a JSON
@@ -199,6 +208,13 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
         result["single_align_ms"] = single_ms
         result["scaling_efficiency"] = single_ms / (sharded_ms * mesh.size)
         result["n_devices"] = mesh.size
+
+    # --- the host loader and the full SLAM system ---
+    if loader_frames:
+        result["loader"] = bench_loader(height, width, frames=loader_frames)
+    if slam_frames:
+        result["slam"] = bench_slam(slam_frames, height, width, cfg=cfg,
+                                    device=device)
     return result
 
 
@@ -233,6 +249,119 @@ def slam_bench_config(height: int, width: int,
                                                       lc_min_gap=8))
 
 
+def _slam_pass(K, cfg: SLAMConfig, depths: torch.Tensor, ts: np.ndarray,
+               chunk: int, **system) -> tuple:
+    """One pass of the SLAM system over `depths`, fenced on the host clock:
+    per frame (`chunk` 0) or whole chunks and the remainder per frame, then
+    `finalize` (which re-raises a backend worker's error).  `system`: the
+    SlamSystem's options.  Returns (seconds, the system)."""
+    from tpuslam_torch.slam import SlamSystem
+
+    dev = depths.device
+    slam = SlamSystem(K, cfg, enable_loop_closure=True, device=dev,
+                      **system)
+    _fence(dev)
+    t0 = time.perf_counter()
+    if chunk:
+        _run_chunked(slam, depths, ts, chunk)
+    else:
+        for i in range(depths.shape[0]):
+            slam.process(depths[i], timestamp=ts[i])
+        slam.finalize()
+    _fence(dev)
+    return time.perf_counter() - t0, slam
+
+
+def _best_of(one_pass, reps: int) -> tuple:
+    """`reps` timed passes: (their seconds, the system of the fastest)."""
+    walls, best = [], None
+    for _ in range(reps):
+        wall, slam = one_pass()
+        if not walls or wall < min(walls):
+            best = slam
+        walls.append(wall)
+    return walls, best
+
+
+def bench_slam(frames: int = 120, height: int = 480, width: int = 640,
+               cfg: SLAMConfig | None = None, cycles: int = 2,
+               device: str = "cuda", sequence=None) -> dict:
+    """The full system's five variants (module doc) with the reference's
+    keys, plus `device`.  `cfg` (default: the defaults) gets this size and
+    lc_min_gap 8 (the loop promotes ~15 keyframes a lap; the default gap of
+    20 would gate every revisit).  Depth is uploaded once and stays on the
+    device (`upload_fps_equiv` is the upload's rate); chunked variants use
+    promotion sub-chunks of 4.  `sequence` is as in `run_bench` (here the
+    `cycles`-lap loop)."""
+    from tpuslam_torch.eval.ate import ate_rmse
+
+    dev = torch.device(device)
+    if cfg is None:
+        cfg = slam_bench_config(height, width, False)
+    else:
+        cfg = cfg.replace(height=height, width=width, posegraph=(
+            dataclasses.replace(cfg.posegraph, lc_min_gap=8))).validate()
+    K, gt, depths_np = (sequence if sequence is not None else
+                        _render_sequence(frames, height, width,
+                                         loop_cycles=cycles))
+    _fence(dev)
+    t0 = time.perf_counter()
+    depths = torch.as_tensor(depths_np, device=dev)
+    _fence(dev)
+    upload_s = time.perf_counter() - t0
+    ts = np.arange(frames) / 30.0
+    chunk = 8
+    variants = {   # name: (chunk, SlamSystem options, timed passes)
+        "sync": (0, {"async_backend": False}, 3),
+        "async": (0, {"async_backend": True}, 3),
+        "chunked": (chunk, {"async_backend": False,
+                            "chunk_mode": "boundary"}, 5),
+        "chunked_async": (chunk, {"async_backend": True,
+                                  "chunk_mode": "boundary"}, 5),
+        "chunked_inline": (chunk, {"async_backend": False,
+                                   "chunk_mode": "inline"}, 3),
+    }
+    walls, best = {}, {}
+    for name, (c, system, reps) in variants.items():
+        def one_pass():
+            return _slam_pass(K, cfg, depths, ts, c, chunk_sub=4, **system)
+
+        one_pass()                          # uncounted: first-use costs
+        walls[name], best[name] = _best_of(one_pass, reps)
+
+    def ate(slam) -> float:
+        t_est, est = slam.trajectory()
+        return ate_rmse(t_est, est, ts, gt, max_difference=0.005)["rmse"]
+
+    def fps(name) -> float:
+        return frames / min(walls[name])
+
+    return {
+        "device": _device_name(dev),
+        "slam_fps": fps("sync"),
+        "slam_fps_async": fps("async"),
+        "async_gain": min(walls["sync"]) / min(walls["async"]),
+        "slam_fps_chunked": fps("chunked"),
+        "slam_fps_chunked_async": fps("chunked_async"),
+        "slam_fps_chunked_inline": fps("chunked_inline"),
+        "slam_fps_reps": {name: [frames / w for w in walls[name]]
+                          for name in variants},
+        "upload_fps_equiv": frames / upload_s,
+        "chunk": chunk,
+        "slam_ate_rmse_m": ate(best["sync"]),
+        "slam_chunked_ate_rmse_m": ate(best["chunked"]),
+        "slam_chunked_async_ate_rmse_m": ate(best["chunked_async"]),
+        "slam_chunked_inline_ate_rmse_m": ate(best["chunked_inline"]),
+        "loop_closures": len(best["sync"].closures),
+        "loop_closures_chunked": len(best["chunked"].closures),
+        "loop_closures_chunked_async": len(best["chunked_async"].closures),
+        "loop_closures_chunked_inline": len(best["chunked_inline"].closures),
+        "keyframes": len(best["sync"].odo.keyframes),
+        "keyframes_chunked": len(best["chunked"].odo.keyframes),
+        "frames": frames,
+    }
+
+
 def run_slam_bench(frames: int = 120, height: int = 480, width: int = 640,
                    device: str = "cuda", fused_gn: bool = False,
                    cycles: int = 2, reps: int = 3, chunk: int = 8,
@@ -246,7 +375,6 @@ def run_slam_bench(frames: int = 120, height: int = 480, width: int = 640,
     `sequence` is as in `run_bench` (here the `cycles`-lap loop).
     """
     from tpuslam_torch.eval.ate import ate_rmse
-    from tpuslam_torch.slam import SlamSystem
 
     dev = torch.device(device)
     cfg = slam_bench_config(height, width, fused_gn)
@@ -257,27 +385,17 @@ def run_slam_bench(frames: int = 120, height: int = 480, width: int = 640,
     _fence(dev)
     ts = np.arange(frames) / 30.0
 
-    def one_pass(deferred: bool):
-        slam = SlamSystem(K, cfg, enable_loop_closure=True,
-                          async_backend=deferred, chunk_mode="boundary",
-                          chunk_sub=4, device=dev)
-        _fence(dev)
-        t0 = time.perf_counter()
-        _run_chunked(slam, depths, ts, chunk)
-        _fence(dev)
-        return time.perf_counter() - t0, slam
-
     result: dict = {"device": _device_name(dev), "frames": frames,
                     "resolution": [height, width], "chunk": chunk,
                     "fused_gn": fused_gn}
     for name, deferred in (("sync", False), ("deferred", True)):
-        one_pass(deferred)                  # uncounted: first-use costs
-        walls, best = [], None
-        for _ in range(reps):
-            wall, slam = one_pass(deferred)
-            if not walls or wall < min(walls):
-                best = slam
-            walls.append(wall)
+        def one_pass():
+            return _slam_pass(K, cfg, depths, ts, chunk,
+                              async_backend=deferred, chunk_mode="boundary",
+                              chunk_sub=4)
+
+        one_pass()                          # uncounted: first-use costs
+        walls, best = _best_of(one_pass, reps)
         t_est, est = best.trajectory()
         result[name] = {
             "fps": frames / min(walls),

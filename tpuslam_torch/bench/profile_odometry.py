@@ -62,6 +62,7 @@ without a GPU.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -161,8 +162,12 @@ def fps(args, card, dev) -> None:
     import tpuslam_torch
     from tpuslam_torch.bench.harness import run_bench
 
+    # the odometry block alone (a checkout whose run_bench also runs the
+    # loader and the SLAM system is told to leave them out)
+    extra = {k: None for k in ("slam_frames", "loader_frames")
+             if k in inspect.signature(run_bench).parameters}
     r = run_bench(frames=240, height=480, width=640, device=str(dev),
-                  fused_gn=args.fused)
+                  fused_gn=args.fused, **extra)
     print(json.dumps({"tag": args.tag, "card": card,
                       "package": tpuslam_torch.__file__, "mode": "fps",
                       "fused": args.fused, **r}), flush=True)

@@ -10,9 +10,11 @@ Subcommands:
   eval           — ATE/RPE of a trajectory file vs groundtruth
 
 Every flag of the reference is accepted, plus `--device` (default
-`cuda`; `cpu` runs the plain PyTorch twins).  A flag whose code is not
-ported (`--async-backend` with `--chunk-mode inline`, `bench --coldstart`)
-exits with code 2 and the ROADMAP item it waits on.  `bench --devices N`
+`cuda`; `cpu` runs the plain PyTorch twins).  `--async-backend` defers a
+boundary chunk's loop-closure attempt to the next chunk's readback, and
+with `--chunk-mode inline` (or per frame) runs the attempts on a worker
+thread, on a CUDA stream of its own on the card.  `bench --coldstart`
+prints the cold-start profile (bench/coldstart.py).  `bench --devices N`
 runs in each of N processes started with `--coordinator`,
 `--num-processes N` and `--process-id` (one process a GPU, each with its
 own `--device cuda:K`; NCCL on the GPU, gloo with `--device cpu`).
@@ -66,8 +68,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--progress", action="store_true",
                    help="print a live per-frame status line to stderr")
     p.add_argument("--async-backend", action="store_true",
-                   help="defer each chunk's loop-closure attempt to the next "
-                        "chunk's readback (boundary chunk mode)")
+                   help="boundary chunks: defer each chunk's loop-closure "
+                        "attempt to the next chunk's readback; inline chunks "
+                        "or per frame: run the attempts in a worker thread "
+                        "(its own CUDA stream) overlapped with tracking")
     p.add_argument("--chunk", type=int, default=0,
                    help="process frames in chunks of this size (one readback "
                         "per chunk; run_slam only — backend work runs at "
@@ -362,11 +366,13 @@ def cmd_bench(args) -> int:
         bench_scale,
         run_bench,
     )
-    from tpuslam_torch.slam import _not_ported
-
     if args.coldstart:
-        raise _not_ported("bench --coldstart (the JAX compile-cache "
-                          "cold-start profile)", "Queue 1 item 17")
+        from tpuslam_torch.bench.coldstart import profile_coldstart
+
+        print(json.dumps(profile_coldstart(
+            frames=min(args.frames, 32), height=args.height,
+            width=args.width, device=args.device)))
+        return 0
     with _distributed(args):
         if args.scale:
             result = bench_scale(frames=args.frames, height=args.height,
@@ -375,9 +381,13 @@ def cmd_bench(args) -> int:
             result = bench_pathology(frames=args.frames, height=args.height,
                                      width=args.width, device=args.device)
         else:
+            # the odometry block, the loader and, as the reference's,
+            # the full system: on --frames frames (the reference's fixed
+            # 120 is the default)
             result = run_bench(frames=args.frames, height=args.height,
                                width=args.width, config_path=args.config,
-                               devices=args.devices, device=args.device)
+                               devices=args.devices, device=args.device,
+                               slam_frames=args.frames)
     print(json.dumps(result))
     return 0
 
@@ -427,7 +437,10 @@ def main(argv=None) -> int:
                    help="run the degraded-sensor benchmark instead (Kinect "
                         "z²-noise + dropout holes + rotation burst)")
     p.add_argument("--coldstart", action="store_true",
-                   help="the reference's JAX cold-start profile (not ported)")
+                   help="cold-start profile of a fresh process: imports, "
+                        "CUDA context, the kernels' build or load, upload, "
+                        "and each program's first and second run "
+                        "(--frames capped at 32)")
     _add_runtime(p)
     p.set_defaults(fn=cmd_bench)
 

@@ -68,9 +68,9 @@
 //   row (tpuslam/icp.py:268-278).  The two indices differ for a measured
 //   share of points (tests/test_torch_gn_fused.py, ROADMAP.md Queue 3).
 //
-// One stream: the ticket word and the rows' scratch are kernels/gn_step.py's,
-// one of each per device, so two launches of these kernels must not run
-// concurrently on one device.
+// The ticket word and the rows' scratch are kernels/gn_step.py's, one of
+// each per stream: two launches that share them run in order on their
+// stream, and launches on two streams get scratch of their own.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>

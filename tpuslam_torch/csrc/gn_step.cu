@@ -39,9 +39,9 @@
 //     its ticket, and only the last block, after every ticket is drawn,
 //     writes the carry.
 //
-// One stream: the ticket word and the partials scratch belong to the
-// wrapper's module, one of each per device, so two launches of this kernel
-// must not run concurrently on one device.
+// The ticket word and the partials scratch belong to the wrapper's module,
+// one of each per stream: two launches that share them run in order on
+// their stream, and launches on two streams get scratch of their own.
 
 #include <cuda_runtime.h>
 

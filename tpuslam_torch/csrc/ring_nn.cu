@@ -70,7 +70,8 @@
 //
 // The kernel does nothing when *done != 0 (the ICP loop's device-side early
 // exit): it reads no point and no row, touches no ticket and writes nothing.
-// One stream: two launches must not run concurrently on one device.
+// The tickets and partials are the wrapper's, one of each per stream: two
+// launches that share them run in order on their stream.
 
 #include <algorithm>
 #include <climits>

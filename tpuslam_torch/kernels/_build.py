@@ -16,12 +16,12 @@ port on machines that have neither nvcc nor a GPU.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -59,15 +59,35 @@ _SIGNATURES = {
 
 class LaunchCounter:
     """Plain-integer counts of one kernel's launches and of calls to its
-    plain PyTorch twin, so a run can show which of the two did the work."""
+    plain PyTorch twin, so a run can show which of the two did the work.
+
+    `by_stream` splits the launches by the CUDA stream they went to (its
+    handle), so a run can show that a second stream (the SLAM backend's
+    worker) launched the kernel too.  The counts are taken under a lock:
+    two threads launching at once must not lose a count."""
 
     def __init__(self) -> None:
+        self._lock = threading.Lock()
         self.launches = 0
         self.plain_calls = 0
+        self.by_stream: dict[int, int] = {}
 
     def reset(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
+        with self._lock:
+            self.launches = 0
+            self.plain_calls = 0
+            self.by_stream = {}
+
+    def launched(self, stream: int) -> None:
+        """Count one launch of the kernel on `stream` (a handle)."""
+        with self._lock:
+            self.launches += 1
+            self.by_stream[stream] = self.by_stream.get(stream, 0) + 1
+
+    def plain(self) -> None:
+        """Count one call of the plain twin."""
+        with self._lock:
+            self.plain_calls += 1
 
 
 def find_nvcc() -> str:
@@ -103,12 +123,17 @@ def _check(proc: subprocess.Popen, cmd: list) -> str:
     return out + err
 
 
+def library_path() -> Path:
+    """Where the library for these sources and flags is (or will be)."""
+    return BUILD_DIR / f"libtpuslam_kernels_{_source_hash()}.so"
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the sources into the cached shared library; return its path.
 
     One nvcc per source, all started together, then one link.  Returns at
     once when a library for these exact sources exists."""
-    out = BUILD_DIR / f"libtpuslam_kernels_{_source_hash()}.so"
+    out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -143,17 +168,28 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-@functools.cache
+_library: ctypes.CDLL | None = None
+_library_lock = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The kernel library, built and loaded on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.tpuslam_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.tpuslam_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    """The kernel library, built and loaded on first call.  The first load
+    runs under a lock: two threads launching their first kernels at once
+    build and bind it once."""
+    global _library
+    if _library is not None:
+        return _library
+    with _library_lock:
+        if _library is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.tpuslam_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.tpuslam_cuda_error_string.restype = ctypes.c_char_p
+            _library = lib
+    return _library
 
 
 def check_launch(err: int, kernel: str) -> None:
@@ -164,7 +200,9 @@ def check_launch(err: int, kernel: str) -> None:
 
 
 def stream_handle(t) -> int:
-    """PyTorch's current CUDA stream on `t`'s device, as a pointer."""
+    """PyTorch's current CUDA stream on `t`'s device, as a pointer.  The
+    current stream is the calling thread's own: every launch goes to the
+    stream its caller chose, and a kernel's scratch is keyed by it."""
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream

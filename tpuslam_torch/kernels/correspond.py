@@ -107,7 +107,7 @@ def projective_correspond_packed_reference(
     normal_dot_min: float = 0.0,
 ) -> Correspondence:
     """Plain PyTorch twin of the correspond kernel (the reference's ops)."""
-    counter.plain_calls += 1
+    counter.plain()
     uv, in_front = project(x, K)
     # The clamp keeps the float→int conversion defined; any value it
     # changes is out of bounds either way.
@@ -271,6 +271,7 @@ def _launch(name, pts, mask, normals, pose_ptr, packed, height, width, K,
         _build.require(t, "out", dtype=dtype, shape=shape, device=dev)
     if n_pts == 0:
         return out
+    stream = _build.stream_handle(pts)
     lib = _build.library()
     err = lib.tpuslam_correspond(
         pts.data_ptr(), mask.data_ptr(),
@@ -278,10 +279,9 @@ def _launch(name, pts, mask, normals, pose_ptr, packed, height, width, K,
         packed.data_ptr(), n_pts, height, width, K.fx, K.fy, K.cx, K.cy,
         max_dist * max_dist, normal_dot_min, int(normals is not None),
         done.data_ptr() if done is not None else None,
-        q.data_ptr(), n.data_ptr(), w.data_ptr(), flat.data_ptr(),
-        _build.stream_handle(pts))
+        q.data_ptr(), n.data_ptr(), w.data_ptr(), flat.data_ptr(), stream)
     _build.check_launch(err, "correspond")
-    counter.launches += 1
+    counter.launched(stream)
     return out
 
 
@@ -408,11 +408,11 @@ def with_cell_table(index: GridIndex) -> GridIndex:
                          "27 bits")
     size = cell_table_size(m)
     table = torch.empty(size, dtype=torch.int64, device=keys.device)
+    stream = _build.stream_handle(keys)
     err = _build.library().tpuslam_grid_table(
-        keys.data_ptr(), m, table.data_ptr(), size,
-        _build.stream_handle(keys))
+        keys.data_ptr(), m, table.data_ptr(), size, stream)
     _build.check_launch(err, "grid_table")
-    table_counter.launches += 1
+    table_counter.launched(stream)
     return index._replace(table=table)
 
 
@@ -471,7 +471,7 @@ def grid_hash_correspond_reference(x: torch.Tensor, x_mask: torch.Tensor,
     16 slots clipped to the last row; the first of equal minima inside a
     cell, a strict `<` across cells.  d2 is ((dx² + dy²) + dz²), each step
     rounded, as the kernel computes it."""
-    grid_counter.plain_calls += 1
+    grid_counter.plain()
     kq = CANDIDATES_PER_CELL
     dev = x.device
     c = _cell_coords(x, index.origin, index.cell)
@@ -609,14 +609,14 @@ def _grid_launch(name, pts, mask, pose_ptr, index: GridIndex, max_dist,
         _build.require(t, "out", dtype=dtype, shape=shape, device=dev)
     if n_pts == 0:
         return out
+    stream = _build.stream_handle(pts)
     err = _build.library().tpuslam_grid_correspond(
         pts.data_ptr(), mask.data_ptr(), pose_ptr, index.keys.data_ptr(),
         index.rows.data_ptr(), m, index.table.data_ptr(), size,
         index.origin.data_ptr(), index.cell,
         n_pts, max_dist * max_dist,
         done.data_ptr() if done is not None else None,
-        q.data_ptr(), n.data_ptr(), w.data_ptr(), idx.data_ptr(),
-        _build.stream_handle(pts))
+        q.data_ptr(), n.data_ptr(), w.data_ptr(), idx.data_ptr(), stream)
     _build.check_launch(err, "grid_correspond")
-    grid_counter.launches += 1
+    grid_counter.launched(stream)
     return out

@@ -203,7 +203,7 @@ def gn_epilogue_reference(partials, carry, num_valid_src, damping: float,
                           max_rot: float, is_last: bool, inner: int,
                           max_iters: int, tol_sq: float):
     """Plain twin of the epilogue kernel.  Returns (carry_out, step)."""
-    counter.plain_calls += 1
+    counter.plain()
     return epilogue_plain(partials, carry, num_valid_src, damping,
                           damping_abs, max_trans, max_rot, is_last, inner,
                           max_iters, tol_sq)
@@ -245,12 +245,13 @@ def gn_epilogue(partials: torch.Tensor, carry: torch.Tensor,
                    shape=(), device=dev)
     carry_out = torch.empty(CARRY_SIZE, dtype=torch.float32, device=dev)
     step = torch.empty(STEP_SIZE, dtype=torch.float32, device=dev)
+    stream = _build.stream_handle(partials)
     err = _build.library().tpuslam_gn_epilogue(
         partials.data_ptr(), partials.shape[0], carry.data_ptr(),
         num_valid_src.data_ptr(), damping, damping_abs, max_trans, max_rot,
         int(is_last), int(inner), int(max_iters), tol_sq,
-        carry_out.data_ptr(), step.data_ptr(), _build.stream_handle(partials))
+        carry_out.data_ptr(), step.data_ptr(), stream)
     _build.check_launch(err, "gn_epilogue")
-    counter.launches += 1
+    counter.launched(stream)
     return carry_out, step
 

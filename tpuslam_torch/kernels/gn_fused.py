@@ -30,8 +30,8 @@ num_inliers, Σw·r²) out); the tests hold both to the reference.
 
 The kernel's last block folds the other blocks' rows after a ticket.  The
 ticket word and the rows' scratch are `kernels/gn_step.py`'s, one of each
-per device, so launches on one device must not run concurrently (one
-stream, as everywhere in the port).
+per stream: launches on one stream share them in order, launches on two
+streams never share them.
 """
 
 from __future__ import annotations
@@ -138,7 +138,7 @@ def gn_fused_reference(points, normals, mask, rows_gathered, T_gate, T_res,
                        huber_delta: float):
     """Plain twin with the reference oracle's signature: returns
     (H (6, 6), b (6,), num_inliers (), weighted_sq_sum ())."""
-    counter.plain_calls += 1
+    counter.plain()
     sums = fused_terms(points, normals, mask, rows_gathered, T_gate, T_res,
                        K, width, height, max_dist, normal_dot_min,
                        huber_delta).sum(dim=0)
@@ -183,7 +183,7 @@ def gn_fused_step_reference(points, normals, mask, packed, carry, gate,
                             max_iters: int, tol_sq: float):
     """Plain twin of the kernel.  Returns (carry_out, gate_out), new tensors
     (the inputs are left as they are)."""
-    counter.plain_calls += 1
+    counter.plain()
     T_res = carry[ep.T_SLICE].reshape(4, 4)
     gate_now = T_res[:3].reshape(GATE_SIZE) if is_first else gate
     rows = fused_rows(points, normals, mask, packed, gate_now.reshape(3, 4),
@@ -259,6 +259,7 @@ def gn_fused_step(points: torch.Tensor, normals: torch.Tensor,
     _build.require(num_valid_src, "num_valid_src", dtype=torch.float32,
                    shape=(), device=dev)
     ticket, rows = scratch(dev)
+    stream = _build.stream_handle(points)
     err = _build.library().tpuslam_gn_fused_step(
         points.data_ptr(), normals.data_ptr(), mask.data_ptr(),
         packed.data_ptr(), int(packed.dtype == torch.float16), n_pts, height,
@@ -266,9 +267,9 @@ def gn_fused_step(points: torch.Tensor, normals: torch.Tensor,
         huber_delta, carry.data_ptr(), gate.data_ptr(), int(is_first),
         num_valid_src.data_ptr(), damping, damping_abs, max_trans, max_rot,
         int(is_last), int(inner), int(max_iters), tol_sq, rows.data_ptr(),
-        ticket.data_ptr(), num_blocks(n_pts), _build.stream_handle(points))
+        ticket.data_ptr(), num_blocks(n_pts), stream)
     if err != 0:
         ticket.zero_()    # a refused launch must not leave a count behind
     _build.check_launch(err, "gn_fused")
-    counter.launches += 1
+    counter.launched(stream)
     return carry

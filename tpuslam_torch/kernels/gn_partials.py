@@ -76,7 +76,7 @@ def partial_rows(x, q, n, w_valid, huber_delta: float,
 def gn_reduce_partials_reference(x, q, n, w_valid,
                                  huber_delta: float) -> torch.Tensor:
     """Plain twin: contiguous chunks of points per block row."""
-    counter.plain_calls += 1
+    counter.plain()
     return partial_rows(x, q, n, w_valid, huber_delta, num_blocks(x.shape[0]))
 
 
@@ -149,13 +149,14 @@ def _launch(name, x, pose_ptr, q, n, w_valid, huber_delta: float,
         _build.require(done, "done", dtype=torch.float32, device=dev)
     nb = num_blocks(n_pts)
     partials = torch.empty((nb, ROW), dtype=torch.float32, device=dev)
+    stream = _build.stream_handle(x)
     err = _build.library().tpuslam_gn_partials(
         x.data_ptr(), pose_ptr, q.data_ptr(), n.data_ptr(),
         w_valid.data_ptr(), n_pts, huber_delta,
         done.data_ptr() if done is not None else None, partials.data_ptr(),
-        nb, _build.stream_handle(x))
+        nb, stream)
     _build.check_launch(err, "gn_partials")
-    counter.launches += 1
+    counter.launched(stream)
     return partials
 
 

@@ -19,12 +19,16 @@ summation, not bit for bit.
 
 The kernel's last block folds the other blocks' rows after an atomic
 ticket.  The ticket word and the rows' scratch are one persistent buffer
-each per device, owned by this module and shared with
-`kernels/gn_fused.py`'s kernel, so launches on one device must not run
-concurrently (one stream, as everywhere in the port).
+each per stream, owned by this module and shared with
+`kernels/gn_fused.py`'s kernel: launches on one stream run in order, so
+the ticket is back at zero before the next launch reads it, and launches
+on two streams (tracking on the main stream, a loop-closure attempt on the
+SLAM backend's worker stream) never share a ticket or a row.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -41,7 +45,9 @@ counter = _build.LaunchCounter()
 # HBM3, 700 W; the same CUDA-event time).
 MAX_BLOCKS = 132
 SCRATCH_ROWS = 264        # the largest grid a launch may take
-_workspace: dict = {}     # device → (ticket int32[1], partials rows)
+# (device, stream) → (ticket int32[1], partials rows)
+_workspace: dict = {}
+_workspace_lock = threading.Lock()
 
 
 def num_blocks(n_points: int, max_blocks: int = MAX_BLOCKS) -> int:
@@ -56,7 +62,7 @@ def gn_step_reference(points, q, n, w_valid, carry, num_valid_src,
                       blocks: int | None = None) -> torch.Tensor:
     """Plain twin of the kernel; returns a new carry (the input is left as
     it is).  `blocks`: the rows of partials (the kernel's grid)."""
-    counter.plain_calls += 1
+    counter.plain()
     x = transform_points_ordered(carry[ep.T_SLICE].reshape(4, 4), points)
     rows = partial_rows(x, q, n, w_valid, huber_delta,
                         blocks or num_blocks(points.shape[0]))
@@ -67,13 +73,19 @@ def gn_step_reference(points, q, n, w_valid, carry, num_valid_src,
 
 
 def scratch(dev: torch.device):
-    """The device's ticket word (zero between launches) and rows."""
-    key = (dev.type, dev.index)
-    if key not in _workspace:
-        _workspace[key] = (
-            torch.zeros(1, dtype=torch.int32, device=dev),
-            torch.empty((SCRATCH_ROWS, ROW), dtype=torch.float32, device=dev))
-    return _workspace[key]
+    """The ticket word (zero between launches) and rows of the current
+    stream on `dev`.  They are made on that stream, so the ticket's zero
+    fill runs before the stream's first launch, and the caching allocator
+    ties the blocks to the stream that uses them.  Stream handles come from
+    PyTorch's fixed pools, so the table stays small."""
+    key = (dev.type, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _workspace_lock:
+        if key not in _workspace:
+            _workspace[key] = (
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.empty((SCRATCH_ROWS, ROW), dtype=torch.float32,
+                            device=dev))
+        return _workspace[key]
 
 
 def gn_step(points: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
@@ -117,14 +129,15 @@ def gn_step(points: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
     if not 1 <= nb <= SCRATCH_ROWS:
         raise ValueError(f"blocks: {nb}, kernel takes 1..{SCRATCH_ROWS}")
     ticket, rows = scratch(dev)
+    stream = _build.stream_handle(points)
     err = _build.library().tpuslam_gn_step(
         points.data_ptr(), q.data_ptr(), n.data_ptr(), w_valid.data_ptr(),
         n_pts, huber_delta, carry.data_ptr(), num_valid_src.data_ptr(),
         damping, damping_abs, max_trans, max_rot, int(is_last), int(inner),
         int(max_iters), tol_sq, rows.data_ptr(), ticket.data_ptr(), nb,
-        _build.stream_handle(points))
+        stream)
     if err != 0:
         ticket.zero_()    # a refused launch must not leave a count behind
     _build.check_launch(err, "gn_step")
-    counter.launches += 1
+    counter.launched(stream)
     return carry

@@ -31,13 +31,14 @@ valid rows (and each block's first invalid one, which stands for all of
 them: every invalid row scores the same 1e30); the twin scores every row.
 
 The kernel's partials and tickets are one persistent buffer each per
-device, owned by this module (they grow to the largest hop seen), so
-launches on one device must not run concurrently (one stream, as
-everywhere in the port).
+stream, owned by this module (they grow to the largest hop seen on that
+stream): launches on one stream share them in order, launches on two
+streams never share them.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -50,7 +51,8 @@ counter = _build.LaunchCounter()
 
 ROW_DIM = 8                 # packed row: [x y z nx ny nz valid 0]
 _BIG = 1e30                 # pushes invalid rows out of every minimum
-_workspace: dict = {}       # device → (tickets, partials)
+_workspace: dict = {}       # (device, stream) → (tickets, partials)
+_workspace_lock = threading.Lock()
 
 
 class RingState(NamedTuple):
@@ -107,7 +109,7 @@ def ring_nn_hop_reference(x: torch.Tensor, shard: torch.Tensor,
                           best_score: torch.Tensor, best_row: torch.Tensor,
                           block_m: int = 512) -> None:
     """Plain twin of the bare hop (same products and sums, same order)."""
-    counter.plain_calls += 1
+    counter.plain()
     _merge_hop(x, shard, best_score, best_row, block_m)
 
 
@@ -119,7 +121,7 @@ def ring_correspond_hop_reference(points: torch.Tensor, mask: torch.Tensor,
     """Plain twin of the ring ICP's hop, in place on `state`: the ordered
     transform, a fresh running best on the first hop, the merge, and on the
     last hop the gates in the kernel's order."""
-    counter.plain_calls += 1
+    counter.plain()
     x = transform_points_ordered(T, points)
     if first:
         state.score.fill_(float("inf"))
@@ -141,18 +143,21 @@ def ring_correspond_hop_reference(points: torch.Tensor, mask: torch.Tensor,
 
 
 def _scratch(dev: torch.device, tiles: int, cells: int):
-    """The device's tickets (zero between launches) and partials (a score
-    and a row index a cell), grown to at least `tiles` tickets and `cells`
-    cells."""
-    key = (dev.type, dev.index)
-    ws = _workspace.get(key)
-    if ws is None or ws[0].numel() < tiles or ws[1].numel() < 2 * cells:
-        tiles = max(tiles, ws[0].numel() if ws else 0)
-        cells = max(cells, ws[1].numel() // 2 if ws else 0)
-        ws = (torch.zeros(tiles, dtype=torch.int32, device=dev),
-              torch.empty(2 * cells, dtype=torch.float32, device=dev))
-        _workspace[key] = ws
-    return ws
+    """The current stream's tickets (zero between launches) and partials (a
+    score and a row index a cell) on `dev`, grown to at least `tiles`
+    tickets and `cells` cells.  They are made on that stream, so a grown
+    workspace frees the old one in the stream's order: no launch of
+    another stream ever reads it."""
+    key = (dev.type, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _workspace_lock:
+        ws = _workspace.get(key)
+        if ws is None or ws[0].numel() < tiles or ws[1].numel() < 2 * cells:
+            tiles = max(tiles, ws[0].numel() if ws else 0)
+            cells = max(cells, ws[1].numel() // 2 if ws else 0)
+            ws = (torch.zeros(tiles, dtype=torch.int32, device=dev),
+                  torch.empty(2 * cells, dtype=torch.float32, device=dev))
+            _workspace[key] = ws
+        return ws
 
 
 def _launch(pts, pose_ptr, shard, best_score, best_row, done, first: bool,
@@ -187,6 +192,7 @@ def _launch(pts, pose_ptr, shard, best_score, best_row, done, first: bool,
         max_dist_sq = max_dist * max_dist
     if n == 0:
         return
+    stream = _build.stream_handle(pts)
     lib = _build.library()
     slices = lib.tpuslam_ring_nn_slices(n, m)
     tickets, part = _scratch(dev, lib.tpuslam_ring_nn_query_tiles(n),
@@ -195,11 +201,11 @@ def _launch(pts, pose_ptr, shard, best_score, best_row, done, first: bool,
         pts.data_ptr(), pose_ptr, shard.data_ptr(), n, m, slices,
         done.data_ptr() if done is not None else None, part.data_ptr(),
         tickets.data_ptr(), best_score.data_ptr(), best_row.data_ptr(),
-        int(first), out[0], max_dist_sq, *out[1:], _build.stream_handle(pts))
+        int(first), out[0], max_dist_sq, *out[1:], stream)
     if err != 0:
         tickets.zero_()    # a refused launch must not leave a count behind
     _build.check_launch(err, "ring_nn")
-    counter.launches += 1
+    counter.launched(stream)
 
 
 def ring_correspond_hop(points: torch.Tensor, mask: torch.Tensor,

@@ -30,13 +30,22 @@ another `verify_level`, or from one that predates the tables) the attempt
 verifies by the grid-hash probe instead (`_chain_attempt_fallback`), with
 the same gates, solve and readback layout.
 
-Not in this port (it raises NotImplementedError): the worker-thread async
-backend of the inline chunk mode.
+With `async_backend=True` in the inline chunk mode (per-frame `process`
+and inline `process_chunk`) the loop-closure attempts run on a worker
+thread, the reference's design: each promotion queues one attempt, the
+worker snapshots the keyframes and the graph under the system's lock,
+verifies and solves outside it, and commits under it; `finalize` joins the
+worker and re-raises its error.  On a GPU the worker owns a CUDA stream of
+its own, so its kernels overlap tracking's on the main stream; the
+kernels' scratch is kept per stream (kernels/gn_step.py, ring_nn.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import queue
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -85,6 +94,11 @@ from tpuslam_torch.transfer import upload
 # solve diverges from later host re-solves.
 LC_EDGE_WEIGHT = 2.0
 
+# How long `finalize` waits for the backend worker to drain its queue, and
+# `wait_backend_idle` for its attempts to commit (the reference's join
+# limit); past it they raise rather than hang.
+WORKER_JOIN_S = 120.0
+
 
 class PendingAttempt(NamedTuple):
     """A dispatched-but-unread fused loop-closure attempt (the deferred
@@ -96,6 +110,12 @@ class PendingAttempt(NamedTuple):
     rows_shape: tuple
     poses_shape: tuple
     live_nodes: int             # graph live count at dispatch
+    # the keyframe records whose tensors the attempt's kernels read, held
+    # until its readback has synchronised the stream they run on: the
+    # main thread may drop a record's cloud meanwhile (sparsification), and
+    # the caching allocator must not hand that block out while a kernel of
+    # another stream still reads it
+    keep: tuple = ()
 
     @property
     def size(self) -> int:
@@ -109,8 +129,7 @@ def _span(name: str):
     return torch.profiler.record_function(name)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+_STOP = object()     # the backend worker's last queue item
 
 
 class SlamSystem:
@@ -139,10 +158,6 @@ class SlamSystem:
         if chunk_mode not in ("inline", "boundary"):
             raise ValueError(f"chunk_mode must be 'inline' or 'boundary', "
                              f"got {chunk_mode!r}")
-        if async_backend and chunk_mode == "inline":
-            raise _not_ported("the worker-thread async backend of the "
-                              "inline chunk mode (async means the deferred "
-                              "drain of boundary mode)", "Queue 1 item 17")
         if chunk_sub < 1:
             raise ValueError("chunk_sub must be ≥ 1")
         self.cfg = cfg
@@ -195,10 +210,91 @@ class SlamSystem:
         # readback rides the next chunk's scan readback
         self.async_backend = async_backend
         self._pending_attempt: Optional[PendingAttempt] = None
+        # worker-thread backend (inline chunk mode + async_backend): the
+        # attempts run on a worker thread overlapped with tracking, and
+        # their corrections commit under the lock.  In boundary mode async
+        # means the deferred drain above and no worker is started.
+        self._lock = threading.Lock()
+        self._backend_queue: queue.Queue = queue.Queue()
+        self._backend_thread: Optional[threading.Thread] = None
+        self._backend_error: Optional[BaseException] = None
+        # attempts queued and not yet committed (`wait_backend_idle`)
+        self._backend_idle = threading.Condition()
+        self._backend_queued = 0
+        self._worker_stream = None
+        if async_backend and chunk_mode == "inline":
+            if self.device.type == "cuda":
+                # the worker's attempts go to a stream of their own on the
+                # system's device, beside tracking on the main stream; if
+                # it cannot be made this raises (no attempt falls back to
+                # the main stream or to the CPU twins)
+                self._worker_stream = torch.cuda.Stream(device=self.device)
+            self._backend_thread = threading.Thread(
+                target=self._backend_worker, name="tpuslam-backend",
+                daemon=True)
+            self._backend_thread.start()
+
+    def _backend_worker(self) -> None:
+        """The worker thread: one attempt a queued item until `_STOP`.  An
+        item is the stream that queued it (None on the CPU).  An error is
+        kept for `finalize` and the worker goes on."""
+        ctx = contextlib.ExitStack()
+        if self._worker_stream is not None:
+            # the current device and stream are the calling thread's own:
+            # set both for this thread, or its kernels would go to device
+            # 0's default stream
+            ctx.enter_context(torch.cuda.device(self.device))
+            ctx.enter_context(torch.cuda.stream(self._worker_stream))
+        with ctx:
+            while True:
+                item = self._backend_queue.get()
+                if item is _STOP:
+                    return
+                try:
+                    if self.enable_loop_closure:
+                        self._attempt_loop_closure(after=item)
+                except BaseException as e:      # raised by finalize
+                    self._backend_error = e
+                finally:
+                    with self._backend_idle:
+                        self._backend_queued -= 1
+                        self._backend_idle.notify_all()
+
+    def _queue_attempt(self) -> None:
+        """Queue one attempt for the worker.  On a GPU the item carries the
+        queuing thread's stream, which wrote the keyframes' tables."""
+        with self._backend_idle:
+            self._backend_queued += 1
+        self._backend_queue.put(torch.cuda.current_stream(self.device)
+                                if self._worker_stream is not None else None)
+
+    def wait_backend_idle(self, timeout: float = WORKER_JOIN_S) -> None:
+        """Wait until every queued attempt is committed (no-op without the
+        worker); raise the worker's error, or TimeoutError past
+        `timeout` seconds."""
+        if self._backend_thread is not None:
+            with self._backend_idle:
+                if not self._backend_idle.wait_for(
+                        lambda: self._backend_queued == 0, timeout):
+                    raise TimeoutError(
+                        f"backend worker: {self._backend_queued} attempt(s) "
+                        f"not committed after {timeout} s")
+        if self._backend_error is not None:
+            raise self._backend_error
 
     def finalize(self) -> None:
-        """Drain the deferred backend and run a final global optimization."""
+        """Drain the deferred backend, join the worker (re-raising its
+        error) and run a final global optimization."""
         self._drain_pending()
+        if self._backend_thread is not None:
+            self._backend_queue.put(_STOP)
+            self._backend_thread.join(timeout=WORKER_JOIN_S)
+            if self._backend_thread.is_alive():
+                raise TimeoutError(f"backend worker still running after "
+                                   f"{WORKER_JOIN_S} s")
+            self._backend_thread = None
+            if self._backend_error is not None:
+                raise self._backend_error
         if self.enable_loop_closure:
             self._attempt_loop_closure()
         if self.graph.num_edges > 0:
@@ -281,7 +377,8 @@ class SlamSystem:
         odo.trajectory[-1] = T_world_cam
 
     def _dispatch_closure_attempt(
-            self, max_candidates: int = 4) -> Optional[PendingAttempt]:
+            self, max_candidates: int = 4,
+            after=None) -> Optional[PendingAttempt]:
         """Propose → verify → optimize on the device, WITHOUT reading back.
 
         Candidate edges enter the solve with weight LC_EDGE_WEIGHT·accept
@@ -290,20 +387,33 @@ class SlamSystem:
         from the same float32 values and applies the poses when a closure
         was accepted.  Returns None when nothing was verifiable (a dry pass
         costs no device work: proposal is host-side numpy).
+
+        The snapshot is taken under the lock (the worker runs this beside
+        tracking); `after` is then the stream that wrote the keyframes'
+        tables (the worker's queued item).
         """
-        n = self._num_graph_nodes
-        kf_poses = [self.graph._poses[k].astype(np.float64)
-                    for k in range(n)]
-        keyframes = list(self.odo.keyframes[:n])
-        known = set(self._known_edges) | set(self._failed_pairs)
-        live_nodes = self.graph.num_nodes
+        with self._lock:
+            n = self._num_graph_nodes
+            graph = self.graph.snapshot()
+            keyframes = list(self.odo.keyframes[:n])
+            known = set(self._known_edges) | set(self._failed_pairs)
+            if after is not None:
+                # every table, cloud and descriptor of these keyframes was
+                # issued on `after` before its thread released the lock:
+                # the worker's stream waits for an event recorded there
+                # now (an event taken when the item was queued would miss
+                # keyframes promoted since)
+                torch.cuda.current_stream(self.device).wait_stream(after)
+        kf_poses = [graph._poses[k].astype(np.float64) for k in range(n)]
+        live_nodes = graph.num_nodes
         live, padded, attempted, v0 = propose_attempt(
             keyframes, kf_poses, self.cfg.icp, self.cfg.posegraph,
             exclude_pairs=known, K=self.odo.K, max_candidates=max_candidates)
         if not live:
-            self._failed_pairs.update(attempted)
+            with self._lock:
+                self._failed_pairs.update(attempted)
             return None
-        g = self.graph.graph(bucketed=True)
+        g = graph.graph(bucketed=True)
         b = len(padded)
         dev = self.device
         cand_i = upload(np.asarray([i for i, _, _ in live] + [0] * (b - len(
@@ -329,7 +439,7 @@ class SlamSystem:
         return PendingAttempt(
             live=live, attempted=attempted, packed=packed,
             rows_shape=(b, ROW_SIZE), poses_shape=tuple(g.poses.shape),
-            live_nodes=live_nodes)
+            live_nodes=live_nodes, keep=tuple(keyframes))
 
     def _chain_attempt_fallback(self, keyframes, padded, live, T_inits, g,
                                 cand_i, cand_j,
@@ -352,40 +462,45 @@ class SlamSystem:
     def _drain_closure_attempt(self, p: PendingAttempt,
                                flat: Optional[np.ndarray] = None) -> bool:
         """Read back (unless `flat` came fused with another readback), gate
-        and commit one dispatched attempt."""
+        and commit one dispatched attempt (the commit under the lock)."""
         if flat is None:
-            flat = p.packed.cpu().numpy()          # the ONE sync
+            # the ONE sync; on the worker it waits for the worker's stream
+            # only, and nothing of the attempt crosses to the main thread
+            # but these host values
+            flat = p.packed.cpu().numpy()
         rows_size = math.prod(p.rows_shape)
         s = flat[:rows_size].reshape(p.rows_shape)
         poses = flat[rows_size:].reshape(p.poses_shape)
         closures = gate_rows(p.live, s, self.cfg.posegraph)
-        accepted = {(c.i, c.j) for c in closures}
-        self._failed_pairs.update(p.attempted - accepted)
-        added = False
-        for c in closures:
-            if (c.i, c.j) in self._known_edges:
-                continue
-            self.graph.add_edge(c.i, c.j, c.T_ij, weight=LC_EDGE_WEIGHT)
-            self._known_edges.add((c.i, c.j))
-            # closure anchors keep their clouds through sparsification
-            self.odo.protect(c.i, c.j)
-            self._bound_protected()
-            self.closures.append(c)
-            added = True
-        if added:
-            if self.graph.num_nodes == p.live_nodes:
-                # apply the fused optimization (accepted edges at weight 2,
-                # rejected 0) and re-anchor the frontend as _optimize does
-                self._apply_poses(poses.astype(np.float32))
-            else:
-                # the graph grew while the attempt was in flight: its
-                # poses are stale, re-solve on the current graph
-                self._optimize()
+        with self._lock:
+            accepted = {(c.i, c.j) for c in closures}
+            self._failed_pairs.update(p.attempted - accepted)
+            added = False
+            for c in closures:
+                if (c.i, c.j) in self._known_edges:
+                    continue
+                self.graph.add_edge(c.i, c.j, c.T_ij, weight=LC_EDGE_WEIGHT)
+                self._known_edges.add((c.i, c.j))
+                # closure anchors keep their clouds through sparsification
+                self.odo.protect(c.i, c.j)
+                self._bound_protected()
+                self.closures.append(c)
+                added = True
+            if added:
+                if self.graph.num_nodes == p.live_nodes:
+                    # apply the fused optimization (accepted edges at
+                    # weight 2, rejected 0) and re-anchor the frontend as
+                    # _optimize does
+                    self._apply_poses(poses.astype(np.float32))
+                else:
+                    # the graph grew while the attempt was in flight: its
+                    # poses are stale, re-solve on the current graph
+                    self._optimize()
         return bool(closures)
 
-    def _attempt_loop_closure(self) -> bool:
+    def _attempt_loop_closure(self, after=None) -> bool:
         """One fused attempt, dispatched and drained at once (one sync)."""
-        p = self._dispatch_closure_attempt()
+        p = self._dispatch_closure_attempt(after=after)
         if p is None:
             return False
         return self._drain_closure_attempt(p)
@@ -409,7 +524,7 @@ class SlamSystem:
 
     def _apply_poses(self, poses: np.ndarray) -> None:
         """Commit optimized keyframe poses: graph, keyframe records and the
-        live tracking origin."""
+        live tracking origin (under the lock, or with no worker running)."""
         self.graph.set_poses(poses)
         # optimization moved the initial guesses: failed pairs may verify
         self._failed_pairs.clear()
@@ -482,7 +597,8 @@ class SlamSystem:
                              "num_obs": int(flat[-2]),
                              "num_control": int(flat[-1])}
         # BA moved every initial guess: failed closure pairs may verify
-        self._apply_poses(poses)
+        with self._lock:
+            self._apply_poses(poses)
         return True
 
     def _attempt_relocalization(self) -> Optional[bool]:
@@ -671,41 +787,52 @@ class SlamSystem:
             return np.stack([self.process(depths[i], float(timestamps[i]))
                              for i in range(n)])
         out = []
-        for i in range(n):
-            row = s[i]
-            T_world_cam = row[FlatChunk.WORLD_T].reshape(4, 4).astype(
-                np.float64)
-            promoted = bool(row[FlatChunk.PROMOTE] > 0.5)
-            if promoted:
-                odo.T_world_kf = T_world_cam.astype(np.float32)
-                odo._promote(preprocess(depths[i], odo.K, self.cfg),
-                             float(timestamps[i]))
-                odo.frame_refs.append((len(odo.keyframes) - 1, np.eye(4)))
-            else:
-                odo.frame_refs.append((
-                    len(odo.keyframes) - 1,
-                    row[FlatChunk.REL_T].reshape(4, 4).astype(np.float64)))
-            odo.stats.append({
-                "iters": int(row[FlatChunk.ITERS]),
-                "rms": float(row[FlatChunk.RMS]),
-                "inliers": float(row[FlatChunk.INLIER_FRACTION]),
-                "promoted": promoted,
-                "lost": False,
-            })
-            odo.trajectory.append(T_world_cam)
-            odo.timestamps.append(float(timestamps[i]))
-            odo.frame_idx += 1
-            out.append(T_world_cam)
-        # commit the device-side carry AFTER the walk
-        odo.kf_packed = new_state.kf_packed
-        odo.T_kf_cam = new_state.T_kf_cam
-        odo.last_delta = new_state.last_delta
-        kf_before = self._num_graph_nodes
-        new_kf = self._commit_chunk_end()
-        if new_kf and self.enable_loop_closure:
+        with self._lock:
+            for i in range(n):
+                row = s[i]
+                T_world_cam = row[FlatChunk.WORLD_T].reshape(4, 4).astype(
+                    np.float64)
+                promoted = bool(row[FlatChunk.PROMOTE] > 0.5)
+                if promoted:
+                    odo.T_world_kf = T_world_cam.astype(np.float32)
+                    odo._promote(preprocess(depths[i], odo.K, self.cfg),
+                                 float(timestamps[i]))
+                    odo.frame_refs.append((len(odo.keyframes) - 1,
+                                           np.eye(4)))
+                else:
+                    odo.frame_refs.append((
+                        len(odo.keyframes) - 1,
+                        row[FlatChunk.REL_T].reshape(4, 4).astype(
+                            np.float64)))
+                odo.stats.append({
+                    "iters": int(row[FlatChunk.ITERS]),
+                    "rms": float(row[FlatChunk.RMS]),
+                    "inliers": float(row[FlatChunk.INLIER_FRACTION]),
+                    "promoted": promoted,
+                    "lost": False,
+                })
+                odo.trajectory.append(T_world_cam)
+                odo.timestamps.append(float(timestamps[i]))
+                odo.frame_idx += 1
+                out.append(T_world_cam)
+            # commit the device-side carry AFTER the walk
+            odo.kf_packed = new_state.kf_packed
+            odo.T_kf_cam = new_state.T_kf_cam
+            odo.last_delta = new_state.last_delta
+            kf_before = self._num_graph_nodes
+            new_kf = self._commit_chunk_end()
+            num_new = self._num_graph_nodes - kf_before
+        if new_kf and self._backend_thread is not None:
+            # one queued attempt per promotion, not one per chunk: the
+            # per-frame path's opportunities (the reference measured a
+            # single item a chunk dropping closures 38 → 34/23 on its
+            # 120-frame loop)
+            for _ in range(num_new):
+                self._queue_attempt()
+        elif new_kf and self.enable_loop_closure:
             # one attempt per promotion, as the per-frame path gets,
             # stopping when dry
-            for _ in range(self._num_graph_nodes - kf_before):
+            for _ in range(num_new):
                 if not self._attempt_loop_closure():
                     break
         return np.stack(out)
@@ -713,27 +840,33 @@ class SlamSystem:
     def process(self, depth, timestamp: float = 0.0) -> np.ndarray:
         """Track one frame (per-frame path); returns its world←cam pose."""
         self._drain_pending()
-        self.odo.process(depth, timestamp)
-        if self.odo.stats[-1].get("lost"):
-            self._lost_streak += 1
-            if (self.enable_relocalization
-                    and self._lost_streak >= self._reloc_backoff):
-                r = self._attempt_relocalization()
-                if r is True:
-                    self._lost_streak = 0
-                    self._reloc_backoff = self.reloc_after
-                elif r is False:
-                    # genuine miss: back off
-                    self._lost_streak = 0
-                    self._reloc_backoff = min(2 * self._reloc_backoff, 64)
-                # r is None: no usable data — keep the streak
-        else:
-            self._lost_streak = 0
-            self._reloc_backoff = self.reloc_after
-        if self._sync_graph_with_keyframes() and self.enable_loop_closure:
+        with self._lock:
+            self.odo.process(depth, timestamp)
+            if self.odo.stats[-1].get("lost"):
+                self._lost_streak += 1
+                if (self.enable_relocalization
+                        and self._lost_streak >= self._reloc_backoff):
+                    r = self._attempt_relocalization()
+                    if r is True:
+                        self._lost_streak = 0
+                        self._reloc_backoff = self.reloc_after
+                    elif r is False:
+                        # genuine miss: back off
+                        self._lost_streak = 0
+                        self._reloc_backoff = min(2 * self._reloc_backoff,
+                                                  64)
+                    # r is None: no usable data — keep the streak
+            else:
+                self._lost_streak = 0
+                self._reloc_backoff = self.reloc_after
+            new_kf = self._sync_graph_with_keyframes()
+        if new_kf and self._backend_thread is not None:
+            self._queue_attempt()
+        elif new_kf and self.enable_loop_closure:
             self._attempt_loop_closure()
         if self.track_against_map:
-            self._refine_against_map()
+            with self._lock:
+                self._refine_against_map()
         kf_id, T_rel = self.odo.frame_refs[-1]
         return self.odo.keyframes[kf_id].T_world_kf.astype(np.float64) @ T_rel
 

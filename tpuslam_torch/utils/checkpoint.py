@@ -12,13 +12,17 @@ system's device, written through `.cpu()` and copied back to the device on
 load (verification tables stay float16).  Descriptors live in host memory
 in both directions (float32 numpy arrays).
 
-One divergence from the reference: `load_checkpoint` clears the deferred
+Two divergences from the reference: `load_checkpoint` clears the deferred
 backend's pending loop-closure attempt, which the reference leaves in
-place, so a solve dispatched before the restore cannot apply after it.
+place, so a solve dispatched before the restore cannot apply after it; and
+`save_checkpoint` waits for the worker-thread backend's queued attempts to
+commit and reads the state under the system's lock, where the reference
+drains only the deferred attempt and can capture a graph in mid-commit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 
@@ -50,11 +54,35 @@ def _host(t) -> np.ndarray:
 
 
 def save_checkpoint(path: str, system, frame_idx: int) -> None:
-    """Snapshot an `Odometry` or `SlamSystem` to an npz (atomic rename)."""
-    if hasattr(system, "_drain_pending"):
-        # a deferred loop-closure attempt in flight holds pose corrections
-        # the snapshot must include
+    """Snapshot an `Odometry` or `SlamSystem` to an npz (atomic rename).
+
+    A SlamSystem's snapshot holds every loop-closure attempt in flight: the
+    deferred one is drained, the worker's queued ones are committed
+    (`wait_backend_idle`, which raises the worker's error or after its time
+    limit), and the state is read under the system's lock."""
+    lock = contextlib.nullcontext()
+    if _is_slam(system):
         system._drain_pending()
+        system.wait_backend_idle()
+        lock = system._lock
+    with lock:
+        data = _state(system, frame_idx)
+    # np.savez appends ".npz" to a name without it, which would break the
+    # atomic rename: write through the open fd instead
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               suffix=".npz.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez_compressed(f, **data)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def _state(system, frame_idx: int) -> dict:
+    """The arrays `save_checkpoint` writes (host copies of the state)."""
     odo = system.odo if _is_slam(system) else system
     data: dict = {
         "version": _FORMAT_VERSION,
@@ -62,7 +90,7 @@ def save_checkpoint(path: str, system, frame_idx: int) -> None:
         "timestamps": np.asarray(odo.timestamps),
         "trajectory": (np.stack(odo.trajectory) if odo.trajectory
                        else np.zeros((0, 4, 4))),
-        "T_world_kf": np.asarray(odo.T_world_kf),
+        "T_world_kf": np.array(odo.T_world_kf),
         "T_kf_cam": _host(odo.T_kf_cam),
         "last_delta": _host(odo.last_delta),
         "kf_indices": np.asarray([k.index for k in odo.keyframes]),
@@ -122,24 +150,13 @@ def save_checkpoint(path: str, system, frame_idx: int) -> None:
         data.update(
             graph_num_nodes=g.num_nodes,
             graph_num_edges=g.num_edges,
-            graph_poses=g._poses[: g.num_nodes],
-            graph_edge_i=g._edge_i[: g.num_edges],
-            graph_edge_j=g._edge_j[: g.num_edges],
-            graph_edge_T=g._edge_T[: g.num_edges],
-            graph_edge_w=g._edge_w[: g.num_edges],
+            graph_poses=g._poses[: g.num_nodes].copy(),
+            graph_edge_i=g._edge_i[: g.num_edges].copy(),
+            graph_edge_j=g._edge_j[: g.num_edges].copy(),
+            graph_edge_T=g._edge_T[: g.num_edges].copy(),
+            graph_edge_w=g._edge_w[: g.num_edges].copy(),
         )
-    # np.savez appends ".npz" to a name without it, which would break the
-    # atomic rename: write through the open fd instead
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
-                               suffix=".npz.tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez_compressed(f, **data)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
+    return data
 
 
 def load_checkpoint(path: str, system) -> int:
