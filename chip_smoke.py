@@ -36,7 +36,22 @@ Phases, in order (any failure raises and the script exits non-zero):
                 gn_epilogue, with and without the transform) in turns, by
                 CUDA events and under torch.profiler, on grids of 132 and
                 264 blocks (gn_fused's solve against the parent commit's
-                pair: tpuslam_torch/bench/profile_odometry.py --mode solve)
+                pair: tpuslam_torch/bench/profile_odometry.py --mode solve);
+                torch.searchsorted of the probe's 16,384 × 27 cell keys
+                into the index's sorted keys as the grid table's library
+                time
+ 3b. graphs   — the captured programs (tpuslam_torch/graphs.py) at
+                640×480: scan_odometry (plain and fused), process_frame_jit,
+                scan_chunk, scan_superchunk_frozen (sub 8 and 4), the dense
+                pose-graph solve at 32 and 256 nodes, the CG solve at 512
+                and fused_attempt_jit (B = 4, 3 live), each run eagerly
+                against a key's first call (the warm-up), its second (the
+                capture and a replay) and a replay: every output bit-equal;
+                each one's capture seconds, eager and replayed ms, device
+                operations a replayed call, the pool memory the capture
+                added and its hand kernels' launches a replay; a changed K
+                gets a graph of its own.  Every later phase runs through
+                the graphs, and its launch checks count the replays
   4. uint16   — raw uint16 depth divided on the device is bit-equal to
                 host-divided float32 depth
   5. small    — a 12-frame 120×160 scan on the GPU against the same scan
@@ -172,8 +187,10 @@ Phases, in order (any failure raises and the script exits non-zero):
                 stage's launches per rank, no twin called
  17. backend   — the worker-thread backend and the cold start: (a) gn_step,
                 gn_fused and correspond at level 0 (153,600 points) and
-                ring_nn at 16,384 × 131,072, 100 launches each on each of
-                two streams at once, each stream with inputs of its own
+                ring_nn at 16,384 × 131,072, and the graphs of
+                process_frame_jit and the 32-node pose-graph solve, 100
+                launches or replays each on each of two streams at once,
+                each stream with inputs of its own
                 (tpuslam_torch/bench/two_streams.py): every result
                 bit-equal to the same launch alone, every ticket zero
                 after; (b) bench_slam: 120 frames at 640×480, its five
@@ -834,6 +851,17 @@ def grid_correspond_phase(dev, card: str):
     table_us = table_build_us(build_table)
     table_plain_ms = time_ms(
         lambda: correspond.cell_runs_reference(index.keys), reps=20)
+    # the reference's call for this function: jnp.searchsorted of each
+    # query's 27 cell keys into the sorted keys; torch.searchsorted is one
+    # PyTorch call for it
+    c = correspond._cell_coords(xt, index.origin, index.cell)
+    near = torch.stack([c + torch.tensor([dx, dy, dz], dtype=torch.int32,
+                                         device=dev)
+                        for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                        for dz in (-1, 0, 1)], dim=1).reshape(-1, 3)
+    near_keys = ((near[:, 0] << 16) | (near[:, 1] << 8)
+                 | near[:, 2]).to(index.keys.dtype)
+    library_ms = time_ms(lambda: torch.searchsorted(index.keys, near_keys))
     size = index.table.shape[0]
     runs = correspond.cell_runs_reference(index.keys)[2]
     tb = bound(nbytes(index.keys, index.table),
@@ -843,15 +871,230 @@ def grid_correspond_phase(dev, card: str):
         f"({nbytes(index.table)} bytes): kernel {table_ms:.5f} ms, device "
         f"{fmt_us(table_us)} us a build (fill + insert), plain (the runs by "
         f"unique_consecutive) {table_plain_ms:.5f} ms, bound "
-        f"{tb['bound_ms']:.5f} ms by {tb['bound_by']}; entries and lookups "
+        f"{tb['bound_ms']:.5f} ms by {tb['bound_by']}, torch.searchsorted "
+        f"of {near_keys.numel()} cell keys into {index.keys.numel()} sorted "
+        f"keys {library_ms:.5f} ms; entries and lookups "
         f"equal to cell_runs_reference at {m} rows, all rows masked and one "
         f"row ({card})")
     return ({"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
              "device_us_full_launch": full_us, "ms_voxel_order": ms_v,
              "device_us_full_launch_voxel_order": us_v, **b},
             {"ms": table_ms, "plain_ms": table_plain_ms, "max_abs_err": 0.0,
+             "library_ms": library_ms,
              "device_us_full_launch": table_us, "table_bytes":
              nbytes(index.table), "cells": cells, **tb})
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same dtype, shape and bits (NaN equal to the same NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a = a.contiguous().view(view[a.element_size()])
+        b = b.contiguous().view(view[b.element_size()])
+    return bool(torch.equal(a, b))
+
+
+def wall_ms(fn, reps: int, sync_each: bool) -> float:
+    """Mean host-clock ms of fn() after a warm-up call: the call and its
+    device work (`sync_each`: one call at a time, as a caller that reads
+    the result back; else back to back, as a loop issues them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        if sync_each:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def device_ops(fn) -> int:
+    """Operations the device ran for one fn() (kernels, copies, fills)
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA)
+
+
+def graphs_phase(dev, card: str, height: int = 480,
+                 width: int = 640) -> dict:
+    """Each captured program (tpuslam_torch/graphs.py) at full width: the
+    eager run against a key's first call (the warm-up), its second (the
+    capture and a replay) and its third (a replay), bit-equal in every
+    output; the capture's seconds, replayed against eager ms, the device's
+    operations a call and the pool memory the capture added; a changed K
+    gets a graph of its own.  Returns the table."""
+    from tpuslam_torch import graphs
+    from tpuslam_torch.backend import loopclosure, posegraph
+    from tpuslam_torch.bench.harness import _render_sequence
+    from tpuslam_torch.bench.profile_odometry import synthetic_graph
+    from tpuslam_torch.config import SLAMConfig
+    from tpuslam_torch.frontend import (
+        SuperChunkCarry,
+        initial_state,
+        preprocess,
+        process_frame_jit,
+        promote_bundle_jit,
+        scan_chunk,
+        scan_odometry,
+        scan_superchunk_frozen,
+    )
+    from tpuslam_torch.icp import pack_pyramid
+
+    graphs.clear()
+    frames = 24
+    K, gt, d_np = _render_sequence(frames, height, width, loop_cycles=2)
+    d = torch.as_tensor(d_np, device=dev)
+    cfg = SLAMConfig(height=height, width=width).validate()
+    cfg_f = cfg.replace(icp=dataclasses.replace(cfg.icp, fused_gn=True))
+    eye = torch.eye(4, device=dev)
+    st0 = initial_state(d[0], K, cfg)
+    carry0 = SuperChunkCarry(kf_packed=st0.kf_packed, T_kf_cam=eye,
+                             last_delta=eye)
+    pg = cfg.posegraph
+    # loops of keyframe poses, each off by ~1 cm, with loop edges: the
+    # 32-, 256- and 512-node buckets (dense, dense, CG)
+    g32, g256, g512 = (synthetic_graph(dev, n).graph(bucketed=True)
+                       for n in (24, 200, 400))
+    # the fused attempt: 3 live revisit candidates padded to 4, tables at
+    # verify_level 1, the j sides' voxel clouds
+    lvl = cfg.keyframe.verify_level
+    pairs = [(0, 12), (3, 15), (0, 15)]
+    padded = pairs + pairs[:1]
+    tables = [pack_pyramid(preprocess(d[i], K, cfg), cfg.icp)[lvl]
+              for i, _ in padded]
+    clouds = [promote_bundle_jit(d[j], K, cfg, False)[2] for _, j in padded]
+    T_inits = torch.as_tensor(np.stack([
+        (np.linalg.inv(gt[i]) @ gt[j]).astype(np.float32)
+        for i, j in padded]), device=dev)
+    cand_i = torch.as_tensor([i for i, _ in padded], dtype=torch.int32,
+                             device=dev)
+    cand_j = torch.as_tensor([j for _, j in padded], dtype=torch.int32,
+                             device=dev)
+    h, w = height >> lvl, width >> lvl
+
+    def attempt(eager):
+        return loopclosure.fused_attempt_jit(
+            tables, [c.points for c in clouds], [c.normals for c in clouds],
+            [c.mask for c in clouds], K.scaled(1.0 / 2 ** lvl), T_inits,
+            len(pairs), g32, cand_i, cand_j, h, w, cfg.icp, pg, True,
+            2.0, eager=eager)
+
+    # name → (call(eager), timed calls, one call at a time, profiled, what
+    # a call covers); the CG solve (~159k device operations) is timed from
+    # single calls and not profiled (the profiler takes minutes over it)
+    programs = {
+        "scan_odometry": (lambda e: scan_odometry(d, K, cfg, eager=e), 2,
+                          False, True, f"{frames} frames"),
+        "scan_odometry fused_gn": (
+            lambda e: scan_odometry(d, K, cfg_f, eager=e), 2, False, True,
+            f"{frames} frames"),
+        "process_frame_jit": (lambda e: process_frame_jit(
+            d[5], st0.kf_packed, K, eye, eye, cfg, eager=e), 20, False,
+            True, "1 frame"),
+        "scan_chunk": (lambda e: scan_chunk(d[1:9], K, st0, cfg, eager=e),
+                       3, False, True, "8 frames"),
+        "scan_superchunk_frozen sub 8": (
+            lambda e: scan_superchunk_frozen(d[1:17], K, carry0, cfg, 8,
+                                             eager=e), 3, False, True,
+            "16 frames"),
+        "scan_superchunk_frozen sub 4": (
+            lambda e: scan_superchunk_frozen(d[1:17], K, carry0, cfg, 4,
+                                             eager=e), 3, False, True,
+            "16 frames"),
+        "optimize_pose_graph 32": (lambda e: posegraph.optimize_pose_graph(
+            g32, pg, eager=e), 3, True, True, "one solve"),
+        "optimize_pose_graph 256": (lambda e: posegraph.optimize_pose_graph(
+            g256, pg, eager=e), 2, True, True, "one solve"),
+        "optimize_pose_graph_cg 512": (
+            lambda e: posegraph.optimize_pose_graph_cg(
+                g512, pg, cg_iters=int(pg.cg_iters), cg_tol=float(pg.cg_tol),
+                eager=e), 0, True, False, "one solve"),
+        "fused_attempt_jit": (attempt, 3, True, True,
+                              "one attempt, B=4, 3 live"),
+    }
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [t.clone() for t in graphs.flatten(fn())[0]]
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    table = []
+    for name, (call, reps, sync_each, profiled, covers) in programs.items():
+        t_prog = time.perf_counter()
+        before = {e["id"] for e in graphs.stats()}
+        ref, eager_one = timed(lambda: call(True))
+        # a key's first call warms up, its second captures and replays,
+        # its third replays
+        runs = [timed(lambda: call(False)) for _ in range(3)]
+        for tag, (got, _) in zip(("first call", "capture", "replay"), runs):
+            check(len(got) == len(ref) and all(
+                bits_equal(a, b) for a, b in zip(got, ref)),
+                f"graphs {name}: the {tag} is not bit-equal to the eager "
+                f"run")
+        new = [e for e in graphs.stats() if e["id"] not in before]
+        check(all(e["captured"] for e in new),
+              f"graphs {name}: not captured {new}")
+        if reps:
+            eager_ms = wall_ms(lambda: call(True), reps, sync_each)
+            replay_ms = wall_ms(lambda: call(False), reps, sync_each)
+        else:
+            eager_ms, replay_ms = eager_one, runs[2][1]
+        row = {"program": name, "covers": covers,
+               "graphs": [e["program"] for e in new],
+               "warm_up_s": sum(e["warm_up_s"] for e in new),
+               "capture_s": sum(e["capture_s"] for e in new),
+               "calls_ms": [r[1] for r in runs], "eager_ms": eager_ms,
+               "replay_ms": replay_ms,
+               "device_ops_replayed": (device_ops(lambda: call(False))
+                                       if profiled else None),
+               "pool_mib": sum(e["pool_mib"] for e in new),
+               "kernel_launches_a_replay": [e["kernel_launches"]
+                                            for e in new],
+               "outputs": len(ref),
+               "check_s": time.perf_counter() - t_prog}
+        table.append(row)
+        log(f"[graphs] {name} ({covers}): the first call, the capture and a "
+            f"replay bit-equal to the eager run in {len(ref)} outputs; "
+            f"capture {row['capture_s']:.3f} s "
+            f"({', '.join(row['graphs']) or 'an earlier graph'}); calls "
+            + ", ".join(f"{ms:.3f}" for ms in row["calls_ms"])
+            + f" ms; eager {eager_ms:.3f} ms, replayed {replay_ms:.3f} ms; "
+            f"device ops a replayed call {row['device_ops_replayed']} "
+            f"(its copies in and out included); pool "
+            f"{row['pool_mib']:.3f} MiB; hand-kernel launches a replay "
+            f"{row['kernel_launches_a_replay']}; checked in "
+            f"{row['check_s']:.3f} s ({card})")
+    # a changed K never replays a stale graph: a key of its own, its
+    # replay bit-equal to the eager run at that K
+    K2 = K._replace(fx=K.fx * 1.01)
+    n0 = len(graphs.stats())
+    ref = graphs.flatten(process_frame_jit(d[5], st0.kf_packed, K2, eye,
+                                           eye, cfg, eager=True))[0]
+    for _ in range(3):
+        got = graphs.flatten(process_frame_jit(d[5], st0.kf_packed, K2, eye,
+                                               eye, cfg))[0]
+        check(all(bits_equal(a, b) for a, b in zip(got, ref)),
+              "graphs: a changed K replayed a stale graph")
+    check(len(graphs.stats()) == n0 + 1, "graphs: a changed K shared a key")
+    log(f"[graphs] a changed K captured a graph of its own, bit-equal to "
+        f"the eager run; {len(graphs.stats())} graphs held, "
+        f"{torch.cuda.memory_reserved(dev) / 2 ** 20:.1f} MiB reserved "
+        f"({card})")
+    graphs.clear()
+    return {"programs": table}
 
 
 def map_config():
@@ -2310,6 +2553,7 @@ def backend_phase(dev, card: str, counters, loop, build_line: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # ---- 1. device ----
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs only on a GPU",
@@ -2641,6 +2885,12 @@ def main() -> int:
             ring_partials = partials_at_ring_size(card, pts, ck, carry, icp)
     ring_stats = ring_nn_phase(dev, card)
     grid_stats, table_stats = grid_correspond_phase(dev, card)
+
+    # ---- 3b. the captured programs: eager against replayed ----
+    t0 = time.perf_counter()
+    graph_table = graphs_phase(dev, card)
+    log(f"[graphs] {json.dumps(graph_table)}")
+    log(f"[graphs] phase took {time.perf_counter() - t0:.3f} s")
 
     # ---- 4. uint16 divide ----
     raw = np.round(depths_np * cfg.depth_scale).astype(np.uint16)
@@ -3082,9 +3332,10 @@ def main() -> int:
     # one full launch at level 0 (phase 3).
     # grid_correspond: its own phase's timing (16,384 × 131,072), launches
     # on the grid path (phase 12b).
-    # No single PyTorch call computes any of these functions (the probe: no
-    # call takes a truncated 27-cell scan with its tie rule; the table: no
-    # call builds a hash of runs), so library_ms is null.
+    # No single PyTorch call computes the other functions (the probe: no
+    # call takes a truncated 27-cell scan with its tie rule), so their
+    # library_ms is null; the grid table stands in for the reference's
+    # searchsorted, and its library_ms is torch.searchsorted's (phase 3).
     summary = {k: dict(stats[k][0], max_abs_err=max(
         v["max_abs_err"] for v in stats[k].values())) for k in frame_kernels}
     summary["ring_nn"] = ring_stats
@@ -3106,7 +3357,7 @@ def main() -> int:
             "grid_launches_per_frame": launches_grid[name] / 120,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None,
+            "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
             "odometry_launches_per_frame": odo_launch.get(name, 0.0),
             "odometry_device_us_per_launch": (
                 odo_dev[name][0] if odo_dev.get(name) else None),
@@ -3143,6 +3394,8 @@ def main() -> int:
                 "worker_streams": backend["worker_streams"][name]},
         })
     log(json.dumps({"gn_step_ab": step_ab}))
+    log(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.3f} s "
+        f"({card})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

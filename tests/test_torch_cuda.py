@@ -1518,3 +1518,188 @@ def test_inline_worker_on_card_matches_cpu_twins(dev):
     assert len(card.closures) >= max(1, len(cpu.closures) // 2)
     ts, est = card.trajectory()
     assert ate_rmse(ts, est, ts, gt, max_difference=0.005)["rmse"] < 0.02
+
+
+# ---- the captured programs (tpuslam_torch/graphs.py) -------------------
+
+
+def _flat(tree):
+    from tpuslam_torch import graphs
+
+    return graphs.flatten(tree)[0]
+
+
+def _bits_equal(a, b):
+    ta, tb = _flat(a), _flat(b)
+    if len(ta) != len(tb):
+        return False
+    for x, y in zip(ta, tb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.is_floating_point():
+            view = {2: torch.int16, 4: torch.int32}[x.element_size()]
+            x, y = x.contiguous().view(view), y.contiguous().view(view)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def _program_calls(dev):
+    """Each of the six programs at 120×160, as call(eager) → outputs."""
+    from tpuslam_torch.backend import loopclosure, posegraph
+    from tpuslam_torch.data.synthetic import loop_trajectory
+    from tpuslam_torch.frontend import (
+        SuperChunkCarry,
+        initial_state,
+        process_frame_jit,
+        promote_bundle_jit,
+        scan_chunk,
+        scan_superchunk_frozen,
+    )
+
+    cfg = worker_loop_cfg()
+    gt = loop_trajectory(48, cycles=2, radius=0.35)
+    d = torch.as_tensor(loop_depths(), device=dev)
+    eye = torch.eye(4, device=dev)
+    st = initial_state(d[0], K, cfg)
+    carry = SuperChunkCarry(st.kf_packed, eye, eye)
+    host = posegraph.GraphHost(cfg.posegraph, device=dev)
+    for k in range(20):
+        host.add_node(gt[k].astype(np.float32))
+        if k:
+            host.add_edge(k - 1, k, np.linalg.inv(gt[k - 1]) @ gt[k])
+    g = host.graph(bucketed=True)
+    pairs = [(0, 24), (4, 28), (0, 24), (0, 24)]
+    tables = [pack_pyramid(preprocess(d[i], K, cfg), cfg.icp)[1]
+              for i, _ in pairs]
+    clouds = [promote_bundle_jit(d[j], K, cfg, False)[2] for _, j in pairs]
+    T_inits = torch.as_tensor(np.stack([
+        (np.linalg.inv(gt[i]) @ gt[j]).astype(np.float32)
+        for i, j in pairs]), device=dev)
+    ci = torch.tensor([0, 4, 0, 0], dtype=torch.int32, device=dev)
+    cj = torch.tensor([14, 16, 14, 14], dtype=torch.int32, device=dev)
+    pg = cfg.posegraph
+    return {
+        "scan_odometry": lambda e: scan_odometry(d[:12], K, cfg, eager=e),
+        "process_frame_jit": lambda e: process_frame_jit(
+            d[3], st.kf_packed, K, eye, eye, cfg, eager=e),
+        "scan_chunk": lambda e: scan_chunk(d[1:9], K, st, cfg, eager=e),
+        "scan_superchunk_frozen": lambda e: scan_superchunk_frozen(
+            d[1:17], K, carry, cfg, 8, eager=e),
+        "optimize_pose_graph": lambda e: posegraph.optimize_pose_graph(
+            g, pg, eager=e),
+        "optimize_pose_graph_cg": lambda e: posegraph.optimize_pose_graph_cg(
+            g, pg, cg_iters=32, eager=e),
+        "fused_attempt_jit": lambda e: loopclosure.fused_attempt_jit(
+            tables, [c.points for c in clouds], [c.normals for c in clouds],
+            [c.mask for c in clouds], K.scaled(0.5), T_inits, 2, g, ci, cj,
+            H // 2, W // 2, cfg.icp, pg, True, 2.0, eager=e),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", [
+    "scan_odometry", "process_frame_jit", "scan_chunk",
+    "scan_superchunk_frozen", "optimize_pose_graph", "optimize_pose_graph_cg",
+    "fused_attempt_jit"])
+def test_program_replay_bit_equal_to_eager(dev, program):
+    """The first call (the warm-up), the second (capture and replay) and a
+    replay give the eager run's bits; the replays count the graph's kernel
+    launches."""
+    from tpuslam_torch import graphs
+
+    graphs.clear()
+    call = _program_calls(dev)[program]
+    ref = [t.clone() for t in _flat(call(True))]
+    for c in (correspond.counter, gn_step.counter):
+        c.reset()
+    got = [[t.clone() for t in _flat(call(False))] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(_bits_equal(g, ref) for g in got)
+    entries = [e for e in graphs.stats() if e["replays"] >= 2]
+    assert entries, graphs.stats()
+    if program not in ("optimize_pose_graph", "optimize_pose_graph_cg"):
+        assert gn_step.counter.launches > 0
+        assert gn_step.counter.plain_calls == 0
+        # three calls: the warm-up's launches and two replays' records
+        # (the scans: a warm-up frame, then a replay a frame)
+        rec = sum(e["kernel_launches"].get("gn_step", 0) for e in entries)
+        assert gn_step.counter.launches % 3 == 0 and rec > 0
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_a_changed_K_or_bucket_never_replays_a_stale_graph(dev):
+    from tpuslam_torch import graphs
+    from tpuslam_torch.backend import posegraph
+    from tpuslam_torch.frontend import process_frame_jit
+
+    graphs.clear()
+    d = torch.as_tensor(depths(4), device=dev)
+    kf = pack_pyramid(preprocess(d[0], K, CFG), CFG.icp)
+    eye = torch.eye(4, device=dev)
+    Ks = (K, K._replace(fx=K.fx * 1.02), K._replace(cx=K.cx + 1.5))
+    for Ki in Ks + Ks + Ks[1:2]:     # warm-ups, captures, a replay
+        got = process_frame_jit(d[2], kf, Ki, eye, eye, CFG)
+        assert _bits_equal(got, process_frame_jit(d[2], kf, Ki, eye, eye,
+                                                  CFG, eager=True))
+    assert len(graphs.stats()) == 3
+    assert all(e["captured"] for e in graphs.stats())
+    rng = np.random.default_rng(0)
+    for n in (10, 40, 12, 45, 13):
+        host = posegraph.GraphHost(CFG.posegraph, device=dev)
+        while host.num_nodes < n:
+            T = np.eye(4, dtype=np.float32)
+            T[:3, 3] = rng.normal(scale=0.1, size=3)
+            host.add_node(T)
+            if host.num_nodes > 1:
+                host.add_edge(host.num_nodes - 2, host.num_nodes - 1,
+                              np.eye(4))
+        g = host.graph(bucketed=True)
+        assert _bits_equal(posegraph.optimize_pose_graph(g, CFG.posegraph),
+                           posegraph.optimize_pose_graph(g, CFG.posegraph,
+                                                         eager=True))
+    # buckets 32 and 64, each warmed up, then captured and replayed
+    assert sum(e["program"] == "optimize_pose_graph"
+               for e in graphs.stats()) == 2
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_graphs_bit_equal_on_two_streams(dev):
+    """process_frame_jit's graph (a graph a stream) and the pose-graph
+    solve's replayed 100 times on each of two streams at once: every
+    result bit-equal to the call alone, every ticket back at zero."""
+    from tpuslam_torch.bench.two_streams import check_two_streams
+
+    r = check_two_streams(dev, H, W, ring_n=2048, ring_m=16384)
+    assert r["tickets_zero"], r
+    graphed = {k: v for k, v in r["kernels"].items()
+               if k.startswith("graph:")}
+    assert set(graphed) == {"graph:process_frame_jit",
+                            "graph:optimize_pose_graph"}, r
+    assert all(k["mismatches"] == 0 and k["launches_per_stream"] == 100
+               for k in graphed.values()), r
+
+
+@pytest.mark.cuda
+def test_a_capture_failure_raises(dev):
+    """A body that reads a tensor back to the host cannot be captured:
+    the key's first call (the warm-up, eager) runs, its second raises
+    CaptureError, as does every later one, and only eager=True runs it."""
+    from tpuslam_torch import graphs
+
+    prog = graphs.Program("reads_back", lambda s, x: (
+        (), x * float(x.sum().item())))
+    x = torch.ones(4, device=dev)
+    assert prog.run(x).tolist() == [4.0] * 4
+    for _ in range(2):
+        with pytest.raises(graphs.CaptureError, match="reads_back"):
+            prog.run(x)
+    assert [e.graph for e in prog.entries()] == [None]
+    assert prog.run(x, eager=True).tolist() == [4.0] * 4
+    torch.cuda.synchronize()
+    # the card is still usable, and a good program captures after it
+    ok = graphs.Program("adds", lambda s, x: ((), x + 1))
+    assert ok.run(x).tolist() == ok.run(x).tolist() == [2.0] * 4
+    graphs.clear()

@@ -15,7 +15,8 @@ and normal coverage (backend/verify.py).
 
 `fused_attempt_jit` chains verification, the gates, the candidate edges
 and the pose-graph solve on the device without reading anything back, so
-the host pays one readback per attempt.  The per-pair API is
+the host pays one readback per attempt (on the card one replay of a CUDA
+graph, tpuslam_torch/graphs.py).  The per-pair API is
 `verify_closure` (one pair, one readback), `propose_and_verify` (no
 readback) and `find_closures` (one readback a pass).
 """
@@ -27,6 +28,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from tpuslam_torch import graphs
 from tpuslam_torch.backend.posegraph import (
     optimize_pose_graph,
     optimize_pose_graph_cg,
@@ -327,22 +329,10 @@ def extend_with_candidates(graph, rows: torch.Tensor, n_live: int,
     )
 
 
-def fused_attempt_jit(tables, pts, nrm, msk, K_lvl: Intrinsics,
-                      T_inits: torch.Tensor, n_live: int, graph,
-                      cand_i: torch.Tensor, cand_j: torch.Tensor, h: int,
-                      w: int, icp_cfg: ICPConfig, pg_cfg: PoseGraphConfig,
-                      use_dense: bool, lc_weight: float) -> torch.Tensor:
-    """The whole loop-closure attempt on the device, without a host sync.
-
-    Projective verification of the B candidates, the acceptance gates
-    (`passes_gates_traced`), the candidate edges appended to the bucketed
-    graph with weight lc_weight·accept (rejected candidates weigh zero),
-    the pose-graph solve (`use_dense`: the host-resolved solver), and the
-    flat readback packing.
-
-    Returns flat float32: rows.reshape(-1) ++ poses.reshape(-1) (rows:
-    (B, verify.ROW_SIZE); poses: graph.poses.shape).
-    """
+def _fused_attempt(_state, tables, pts, nrm, msk, T_inits, graph, cand_i,
+                   cand_j, *, K_lvl: Intrinsics, n_live: int, h: int, w: int,
+                   icp_cfg: ICPConfig, pg_cfg: PoseGraphConfig,
+                   use_dense: bool, lc_weight: float):
     rows = verify_batch(tables, pts, nrm, msk, K_lvl, T_inits, n_live, h, w,
                         icp_cfg)
     g_ext = extend_with_candidates(graph, rows, n_live, cand_i, cand_j,
@@ -353,8 +343,37 @@ def fused_attempt_jit(tables, pts, nrm, msk, K_lvl: Intrinsics,
         poses_opt, _cost = optimize_pose_graph_cg(
             g_ext, pg_cfg, 0.5, cg_iters=int(pg_cfg.cg_iters),
             cg_tol=float(pg_cfg.cg_tol))
-    return torch.cat([rows.reshape(-1).to(torch.float32),
-                      poses_opt.reshape(-1).to(torch.float32)])
+    return (), torch.cat([rows.reshape(-1).to(torch.float32),
+                          poses_opt.reshape(-1).to(torch.float32)])
+
+
+# one graph a (B, live candidates, table size, buckets, solver, configs)
+_FUSED_ATTEMPT = graphs.Program("fused_attempt_jit", _fused_attempt)
+
+
+def fused_attempt_jit(tables, pts, nrm, msk, K_lvl: Intrinsics,
+                      T_inits: torch.Tensor, n_live: int, graph,
+                      cand_i: torch.Tensor, cand_j: torch.Tensor, h: int,
+                      w: int, icp_cfg: ICPConfig, pg_cfg: PoseGraphConfig,
+                      use_dense: bool, lc_weight: float,
+                      eager: bool = False) -> torch.Tensor:
+    """The whole loop-closure attempt on the device, without a host sync:
+    one replay of a CUDA graph on the card, unless `eager`.
+
+    Projective verification of the B candidates, the acceptance gates
+    (`passes_gates_traced`), the candidate edges appended to the bucketed
+    graph with weight lc_weight·accept (rejected candidates weigh zero),
+    the pose-graph solve (`use_dense`: the host-resolved solver), and the
+    flat readback packing.
+
+    Returns flat float32: rows.reshape(-1) ++ poses.reshape(-1) (rows:
+    (B, verify.ROW_SIZE); poses: graph.poses.shape).
+    """
+    return _FUSED_ATTEMPT.run(
+        list(tables), list(pts), list(nrm), list(msk), T_inits, graph,
+        cand_i, cand_j, eager=eager, K_lvl=K_lvl, n_live=n_live, h=h, w=w,
+        icp_cfg=icp_cfg, pg_cfg=pg_cfg, use_dense=use_dense,
+        lc_weight=lc_weight)
 
 
 def gate_rows(live, s: np.ndarray, pg_cfg: PoseGraphConfig) -> list[Closure]:

@@ -13,7 +13,11 @@ Nothing here reads a tensor back to the host: the solve is `solve_ex` /
 `inv_ex` (their plain forms check the solver's status on the host), and
 CG runs a fixed budget of `cg_iters` iterations with a device-side
 convergence flag after which iterations leave x unchanged — the
-reference's while-loop exit, without a host round trip.
+reference's while-loop exit, without a host round trip.  So each solver is
+one CUDA graph on the card (tpuslam_torch/graphs.py), keyed by the node and
+edge buckets, the config and the Huber width: ~11,700 ops of a 32-node
+solve become one replay.  On the CPU, or with `eager=True`, it runs op by
+op.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpuslam_torch import graphs
 from tpuslam_torch.config import PoseGraphConfig
 from tpuslam_torch.geom import se3
 from tpuslam_torch.transfer import resolve_device, upload
@@ -271,7 +276,7 @@ def _prior(node_mask: torch.Tensor, cfg: PoseGraphConfig) -> torch.Tensor:
     N = node_mask.shape[0]
     diag_scale = torch.where(node_mask, 1.0, 1e6)
     prior = torch.zeros((N,), device=node_mask.device)
-    prior[0] = 1e6
+    prior[0].fill_(1e6)       # a fill: no copy from host memory
     return (prior + cfg.damping + 1e-6) * diag_scale
 
 
@@ -343,11 +348,8 @@ def _solve_update_cg(poses, node_mask, blocks, b, cfg: PoseGraphConfig,
     return se3.exp(delta) @ poses
 
 
-def optimize_pose_graph_cg(graph: PoseGraph, cfg: PoseGraphConfig,
-                           huber_delta: float = 0.5, cg_iters: int = 128,
-                           cg_tol: float = 1e-6):
-    """Gauss-Newton with the matrix-free block-CG inner solver; returns
-    (poses, cost of the last round's linearization point)."""
+def _optimize_cg(_state, graph: PoseGraph, *, cfg: PoseGraphConfig,
+                 huber_delta: float, cg_iters: int, cg_tol: float):
     info = _info_vector(cfg, graph.poses)
     poses = graph.poses
     cost = torch.full((), float("inf"), device=poses.device)
@@ -362,18 +364,24 @@ def optimize_pose_graph_cg(graph: PoseGraph, cfg: PoseGraphConfig,
         poses = _solve_update_cg(poses, graph.node_mask,
                                  (Hii, Hjj, Hij, graph.edge_i, graph.edge_j),
                                  b, cfg, cg_iters, cg_tol)
-    return poses, cost
+    return (), (poses, cost)
 
 
-def optimize_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig,
-                        huber_delta: float = 0.5):
-    """Gauss-Newton over all node poses with the dense solve; returns
-    (poses, cost of the last round's linearization point).
+_CG = graphs.Program("optimize_pose_graph_cg", _optimize_cg)
 
-    Edge weights scale a diagonal information diag(trans_weight·I₃,
-    rot_weight·I₃); a Huber factor on the whole-edge residual norm
-    robustifies bad loop closures.
-    """
+
+def optimize_pose_graph_cg(graph: PoseGraph, cfg: PoseGraphConfig,
+                           huber_delta: float = 0.5, cg_iters: int = 128,
+                           cg_tol: float = 1e-6, eager: bool = False):
+    """Gauss-Newton with the matrix-free block-CG inner solver; returns
+    (poses, cost of the last round's linearization point).  One replay of
+    a CUDA graph on the card, unless `eager`."""
+    return _CG.run(graph, eager=eager, cfg=cfg, huber_delta=huber_delta,
+                   cg_iters=cg_iters, cg_tol=cg_tol)
+
+
+def _optimize_dense(_state, graph: PoseGraph, *, cfg: PoseGraphConfig,
+                    huber_delta: float):
     info = _info_vector(cfg, graph.poses)
     poses = graph.poses
     cost = torch.full((), float("inf"), device=poses.device)
@@ -382,7 +390,23 @@ def optimize_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig,
             poses, graph.edge_i, graph.edge_j, graph.edge_T,
             graph.edge_weight, info, huber_delta)
         poses = solve_and_update(poses, graph.node_mask, H, b, cfg)
-    return poses, cost
+    return (), (poses, cost)
+
+
+_DENSE = graphs.Program("optimize_pose_graph", _optimize_dense)
+
+
+def optimize_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig,
+                        huber_delta: float = 0.5, eager: bool = False):
+    """Gauss-Newton over all node poses with the dense solve; returns
+    (poses, cost of the last round's linearization point).  One replay of
+    a CUDA graph on the card, unless `eager`.
+
+    Edge weights scale a diagonal information diag(trans_weight·I₃,
+    rot_weight·I₃); a Huber factor on the whole-edge residual norm
+    robustifies bad loop closures.
+    """
+    return _DENSE.run(graph, eager=eager, cfg=cfg, huber_delta=huber_delta)
 
 
 def resolve_solver(cfg: PoseGraphConfig, live_nodes: int | None = None,
@@ -397,14 +421,15 @@ def resolve_solver(cfg: PoseGraphConfig, live_nodes: int | None = None,
 
 
 def optimize(graph: PoseGraph, cfg: PoseGraphConfig,
-             huber_delta: float = 0.5, live_nodes: int | None = None):
+             huber_delta: float = 0.5, live_nodes: int | None = None,
+             eager: bool = False):
     """Solver-dispatching entry point: cfg.solver ∈ {"auto", "dense", "cg"}."""
     solver = resolve_solver(cfg, live_nodes, capacity=graph.poses.shape[0])
     if solver == "cg":
         return optimize_pose_graph_cg(graph, cfg, huber_delta,
                                       cg_iters=int(cfg.cg_iters),
-                                      cg_tol=float(cfg.cg_tol))
-    return optimize_pose_graph(graph, cfg, huber_delta)
+                                      cg_tol=float(cfg.cg_tol), eager=eager)
+    return optimize_pose_graph(graph, cfg, huber_delta, eager=eager)
 
 
 def graph_cost(graph: PoseGraph, cfg: PoseGraphConfig) -> torch.Tensor:

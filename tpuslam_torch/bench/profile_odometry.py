@@ -2,7 +2,7 @@
 port on a GPU.
 
     python3 tpuslam_torch/bench/profile_odometry.py [--root DIR] [--tag T]
-        [--mode odometry|map|fps|solve|grid] [--fused]
+        [--mode odometry|map|fps|solve|grid|posegraph|slam] [--fused]
 
 Imports `tpuslam_torch` from `--root` (default: the checkout this file is
 in), so one script measures two commits in one call: unpack the other
@@ -50,6 +50,12 @@ then map-grid-vga: `run_map_bench` once (fps, ATE, and a SHA-256 of the
 poses after map BA, read at `finalize`, so that two commits' bits can be
 compared), and a second system that takes frames 0-47 and then frames
 48-55 under the profiler (the probe's device µs and launches there).
+
+`--mode posegraph` times the pose-graph solve alone through
+`posegraph.optimize`, and `--mode slam` the per-frame SLAM system (sync
+and with the worker thread, `async_gain`) and the deferred boundary
+chunks, with every loop-closure attempt timed (their docstrings); both
+use only entry points the worker-thread slice has.
 
 Prints one JSON line a run (for map: one for each of unsharded and
 sharded): ms a frame (the best of the timed passes), device busy µs a frame, device operations (kernels,
@@ -237,6 +243,162 @@ def solve(args, card, dev) -> None:
         "top": [{"op": key[:80], "per_run": n / r, "us_per_run": dt / r}
                 for dt, n, key in sorted(rows, reverse=True)[:8]],
     }), flush=True)
+
+
+POSEGRAPH_RUNS = 10
+
+
+def synthetic_graph(dev, nodes: int, seed: int = 0):
+    """A bucketed pose graph over the first `nodes` poses of a two-lap
+    loop (a node every 8 frames of a 16-keyframe lap), each off by ~1 cm,
+    odometry edges from the true poses and a loop edge from each node of
+    the second lap to its twin of the first, weight 2."""
+    import numpy as np
+
+    from tpuslam_torch.backend.posegraph import GraphHost
+    from tpuslam_torch.config import PoseGraphConfig
+    from tpuslam_torch.data.synthetic import loop_trajectory
+
+    gt = loop_trajectory(8 * nodes, cycles=max(1, nodes // 16),
+                         radius=0.35)[::8]
+    rng = np.random.default_rng(seed)
+    host = GraphHost(PoseGraphConfig(), device=dev)
+    for k in range(nodes):
+        T = gt[k].copy()
+        T[:3, 3] += rng.normal(scale=0.01, size=3)
+        host.add_node(T.astype(np.float32))
+        if k:
+            host.add_edge(k - 1, k, np.linalg.inv(gt[k - 1]) @ gt[k])
+        if k >= 16:
+            host.add_edge(k - 16, k, np.linalg.inv(gt[k - 16]) @ gt[k],
+                          weight=2.0)
+    return host
+
+
+def posegraph(args, card, dev) -> None:
+    """The pose-graph solve alone: `posegraph.optimize` (the entry point of
+    SlamSystem._optimize and the grid attempt) on a 15-node graph (the
+    32-node bucket, dense: a slam-loop-vga attempt's) and a 400-node one
+    (512, CG: scale-loop-qvga's), one solve at a time on the host clock
+    with its readback, after two calls (where the checkout has graphs: the
+    warm-up and the capture), and the small one's device time and
+    operations under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpuslam_torch
+    from tpuslam_torch.backend.posegraph import optimize
+    from tpuslam_torch.config import PoseGraphConfig
+
+    cfg = PoseGraphConfig()
+    out = {"tag": args.tag, "card": card, "package": tpuslam_torch.__file__,
+           "mode": "posegraph"}
+    for nodes, runs in ((15, POSEGRAPH_RUNS), (400, 3)):
+        host = synthetic_graph(dev, nodes)
+        g = host.graph(bucketed=True)
+
+        def run():
+            poses, _ = optimize(g, cfg, live_nodes=nodes)
+            return poses.cpu()            # the caller's one readback
+
+        t0 = time.perf_counter()
+        run()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run()
+        second_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        busy = ops = None
+        if nodes < 256:        # the CG solve's ~159k operations: unprofiled
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            busy, ops, _, _ = profile_rows(prof)
+        out[f"nodes_{nodes}"] = {
+            "bucket": [g.poses.shape[0], g.edge_i.shape[0]],
+            "first_call_s": first_s, "second_call_s": second_s,
+            "ms_per_solve": walls,
+            "ms_per_solve_mean": sum(walls) / len(walls),
+            "device_us_per_solve": busy, "device_ops_per_solve": ops}
+    print(json.dumps(out), flush=True)
+
+
+def slam(args, card, dev) -> None:
+    """slam-perframe-vga and slam-loop-vga deferred: `bench_slam`'s loop
+    (120 frames 640×480, two laps, `slam_bench_config`), per frame sync,
+    per frame with the worker thread, and boundary chunks of 8 (sub-chunks
+    of 4) deferred: an uncounted pass each, then 2 timed passes (fps, the
+    reference's `async_gain` = sync wall / worker wall, closures, ATE);
+    then one more pass of each with every attempt that did device work
+    timed on the host clock: `_dispatch_closure_attempt` between two
+    synchronizes of the calling thread's stream (the worker's own on the
+    worker)."""
+    import numpy as np
+    import torch
+
+    import tpuslam_torch
+    from tpuslam_torch.bench.harness import (
+        _render_sequence,
+        _slam_pass,
+        slam_bench_config,
+    )
+    from tpuslam_torch.eval.ate import ate_rmse
+    from tpuslam_torch.slam import SlamSystem
+
+    frames = 120
+    cfg = slam_bench_config(480, 640, args.fused)
+    K, gt, d_np = _render_sequence(frames, 480, 640, loop_cycles=2)
+    d = torch.as_tensor(d_np, device=dev)
+    ts = np.arange(frames) / 30.0
+    variants = {"sync": (0, {"async_backend": False}),
+                "worker": (0, {"async_backend": True}),
+                "deferred": (8, {"async_backend": True,
+                                 "chunk_mode": "boundary"})}
+    out = {"tag": args.tag, "card": card, "package": tpuslam_torch.__file__,
+           "mode": "slam", "fused": args.fused}
+    walls = {}
+    for name, (chunk, system) in variants.items():
+        _slam_pass(K, cfg, d, ts, chunk, chunk_sub=4, **system)
+        runs = [_slam_pass(K, cfg, d, ts, chunk, chunk_sub=4, **system)
+                for _ in range(2)]
+        walls[name] = [w for w, _ in runs]
+        s = runs[-1][1]
+        t_est, est = s.trajectory()
+        out[name] = {"fps": frames / min(walls[name]),
+                     "wall_s": walls[name], "closures": len(s.closures),
+                     "keyframes": len(s.odo.keyframes),
+                     "ate_m": ate_rmse(t_est, est, ts, gt,
+                                       max_difference=0.005)["rmse"]}
+    out["async_gain"] = min(walls["sync"]) / min(walls["worker"])
+    orig = SlamSystem._dispatch_closure_attempt
+    for name, (chunk, system) in variants.items():
+        spans = []
+
+        def timed(self, *a, spans=spans, **kw):
+            stream = torch.cuda.current_stream(dev)
+            stream.synchronize()
+            t0 = time.perf_counter()
+            r = orig(self, *a, **kw)
+            stream.synchronize()
+            if r is not None:
+                spans.append((time.perf_counter() - t0) * 1e3)
+            return r
+
+        SlamSystem._dispatch_closure_attempt = timed
+        try:
+            _slam_pass(K, cfg, d, ts, chunk, chunk_sub=4, **system)
+        finally:
+            SlamSystem._dispatch_closure_attempt = orig
+        out[name]["attempts"] = len(spans)
+        out[name]["attempt_ms_mean"] = (sum(spans) / len(spans)
+                                        if spans else None)
+        out[name]["attempt_ms_max"] = max(spans) if spans else None
+    print(json.dumps(out), flush=True)
 
 
 MAP_WARM, MAP_FRAMES = 48, 8        # frames 0-47 grow the map; 48-55 count
@@ -467,7 +629,8 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--mode", choices=("odometry", "map", "fps", "solve",
-                                       "grid"), default="odometry")
+                                       "grid", "posegraph", "slam"),
+                    default="odometry")
     ap.add_argument("--fused", action="store_true",
                     help="ICPConfig.fused_gn=True (odometry and fps)")
     args = ap.parse_args()
@@ -484,7 +647,8 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
     {"odometry": odometry, "map": track_map, "fps": fps, "solve": solve,
-     "grid": grid}[args.mode](args, card, dev)
+     "grid": grid, "posegraph": posegraph, "slam": slam}[args.mode](
+        args, card, dev)
     return 0
 
 

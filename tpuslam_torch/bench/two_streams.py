@@ -10,9 +10,16 @@ atomic ticket and `ring_nn` its slices' partials, in scratch the wrappers
 keep: scratch shared by two streams would let one launch's blocks draw the
 other's tickets and read its rows, with wrong answers and no error.
 
+The captured programs (tpuslam_torch/graphs.py) replay the same kernels
+from CUDA graphs, each graph with the scratch it baked in at its capture:
+`graph:process_frame_jit` (the frame's whole tracking) and
+`graph:optimize_pose_graph` (a 32-node dense solve) replay on both streams
+at once too, a graph a stream, each call copying its inputs in and its
+outputs out.
+
 `check_two_streams` gives each stream inputs of its own (another frame
-and pose; another random map and query set for `ring_nn`) and records each
-kernel's result launched alone.  Then, kernel by kernel, it starts one
+and pose; another random map and query set for `ring_nn`; another graph)
+and records each kernel's result launched alone.  Then, kernel by kernel, it starts one
 thread a stream: each holds its stream behind a device-side sleep, queues
 `launches` launches of that kernel (fresh carries and outputs each) and
 lets them run, so the two streams' launches of the same kernel run side
@@ -20,7 +27,7 @@ by side on the device (with all four kernels in each round, the long
 `ring_nn` hops paced the streams and the short launches rarely met their
 twins).  It returns, per kernel, the launches a stream and how many
 results differ from the lone launch's in any bit, and whether every
-ticket of both streams is zero after.
+ticket the wrappers keep (by stream or by graph) is zero after.
 
     python tpuslam_torch/bench/two_streams.py [--root DIR] [--tag TAG]
 
@@ -51,15 +58,25 @@ def _same_bits(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def _shift(x: float):
+    """A pure translation by x along the first axis."""
+    import numpy as np
+
+    m = np.eye(4)
+    m[0, 3] = x
+    return m
+
+
 def _stream_inputs(dev, height: int, width: int, ring_n: int, ring_m: int,
                    frame: int, seed: int):
     """One stream's launches, each a callable returning its outputs."""
     import numpy as np
     import torch
 
+    from tpuslam_torch.backend.posegraph import GraphHost, optimize_pose_graph
     from tpuslam_torch.bench.harness import _render_sequence
     from tpuslam_torch.config import SLAMConfig
-    from tpuslam_torch.frontend import preprocess
+    from tpuslam_torch.frontend import preprocess, process_frame_jit
     from tpuslam_torch.geom import se3
     from tpuslam_torch.icp import pack_pyramid, select_level_source
     from tpuslam_torch.kernels import (
@@ -74,7 +91,8 @@ def _stream_inputs(dev, height: int, width: int, ring_n: int, ring_m: int,
     icp = cfg.icp
     K, _, d_np = _render_sequence(3, height, width)
     d = torch.as_tensor(d_np, device=dev)
-    packed = pack_pyramid(preprocess(d[0], K, cfg), icp)[0]
+    kf_packed = pack_pyramid(preprocess(d[0], K, cfg), icp)
+    packed = kf_packed[0]
     src = select_level_source(preprocess(d[frame], K, cfg), 0, icp)
     pts, nrm = src.points.contiguous(), src.normals.contiguous()
     mask = src.mask.contiguous()
@@ -108,6 +126,23 @@ def _stream_inputs(dev, height: int, width: int, ring_n: int, ring_m: int,
                                     True, icp.max_corr_dist)
         return tuple(state)
 
+    # a 20-node chain with a loop edge, its nodes off by a few centimetres
+    host = GraphHost(cfg.posegraph, device=dev)
+    for k in range(20):
+        node = np.eye(4, dtype=np.float32)
+        node[:3, 3] = [0.1 * k, 0.0, 0.0] + rng.normal(scale=0.03, size=3)
+        host.add_node(node)
+        if k:
+            host.add_edge(k - 1, k, _shift(0.1))
+    host.add_edge(0, 19, _shift(1.9), weight=2.0)
+    graph = host.graph(bucketed=True)
+    eye = torch.eye(4, device=dev)
+
+    def track():
+        pyr, T_new, delta, flat = process_frame_jit(d[frame], kf_packed, K,
+                                                    eye, eye, cfg)
+        return (*(t for f in pyr for t in f), T_new, delta, flat)
+
     return pts.shape[0], {
         "correspond": lambda: tuple(correspond.projective_correspond_at_pose(
             pts, mask, nrm, packed, *geo, carry)),
@@ -119,11 +154,15 @@ def _stream_inputs(dev, height: int, width: int, ring_n: int, ring_m: int,
             width, height, icp.max_corr_dist, icp.normal_dot_min,
             icp.huber_delta, nvs, *solve),),
         "ring_nn": ring,
+        "graph:process_frame_jit": track,
+        "graph:optimize_pose_graph": lambda: optimize_pose_graph(
+            graph, cfg.posegraph),
     }
 
 
 def tickets_zero(dev, streams) -> bool:
-    """Whether every ticket the wrappers keep for `streams` is zero."""
+    """Whether every ticket the wrappers keep for `streams` — and for any
+    other stream or graph — is zero."""
     import torch
 
     from tpuslam_torch.kernels import gn_step, ring_nn
@@ -134,6 +173,8 @@ def tickets_zero(dev, streams) -> bool:
             ticket, _ = gn_step.scratch(dev)
             tickets, _ = ring_nn._scratch(dev, 1, 1)
             zero &= not bool(ticket.any()) and not bool(tickets.any())
+    for table in (gn_step._workspace, ring_nn._workspace):
+        zero &= not any(bool(ws[0].any()) for ws in list(table.values()))
     return zero
 
 

@@ -18,7 +18,12 @@ Three loops over one tracking step (`track_step_packed`):
 Where the reference takes a `lax.cond` to re-pack the keyframe only on
 promotion, the port packs unconditionally and selects with `torch.where`
 on the device, so no flag is read on the host inside a chunk.  Names ending
-in `_jit` are the reference's; PyTorch runs them eagerly.
+in `_jit` are the reference's.  The reference's compiled programs are CUDA
+graphs here (tpuslam_torch/graphs.py), replayed on the card: the frame step
+of `scan_odometry` and `scan_chunk` (one replay a frame, the scan's state
+carried in the graph), `process_frame_jit` (one replay a frame) and the
+sub-chunk of `scan_superchunk_frozen` (one replay a sub-chunk).  On the CPU,
+or with `eager=True`, they run op by op.
 
 Keyframe criterion: relative motion (translation/rotation) beyond
 threshold OR inlier fraction below threshold; a frame whose inlier fraction
@@ -33,6 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpuslam_torch import graphs
 from tpuslam_torch.config import Intrinsics, SLAMConfig
 from tpuslam_torch.geom import se3
 from tpuslam_torch.geom.backproject import backproject, device_scalar
@@ -173,19 +179,30 @@ class FlatTrack:
     SIZE = 21
 
 
+def _process_frame(_state, depth, kf_packed, T_kf_cam, last_delta, *,
+                   K: Intrinsics, cfg: SLAMConfig):
+    pyr, out, delta = _track(kf_packed, depth, K, T_kf_cam, last_delta, cfg)
+    flat = torch.cat([out.T_kf_cam.reshape(16).to(torch.float32),
+                      _track_stats(out)])
+    return (), (pyr, out.T_kf_cam, delta, flat)
+
+
+_PROCESS_FRAME = graphs.Program("process_frame_jit", _process_frame)
+
+
 def process_frame_jit(depth: torch.Tensor, kf_packed: tuple, K: Intrinsics,
                       T_kf_cam: torch.Tensor, last_delta: torch.Tensor,
-                      cfg: SLAMConfig):
-    """Warm start + preprocess + track for the host-driven loop.
+                      cfg: SLAMConfig, eager: bool = False):
+    """Warm start + preprocess + track for the host-driven loop; a CUDA
+    graph on the card (one replay, keyed by K, cfg and the shapes) unless
+    `eager`.
 
     Returns (pyr, T_kf_cam, delta, flat): the chained state stays on the
     device and every scalar the host needs is in one (FlatTrack.SIZE,)
     float32 vector, so the loop reads back once per frame.
     """
-    pyr, out, delta = _track(kf_packed, depth, K, T_kf_cam, last_delta, cfg)
-    flat = torch.cat([out.T_kf_cam.reshape(16).to(torch.float32),
-                      _track_stats(out)])
-    return pyr, out.T_kf_cam, delta, flat
+    return _PROCESS_FRAME.run(depth, kf_packed, T_kf_cam, last_delta,
+                              eager=eager, K=K, cfg=cfg)
 
 
 def promote_bundle_jit(depth: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
@@ -520,8 +537,22 @@ def scan_step(state: ScanState, depth: torch.Tensor, K: Intrinsics,
     return new_state, T_world_cam, out
 
 
+def _scan_step_row(state: ScanState, depth: torch.Tensor, *, K: Intrinsics,
+                   cfg: SLAMConfig):
+    """`scan_step` with its outputs packed as one FlatChunk row."""
+    new_state, T_world_cam, out = scan_step(state, depth, K, cfg)
+    return new_state, torch.cat([T_world_cam.reshape(16).to(torch.float32),
+                                 out.T_kf_cam.reshape(16).to(torch.float32),
+                                 _track_stats(out)])
+
+
+# the reference's scan body: one graph a (K, cfg, frame size), one replay a
+# frame, the ScanState carried in the graph's buffers
+_SCAN_STEP = graphs.Program("scan_step", _scan_step_row)
+
+
 def scan_odometry(depths: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
-                  state: ScanState | None = None):
+                  state: ScanState | None = None, eager: bool = False):
     """Full-sequence frame-to-keyframe odometry.
 
     Args:
@@ -529,23 +560,19 @@ def scan_odometry(depths: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
       state: where to start (interop.scan_state_from_numpy); by default
         frame 0 is the keyframe and every frame, frame 0 included, is
         tracked, as in the reference.
+      eager: on the card, run the frame step op by op instead of replaying
+        its graph.
     Returns:
       poses (F, 4, 4) world←cam, promote flags (F,), inlier fractions (F,),
       on the device, filled without any host synchronisation.
     """
-    dev = depths.device
     F = depths.shape[0]
     if state is None:
         state = initial_state(depths[0], K, cfg)
-    poses = torch.empty((F, 4, 4), dtype=torch.float32, device=dev)
-    promotes = torch.empty((F,), dtype=torch.bool, device=dev)
-    inliers = torch.empty((F,), dtype=torch.float32, device=dev)
-    for i in range(F):
-        state, T_world_cam, out = scan_step(state, depths[i], K, cfg)
-        poses[i] = T_world_cam
-        promotes[i] = out.promote
-        inliers[i] = out.icp.inlier_fraction
-    return poses, promotes, inliers
+    _, ys = scan_chunk(depths, K, state, cfg, eager)
+    return (ys[:, FlatChunk.WORLD_T].reshape(F, 4, 4).contiguous(),
+            ys[:, FlatChunk.PROMOTE] > 0.5,
+            ys[:, FlatChunk.INLIER_FRACTION].contiguous())
 
 
 class FlatChunk:
@@ -563,18 +590,18 @@ class FlatChunk:
 
 
 def scan_chunk(depths: torch.Tensor, K: Intrinsics, state: ScanState,
-               cfg: SLAMConfig):
+               cfg: SLAMConfig, eager: bool = False):
     """Track a chunk of frames with per-frame promotion (the inline chunk
     mode): keyframe state stays on the device; returns (new_state, ys) with
-    ys the (C, FlatChunk.SIZE) matrix the host reads back once."""
+    ys the (C, FlatChunk.SIZE) matrix the host reads back once.  On the
+    card each frame replays the frame step's graph (the one `scan_odometry`
+    replays), unless `eager`."""
     ys = torch.empty((depths.shape[0], FlatChunk.SIZE), dtype=torch.float32,
                      device=depths.device)
-    for i in range(depths.shape[0]):
-        state, T_world_cam, out = scan_step(state, depths[i], K, cfg)
-        ys[i] = torch.cat([T_world_cam.reshape(16).to(torch.float32),
-                           out.T_kf_cam.reshape(16).to(torch.float32),
-                           _track_stats(out)])
-    return state, ys
+    with _SCAN_STEP.loop(state, eager=eager, K=K, cfg=cfg) as lp:
+        for i in range(depths.shape[0]):
+            ys[i].copy_(lp.step(depths[i]))
+        return lp.state(), ys
 
 
 class FrozenState(NamedTuple):
@@ -621,11 +648,35 @@ def _frozen_sub_chunk(kf_packed: tuple, depths: torch.Tensor, K: Intrinsics,
     return st, pyr
 
 
+def _sub_chunk(carry: SuperChunkCarry, depths: torch.Tensor, *,
+               K: Intrinsics, cfg: SLAMConfig):
+    """One sub-chunk against the frozen keyframe and the promotion select
+    at its boundary: (new carry, (sub, FlatFrozen.SIZE) rows)."""
+    rows = torch.empty((depths.shape[0], FlatFrozen.SIZE),
+                       dtype=torch.float32, device=depths.device)
+    st, pyr = _frozen_sub_chunk(
+        carry.kf_packed, depths, K,
+        FrozenState(T_kf_cam=carry.T_kf_cam, last_delta=carry.last_delta),
+        cfg, rows)
+    any_p = torch.any(rows[:, FlatFrozen.PROMOTE] > 0.5)
+    return SuperChunkCarry(
+        kf_packed=_select(any_p, pack_pyramid(pyr, cfg.icp),
+                          carry.kf_packed),
+        T_kf_cam=_select(any_p, _eye(st.T_kf_cam), st.T_kf_cam),
+        last_delta=st.last_delta), rows
+
+
+# one graph a (K, cfg, sub, frame size): a whole sub-chunk a replay
+_SUB_CHUNK = graphs.Program("scan_superchunk_frozen", _sub_chunk)
+
+
 def scan_superchunk_frozen(depths: torch.Tensor, K: Intrinsics,
                            carry: SuperChunkCarry, cfg: SLAMConfig,
-                           sub: int):
+                           sub: int, eager: bool = False):
     """G sub-chunks of `sub` frames with promotion on the device at
-    sub-chunk boundaries; the host reads back once per call.
+    sub-chunk boundaries; the host reads back once per call.  On the card
+    each sub-chunk is one replay of a CUDA graph (the carry kept in the
+    graph between them), unless `eager`.
 
     Every emitted pose is relative to the sub-chunk's entry keyframe.  When
     any frame of a sub-chunk flags promotion, its LAST frame becomes the
@@ -642,17 +693,10 @@ def scan_superchunk_frozen(depths: torch.Tensor, K: Intrinsics,
         raise ValueError(f"superchunk length {n} not divisible by {sub}")
     ys = torch.empty((n, FlatFrozen.SIZE), dtype=torch.float32,
                      device=depths.device)
-    kf_packed = carry.kf_packed
-    st = FrozenState(T_kf_cam=carry.T_kf_cam, last_delta=carry.last_delta)
-    for g0 in range(0, n, sub):
-        st, pyr = _frozen_sub_chunk(kf_packed, depths[g0:g0 + sub], K, st,
-                                    cfg, ys[g0:g0 + sub])
-        any_p = torch.any(ys[g0:g0 + sub, FlatFrozen.PROMOTE] > 0.5)
-        kf_packed = _select(any_p, pack_pyramid(pyr, cfg.icp), kf_packed)
-        st = st._replace(T_kf_cam=_select(any_p, _eye(st.T_kf_cam),
-                                          st.T_kf_cam))
-    return SuperChunkCarry(kf_packed=kf_packed, T_kf_cam=st.T_kf_cam,
-                           last_delta=st.last_delta), ys
+    with _SUB_CHUNK.loop(carry, eager=eager, K=K, cfg=cfg) as lp:
+        for g0 in range(0, n, sub):
+            ys[g0:g0 + sub].copy_(lp.step(depths[g0:g0 + sub]))
+        return lp.state(), ys
 
 
 def fuse_readbacks_jit(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -679,21 +723,19 @@ def scan_odometry_boundary(depths: torch.Tensor, K: Intrinsics,
     if F % chunk:
         raise ValueError(f"frames ({F}) must be divisible by chunk ({chunk})")
     eye = torch.eye(4, dtype=torch.float32, device=depths.device)
-    kf_packed = pack_pyramid(preprocess(depths[0], K, cfg), cfg.icp)
+    carry = SuperChunkCarry(
+        kf_packed=pack_pyramid(preprocess(depths[0], K, cfg), cfg.icp),
+        T_kf_cam=eye, last_delta=eye)
     T_world_kf = eye
-    st = FrozenState(T_kf_cam=eye, last_delta=eye)
     ys = torch.empty((F, FlatFrozen.SIZE), dtype=torch.float32,
                      device=depths.device)
     poses = torch.empty((F, 4, 4), dtype=torch.float32, device=depths.device)
     for c0 in range(0, F, chunk):
-        st, pyr = _frozen_sub_chunk(kf_packed, depths[c0:c0 + chunk], K, st,
-                                    cfg, ys[c0:c0 + chunk])
-        rels = ys[c0:c0 + chunk, FlatFrozen.REL_T].reshape(-1, 4, 4)
-        world = T_world_kf @ rels
+        carry, rows = _sub_chunk(carry, depths[c0:c0 + chunk], K=K, cfg=cfg)
+        ys[c0:c0 + chunk] = rows
+        world = T_world_kf @ rows[:, FlatFrozen.REL_T].reshape(-1, 4, 4)
         poses[c0:c0 + chunk] = world
-        any_p = torch.any(ys[c0:c0 + chunk, FlatFrozen.PROMOTE] > 0.5)
-        kf_packed = _select(any_p, pack_pyramid(pyr, cfg.icp), kf_packed)
+        any_p = torch.any(rows[:, FlatFrozen.PROMOTE] > 0.5)
         T_world_kf = _select(any_p, world[-1], T_world_kf)
-        st = st._replace(T_kf_cam=_select(any_p, eye, st.T_kf_cam))
     return (poses, ys[:, FlatFrozen.PROMOTE] > 0.5,
             ys[:, FlatFrozen.INLIER_FRACTION])

@@ -150,7 +150,7 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
     bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)    # a fill: no copy from host memory
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -15,6 +15,7 @@ port on machines that have neither nvcc nor a GPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -57,6 +58,61 @@ _SIGNATURES = {
 }
 
 
+_capture = threading.local()    # the graph under warm-up or capture, if any
+
+
+@contextlib.contextmanager
+def scratch_scope(token, lane: int):
+    """While the block runs on this thread: key the kernels' scratch by
+    `token` (a graph, which bakes in scratch of its own), and count its
+    launches under `lane`, the stream that called the graph's program (its
+    warm-up runs on a capture stream ordered after that stream)."""
+    prev = (getattr(_capture, "scope", None), getattr(_capture, "lane", None))
+    _capture.scope, _capture.lane = token, lane
+    try:
+        yield
+    finally:
+        _capture.scope, _capture.lane = prev
+
+
+def scratch_key(dev) -> tuple:
+    """The key of the calling thread's scratch on `dev`: the graph under
+    warm-up or capture, else the current stream's handle."""
+    scope = getattr(_capture, "scope", None)
+    if scope is None:
+        scope = stream_handle_on(dev)
+    return (dev.type, dev.index, scope)
+
+
+_workspaces: list = []      # (dict, lock) of each module's scratch
+
+
+def register_workspace(table: dict, lock) -> None:
+    _workspaces.append((table, lock))
+
+
+def drop_scratch(token) -> None:
+    """Forget the scratch a graph baked in (the graph is gone)."""
+    for table, lock in _workspaces:
+        with lock:
+            for key in [k for k in table if k[2] == token]:
+                del table[key]
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the launches counted on this thread while the block runs,
+    by counter, into the dict yielded, instead of counting them: during a
+    graph's capture nothing runs."""
+    prev = getattr(_capture, "record", None)
+    rec: dict = {}
+    _capture.record = rec
+    try:
+        yield rec
+    finally:
+        _capture.record = prev
+
+
 class LaunchCounter:
     """Plain-integer counts of one kernel's launches and of calls to its
     plain PyTorch twin, so a run can show which of the two did the work.
@@ -64,9 +120,12 @@ class LaunchCounter:
     `by_stream` splits the launches by the CUDA stream they went to (its
     handle), so a run can show that a second stream (the SLAM backend's
     worker) launched the kernel too.  The counts are taken under a lock:
-    two threads launching at once must not lose a count."""
+    two threads launching at once must not lose a count.  A launch issued
+    while a graph is captured is recorded for the graph (`recording`), and
+    each replay of the graph counts it again (`replayed`)."""
 
-    def __init__(self) -> None:
+    def __init__(self, name: str = "") -> None:
+        self.name = name
         self._lock = threading.Lock()
         self.launches = 0
         self.plain_calls = 0
@@ -79,10 +138,20 @@ class LaunchCounter:
             self.by_stream = {}
 
     def launched(self, stream: int) -> None:
-        """Count one launch of the kernel on `stream` (a handle)."""
+        """Count one launch of the kernel on `stream` (a handle), or
+        record it for the graph under capture."""
+        rec = getattr(_capture, "record", None)
+        if rec is not None:
+            rec[self] = rec.get(self, 0) + 1
+            return
+        lane = getattr(_capture, "lane", None)
+        self.replayed(1, stream if lane is None else lane)
+
+    def replayed(self, n: int, stream: int) -> None:
+        """Count `n` launches on `stream`: a graph's replay."""
         with self._lock:
-            self.launches += 1
-            self.by_stream[stream] = self.by_stream.get(stream, 0) + 1
+            self.launches += n
+            self.by_stream[stream] = self.by_stream.get(stream, 0) + n
 
     def plain(self) -> None:
         """Count one call of the plain twin."""
@@ -202,10 +271,15 @@ def check_launch(err: int, kernel: str) -> None:
 def stream_handle(t) -> int:
     """PyTorch's current CUDA stream on `t`'s device, as a pointer.  The
     current stream is the calling thread's own: every launch goes to the
-    stream its caller chose, and a kernel's scratch is keyed by it."""
+    stream its caller chose, and a kernel's scratch is keyed by it (or by
+    the graph under capture, `scratch_key`)."""
+    return stream_handle_on(t.device)
+
+
+def stream_handle_on(dev) -> int:
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def require(t, name: str, *, dtype, shape=None, device=None) -> None:

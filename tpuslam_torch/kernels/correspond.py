@@ -45,9 +45,9 @@ from tpuslam_torch.geom.se3 import (
 from tpuslam_torch.kernels import _build
 from tpuslam_torch.kernels import gn_epilogue as ep
 
-counter = _build.LaunchCounter()           # csrc/correspond.cu
-grid_counter = _build.LaunchCounter()      # csrc/grid_correspond.cu
-table_counter = _build.LaunchCounter()     # its table of occupied cells
+counter = _build.LaunchCounter("correspond")   # csrc/correspond.cu
+grid_counter = _build.LaunchCounter("grid_correspond")  # csrc/grid_correspond.cu
+table_counter = _build.LaunchCounter("grid_table")  # its table of occupied cells
 
 
 class Correspondence(NamedTuple):

@@ -27,7 +27,7 @@ import torch
 from tpuslam_torch.kernels import _build
 from tpuslam_torch.kernels.gn_partials import ROW
 
-counter = _build.LaunchCounter()
+counter = _build.LaunchCounter("gn_epilogue")
 
 # carry layout — mirrored in csrc/gn_solve.cuh
 DONE, IT, DELTA_SQ, RMS, INLIER_FRACTION, NUM_INLIERS = 0, 1, 2, 3, 4, 5
@@ -48,9 +48,12 @@ def init_carry(T0: torch.Tensor, max_iters: int) -> torch.Tensor:
     """Carry of a fresh ICP loop at pose T0 (the reference's `init`:
     it 0, δ² and rms ∞, H 0), DONE already set when the budget is 0."""
     head = torch.zeros(6, dtype=torch.float32, device=T0.device)
-    head[DONE] = 0.0 if max_iters > 0 else 1.0
-    head[DELTA_SQ] = float("inf")
-    head[RMS] = float("inf")
+    # fills, not element assignment: a Python scalar assigned to an element
+    # of a CUDA tensor is a copy from host memory, which waits for the
+    # stream and which a CUDA graph cannot capture
+    head[DONE].fill_(0.0 if max_iters > 0 else 1.0)
+    head[DELTA_SQ].fill_(float("inf"))
+    head[RMS].fill_(float("inf"))
     tail = torch.zeros(CARRY_SIZE - T_SLICE.stop, dtype=torch.float32,
                        device=T0.device)
     return torch.cat([head, T0.reshape(16).to(torch.float32), tail])

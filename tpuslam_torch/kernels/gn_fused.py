@@ -30,8 +30,8 @@ num_inliers, Σw·r²) out); the tests hold both to the reference.
 
 The kernel's last block folds the other blocks' rows after a ticket.  The
 ticket word and the rows' scratch are `kernels/gn_step.py`'s, one of each
-per stream: launches on one stream share them in order, launches on two
-streams never share them.
+per stream (or per CUDA graph): launches on one stream share them in
+order, launches on two streams never share them.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ from tpuslam_torch.kernels.gn_partials import (
 )
 from tpuslam_torch.kernels.gn_step import num_blocks, scratch
 
-counter = _build.LaunchCounter()
+counter = _build.LaunchCounter("gn_fused")
 
 GATE_SIZE = 12            # rows 0-2 of the gate pose, row-major
 

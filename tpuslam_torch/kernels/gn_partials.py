@@ -27,7 +27,7 @@ import torch
 from tpuslam_torch.geom.se3 import transform_points_ordered
 from tpuslam_torch.kernels import _build
 
-counter = _build.LaunchCounter()
+counter = _build.LaunchCounter("gn_partials")
 
 NUM_SUMS = 30
 ROW = 32

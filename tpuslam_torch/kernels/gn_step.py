@@ -23,7 +23,9 @@ each per stream, owned by this module and shared with
 `kernels/gn_fused.py`'s kernel: launches on one stream run in order, so
 the ticket is back at zero before the next launch reads it, and launches
 on two streams (tracking on the main stream, a loop-closure attempt on the
-SLAM backend's worker stream) never share a ticket or a row.
+SLAM backend's worker stream) never share a ticket or a row.  A CUDA
+graph (tpuslam_torch/graphs.py) bakes in scratch of its own, made at its
+warm-up, so two graphs replayed at once never share one either.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from tpuslam_torch.kernels import _build
 from tpuslam_torch.kernels import gn_epilogue as ep
 from tpuslam_torch.kernels.gn_partials import BLOCK_THREADS, ROW, partial_rows
 
-counter = _build.LaunchCounter()
+counter = _build.LaunchCounter("gn_step")
 
 # The default grid's cap: one block per SM of an H100.  Against two blocks
 # an SM it halves the last block's fold, and read 10.014 against 10.358 µs
@@ -45,9 +47,10 @@ counter = _build.LaunchCounter()
 # HBM3, 700 W; the same CUDA-event time).
 MAX_BLOCKS = 132
 SCRATCH_ROWS = 264        # the largest grid a launch may take
-# (device, stream) → (ticket int32[1], partials rows)
+# (device, stream or graph) → (ticket int32[1], partials rows)
 _workspace: dict = {}
 _workspace_lock = threading.Lock()
+_build.register_workspace(_workspace, _workspace_lock)
 
 
 def num_blocks(n_points: int, max_blocks: int = MAX_BLOCKS) -> int:
@@ -74,11 +77,12 @@ def gn_step_reference(points, q, n, w_valid, carry, num_valid_src,
 
 def scratch(dev: torch.device):
     """The ticket word (zero between launches) and rows of the current
-    stream on `dev`.  They are made on that stream, so the ticket's zero
-    fill runs before the stream's first launch, and the caching allocator
-    ties the blocks to the stream that uses them.  Stream handles come from
-    PyTorch's fixed pools, so the table stays small."""
-    key = (dev.type, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    stream on `dev` — of the graph, while one is warmed up or captured
+    (`_build.scratch_key`).  They are made on that stream, so the ticket's
+    zero fill runs before the stream's first launch, and the caching
+    allocator ties the blocks to the stream that uses them.  Stream handles
+    come from PyTorch's fixed pools, so the table stays small."""
+    key = _build.scratch_key(dev)
     with _workspace_lock:
         if key not in _workspace:
             _workspace[key] = (

@@ -31,9 +31,9 @@ valid rows (and each block's first invalid one, which stands for all of
 them: every invalid row scores the same 1e30); the twin scores every row.
 
 The kernel's partials and tickets are one persistent buffer each per
-stream, owned by this module (they grow to the largest hop seen on that
-stream): launches on one stream share them in order, launches on two
-streams never share them.
+stream (or per CUDA graph under capture), owned by this module (they grow
+to the largest hop seen on that stream): launches on one stream share
+them in order, launches on two streams never share them.
 """
 
 from __future__ import annotations
@@ -47,12 +47,13 @@ from tpuslam_torch.geom.se3 import transform_points_ordered
 from tpuslam_torch.kernels import _build
 from tpuslam_torch.kernels import gn_epilogue as ep
 
-counter = _build.LaunchCounter()
+counter = _build.LaunchCounter("ring_nn")
 
 ROW_DIM = 8                 # packed row: [x y z nx ny nz valid 0]
 _BIG = 1e30                 # pushes invalid rows out of every minimum
-_workspace: dict = {}       # (device, stream) → (tickets, partials)
+_workspace: dict = {}       # (device, stream or graph) → (tickets, partials)
 _workspace_lock = threading.Lock()
+_build.register_workspace(_workspace, _workspace_lock)
 
 
 class RingState(NamedTuple):
@@ -143,12 +144,13 @@ def ring_correspond_hop_reference(points: torch.Tensor, mask: torch.Tensor,
 
 
 def _scratch(dev: torch.device, tiles: int, cells: int):
-    """The current stream's tickets (zero between launches) and partials (a
-    score and a row index a cell) on `dev`, grown to at least `tiles`
+    """The current stream's (or graph's, `_build.scratch_key`) tickets
+    (zero between launches) and partials (a score and a row index a cell)
+    on `dev`, grown to at least `tiles`
     tickets and `cells` cells.  They are made on that stream, so a grown
     workspace frees the old one in the stream's order: no launch of
     another stream ever reads it."""
-    key = (dev.type, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    key = _build.scratch_key(dev)
     with _workspace_lock:
         ws = _workspace.get(key)
         if ws is None or ws[0].numel() < tiles or ws[1].numel() < 2 * cells:

@@ -9,7 +9,10 @@ the chunk back once, mirrors the bookkeeping, promotes keyframes from the
 device-resident depth and dispatches ONE fused propose → verify →
 pose-graph attempt (`backend.loopclosure.fused_attempt_jit`).  With
 `async_backend=True` the attempt's readback rides the next chunk's
-readback (the deferred backend), so a chunk costs one host sync.
+readback (the deferred backend), so a chunk costs one host sync.  On the
+card the scans, the per-frame track, the attempt and the pose-graph solves
+replay CUDA graphs (tpuslam_torch/graphs.py), one launch each from the
+host.
 
 With `track_against_map` every keyframe is fused into a world voxel map
 (mapping.VoxelMap, or dist/map_fusion.ShardedVoxelMap over the ranks of
@@ -35,9 +38,12 @@ and inline `process_chunk`) the loop-closure attempts run on a worker
 thread, the reference's design: each promotion queues one attempt, the
 worker snapshots the keyframes and the graph under the system's lock,
 verifies and solves outside it, and commits under it; `finalize` joins the
-worker and re-raises its error.  On a GPU the worker owns a CUDA stream of
-its own, so its kernels overlap tracking's on the main stream; the
-kernels' scratch is kept per stream (kernels/gn_step.py, ring_nn.py).
+worker and re-raises its error.  On a GPU the workers run on a CUDA stream
+of their own (one a device for the process), so their kernels overlap
+tracking's on the main stream; the kernels' scratch is kept per stream
+(kernels/gn_step.py, ring_nn.py), and a CUDA graph bakes in scratch of its
+own; the workers' graphs are keyed by their stream, the main thread's by
+the main stream, so each is captured once a process.
 """
 
 from __future__ import annotations
@@ -130,6 +136,20 @@ def _span(name: str):
 
 
 _STOP = object()     # the backend worker's last queue item
+_worker_streams: dict = {}
+_worker_streams_lock = threading.Lock()
+
+
+def _worker_stream(device: torch.device) -> torch.cuda.Stream:
+    """The backend workers' stream on `device`, one for every system of
+    the process: the attempts' CUDA graphs are keyed by the stream that
+    calls them (tpuslam_torch/graphs.py), so a later system's worker
+    replays the graphs an earlier one captured.  Two workers at once
+    queue on it, and their graph replays take the stream's lock."""
+    with _worker_streams_lock:
+        if device not in _worker_streams:
+            _worker_streams[device] = torch.cuda.Stream(device=device)
+        return _worker_streams[device]
 
 
 class SlamSystem:
@@ -228,7 +248,7 @@ class SlamSystem:
                 # system's device, beside tracking on the main stream; if
                 # it cannot be made this raises (no attempt falls back to
                 # the main stream or to the CPU twins)
-                self._worker_stream = torch.cuda.Stream(device=self.device)
+                self._worker_stream = _worker_stream(self.device)
             self._backend_thread = threading.Thread(
                 target=self._backend_worker, name="tpuslam-backend",
                 daemon=True)
