@@ -926,6 +926,225 @@ def device_ops(fn) -> int:
                if ev.device_type == DeviceType.CUDA)
 
 
+def graph_row(name, call, reps, sync_each, profiled, covers,
+              card: str) -> dict:
+    """One captured program (graphs_phase): the eager run against a key's
+    first call (the warm-up), its second (the capture and a replay) and
+    its third (a replay), bit-equal in every output; the capture's
+    seconds, replayed against eager ms, the device's operations a call,
+    the pool memory the capture added and the kernels a replay launches.
+    `call(eager)` runs it; `reps` calls are timed (0: the single calls),
+    one at a time with `sync_each`; `profiled` counts its device
+    operations under the profiler."""
+    from tpuslam_torch import graphs
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [t.clone() for t in graphs.flatten(fn())[0]]
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t_prog = time.perf_counter()
+    before = {e["id"] for e in graphs.stats()}
+    ref, eager_one = timed(lambda: call(True))
+    # a key's first call warms up, its second captures and replays, its
+    # third replays
+    runs = [timed(lambda: call(False)) for _ in range(3)]
+    for tag, (got, _) in zip(("first call", "capture", "replay"), runs):
+        check(len(got) == len(ref) and all(
+            bits_equal(a, b) for a, b in zip(got, ref)),
+            f"graphs {name}: the {tag} is not bit-equal to the eager run")
+    new = [e for e in graphs.stats() if e["id"] not in before]
+    check(all(e["captured"] for e in new),
+          f"graphs {name}: not captured {new}")
+    if reps:
+        eager_ms = wall_ms(lambda: call(True), reps, sync_each)
+        replay_ms = wall_ms(lambda: call(False), reps, sync_each)
+    else:
+        eager_ms, replay_ms = eager_one, runs[2][1]
+    row = {"program": name, "covers": covers,
+           "graphs": [e["program"] for e in new],
+           "warm_up_s": sum(e["warm_up_s"] for e in new),
+           "capture_s": sum(e["capture_s"] for e in new),
+           "calls_ms": [r[1] for r in runs], "eager_ms": eager_ms,
+           "replay_ms": replay_ms,
+           "device_ops_replayed": (device_ops(lambda: call(False))
+                                   if profiled else None),
+           "pool_mib": sum(e["pool_mib"] for e in new),
+           "kernel_launches_a_replay": [e["kernel_launches"] for e in new],
+           "outputs": len(ref),
+           "check_s": time.perf_counter() - t_prog}
+    log(f"[graphs] {name} ({covers}): the first call, the capture and a "
+        f"replay bit-equal to the eager run in {len(ref)} outputs; "
+        f"capture {row['capture_s']:.3f} s "
+        f"({', '.join(row['graphs']) or 'an earlier graph'}); calls "
+        + ", ".join(f"{ms:.3f}" for ms in row["calls_ms"])
+        + f" ms; eager {eager_ms:.3f} ms, replayed {replay_ms:.3f} ms; "
+        f"device ops a replayed call {row['device_ops_replayed']} "
+        f"(its copies in and out included); pool "
+        f"{row['pool_mib']:.3f} MiB; hand-kernel launches a replay "
+        f"{row['kernel_launches_a_replay']}; checked in "
+        f"{row['check_s']:.3f} s ({card})")
+    return row
+
+
+MAP_GRAPH_KFS = tuple(range(0, 24, 2))   # graphs_phase's map keyframes
+
+
+def map_graph_rows(dev, card: str, K, gt, d) -> list:
+    """The map-tracking programs at map-loop-vga's widths (graphs_phase):
+    a map of 131,072 rows fused from the loop's even frames at their true
+    poses, frame 11 refined against it (projective, grid, and the ring on
+    a one-rank NCCL group) from a warm start 1 cm off, the fusion of one
+    more keyframe, a promotion's bundle, packing and frame cloud, and map
+    BA over the 12 keyframes (cell 2 × map voxel control points, 512
+    points a keyframe: `refine_map_ba`'s problem).  Each row as
+    `graph_row`.  Then the stale-input check: after a replay, a keyframe
+    fused in (the fusion replayed) and the index rebuilt, the next replay
+    of each refinement equals the eager one against the new map and
+    differs from the one before."""
+    import torch.distributed as dist
+
+    from tpuslam_torch import graphs, mapping
+    from tpuslam_torch import slam as slam_mod
+    from tpuslam_torch.backend import map_ba
+    from tpuslam_torch.backend.posegraph import GraphHost
+    from tpuslam_torch.bench.harness import slam_bench_config
+    from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
+    from tpuslam_torch.dist.ring_map import make_ring_align_fn
+    from tpuslam_torch.frontend import (
+        _kf_cloud_jit,
+        pack_pyramid_jit,
+        preprocess,
+        promote_bundle_jit,
+    )
+    from tpuslam_torch.geom.voxel import voxel_downsample
+    from tpuslam_torch.kernels.correspond import build_grid_index
+
+    height, width = d.shape[1:]
+    cfg = slam_bench_config(height, width, False)
+    icp, v = cfg.icp, cfg.voxel
+
+    def pose(T):
+        return torch.as_tensor(np.asarray(T, dtype=np.float32), device=dev)
+
+    def fuse(map_cloud, cloud, T, eager=False):
+        return mapping.fuse_jit(map_cloud, cloud, T, v.map_capacity,
+                                v.map_voxel_size, v.origin, v.extent,
+                                eager=eager)
+
+    clouds = [promote_bundle_jit(d[i], K, cfg, False, eager=True)[2]
+              for i in MAP_GRAPH_KFS]
+    vmap = mapping.VoxelMap(v, device=dev)
+    for c, i in zip(clouds, MAP_GRAPH_KFS):
+        vmap.cloud = fuse(vmap.cloud, c, pose(gt[i]), eager=True)
+    cell = float(icp.max_corr_dist)
+    index = vmap.build_index(cell=cell)
+    pyr = preprocess(d[11], K, cfg)
+    frame_cloud = _kf_cloud_jit(pyr[0], v.voxel_size, v.capacity, v.origin,
+                                v.extent, eager=True)
+    T0 = np.asarray(gt[11], dtype=np.float32).copy()
+    T0[:3, 3] += 0.01
+    T0 = pose(T0)
+    extra = promote_bundle_jit(d[13], K, cfg, False, eager=True)[2]
+    ctrl = voxel_downsample(vmap.cloud, 2.0 * v.map_voxel_size, 4096,
+                            origin=v.origin, extent=v.extent)
+    host = GraphHost(cfg.posegraph, device=dev)
+    for k, i in enumerate(MAP_GRAPH_KFS):
+        host.add_node(np.asarray(gt[i], dtype=np.float32))
+        if k:
+            j = MAP_GRAPH_KFS[k - 1]
+            host.add_edge(k - 1, k, np.linalg.inv(gt[j]) @ gt[i])
+    stride = max(1, v.capacity // 512)
+    prob = map_ba.build_map_ba_problem(
+        pose(np.stack([gt[i] for i in MAP_GRAPH_KFS])),
+        torch.stack([c.points[::stride][:512] for c in clouds]),
+        torch.stack([c.mask[::stride][:512] for c in clouds]), ctrl.points,
+        ctrl.normals, ctrl.mask, max_dist=cell)
+    graph = host.graph(bucketed=True)
+    n_map = int(vmap.cloud.count())
+    initialize_distributed(f"tcp://localhost:{free_port()}", world_size=1,
+                           rank=0, backend="nccl", timeout_s=60)
+    try:
+        ring = make_ring_align_fn(make_mesh(dev), icp)
+        programs = {
+            "_refine_projective_jit": (
+                lambda e: slam_mod._refine_projective_jit(
+                    vmap.cloud, pyr[0], K, T0, icp, eager=e), 10, True, True,
+                f"one refinement against {n_map} map points"),
+            "_kf_cloud_jit": (
+                lambda e: _kf_cloud_jit(pyr[0], v.voxel_size, v.capacity,
+                                        v.origin, v.extent, eager=e), 10,
+                True, True, "one frame cloud"),
+            "_refine_grid_jit": (
+                lambda e: slam_mod._refine_grid_jit(frame_cloud, index, T0,
+                                                    icp, eager=e), 10, True,
+                True, "one refinement, the index built"),
+            "ring_align (one NCCL rank)": (
+                lambda e: ring(frame_cloud, vmap.cloud, T0, eager=e), 5,
+                True, True, "one refinement"),
+            "_fuse": (lambda e: fuse(vmap.cloud, extra, pose(gt[13]),
+                                     eager=e), 10, True, True,
+                      "one keyframe fused"),
+            "promote_bundle_jit": (
+                lambda e: promote_bundle_jit(d[13], K, cfg, False, eager=e),
+                10, True, True, "one promotion"),
+            "promote_bundle_jit with_desc": (
+                lambda e: promote_bundle_jit(d[13], K, cfg, True, eager=e),
+                5, True, True, "one promotion"),
+            "pack_pyramid_jit": (
+                lambda e: pack_pyramid_jit(pyr, cfg, eager=e), 10, True, True,
+                "one pyramid"),
+            "optimize_map_ba": (
+                lambda e: map_ba.optimize_map_ba(
+                    graph, prob, cfg.posegraph, huber_delta=icp.huber_delta,
+                    eager=e), 2, True, True,
+                f"{len(clouds)} keyframes, {prob.obs_w.shape[0]} "
+                f"observations, {ctrl.points.shape[0]} control rows"),
+        }
+        rows = [graph_row(name, *spec, card)
+                for name, spec in programs.items()]
+
+        # stale inputs: each refinement replayed, a keyframe fused in (the
+        # fusion replayed) and the index rebuilt; the next replay is the
+        # eager refinement against the new map
+        refines = {
+            "projective": lambda e: slam_mod._refine_projective_jit(
+                vmap.cloud, pyr[0], K, T0, icp, eager=e),
+            "grid": lambda e: slam_mod._refine_grid_jit(
+                frame_cloud, index, T0, icp, eager=e),
+            "ring": lambda e: ring(frame_cloud, vmap.cloud, T0, eager=e)[1],
+        }
+        before = {k: f(False).clone() for k, f in refines.items()}
+        grown = fuse(vmap.cloud, extra, pose(gt[13]), eager=True)
+        vmap.insert(extra, gt[13])
+        check(bits_equal(vmap.cloud.points, grown.points)
+              and bits_equal(vmap.cloud.mask, grown.mask),
+              "graphs stale inputs: the replayed fusion is not the eager "
+              "one")
+        index = vmap.build_index(cell=cell)
+        for k, f in refines.items():
+            after = f(False).clone()
+            eager = f(True)
+            check(bits_equal(after, eager),
+                  f"graphs stale inputs: the {k} replay after an insert is "
+                  f"not the eager refinement against the new map")
+            check(not torch.equal(after, before[k]),
+                  f"graphs stale inputs: the {k} replay did not see the "
+                  f"insert")
+        log(f"[graphs] stale inputs: after a keyframe fused in (the "
+            f"fusion replayed, bit-equal to eager) and the index rebuilt, "
+            f"the projective, grid and ring replays equal their eager "
+            f"refinements against the new map of {int(vmap.cloud.count())} "
+            f"points and differ from the replays before ({card})")
+    finally:
+        # the graphs that hold NCCL collectives go before their group
+        graphs.clear()
+        dist.destroy_process_group()
+    return rows
+
+
 def graphs_phase(dev, card: str, height: int = 480,
                  width: int = 640) -> dict:
     """Each captured program (tpuslam_torch/graphs.py) at full width: the
@@ -1024,59 +1243,9 @@ def graphs_phase(dev, card: str, height: int = 480,
                               "one attempt, B=4, 3 live"),
     }
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = [t.clone() for t in graphs.flatten(fn())[0]]
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    table = []
-    for name, (call, reps, sync_each, profiled, covers) in programs.items():
-        t_prog = time.perf_counter()
-        before = {e["id"] for e in graphs.stats()}
-        ref, eager_one = timed(lambda: call(True))
-        # a key's first call warms up, its second captures and replays,
-        # its third replays
-        runs = [timed(lambda: call(False)) for _ in range(3)]
-        for tag, (got, _) in zip(("first call", "capture", "replay"), runs):
-            check(len(got) == len(ref) and all(
-                bits_equal(a, b) for a, b in zip(got, ref)),
-                f"graphs {name}: the {tag} is not bit-equal to the eager "
-                f"run")
-        new = [e for e in graphs.stats() if e["id"] not in before]
-        check(all(e["captured"] for e in new),
-              f"graphs {name}: not captured {new}")
-        if reps:
-            eager_ms = wall_ms(lambda: call(True), reps, sync_each)
-            replay_ms = wall_ms(lambda: call(False), reps, sync_each)
-        else:
-            eager_ms, replay_ms = eager_one, runs[2][1]
-        row = {"program": name, "covers": covers,
-               "graphs": [e["program"] for e in new],
-               "warm_up_s": sum(e["warm_up_s"] for e in new),
-               "capture_s": sum(e["capture_s"] for e in new),
-               "calls_ms": [r[1] for r in runs], "eager_ms": eager_ms,
-               "replay_ms": replay_ms,
-               "device_ops_replayed": (device_ops(lambda: call(False))
-                                       if profiled else None),
-               "pool_mib": sum(e["pool_mib"] for e in new),
-               "kernel_launches_a_replay": [e["kernel_launches"]
-                                            for e in new],
-               "outputs": len(ref),
-               "check_s": time.perf_counter() - t_prog}
-        table.append(row)
-        log(f"[graphs] {name} ({covers}): the first call, the capture and a "
-            f"replay bit-equal to the eager run in {len(ref)} outputs; "
-            f"capture {row['capture_s']:.3f} s "
-            f"({', '.join(row['graphs']) or 'an earlier graph'}); calls "
-            + ", ".join(f"{ms:.3f}" for ms in row["calls_ms"])
-            + f" ms; eager {eager_ms:.3f} ms, replayed {replay_ms:.3f} ms; "
-            f"device ops a replayed call {row['device_ops_replayed']} "
-            f"(its copies in and out included); pool "
-            f"{row['pool_mib']:.3f} MiB; hand-kernel launches a replay "
-            f"{row['kernel_launches_a_replay']}; checked in "
-            f"{row['check_s']:.3f} s ({card})")
+    table = [graph_row(name, *spec, card)
+             for name, spec in programs.items()]
+    table += map_graph_rows(dev, card, K, gt, d)
     # a changed K never replays a stale graph: a key of its own, its
     # replay bit-equal to the eager run at that K
     K2 = K._replace(fx=K.fx * 1.01)
@@ -1177,9 +1346,10 @@ def grid_map_ba_small(dev, counters, K, d_np) -> None:
     BA's cost within TOL_MAP_BA_COST_REL, poses within TOL_MAP_POSE.  Then,
     at the default 0.02 m (cells far above 16 points, where a one-voxel
     difference between the two runs' clouds moves a refinement by
-    1e-4-1e-3), the GPU run's last refinement and its BA replayed through
-    the CPU twins on the same inputs: iterations and convergence equal, T
-    within TOL_EPILOGUE_T × 10; BA's counts equal, cost within
+    1e-4-1e-3), the GPU run's last refinement (a graph's replay, first
+    held bit-equal to its eager run on the card) and its BA replayed
+    through the CPU twins on the same inputs: iterations and convergence
+    equal, T within TOL_EPILOGUE_T × 10; BA's counts equal, cost within
     TOL_MAP_BA_COST_REL, poses within TOL_MAP_POSE."""
     import dataclasses as dc
 
@@ -1187,7 +1357,7 @@ def grid_map_ba_small(dev, counters, K, d_np) -> None:
     from tpuslam_torch.backend import map_ba
     from tpuslam_torch.backend.posegraph import PoseGraph
     from tpuslam_torch.geom.cloud import PointCloud
-    from tpuslam_torch.icp import align_to_index
+    from tpuslam_torch.icp import align_to_index, flat_icp_scalars
     from tpuslam_torch.kernels.correspond import GridIndex
     from tpuslam_torch.slam import SlamSystem
 
@@ -1234,7 +1404,7 @@ def grid_map_ba_small(dev, counters, K, d_np) -> None:
 
     # the default map voxels: the last refinement and BA, replayed
     seen = {}
-    names = ("align_to_index", "build_map_ba_problem", "optimize_map_ba")
+    names = ("_refine_grid_jit", "build_map_ba_problem", "optimize_map_ba")
     saved = {n: getattr(slam_mod, n) for n in names}
 
     def recorder(name):
@@ -1259,7 +1429,12 @@ def grid_map_ba_small(dev, counters, K, d_np) -> None:
             return type(v)(*(cpu(f) for f in v))
         return v
 
-    (cloud, index, T0, icp), _, rg = seen["align_to_index"]
+    # the run's last refinement was a replay: the same inputs eagerly on
+    # the card give its bits, and its iterations to hold to the CPU twins
+    (cloud, index, T0, icp), _, flat = seen["_refine_grid_jit"]
+    rg = align_to_index(cloud, index, T0, icp)
+    check(bits_equal(flat_icp_scalars(rg), flat),
+          f"{tag}: the last refinement's replay is not its eager run")
     rc = align_to_index(cpu(cloud), cpu(index), cpu(T0), icp)
     t_err = float((rg.T.cpu() - rc.T).abs().max())
     check(int(rg.iters) == int(rc.iters)
@@ -1294,6 +1469,32 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+MAP_GRAPH_PROGRAMS = ("_refine_projective_jit", "_refine_grid_jit",
+                      "ring_align", "_kf_cloud_jit", "_fuse",
+                      "promote_bundle_jit", "pack_pyramid_jit",
+                      "optimize_map_ba", "process_frame_jit")
+
+
+def log_map_graphs(tag: str, card: str) -> None:
+    """The map path's captured programs so far: keys, captured ones,
+    replays, capture seconds and pool MiB, by program."""
+    from tpuslam_torch import graphs
+
+    by = {}
+    for e in graphs.stats():
+        if e["program"] in MAP_GRAPH_PROGRAMS:
+            k = by.setdefault(e["program"], [0, 0, 0, 0.0, 0.0])
+            k[0] += 1
+            k[1] += e["captured"]
+            k[2] += e["replays"]
+            k[3] += e["capture_s"]
+            k[4] += e["pool_mib"]
+    log(f"[map graphs] {tag}: " + "; ".join(
+        f"{p} {k[0]} keys, {k[1]} captured, {k[2]} replays, capture "
+        f"{k[3]:.3f} s, pool {k[4]:.1f} MiB" for p, k in by.items())
+        + f" ({card})")
+
+
 def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
     """Frame-to-map tracking at 640×480, unsharded and sharded, under a
     one-rank NCCL group.  Returns the path's launches (both runs) by
@@ -1302,6 +1503,7 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
 
     from tpuslam_torch.bench.harness import run_map_bench, slam_bench_config
     from tpuslam_torch.dist.mesh import initialize_distributed
+    from tpuslam_torch.dist.ring_map import drop_graphs as drop_ring_graphs
     from tpuslam_torch.slam import SlamSystem
 
     initialize_distributed(f"tcp://localhost:{free_port()}", world_size=1,
@@ -1346,6 +1548,7 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
                   f"{tag}: the grid probe ran in projective mode {launches}")
             check(all(v == 0 for v in plain.values()),
                   f"{tag}: plain calls {plain}")
+            log_map_graphs(f"map sharded={sharded}", card)
 
         # where a frame's time goes, after the map has grown over 40
         # frames: stages on the host clock (8 frames), then 8 frames under
@@ -1421,6 +1624,8 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
                   f"map profile: {fills} fills against {launched} hops")
         return total, fps[False]
     finally:
+        # the ring's graphs hold NCCL collectives: they go before the group
+        drop_ring_graphs()
         dist.destroy_process_group()
 
 
@@ -1460,6 +1665,7 @@ def grid_phase(dev, card: str, counters, loop, map_fps: float) -> dict:
                                         "correspond", "gn_step")),
           f"grid: launches {launches}")
     check(all(v == 0 for v in plain.values()), f"grid: plain {plain}")
+    log_map_graphs("grid", card)
 
     # frames 40-47 on the host clock, each stage fenced: the refinement
     # (which includes the index build after a keyframe), the index build,

@@ -1703,3 +1703,215 @@ def test_a_capture_failure_raises(dev):
     ok = graphs.Program("adds", lambda s, x: ((), x + 1))
     assert ok.run(x).tolist() == ok.run(x).tolist() == [2.0] * 4
     graphs.clear()
+
+
+# ---- the map-tracking programs -------------------------------------------
+
+
+def _map_inputs(dev):
+    """A map of three keyframes of the 48-frame loop fused at their true
+    poses, its grid index, frame 6's pyramid and cloud, a warm start 1 cm
+    off, and a map BA problem over the three keyframes, on `dev`."""
+    from tpuslam_torch.backend import map_ba, posegraph
+    from tpuslam_torch.data.synthetic import loop_trajectory
+    from tpuslam_torch.frontend import _kf_cloud_jit, promote_bundle_jit
+    from tpuslam_torch.geom.voxel import voxel_downsample
+    from tpuslam_torch.mapping import VoxelMap
+
+    cfg = worker_loop_cfg()
+    v = cfg.voxel
+    gt = loop_trajectory(48, cycles=2, radius=0.35)
+    d = torch.as_tensor(loop_depths(), device=dev)
+    kfs = (0, 4, 8)
+    clouds = [promote_bundle_jit(d[i], K, cfg, False, eager=True)[2]
+              for i in kfs]
+    vmap = VoxelMap(v, device=dev)
+    for c, i in zip(clouds, kfs):
+        vmap.insert(c, gt[i])
+    pyr = preprocess(d[6], K, cfg)
+    T0 = gt[6].astype(np.float32)
+    T0[:3, 3] += 0.01
+    ctrl = voxel_downsample(vmap.cloud, 2.0 * v.map_voxel_size, 4096,
+                            v.origin, v.extent)
+    host = posegraph.GraphHost(cfg.posegraph, device=dev)
+    for k, i in enumerate(kfs):
+        host.add_node(gt[i].astype(np.float32))
+        if k:
+            host.add_edge(k - 1, k, np.linalg.inv(gt[kfs[k - 1]]) @ gt[i])
+    prob = map_ba.build_map_ba_problem(
+        torch.as_tensor(np.stack([gt[i] for i in kfs]).astype(np.float32),
+                        device=dev),
+        torch.stack([c.points[:512] for c in clouds]),
+        torch.stack([c.mask[:512] for c in clouds]), ctrl.points,
+        ctrl.normals, ctrl.mask, max_dist=float(cfg.icp.max_corr_dist))
+    return {"cfg": cfg, "gt": gt, "d": d, "clouds": clouds, "vmap": vmap,
+            "pyr": pyr, "T0": torch.as_tensor(T0, device=dev),
+            "index": vmap.build_index(cell=float(cfg.icp.max_corr_dist)),
+            "cloud": _kf_cloud_jit(pyr[0], v.voxel_size, v.capacity,
+                                   v.origin, v.extent, eager=True),
+            "graph": host.graph(bucketed=True), "prob": prob}
+
+
+def _map_program_calls(mi):
+    """Each map-tracking program as call(eager) → outputs."""
+    from tpuslam_torch import mapping
+    from tpuslam_torch import slam as slam_mod
+    from tpuslam_torch.backend import map_ba
+    from tpuslam_torch.dist.mesh import Mesh
+    from tpuslam_torch.dist.ring_map import make_ring_align_fn
+    from tpuslam_torch.frontend import (
+        _kf_cloud_jit,
+        pack_pyramid_jit,
+        promote_bundle_jit,
+    )
+
+    cfg = mi["cfg"]
+    icp, v = cfg.icp, cfg.voxel
+    ring = make_ring_align_fn(Mesh(None, 0, 1, mi["d"].device), icp)
+    gt4 = mi["gt"][4]
+    return {
+        "_refine_projective_jit": lambda e: slam_mod._refine_projective_jit(
+            mi["vmap"].cloud, mi["pyr"][0], K, mi["T0"], icp, eager=e),
+        "_refine_grid_jit": lambda e: slam_mod._refine_grid_jit(
+            mi["cloud"], mi["index"], mi["T0"], icp, eager=e),
+        "_kf_cloud_jit": lambda e: _kf_cloud_jit(
+            mi["pyr"][0], v.voxel_size, v.capacity, v.origin, v.extent,
+            eager=e),
+        "_fuse": lambda e: mapping.fuse_jit(
+            mi["vmap"].cloud, mi["clouds"][1],
+            torch.as_tensor(gt4.astype(np.float32), device=mi["d"].device),
+            v.map_capacity, v.map_voxel_size, v.origin, v.extent, eager=e),
+        "promote_bundle_jit": lambda e: promote_bundle_jit(
+            mi["d"][9], K, cfg, True, eager=e),
+        "pack_pyramid_jit": lambda e: pack_pyramid_jit(mi["pyr"], cfg,
+                                                       eager=e),
+        "optimize_map_ba": lambda e: map_ba.optimize_map_ba(
+            mi["graph"], mi["prob"], cfg.posegraph, eager=e),
+        "ring_align": lambda e: ring(mi["cloud"], mi["vmap"].cloud,
+                                     mi["T0"], eager=e),
+    }
+
+
+MAP_PROGRAMS = ("_refine_projective_jit", "_refine_grid_jit",
+                "_kf_cloud_jit", "_fuse", "promote_bundle_jit",
+                "pack_pyramid_jit", "optimize_map_ba", "ring_align")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", MAP_PROGRAMS)
+def test_map_program_replay_bit_equal_to_eager(dev, program):
+    """The first call (the warm-up), the second (capture and replay) and a
+    replay of each map-tracking program give the eager run's bits; the
+    replays count the graph's kernel launches."""
+    from tpuslam_torch import graphs
+
+    mi = _map_inputs(dev)
+    graphs.clear()
+    call = _map_program_calls(mi)[program]
+    ref = [t.clone() for t in _flat(call(True))]
+    counters = (correspond.counter, correspond.grid_counter, gn_step.counter,
+                gn_partials.counter, gn_epilogue.counter, ring_nn.counter)
+    for c in counters:
+        c.reset()
+    got = [[t.clone() for t in _flat(call(False))] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(_bits_equal(g, ref) for g in got)
+    (entry,) = [e for e in graphs.stats() if e["program"] == program]
+    assert entry["captured"] and entry["replays"] == 2, graphs.stats()
+    assert all(c.plain_calls == 0 for c in counters)
+    kernel = {"_refine_projective_jit": gn_step.counter,
+              "_refine_grid_jit": correspond.grid_counter,
+              "ring_align": ring_nn.counter}.get(program)
+    if kernel is not None:
+        rec = entry["kernel_launches"].get(kernel.name, 0)
+        assert rec > 0 and kernel.launches % 3 == 0
+    graphs.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["projective", "grid"])
+def test_map_refinement_replay_sees_the_new_map(dev, mode):
+    """Captured against a three-keyframe map, then a fourth keyframe fused
+    in (a replay of the fusion, equal to the eager fusion) and, in grid
+    mode, the index rebuilt: the next replay is the eager refinement
+    against the new map, and differs from the replay before."""
+    from tpuslam_torch import graphs, mapping
+    from tpuslam_torch import slam as slam_mod
+    from tpuslam_torch.geom.voxel import voxel_downsample
+
+    mi = _map_inputs(dev)
+    graphs.clear()
+    cfg, vmap = mi["cfg"], mi["vmap"]
+    icp, v = cfg.icp, cfg.voxel
+
+    def refine(eager=False):
+        if mode == "projective":
+            return slam_mod._refine_projective_jit(
+                vmap.cloud, mi["pyr"][0], K, mi["T0"], icp, eager=eager)
+        index = vmap.build_index(cell=float(icp.max_corr_dist))
+        return slam_mod._refine_grid_jit(mi["cloud"], index, mi["T0"], icp,
+                                         eager=eager)
+
+    before = [refine() for _ in range(2)]
+    assert _bits_equal(before[1], refine(eager=True))
+    new = preprocess(mi["d"][12], K, cfg)
+    cloud = voxel_downsample(new[0].as_cloud(), v.voxel_size, v.capacity,
+                             v.origin, v.extent)
+    T = torch.as_tensor(mi["gt"][12].astype(np.float32), device=dev)
+    for _ in range(2):                      # the fusion's warm-up, capture
+        mapping.fuse_jit(vmap.cloud, cloud, T, v.map_capacity,
+                         v.map_voxel_size, v.origin, v.extent)
+    eager_map = mapping.fuse_jit(vmap.cloud, cloud, T, v.map_capacity,
+                                 v.map_voxel_size, v.origin, v.extent,
+                                 eager=True)
+    vmap.insert(cloud, mi["gt"][12])        # a replay
+    assert _bits_equal(vmap.cloud, eager_map)
+    after = refine()
+    assert _bits_equal(after, refine(eager=True))
+    assert not torch.equal(after, before[1])
+    graphs.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_ring_on_a_one_rank_group(dev, backend):
+    """The ring under a one-rank process group on the card: over NCCL it
+    is captured with its all-reduces inside and replays bit-equal to the
+    eager run; over gloo it never captures and runs op by op."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpuslam_torch import graphs
+    from tpuslam_torch.dist import ring_map
+    from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
+
+    mi = _map_inputs(dev)
+    graphs.clear()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"tcp://localhost:{port}", world_size=1, rank=0,
+                           backend=backend, timeout_s=60)
+    try:
+        mesh = make_mesh(dev)
+        assert mesh.backend == backend
+        assert ring_map.captures(mesh) == (backend == "nccl")
+        call = ring_map.make_ring_align_fn(mesh, mi["cfg"].icp)
+        args = (mi["cloud"], mi["vmap"].cloud, mi["T0"])
+        ref = [t.clone() for t in _flat(call(*args, eager=True))]
+        ring_nn.counter.reset()
+        got = [[t.clone() for t in _flat(call(*args))] for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(_bits_equal(g, ref) for g in got)
+        assert ring_nn.counter.launches > 0
+        entries = ring_map._RING_ALIGN.entries()
+        if backend == "nccl":
+            assert len(entries) == 1 and entries[0].graph is not None
+            assert entries[0].replays == 2
+        else:
+            assert entries == []
+    finally:
+        ring_map.drop_graphs()    # they hold NCCL collectives
+        dist.destroy_process_group()
+        graphs.clear()

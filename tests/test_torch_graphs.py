@@ -20,9 +20,28 @@ each program there against its eager run).  Here:
     warm-up's results returned by a key's first call and the capture at
     its second, a failing capture raising, and a SLAM run's checkpoint
     taken through graph-held state resuming to the same poses.
+
+The map-tracking programs (the projective and grid refinements, the
+frame cloud, the fusion, the promotion bundle and pyramid packing, map BA
+and the ring refinement), on the 16-frame 120×160 loop of
+tests/test_torch_map_slam.py:
+
+  * each entry point's key, as the entry point computes it, changes with
+    each of its static arguments (the map's capacity, the index's cell,
+    `with_desc`, two meshes of one size) and not with tensor values;
+  * on CPU tensors each gives the bits of its plain eager call;
+  * under `SimGraphs` a whole map-tracking run (projective; grid with map
+    BA, BA run twice so that it replays; the ring on a one-rank mesh
+    without a group) gives the eager run's poses, refinement stats, map
+    and BA output bit for bit, and stays within the reference's poses
+    (`tpuslam.slam.SlamSystem`, JAX on the CPU) by POSE_TOL;
+  * a replay after an insert or a rebuilt index aligns against the map
+    as it is now (inputs copied in, never closed over);
+  * a gloo mesh never captures the ring.
 """
 
 import contextlib
+import dataclasses
 import sys
 import threading
 
@@ -30,8 +49,15 @@ import numpy as np
 import pytest
 import torch
 
-from tpuslam_torch import graphs
-from tpuslam_torch.backend import loopclosure, posegraph
+from tests.test_slam import loop_trajectory as map_loop_trajectory
+from tests.test_torch_map_slam import CFG as MAP_REF_CFG
+from tests.test_torch_map_slam import K as REF_K
+from tests.test_torch_map_slam import POSE_TOL
+from tests.test_torch_map_slam import run as run_map
+from tpuslam.slam import SlamSystem as RSlam
+from tpuslam_torch import graphs, mapping
+from tpuslam_torch import slam as slam_mod
+from tpuslam_torch.backend import loopclosure, map_ba, posegraph
 from tpuslam_torch.config import (
     ICPConfig,
     Intrinsics,
@@ -41,16 +67,21 @@ from tpuslam_torch.config import (
     VoxelConfig,
 )
 from tpuslam_torch.data.synthetic import loop_trajectory, render_depth
+from tpuslam_torch.dist import ring_map
+from tpuslam_torch.dist.mesh import Mesh, make_mesh
 from tpuslam_torch.frontend import (
     FlatChunk,
     FlatFrozen,
     FrozenState,
     SuperChunkCarry,
     _frozen_sub_chunk,
+    _kf_cloud_jit,
     _select,
     _track,
+    depth_descriptor,
     initial_state,
     pack_pyramid,
+    pack_pyramid_jit,
     preprocess,
     process_frame_jit,
     promote_bundle_jit,
@@ -59,7 +90,12 @@ from tpuslam_torch.frontend import (
     scan_step,
     scan_superchunk_frozen,
 )
+from tpuslam_torch.geom.voxel import voxel_downsample
+from tpuslam_torch.icp import align_map_to_frame, align_to_index
+from tpuslam_torch.icp import flat_icp_scalars
+from tpuslam_torch.interop import config_from_reference
 from tpuslam_torch.kernels import _build
+from tpuslam_torch.kernels.correspond import build_grid_index
 from tpuslam_torch.slam import SlamSystem
 from tpuslam_torch.utils import checkpoint
 
@@ -528,3 +564,407 @@ def test_checkpoint_through_graph_held_state_resumes_to_the_same_poses(
     assert [r.index for r in resumed.odo.keyframes] == [
         r.index for r in whole.odo.keyframes]
     np.testing.assert_allclose(p_res, p_whole, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The map-tracking programs
+# ---------------------------------------------------------------------------
+
+MAP_CFG = config_from_reference(MAP_REF_CFG)
+MAP_FRAMES = 16
+MAP_PROGRAMS = ("_refine_projective_jit", "_refine_grid_jit",
+                "_kf_cloud_jit", "_fuse", "promote_bundle_jit",
+                "pack_pyramid_jit", "optimize_map_ba", "ring_align")
+GROUPS = (object(), object())     # two process groups, for the keys only
+
+
+@pytest.fixture(scope="module")
+def map_loop():
+    """tests/test_torch_map_slam.py's 16-frame loop."""
+    gt = map_loop_trajectory(30)[:MAP_FRAMES]
+    return gt, np.stack([render_depth(gt[i], K, H, W, seed=i)
+                         for i in range(MAP_FRAMES)]).astype(np.float32)
+
+
+def _pose(T) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(T, dtype=np.float32))
+
+
+@pytest.fixture(scope="module")
+def map_inputs(map_loop):
+    """Each map program's inputs: a map of three keyframes fused at their
+    true poses, its grid index, frame 6's pyramid and cloud, a warm start
+    1 cm off, and a map BA problem over the three keyframes."""
+    gt, depths = map_loop
+    d = torch.as_tensor(depths)
+    cfg = MAP_CFG
+    kfs = (0, 4, 8)
+    clouds = [promote_bundle_jit(d[i], K, cfg, False)[2] for i in kfs]
+    vmap = mapping.VoxelMap(cfg.voxel, device="cpu")
+    for c, i in zip(clouds, kfs):
+        vmap.insert(c, gt[i])
+    pyr = preprocess(d[6], K, cfg)
+    v = cfg.voxel
+    T0 = gt[6].copy()
+    T0[:3, 3] += 0.01
+    ctrl = voxel_downsample(vmap.cloud, 2.0 * v.map_voxel_size, 4096,
+                            v.origin, v.extent)
+    host = posegraph.GraphHost(cfg.posegraph, device="cpu")
+    for k, i in enumerate(kfs):
+        host.add_node(gt[i].astype(np.float32))
+        if k:
+            host.add_edge(k - 1, k, np.linalg.inv(gt[kfs[k - 1]]) @ gt[i])
+    prob = map_ba.build_map_ba_problem(
+        _pose(np.stack([gt[i] for i in kfs])),
+        torch.stack([c.points[:512] for c in clouds]),
+        torch.stack([c.mask[:512] for c in clouds]), ctrl.points,
+        ctrl.normals, ctrl.mask, max_dist=float(cfg.icp.max_corr_dist))
+    return {"depth": d[6], "pyr": pyr, "map": vmap.cloud,
+            "index": vmap.build_index(cell=float(cfg.icp.max_corr_dist)),
+            "cloud": _kf_cloud_jit(pyr[0], v.voxel_size, v.capacity,
+                                   v.origin, v.extent),
+            "new_cloud": clouds[1], "T0": _pose(T0), "T": _pose(gt[4]),
+            "graph": host.graph(bucketed=True), "prob": prob}
+
+
+class _Keyed(Exception):
+    """The spy's stop: the entry point has computed its key."""
+
+
+def entry_key(call):
+    """The key `call` computes for its graph, taken before it runs."""
+    seen = []
+    key_of = graphs.key_of
+
+    def spy(*a):
+        seen.append(key_of(*a))
+        raise _Keyed
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "_backend", SimGraphs())
+        mp.setattr(graphs, "key_of", spy)
+        with pytest.raises(_Keyed):
+            call()
+    return seen[0]
+
+
+def _half(cloud):
+    """The first half of a cloud's rows: another capacity."""
+    n = cloud.points.shape[0] // 2
+    return type(cloud)(*(t[:n] for t in cloud))
+
+
+def _map_program_calls(mi):
+    """name → (call(**changes) with the program's arguments, {what: the
+    changes that give another key}, changes of tensor values only)."""
+    cfg, icp, v = MAP_CFG, MAP_CFG.icp, MAP_CFG.voxel
+    icp2 = dataclasses.replace(icp, max_iters=icp.max_iters + 1)
+    mesh = Mesh(None, 0, 1, torch.device("cpu"))
+    g = mi["graph"]
+    big = posegraph.GraphHost(cfg.posegraph, device="cpu")
+    for _ in range(40):
+        big.add_node(np.eye(4, dtype=np.float32))
+    pg = cfg.posegraph
+    vox = dict(voxel_size=v.voxel_size, capacity=v.capacity,
+               origin=v.origin, extent=v.extent)
+    fuse = dict(capacity=v.map_capacity, voxel_size=v.map_voxel_size,
+                origin=v.origin, extent=v.extent)
+    moved = mi["T0"].clone()
+    moved[0, 3] += 0.1
+    return {
+        "_refine_projective_jit": (
+            lambda map=mi["map"], K=K, icp=icp, T0=mi["T0"], eager=False:
+            slam_mod._refine_projective_jit(map, mi["pyr"][0], K, T0, icp,
+                                            eager=eager),
+            {"capacity": dict(map=_half(mi["map"])),
+             "K": dict(K=K._replace(fx=K.fx * 1.01)), "cfg": dict(icp=icp2)},
+            dict(T0=moved)),
+        "_refine_grid_jit": (
+            lambda index=mi["index"], icp=icp, T0=mi["T0"], eager=False:
+            slam_mod._refine_grid_jit(mi["cloud"], index, T0, icp,
+                                      eager=eager),
+            {"cell": dict(index=mi["index"]._replace(cell=0.3)),
+             "capacity": dict(index=build_grid_index(
+                 _half(mi["map"]), cell=float(icp.max_corr_dist))),
+             "cfg": dict(icp=icp2)},
+            dict(T0=moved)),
+        "_kf_cloud_jit": (
+            lambda frame=mi["pyr"][0], **kw: _kf_cloud_jit(
+                frame, **dict(vox, **kw)),
+            {"voxel_size": dict(voxel_size=0.03),
+             "capacity": dict(capacity=1024), "origin": dict(origin=-10.0),
+             "extent": dict(extent=20.0)},
+            dict(frame=preprocess(torch.as_tensor(
+                np.asarray(mi["depth"]) * 1.01), K, cfg)[0])),
+        "_fuse": (
+            lambda map=mi["map"], T=mi["T"], **kw: mapping.fuse_jit(
+                map, mi["new_cloud"], T, **dict(fuse, **kw)),
+            {"capacity": dict(map=_half(mi["map"]),
+                              capacity=v.map_capacity // 2),
+             "voxel_size": dict(voxel_size=0.03),
+             "origin": dict(origin=-10.0), "extent": dict(extent=20.0)},
+            dict(T=mi["T0"])),
+        "promote_bundle_jit": (
+            lambda depth=mi["depth"], K=K, cfg=cfg, with_desc=False,
+            eager=False: promote_bundle_jit(depth, K, cfg, with_desc,
+                                            eager=eager),
+            {"with_desc": dict(with_desc=True),
+             "K": dict(K=K._replace(cy=K.cy + 0.5)),
+             "cfg": dict(cfg=cfg.replace(icp=icp2)),
+             "shape": dict(depth=mi["depth"][:, :W // 2])},
+            dict(depth=mi["depth"] * 1.01)),
+        "pack_pyramid_jit": (
+            lambda pyr=mi["pyr"], cfg=cfg, eager=False: pack_pyramid_jit(
+                pyr, cfg, eager=eager),
+            {"cfg": dict(cfg=cfg.replace(icp=dataclasses.replace(
+                icp, packed_dtype="float32"))),
+             "shape": dict(pyr=mi["pyr"][:2])},
+            dict(pyr=preprocess(mi["depth"] * 1.01, K, cfg))),
+        "optimize_map_ba": (
+            lambda graph=g, pg=pg, huber=0.05, edge=0.5, eager=False:
+            map_ba.optimize_map_ba(graph, mi["prob"], pg, huber_delta=huber,
+                                   edge_huber_delta=edge, eager=eager),
+            {"bucket": dict(graph=big.graph(bucketed=True)),
+             "cfg": dict(pg=dataclasses.replace(pg, gn_iters=3)),
+             "huber": dict(huber=0.1), "edge huber": dict(edge=0.25)},
+            dict(graph=g._replace(poses=g.poses * 1.0 + 0.001))),
+        "ring_align": (
+            lambda mesh=mesh, icp=icp, backend="kernel", T0=mi["T0"],
+            eager=False: ring_map.make_ring_align_fn(mesh, icp, backend)(
+                mi["cloud"], mi["map"], T0, eager=eager),
+            {"a mesh of a group": dict(mesh=Mesh(
+                GROUPS[0], 0, 1, torch.device("cpu"))),
+             "a mesh of another group of one size": dict(mesh=Mesh(
+                 GROUPS[1], 0, 1, torch.device("cpu"))),
+             "backend": dict(backend="ops"), "cfg": dict(icp=icp2)},
+            dict(T0=moved, mesh=Mesh(None, 0, 1, torch.device("cpu")))),
+    }
+
+
+def test_map_program_calls_cover_every_map_program(map_inputs):
+    assert tuple(_map_program_calls(map_inputs)) == MAP_PROGRAMS
+    names = {p.name for p in graphs._programs}
+    assert set(MAP_PROGRAMS) <= names
+
+
+@pytest.mark.parametrize("program", MAP_PROGRAMS)
+def test_map_program_key_changes_with_each_static_argument(map_inputs,
+                                                           monkeypatch,
+                                                           program):
+    """A mesh's part of the key is its group's identity, rank, size and
+    backend: two groups of one size differ; two meshes without a group
+    (no collectives) share their graphs."""
+    monkeypatch.setattr(torch.distributed, "get_backend",
+                        lambda group: "nccl")
+    call, changes, values = _map_program_calls(map_inputs)[program]
+    k0 = entry_key(call)
+    assert entry_key(lambda: call(**values)) == k0          # values: no
+    keys = {what: entry_key(lambda kw=kw: call(**kw))
+            for what, kw in changes.items()}
+    assert all(k != k0 for k in keys.values()), keys
+    assert len(set(keys.values())) == len(keys)
+
+
+def _plain_map_calls(mi):
+    """name → the program's plain eager computation, written out."""
+    cfg, icp, v = MAP_CFG, MAP_CFG.icp, MAP_CFG.voxel
+    d = mi["depth"]
+
+    def bundle(with_desc):
+        pyr = preprocess(d, K, cfg)
+        return (pyr, pack_pyramid(pyr, icp), voxel_downsample(
+            pyr[0].as_cloud(), v.voxel_size, v.capacity, v.origin, v.extent),
+            depth_descriptor(pyr[-1].points, pyr[-1].mask)
+            if with_desc else None)
+
+    return {
+        "_refine_projective_jit": lambda: flat_icp_scalars(
+            align_map_to_frame(mi["map"], mi["pyr"][0], K, mi["T0"], icp)),
+        "_refine_grid_jit": lambda: flat_icp_scalars(align_to_index(
+            mi["cloud"], mi["index"], mi["T0"], icp)),
+        "_kf_cloud_jit": lambda: voxel_downsample(
+            mi["pyr"][0].as_cloud(), v.voxel_size, v.capacity, v.origin,
+            v.extent),
+        "_fuse": lambda: mapping._fuse(
+            mi["map"], mi["new_cloud"], mi["T"], v.map_capacity,
+            v.map_voxel_size, v.origin, v.extent),
+        "promote_bundle_jit": lambda: bundle(False),
+        "promote_bundle_jit with_desc": lambda: bundle(True),
+        "pack_pyramid_jit": lambda: pack_pyramid(mi["pyr"], icp),
+        "optimize_map_ba": lambda: map_ba._optimize_map_ba(
+            (), mi["graph"], mi["prob"], cfg=cfg.posegraph, huber_delta=0.05,
+            edge_huber_delta=0.5)[1],
+        "ring_align": lambda: ring_map._ring_align(
+            (), mi["cloud"], mi["map"], mi["T0"],
+            mesh=Mesh(None, 0, 1, torch.device("cpu")), cfg=icp,
+            backend="kernel")[1],
+    }
+
+
+@pytest.mark.parametrize("program", MAP_PROGRAMS[:5]
+                         + ("promote_bundle_jit with_desc",)
+                         + MAP_PROGRAMS[5:])
+def test_map_program_gives_its_eager_bits_on_the_cpu(map_inputs, program):
+    """On CPU tensors each entry point, and its `eager=True` call, give
+    the bits of the computation written out op by op."""
+    plain = _plain_map_calls(map_inputs)[program]()
+    name, _, desc = program.partition(" ")
+    base = _map_program_calls(map_inputs)[name][0]
+    kw = {"with_desc": True} if desc else {}
+    got = base(**kw)
+    assert same_bits(got, plain)
+    assert same_bits(base(eager=True, **kw), plain)
+    if desc:
+        assert got[3] is not None
+    if name.startswith("_refine"):
+        assert float(got[16]) > 0.5          # converged
+    assert not any(e["captured"] for e in graphs.stats())
+
+
+MAP_MODES = {"projective": {},
+             "grid_map_ba": {"map_track_mode": "grid", "map_ba": True},
+             "ring": {"sharded_map": True}}
+
+
+def _map_run(depths, mode):
+    """The 16-frame map-tracking run; with map BA, `finalize` (BA's
+    first call, the key's warm-up) and then a second BA (its capture and
+    replay).  Returns everything the run produced."""
+    slam = SlamSystem(K, MAP_CFG, enable_loop_closure=False,
+                      track_against_map=True, device="cpu",
+                      **MAP_MODES[mode])
+    for i in range(MAP_FRAMES):
+        slam.process(depths[i], timestamp=i / 30.0)
+    out = {"keyframes": [r.index for r in slam.odo.keyframes],
+           "stats": list(slam.map_refine_stats),
+           "poses": slam.trajectory()[1],
+           "map": bits(slam.map.cloud_shards if mode == "ring"
+                       else slam.map.cloud)}
+    if MAP_MODES[mode].get("map_ba"):
+        slam.finalize()
+        first = (slam.map_ba_stats, slam.trajectory()[1])
+        assert slam.refine_map_ba()
+        out["map_ba"] = [first, (slam.map_ba_stats, slam.trajectory()[1])]
+    return out
+
+
+@pytest.mark.parametrize("mode", MAP_MODES)
+def test_map_run_through_simulated_graphs_is_the_eager_run(map_loop, sim,
+                                                           monkeypatch,
+                                                           mode):
+    """Every map program replayed from simulated graphs: the poses, the
+    refinement stats, the map and map BA's output are the eager run's bit
+    for bit; projective and ring are held to the reference's system on
+    the same frames within POSE_TOL."""
+    gt, depths = map_loop
+    got = _map_run(depths, mode)
+    replays = {}
+    for e in graphs.stats():
+        replays[e["program"]] = replays.get(e["program"], 0) + e["replays"]
+    ran = {"projective": ("_refine_projective_jit", "_fuse"),
+           "grid_map_ba": ("_refine_grid_jit", "_kf_cloud_jit", "_fuse",
+                           "optimize_map_ba"),
+           "ring": ("ring_align", "_kf_cloud_jit")}[mode]
+    assert all(replays.get(p, 0) > 0 for p in ran), replays
+    assert replays.get("pack_pyramid_jit", 0) > 0
+    graphs.clear()
+    monkeypatch.setattr(graphs, "_backend", graphs.CudaGraphs())
+    eager = _map_run(depths, mode)
+    assert got["keyframes"] == eager["keyframes"]
+    assert len(got["keyframes"]) >= 4
+    assert got["stats"] == eager["stats"]
+    assert np.mean([s["ok"] for s in got["stats"]]) > 0.5
+    np.testing.assert_array_equal(got["poses"], eager["poses"])
+    assert same_bits(got["map"], eager["map"])
+    if "map_ba" in got:
+        for (s_got, p_got), (s_eager, p_eager) in zip(got["map_ba"],
+                                                      eager["map_ba"]):
+            assert s_got == s_eager and s_got["num_obs"] > 100
+            np.testing.assert_array_equal(p_got, p_eager)
+        return
+    if mode == "ring":
+        import tpuslam.dist.mesh as rmesh
+
+        monkeypatch.setattr(rmesh, "make_mesh", lambda: rmesh.Mesh(
+            np.asarray(rmesh.jax.devices()[:1]),
+            axis_names=(rmesh.SHARD_AXIS,)))
+    ref = RSlam(REF_K, MAP_REF_CFG, enable_loop_closure=False,
+                track_against_map=True, sharded_map=mode == "ring")
+    r_kf, _, r_ok, r_est = run_map(ref, depths)
+    assert r_kf == got["keyframes"]
+    assert r_ok == [s["ok"] for s in got["stats"]]
+    np.testing.assert_allclose(got["poses"], r_est, atol=POSE_TOL)
+
+
+@pytest.mark.parametrize("mode", ["projective", "grid"])
+def test_a_replay_aligns_against_the_map_as_it_is_now(map_loop, sim, mode):
+    """The refinement captured against a two-keyframe map, then a third
+    keyframe fused in (the fusion's own replay) and, in grid mode, the
+    index rebuilt: the next replay equals the eager refinement against the
+    new map, and differs from the replay before the insert."""
+    gt, depths = map_loop
+    d = torch.as_tensor(depths)
+    icp, v = MAP_CFG.icp, MAP_CFG.voxel
+    clouds = [promote_bundle_jit(d[i], K, MAP_CFG, False)[2]
+              for i in (0, 5, 10)]
+    vmap = mapping.VoxelMap(v, device="cpu")
+    for c, i in zip(clouds[:2], (0, 5)):
+        vmap.insert(c, gt[i])
+    pyr = preprocess(d[7], K, MAP_CFG)
+    cloud = _kf_cloud_jit(pyr[0], v.voxel_size, v.capacity, v.origin,
+                          v.extent)
+    T0 = _pose(gt[7])
+
+    def refine(eager=False):
+        if mode == "projective":
+            return slam_mod._refine_projective_jit(vmap.cloud, pyr[0], K, T0,
+                                                   icp, eager=eager)
+        index = vmap.build_index(cell=float(icp.max_corr_dist))
+        return slam_mod._refine_grid_jit(cloud, index, T0, icp, eager=eager)
+
+    before = [refine() for _ in range(2)]     # the warm-up; the capture
+    assert same_bits(before[1], before[0])
+    assert same_bits(before[1], refine(eager=True))
+    eager_map = mapping.fuse_jit(vmap.cloud, clouds[2], _pose(gt[10]),
+                                 v.map_capacity, v.map_voxel_size, v.origin,
+                                 v.extent, eager=True)
+    vmap.insert(clouds[2], gt[10])            # the fusion's second replay
+    assert same_bits(vmap.cloud, eager_map)
+    after = refine()
+    assert same_bits(after, refine(eager=True))
+    assert not torch.equal(after, before[1])
+    name = "_refine_projective_jit" if mode == "projective" else (
+        "_refine_grid_jit")
+    (entry,) = [e for e in graphs.stats() if e["program"] == name]
+    assert entry["captured"] and entry["replays"] == 2
+    (fuse,) = [e for e in graphs.stats() if e["program"] == "_fuse"]
+    assert fuse["replays"] == 2
+
+
+def test_a_gloo_mesh_never_captures_the_ring(map_inputs, sim, tmp_path):
+    """On a gloo group the ring runs op by op whatever the tensors' device
+    (a decision from the backend), so it never meets a capture; without a
+    group or over NCCL it is captured."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh("cpu")
+        assert mesh.backend == "gloo" and not ring_map.captures(mesh)
+        call = ring_map.make_ring_align_fn(mesh, MAP_CFG.icp)
+        mi = map_inputs
+        outs = [call(mi["cloud"], mi["map"], mi["T0"]) for _ in range(3)]
+        assert ring_map._RING_ALIGN.entries() == []
+        assert all(same_bits(o, outs[0]) for o in outs[1:])
+        assert same_bits(outs[0], call(mi["cloud"], mi["map"], mi["T0"],
+                                       eager=True))
+    finally:
+        dist.destroy_process_group()
+    assert ring_map.captures(Mesh(None, 0, 1, torch.device("cpu")))
+    nccl = Mesh(None, 0, 1, torch.device("cpu"))
+    object.__setattr__(nccl, "group", object())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.distributed, "get_backend", lambda group: "nccl")
+        assert ring_map.captures(nccl)

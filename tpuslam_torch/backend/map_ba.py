@@ -23,7 +23,9 @@ and after each GN round the landmarks are back-substituted.
 control point by the grid probe: all N·C points, moved into the world,
 in one pose-less launch of the grid kernel (kernels/correspond.py).  The
 rest is plain PyTorch, as the reference has no Pallas kernel here.
-Nothing reads a tensor back to the host.
+Nothing reads a tensor back to the host, so `optimize_map_ba`'s
+`gn_iters` rounds are one CUDA graph on the card (tpuslam_torch/graphs.py),
+as the reference jits them; the problem's build runs op by op.
 
 `optimize_map_ba_spmd` shards the landmarks and their observations over
 the mesh (dist/mesh.py; `partition_observations` buckets the observations
@@ -41,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpuslam_torch import graphs
 from tpuslam_torch.backend.posegraph import (
     PoseGraph,
     _info_vector,
@@ -148,16 +151,9 @@ def _solve_gauged(poses, node_mask, H, b, cfg: PoseGraphConfig):
     return torch.where(torch.all(torch.isfinite(delta)), delta, 0.0)
 
 
-def optimize_map_ba(graph: PoseGraph, prob: MapBAProblem,
-                    cfg: PoseGraphConfig, huber_delta: float = 0.05,
-                    edge_huber_delta: float = 0.5):
-    """Joint pose-graph + frame-to-map GN via the Schur complement (one
-    device), `cfg.gn_iters` rounds.
-
-    Returns (poses (N, 4, 4), map_points (M, 3) refined, the last round's
-    cost ()).  The graph's edges act as odometry / loop-closure priors; the
-    map observations tie every keyframe to the shared surface.
-    """
+def _optimize_map_ba(_state, graph: PoseGraph, prob: MapBAProblem, *,
+                     cfg: PoseGraphConfig, huber_delta: float,
+                     edge_huber_delta: float):
     info = _info_vector(cfg, graph.poses)
     poses, map_pts = graph.poses, prob.map_points
     cost = torch.full((), float("inf"), device=poses.device)
@@ -174,7 +170,27 @@ def optimize_map_ba(graph: PoseGraph, prob: MapBAProblem,
         poses = se3.exp(delta.reshape(-1, 6)) @ poses
         map_pts = map_pts + ds[:, None] * prob.map_normals
         cost = cost_map + cost_e
-    return poses, map_pts, cost
+    return (), (poses, map_pts, cost)
+
+
+_OPTIMIZE_MAP_BA = graphs.Program("optimize_map_ba", _optimize_map_ba)
+
+
+def optimize_map_ba(graph: PoseGraph, prob: MapBAProblem,
+                    cfg: PoseGraphConfig, huber_delta: float = 0.05,
+                    edge_huber_delta: float = 0.5, eager: bool = False):
+    """Joint pose-graph + frame-to-map GN via the Schur complement (one
+    device), `cfg.gn_iters` rounds: one CUDA graph on the card (keyed by
+    the graph's buckets, the problem's shapes, cfg and the Huber widths)
+    unless `eager`.
+
+    Returns (poses (N, 4, 4), map_points (M, 3) refined, the last round's
+    cost ()).  The graph's edges act as odometry / loop-closure priors; the
+    map observations tie every keyframe to the shared surface.
+    """
+    return _OPTIMIZE_MAP_BA.run(graph, prob, eager=eager, cfg=cfg,
+                                huber_delta=huber_delta,
+                                edge_huber_delta=edge_huber_delta)
 
 
 def partition_observations(prob: MapBAProblem, n_dev: int,

@@ -32,15 +32,20 @@ whatever its kernels are.
 `--mode map` is map-loop-vga (`run_map_bench`'s cell): the 120-frame
 640×480 two-lap loop, `SlamSystem.process` per frame with
 `track_against_map=True` and `slam_bench_config`, unsharded and then
-sharded under a one-rank NCCL group.  Each system takes frames 0-47 to
-grow its map, then frames 48-55 are timed on the host clock (each frame
-fenced by a synchronize); a second system, run the same way, takes
-frames 48-55 under the profiler.
+sharded under a one-rank NCCL group.  Each runs `run_map_bench` once
+after MAP_BENCH_WARMUP uncounted passes (`map_loop_vga`: fps, ATE,
+keyframes, closures, refinement ok share, dropped points); then a system
+takes frames 0-47 to grow its map and frames 48-55 are timed on the host
+clock (each frame fenced by a synchronize); a second one times frames
+48-55 by stage (`stages_ms`: tracking, fusion, the loop-closure attempt
+and the map refinement, each fenced, and the rest); a third takes frames
+48-55 under the profiler.
 
 `--mode grid` measures the grid probe and map-grid-vga through
 `build_grid_index`, `grid_correspond_at_pose` and `run_map_bench(...,
-map_track_mode="grid", map_ba=True)`, which every commit since the grid
-slice has.  One probe at chip_smoke.py's phase-3 shapes (16,384 queries
+map_track_mode="grid", map_ba=True)` (after MAP_BENCH_WARMUP uncounted
+passes), which every commit since the grid slice has.  One probe at
+chip_smoke.py's phase-3 shapes (16,384 queries
 against a 131,072-row index of three planes, ~150 points to a 0.25 m
 cell), its queries in random order and sorted by voxel key (the order a
 frame cloud leaves voxel_downsample in): CUDA-event ms a launch (three
@@ -48,7 +53,9 @@ passes of 50) and device µs a launch (20 under the profiler); the index
 build the same way (its device µs: every device operation of a build);
 then map-grid-vga: `run_map_bench` once (fps, ATE, and a SHA-256 of the
 poses after map BA, read at `finalize`, so that two commits' bits can be
-compared), and a second system that takes frames 0-47 and then frames
+compared, with the refinement ok share and dropped points), a second
+system that times frames 48-55 by stage (`stages_ms`, as `--mode map`,
+with the index build) and a third that takes frames 0-47 and then frames
 48-55 under the profiler (the probe's device µs and launches there).
 
 `--mode posegraph` times the pose-graph solve alone through
@@ -402,6 +409,62 @@ def slam(args, card, dev) -> None:
 
 
 MAP_WARM, MAP_FRAMES = 48, 8        # frames 0-47 grow the map; 48-55 count
+# run_map_bench's uncounted passes: a captured program's key warms up at
+# its first call and captures at its second, so after two passes the
+# timed one replays every key a pass meets (keys met once a pass
+# included: the loop-closure attempts, map BA at finalize)
+MAP_BENCH_WARMUP = 2
+# the map path's stages, each fenced: (owner's attribute, method); "" is
+# the SlamSystem itself
+MAP_STAGES = (("odo", "process"), ("map", "insert"), ("map", "build_index"),
+              ("", "_attempt_loop_closure"), ("", "_refine_against_map"))
+
+
+def staged_frames(slam, d, ts, lo: int, hi: int) -> dict:
+    """Frames lo..hi-1 through `slam`, each stage of MAP_STAGES fenced by
+    a synchronize before and after (so the spans are the host's and the
+    device's time of each): ms by stage, the whole (`wall`) and what lies
+    outside the stages (`rest`).  `build_index` runs inside
+    `_refine_against_map` (grid mode) and is not subtracted again."""
+    import torch
+
+    spans: dict = {}
+    owners = []
+    for attr, name in MAP_STAGES:
+        owner = getattr(slam, attr) if attr else slam
+        fn = getattr(owner, name, None)
+        if fn is None:
+            continue
+
+        def fenced(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spans[_name] = spans.get(_name, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+        setattr(owner, name, fenced)
+        owners.append((owner, name))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for i in range(lo, hi):
+            slam.process(d[i], timestamp=ts[i])
+        torch.cuda.synchronize()
+    finally:
+        for owner, name in owners:
+            delattr(owner, name)
+    wall = (time.perf_counter() - t0) * 1e3
+    outer = sum(v for k, v in spans.items() if k != "build_index")
+    return {**spans, "wall": wall, "rest": wall - outer}
+
+
+def map_cell(r: dict) -> dict:
+    """`run_map_bench`'s result, less its launch tables."""
+    return {k: v for k, v in r.items() if k not in ("launches",
+                                                    "plain_calls")}
 
 
 def track_map(args, card, dev) -> None:
@@ -413,17 +476,18 @@ def track_map(args, card, dev) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     import tpuslam_torch
-    from tpuslam_torch.bench.harness import _intrinsics, slam_bench_config
-    from tpuslam_torch.data.synthetic import loop_trajectory, render_depth
+    from tpuslam_torch.bench.harness import (
+        _render_sequence,
+        run_map_bench,
+        slam_bench_config,
+    )
     from tpuslam_torch.dist.mesh import initialize_distributed
     from tpuslam_torch.slam import SlamSystem
 
-    K = _intrinsics(480, 640)
-    poses = loop_trajectory(120, cycles=2, radius=0.35)
+    seq = _render_sequence(120, 480, 640, loop_cycles=2)
+    K, _, d_np = seq
     last = MAP_WARM + MAP_FRAMES
-    d = torch.as_tensor(np.stack([
-        render_depth(poses[i], K, 480, 640, seed=i)
-        for i in range(last)]).astype(np.float32), device=dev)
+    d = torch.as_tensor(d_np[:last], device=dev)
     ts = np.arange(last) / 30.0
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -442,6 +506,9 @@ def track_map(args, card, dev) -> None:
                 torch.cuda.synchronize()
                 return slam
 
+            cell = map_cell(run_map_bench(120, 480, 640, sharded=sharded,
+                                          device=str(dev), sequence=seq,
+                                          warmup=MAP_BENCH_WARMUP))
             slam = warm()
             walls = [0.0]
             for i in range(MAP_WARM, last):
@@ -449,6 +516,7 @@ def track_map(args, card, dev) -> None:
                 slam.process(d[i], timestamp=ts[i])
                 torch.cuda.synchronize()
                 walls[0] += time.perf_counter() - t0
+            stages = staged_frames(warm(), d, ts, MAP_WARM, last)
             slam = warm()
             t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU,
@@ -460,7 +528,8 @@ def track_map(args, card, dev) -> None:
             print(json.dumps(report(
                 args.tag, card, tpuslam_torch.__file__, MAP_FRAMES, walls,
                 wall_us, prof, mode="map", sharded=sharded,
-                frames_profiled=[MAP_WARM, last - 1])), flush=True)
+                frames_profiled=[MAP_WARM, last - 1], map_loop_vga=cell,
+                stages_ms=stages)), flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -584,18 +653,25 @@ def grid(args, card, dev) -> None:
     SlamSystem.finalize = recording_finalize
     try:
         r = run_map_bench(120, 480, 640, device=str(dev), sequence=seq,
-                          map_track_mode="grid", map_ba=True)
+                          map_track_mode="grid", map_ba=True,
+                          warmup=MAP_BENCH_WARMUP)
     finally:
         SlamSystem.finalize = finalize
     K, _, d_np = seq
     d = torch.as_tensor(d_np[:MAP_WARM + MAP_FRAMES], device=dev)
     ts = np.arange(d.shape[0]) / 30.0
-    slam = SlamSystem(K, slam_bench_config(480, 640, False),
-                      enable_loop_closure=True, track_against_map=True,
-                      map_track_mode="grid", map_ba=True, device=dev)
-    for i in range(MAP_WARM):
-        slam.process(d[i], timestamp=ts[i])
-    torch.cuda.synchronize()
+
+    def warm():
+        slam = SlamSystem(K, slam_bench_config(480, 640, False),
+                          enable_loop_closure=True, track_against_map=True,
+                          map_track_mode="grid", map_ba=True, device=dev)
+        for i in range(MAP_WARM):
+            slam.process(d[i], timestamp=ts[i])
+        torch.cuda.synchronize()
+        return slam
+
+    stages = staged_frames(warm(), d, ts, MAP_WARM, MAP_WARM + MAP_FRAMES)
+    slam = warm()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -611,9 +687,7 @@ def grid(args, card, dev) -> None:
         "has_table": getattr(index, "table", None) is not None,
         "probe": probe, "index_build": index_build,
         "map_grid_vga": {
-            "fps": r["fps"], "ate_rmse_m": r["ate_rmse_m"],
-            "ate_before_ba_m": r["ate_before_ba_m"], "map_ba": r["map_ba"],
-            "launches": r["launches"],
+            **map_cell(r), "launches": r["launches"], "stages_ms": stages,
             "poses_sha256": hashlib.sha256(poses["est"].tobytes()).hexdigest(),
             "frames_profiled": [MAP_WARM, MAP_WARM + MAP_FRAMES - 1],
             "grid_correspond_device_us": us,

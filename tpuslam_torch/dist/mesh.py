@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import threading
 from typing import Optional
 
 import torch
@@ -26,6 +28,21 @@ from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.transfer import resolve_device
 
 SHARD_AXIS = "shard"        # the mesh's one axis (points, edges, frames)
+# id(group) → (group, serial): each process group's number in a captured
+# program's key; the group is held, so its id is never reused
+_group_serials: dict = {}
+_serials = itertools.count(1)
+_serials_lock = threading.Lock()
+
+
+def _group_serial(group) -> int:
+    if group is None:
+        return 0
+    with _serials_lock:
+        entry = _group_serials.get(id(group))
+        if entry is None:
+            entry = _group_serials[id(group)] = (group, next(_serials))
+        return entry[1]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -39,6 +56,23 @@ class Mesh:
     rank: int
     size: int
     device: torch.device
+
+    @property
+    def backend(self) -> str:
+        """The group's backend ("nccl", "gloo", ...), "none" without one."""
+        return "none" if self.group is None else str(
+            dist.get_backend(self.group))
+
+    def graph_key(self) -> tuple:
+        """This mesh in a captured program's key (graphs.static_key): the
+        identity of its process group (a number never reused in a
+        process), its rank, size and backend.  Two meshes of one group and
+        rank share graphs (they share the group's communicator); meshes
+        without a group run no collective and share them too.  Its `repr`
+        would not do: it names the group by an address, which a later
+        group may take."""
+        return ("mesh", _group_serial(self.group), self.rank, self.size,
+                self.backend)
 
     @property
     def left(self) -> int:

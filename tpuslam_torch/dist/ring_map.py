@@ -37,6 +37,12 @@ ranks disagree on it and deadlock.  (Only a one-rank mesh on the CPU
 stops at DONE, as `_icp_loop` does.)  The epilogue's Gauss elimination
 stands for the reference's `solve_gn_step`; both solve the same damped
 system.
+
+The reference jits the whole alignment (a `shard_map`); here it is one
+CUDA graph a key on the card, collectives and hops included, on a mesh
+without a group or over NCCL (`captures`).  The NCCL communicator is made
+by the first collective, which every mesh runs eagerly (the map's
+fusion, or the key's warm-up) before any capture.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from functools import lru_cache
 import torch
 import torch.distributed as dist
 
+from tpuslam_torch import graphs
 from tpuslam_torch.config import ICPConfig
 from tpuslam_torch.dist.mesh import Mesh, pad_to_multiple, shard_cloud
 from tpuslam_torch.geom import se3
@@ -158,35 +165,71 @@ def _ring_icp(frame: PointCloud, shard: torch.Tensor, T0: torch.Tensor,
     return _result(carry, tol_sq)
 
 
+def captures(mesh: Mesh) -> bool:
+    """Whether the ring replays a CUDA graph on this mesh: without a group
+    (one rank, no collectives) or over NCCL, whose collectives and P2P
+    run on the card and are captured into the graph.  Over gloo it runs
+    op by op: gloo copies every CUDA collective through host memory,
+    which a capture cannot hold.  A decision from the group's backend,
+    taken before the call; nothing falls back at run time."""
+    return mesh.backend in ("none", "nccl")
+
+
+def _ring_align(_state, frame: PointCloud, map_shard: PointCloud,
+                T0: torch.Tensor, *, mesh: Mesh, cfg: ICPConfig,
+                backend: str):
+    frame_mult = 8 * mesh.size if backend == "kernel" else mesh.size
+    map_mult = 128 if backend == "kernel" else 1
+    local = shard_cloud(PointCloud(
+        points=pad_to_multiple(frame.points, frame_mult),
+        normals=pad_to_multiple(frame.normals, frame_mult),
+        mask=pad_to_multiple(frame.mask, frame_mult, fill=False)), mesh)
+    shard = pad_to_multiple(pack_cloud_rows(*map_shard), map_mult)
+    if shard.shape[1] != ROW_DIM:
+        raise ValueError(f"map shard rows: {shard.shape}")
+    res = _ring_icp(local, shard, T0, cfg, mesh, backend)
+    return (), (res, flat_icp_scalars(res))
+
+
+_RING_ALIGN = graphs.Program("ring_align", _ring_align)
+
+
+def drop_graphs() -> None:
+    """Drop the ring's captured graphs.  Their NCCL kernels use the
+    communicator of the group they were captured on: call this before
+    that group is destroyed."""
+    _RING_ALIGN.drop()
+
+
 @lru_cache(maxsize=32)
 def make_ring_align_fn(mesh: Mesh, cfg: ICPConfig, backend: str = "kernel"):
     """The ring-ICP callable for one mesh, config and backend (cached).
 
-    `call(frame, map_shard, T0) -> (ICPResult, flat)`: `frame` is the whole
-    frame cloud (every rank holds it) and is padded and sliced to this
-    rank's shard here; `map_shard` is this rank's map shard (e.g.
-    `ShardedVoxelMap.cloud_shards`).  Both are padded to the reference's
-    multiples (frame 8·D and map rows 128 for "kernel", D and 1 for
-    "ops") with mask=False rows.  `flat` is `flat_icp_scalars` of the
-    result (layout icp.FlatICP), so a host reads every gate in one
+    `call(frame, map_shard, T0, eager=False) -> (ICPResult, flat)`:
+    `frame` is the whole frame cloud (every rank holds it) and is padded
+    and sliced to this rank's shard here; `map_shard` is this rank's map
+    shard (e.g. `ShardedVoxelMap.cloud_shards`).  Both are padded to the
+    reference's multiples (frame 8·D and map rows 128 for "kernel", D and
+    1 for "ops") with mask=False rows.  `flat` is `flat_icp_scalars` of
+    the result (layout icp.FlatICP), so a host reads every gate in one
     transfer.
+
+    On the card the call is one CUDA graph (tpuslam_torch/graphs.py) with
+    its all-reduces and ring hops inside, keyed by the mesh's identity
+    (`Mesh.graph_key`), cfg, the backend and the shapes, where `captures`
+    allows it; on a gloo mesh, on the CPU or with `eager` it runs op by
+    op.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
-    frame_mult = 8 * mesh.size if backend == "kernel" else mesh.size
-    map_mult = 128 if backend == "kernel" else 1
+    graphed = captures(mesh)
 
-    def call(frame: PointCloud, map_shard: PointCloud, T0: torch.Tensor):
-        local = shard_cloud(PointCloud(
-            points=pad_to_multiple(frame.points, frame_mult),
-            normals=pad_to_multiple(frame.normals, frame_mult),
-            mask=pad_to_multiple(frame.mask, frame_mult, fill=False)), mesh)
-        shard = pad_to_multiple(pack_cloud_rows(*map_shard), map_mult)
-        if shard.shape[1] != ROW_DIM:
-            raise ValueError(f"map shard rows: {shard.shape}")
-        res = _ring_icp(local, shard, T0, cfg, mesh, backend)
-        return res, flat_icp_scalars(res)
+    def call(frame: PointCloud, map_shard: PointCloud, T0: torch.Tensor,
+             eager: bool = False):
+        return _RING_ALIGN.run(frame, map_shard, T0,
+                               eager=eager or not graphed, mesh=mesh,
+                               cfg=cfg, backend=backend)
 
     return call
 

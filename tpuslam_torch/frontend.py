@@ -21,9 +21,10 @@ on the device, so no flag is read on the host inside a chunk.  Names ending
 in `_jit` are the reference's.  The reference's compiled programs are CUDA
 graphs here (tpuslam_torch/graphs.py), replayed on the card: the frame step
 of `scan_odometry` and `scan_chunk` (one replay a frame, the scan's state
-carried in the graph), `process_frame_jit` (one replay a frame) and the
-sub-chunk of `scan_superchunk_frozen` (one replay a sub-chunk).  On the CPU,
-or with `eager=True`, they run op by op.
+carried in the graph), `process_frame_jit` (one replay a frame), the
+sub-chunk of `scan_superchunk_frozen` (one replay a sub-chunk), and a
+promotion's `promote_bundle_jit`, `pack_pyramid_jit` and `_kf_cloud_jit`.
+On the CPU, or with `eager=True`, they run op by op.
 
 Keyframe criterion: relative motion (translation/rotation) beyond
 threshold OR inlier fraction below threshold; a frame whose inlier fraction
@@ -205,11 +206,40 @@ def process_frame_jit(depth: torch.Tensor, kf_packed: tuple, K: Intrinsics,
                               eager=eager, K=K, cfg=cfg)
 
 
-def promote_bundle_jit(depth: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
-                       with_desc: bool):
-    """Everything a keyframe promotion derives from its depth frame: the
-    pyramid, its packed gather tables, the voxel-downsampled cloud and,
-    with `with_desc`, the depth descriptor (on the device)."""
+def _pack_pyramid(_state, pyr, *, cfg: SLAMConfig):
+    return (), pack_pyramid(pyr, cfg.icp)
+
+
+_PACK_PYRAMID = graphs.Program("pack_pyramid_jit", _pack_pyramid)
+
+
+def pack_pyramid_jit(pyr, cfg: SLAMConfig, eager: bool = False) -> tuple:
+    """`icp.pack_pyramid` of a keyframe's pyramid; a CUDA graph on the
+    card (keyed by cfg and the shapes) unless `eager`."""
+    return _PACK_PYRAMID.run(pyr, eager=eager, cfg=cfg)
+
+
+def _kf_cloud(_state, frame: Frame, *, voxel_size: float, capacity: int,
+              origin: float, extent: float):
+    return (), voxel_downsample(frame.as_cloud(), voxel_size, capacity,
+                                origin, extent)
+
+
+_KF_CLOUD = graphs.Program("_kf_cloud_jit", _kf_cloud)
+
+
+def _kf_cloud_jit(frame: Frame, voxel_size: float, capacity: int,
+                  origin: float, extent: float,
+                  eager: bool = False) -> PointCloud:
+    """A frame's voxel-downsampled cloud (the keyframe cloud, and the
+    frame cloud the grid and ring refinements align); a CUDA graph on the
+    card (keyed by the voxel grid and the shapes) unless `eager`."""
+    return _KF_CLOUD.run(frame, eager=eager, voxel_size=voxel_size,
+                         capacity=capacity, origin=origin, extent=extent)
+
+
+def _promote_bundle(_state, depth, *, K: Intrinsics, cfg: SLAMConfig,
+                    with_desc: bool):
     pyr = preprocess(depth, K, cfg)
     packed = pack_pyramid(pyr, cfg.icp)
     cloud = voxel_downsample(pyr[0].as_cloud(), cfg.voxel.voxel_size,
@@ -217,7 +247,21 @@ def promote_bundle_jit(depth: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
                              cfg.voxel.extent)
     desc = (depth_descriptor(pyr[-1].points, pyr[-1].mask)
             if with_desc else None)
-    return pyr, packed, cloud, desc
+    return (), (pyr, packed, cloud, desc)
+
+
+_PROMOTE_BUNDLE = graphs.Program("promote_bundle_jit", _promote_bundle)
+
+
+def promote_bundle_jit(depth: torch.Tensor, K: Intrinsics, cfg: SLAMConfig,
+                       with_desc: bool, eager: bool = False):
+    """Everything a keyframe promotion derives from its depth frame: the
+    pyramid, its packed gather tables, the voxel-downsampled cloud and,
+    with `with_desc`, the depth descriptor (on the device).  A CUDA graph
+    on the card (keyed by K, cfg, `with_desc` and the shape) unless
+    `eager`."""
+    return _PROMOTE_BUNDLE.run(depth, eager=eager, K=K, cfg=cfg,
+                               with_desc=with_desc)
 
 
 def prefetch_to_device(frames, lookahead: int = 2, device="cuda"):
@@ -385,11 +429,11 @@ class Odometry:
 
     def _kf_cloud(self, pyr) -> PointCloud:
         v = self.cfg.voxel
-        return voxel_downsample(pyr[0].as_cloud(), v.voxel_size, v.capacity,
-                                v.origin, v.extent)
+        return _kf_cloud_jit(pyr[0], v.voxel_size, v.capacity, v.origin,
+                             v.extent)
 
     def _promote(self, pyr, timestamp: float) -> None:
-        packed = pack_pyramid(pyr, self.cfg.icp)
+        packed = pack_pyramid_jit(pyr, self.cfg)
         cloud = desc = None
         if self.keep_keyframe_clouds:
             cloud = self._kf_cloud(pyr)

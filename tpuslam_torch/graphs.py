@@ -12,9 +12,10 @@ the port's own; nothing is generated.
 Key.  One graph per key, as `jit` compiles one program per static
 signature: the program's static arguments (configs, intrinsics, sizes,
 flags — every Python value that reaches a kernel as a C float or bounds a
-loop, compared by `repr`, so 0.0 and -0.0 differ), the structure of the
-tensor arguments with each one's shape, dtype and device, and the calling
-stream (its "lane").
+loop, compared by `repr`, so 0.0 and -0.0 differ; an object with a
+`graph_key()` method, such as a mesh, by what that returns), the
+structure of the tensor arguments with each one's shape, dtype and
+device, and the calling stream (its "lane").
 
 Capture.  A key's first call runs the function eagerly on the lane's
 capture stream — the warm-up, whose results are the call's, and during
@@ -120,12 +121,21 @@ def _sig(leaves) -> tuple:
     return tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
 
 
+def static_key(v) -> object:
+    """A static argument's part of a key: `v.graph_key()` where `v` has
+    one (an object whose `repr` does not say which one it is), else its
+    `repr`."""
+    graph_key = getattr(v, "graph_key", None)
+    return graph_key() if callable(graph_key) else repr(v)
+
+
 def key_of(lane, static: dict, state_spec, state_leaves, in_spec,
            in_leaves) -> tuple:
-    """A graph's key: the lane, the static arguments by `repr`, and the
-    state's and inputs' structure with each tensor's shape, dtype and
+    """A graph's key: the lane, the static arguments (`static_key`), and
+    the state's and inputs' structure with each tensor's shape, dtype and
     device."""
-    return (lane, tuple(sorted((k, repr(v)) for k, v in static.items())),
+    return (lane, tuple(sorted((k, static_key(v))
+                               for k, v in static.items())),
             _spec_key(state_spec), _sig(state_leaves), _spec_key(in_spec),
             _sig(in_leaves))
 
@@ -414,6 +424,13 @@ class Program:
         for e in self._entries.values():
             _build.drop_scratch(("graph", e.id))
         self._entries.clear()
+
+    def drop(self) -> None:
+        """Drop this program's graphs (after the card has finished their
+        work); the lanes' pools keep their memory for later captures."""
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self._drop()
 
 
 class Loop:

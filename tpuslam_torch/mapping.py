@@ -3,10 +3,15 @@
 The map is a fixed-capacity masked `PointCloud` in the world frame, on the
 device.  Fusing a keyframe is the sort-based voxel reduction
 (geom/voxel.py) of `concat(map, transformed cloud)`: static shapes, no
-hash table, no host synchronisation.  Frame-to-map tracking reads it
-through `icp.align_map_to_frame` (reverse projective association) or,
+hash table, no host synchronisation.  On the card the fusion replays a
+CUDA graph (`fuse_jit`, the reference's jitted `_fuse`; graphs.py), keyed
+by the capacities and the voxel grid: the map and the new cloud are its
+inputs, copied in, and the fused map comes out as a copy, so the map is
+never a buffer that the next replay writes.  Frame-to-map tracking reads
+it through `icp.align_map_to_frame` (reverse projective association) or,
 with `map_track_mode="grid"`, through the grid-hash index that
-`build_index` sorts (kernels/correspond.py).
+`build_index` sorts (kernels/correspond.py; the build runs op by op, once
+an insert).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpuslam_torch import graphs
 from tpuslam_torch.config import VoxelConfig
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.geom.voxel import voxel_downsample
@@ -33,6 +39,23 @@ def _fuse(map_cloud: PointCloud, new_cloud: PointCloud, T_world: torch.Tensor,
     return voxel_downsample(merged, voxel_size, capacity, origin, extent)
 
 
+def _fuse_program(_state, map_cloud, new_cloud, T_world, **static):
+    return (), _fuse(map_cloud, new_cloud, T_world, **static)
+
+
+_FUSE = graphs.Program("_fuse", _fuse_program)
+
+
+def fuse_jit(map_cloud: PointCloud, new_cloud: PointCloud,
+             T_world: torch.Tensor, capacity: int, voxel_size: float,
+             origin: float, extent: float, eager: bool = False) -> PointCloud:
+    """`_fuse`: the map with `new_cloud` posed at `T_world` fused in; a
+    CUDA graph on the card unless `eager`."""
+    return _FUSE.run(map_cloud, new_cloud, T_world, eager=eager,
+                     capacity=capacity, voxel_size=voxel_size, origin=origin,
+                     extent=extent)
+
+
 class VoxelMap:
     """Host wrapper holding the device-resident world map."""
 
@@ -50,9 +73,9 @@ class VoxelMap:
     def insert(self, cloud: PointCloud, T_world) -> None:
         """Fuse a (keyframe-local) cloud posed at T_world into the map."""
         T = upload(np.asarray(T_world, dtype=np.float32), self.device)
-        self.cloud = _fuse(self.cloud, cloud, T, self.cfg.map_capacity,
-                           self.cfg.map_voxel_size, self.cfg.origin,
-                           self.cfg.extent)
+        self.cloud = fuse_jit(self.cloud, cloud, T, self.cfg.map_capacity,
+                              self.cfg.map_voxel_size, self.cfg.origin,
+                              self.cfg.extent)
         self.num_insertions += 1
 
     def build_index(self, cell: float) -> GridIndex:

@@ -10,7 +10,8 @@ device-resident depth and dispatches ONE fused propose → verify →
 pose-graph attempt (`backend.loopclosure.fused_attempt_jit`).  With
 `async_backend=True` the attempt's readback rides the next chunk's
 readback (the deferred backend), so a chunk costs one host sync.  On the
-card the scans, the per-frame track, the attempt and the pose-graph solves
+card the scans, the per-frame track, the promotions, the attempt, the
+pose-graph solves and the map path (each refinement, the fusion, map BA)
 replay CUDA graphs (tpuslam_torch/graphs.py), one launch each from the
 host.
 
@@ -57,6 +58,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpuslam_torch import graphs
 from tpuslam_torch.backend.loopclosure import (
     extend_with_candidates,
     fused_attempt_jit,
@@ -68,7 +70,7 @@ from tpuslam_torch.backend.map_ba import build_map_ba_problem, optimize_map_ba
 from tpuslam_torch.backend.posegraph import GraphHost, optimize, resolve_solver
 from tpuslam_torch.backend.relocalize import relocalize
 from tpuslam_torch.backend.verify import ROW_SIZE
-from tpuslam_torch.config import Intrinsics, SLAMConfig
+from tpuslam_torch.config import ICPConfig, Intrinsics, SLAMConfig
 from tpuslam_torch.dist.map_fusion import ShardedVoxelMap
 from tpuslam_torch.dist.mesh import make_mesh
 from tpuslam_torch.dist.ring_map import make_ring_align_fn
@@ -84,13 +86,16 @@ from tpuslam_torch.frontend import (
     scan_chunk,
     scan_superchunk_frozen,
 )
+from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.geom.voxel import voxel_downsample
 from tpuslam_torch.icp import (
     FlatICP,
+    Frame,
     align_map_to_frame,
     align_to_index,
     flat_icp_scalars,
 )
+from tpuslam_torch.kernels.correspond import GridIndex
 from tpuslam_torch.mapping import VoxelMap
 from tpuslam_torch.transfer import upload
 
@@ -104,6 +109,42 @@ LC_EDGE_WEIGHT = 2.0
 # `wait_backend_idle` for its attempts to commit (the reference's join
 # limit); past it they raise rather than hang.
 WORKER_JOIN_S = 120.0
+
+
+def _refine_projective(_state, map_cloud, frame, T0, *, K: Intrinsics,
+                       cfg: ICPConfig):
+    return (), flat_icp_scalars(align_map_to_frame(map_cloud, frame, K, T0,
+                                                   cfg))
+
+
+def _refine_grid(_state, cloud, index, T0, *, cfg: ICPConfig):
+    return (), flat_icp_scalars(align_to_index(cloud, index, T0, cfg))
+
+
+_REFINE_PROJECTIVE = graphs.Program("_refine_projective_jit",
+                                    _refine_projective)
+_REFINE_GRID = graphs.Program("_refine_grid_jit", _refine_grid)
+
+
+def _refine_projective_jit(map_cloud: PointCloud, frame: Frame,
+                           K: Intrinsics, T0: torch.Tensor, cfg: ICPConfig,
+                           eager: bool = False) -> torch.Tensor:
+    """The projective map refinement's flat scalars (icp.FlatICP): one
+    CUDA graph on the card, keyed by K, cfg and the shapes (the map's
+    capacity among them), unless `eager`.  The map, the frame and T0 are
+    inputs copied in at every call: a replay aligns against the map as it
+    is now, never the map of its capture."""
+    return _REFINE_PROJECTIVE.run(map_cloud, frame, T0, eager=eager, K=K,
+                                  cfg=cfg)
+
+
+def _refine_grid_jit(cloud: PointCloud, index: GridIndex, T0: torch.Tensor,
+                     cfg: ICPConfig, eager: bool = False) -> torch.Tensor:
+    """The grid map refinement's flat scalars: one CUDA graph on the card,
+    keyed by cfg, the index's cell and the shapes, unless `eager`; the
+    index (keys, rows, origin, table) is copied in at every call, so a
+    replay probes the index rebuilt after the latest insert."""
+    return _REFINE_GRID.run(cloud, index, T0, eager=eager, cfg=cfg)
 
 
 class PendingAttempt(NamedTuple):
@@ -368,15 +409,15 @@ class SlamSystem:
             _res, flat = make_ring_align_fn(self._map_mesh, self.cfg.icp)(
                 cloud, self.map.cloud_shards, T0)
         elif self.map_track_mode == "projective":
-            flat = flat_icp_scalars(align_map_to_frame(
-                self.map.cloud, odo.last_pyr[0], odo.K, T0, self.cfg.icp))
+            flat = _refine_projective_jit(self.map.cloud, odo.last_pyr[0],
+                                          odo.K, T0, self.cfg.icp)
         else:
             if self._map_index is None:
                 self._map_index = self.map.build_index(
                     cell=float(self.cfg.icp.max_corr_dist))
             cloud = odo._kf_cloud(odo.last_pyr)   # current frame, camera
-            flat = flat_icp_scalars(align_to_index(cloud, self._map_index,
-                                                   T0, self.cfg.icp))
+            flat = _refine_grid_jit(cloud, self._map_index, T0,
+                                    self.cfg.icp)
         s = flat.cpu().numpy()                    # the one host sync
         T_est = s[FlatICP.T].reshape(4, 4)
         ok = (bool(s[FlatICP.CONVERGED] > 0.5)
