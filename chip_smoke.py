@@ -43,8 +43,17 @@ Phases, in order (any failure raises and the script exits non-zero):
  3b. graphs   — the captured programs (tpuslam_torch/graphs.py) at
                 640×480: scan_odometry (plain and fused), process_frame_jit,
                 scan_chunk, scan_superchunk_frozen (sub 8 and 4), the dense
-                pose-graph solve at 32 and 256 nodes, the CG solve at 512
-                and fused_attempt_jit (B = 4, 3 live), each run eagerly
+                pose-graph solve at 32 and 256 nodes, the CG solve at 512,
+                fused_attempt_jit (B = 4, 3 live), the map programs, and
+                scan_odometry_boundary_jit, align_frames_jit (a
+                pyramid pair; run_bench's 50 one-level iterations),
+                align_clouds_jit, the verification batches
+                (_verify_pairs_jit, _verify_projective_pairs_jit) and
+                relocalization's (_batch_verify_jit,
+                _batch_verify_projective_jit), the grid index build (and
+                its replay after an insert against a fresh build), the
+                sharded fusion and the point-sharded ICP on a one-rank
+                NCCL group, each run eagerly
                 against a key's first call (the warm-up), its second (the
                 capture and a replay) and a replay: every output bit-equal;
                 each one's capture seconds, eager and replayed ms, device
@@ -58,7 +67,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                 through the plain twins on the CPU (the twins are held to
                 the JAX reference by tests/test_torch_*.py)
   6. main     — tpuslam_torch.bench.harness.run_bench: 240 frames at
-                640×480, default config; ATE < 1 mm; every kernel of the
+                640×480, default config; ATE < 1 mm for the classic and
+                the boundary scan, the headline variant, the replayed ICP
+                iteration latency beside the eager one; every kernel of the
                 path launched (correspond, gn_step; not the standalone
                 gn_partials or gn_epilogue), no plain twin called; then one
                 scan of the orbit counted for launches a frame
@@ -1011,8 +1022,10 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
     from tpuslam_torch.backend import map_ba
     from tpuslam_torch.backend.posegraph import GraphHost
     from tpuslam_torch.bench.harness import slam_bench_config
+    from tpuslam_torch.dist.map_fusion import make_fuse_fn
     from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
     from tpuslam_torch.dist.ring_map import make_ring_align_fn
+    from tpuslam_torch.dist.sharded_icp import make_aligned_spmd_fn
     from tpuslam_torch.frontend import (
         _kf_cloud_jit,
         pack_pyramid_jit,
@@ -1020,7 +1033,10 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
         promote_bundle_jit,
     )
     from tpuslam_torch.geom.voxel import voxel_downsample
-    from tpuslam_torch.kernels.correspond import build_grid_index
+    from tpuslam_torch.kernels.correspond import (
+        build_grid_index,
+        build_grid_index_jit,
+    )
 
     height, width = d.shape[1:]
     cfg = slam_bench_config(height, width, False)
@@ -1040,7 +1056,7 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
     for c, i in zip(clouds, MAP_GRAPH_KFS):
         vmap.cloud = fuse(vmap.cloud, c, pose(gt[i]), eager=True)
     cell = float(icp.max_corr_dist)
-    index = vmap.build_index(cell=cell)
+    index = build_grid_index_jit(vmap.cloud, cell, eager=True)
     pyr = preprocess(d[11], K, cfg)
     frame_cloud = _kf_cloud_jit(pyr[0], v.voxel_size, v.capacity, v.origin,
                                 v.extent, eager=True)
@@ -1067,7 +1083,11 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
     initialize_distributed(f"tcp://localhost:{free_port()}", world_size=1,
                            rank=0, backend="nccl", timeout_s=60)
     try:
-        ring = make_ring_align_fn(make_mesh(dev), icp)
+        mesh = make_mesh(dev)
+        ring = make_ring_align_fn(mesh, icp)
+        fuse_sharded = make_fuse_fn(mesh, v, v.capacity)[0]
+        spmd = make_aligned_spmd_fn(mesh, icp)
+        pyr10 = preprocess(d[10], K, cfg)
         programs = {
             "_refine_projective_jit": (
                 lambda e: slam_mod._refine_projective_jit(
@@ -1102,6 +1122,18 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
                     eager=e), 2, True, True,
                 f"{len(clouds)} keyframes, {prob.obs_w.shape[0]} "
                 f"observations, {ctrl.points.shape[0]} control rows"),
+            # the index build, the sharded fusion and ICP
+            "build_grid_index": (
+                lambda e: build_grid_index_jit(vmap.cloud, cell, eager=e),
+                10, True, True,
+                f"an index of {v.map_capacity} rows, the table built"),
+            "fuse_sharded (one NCCL rank)": (
+                lambda e: fuse_sharded(vmap.cloud, extra, pose(gt[13]),
+                                       eager=e), 10, True, True,
+                "one keyframe fused: all-to-all and all-reduce"),
+            "align_frames_spmd (one NCCL rank)": (
+                lambda e: spmd(pyr, pyr10, K, pose(np.eye(4)), eager=e), 10,
+                True, True, "one pyramid pair: an all-reduce a solve"),
         }
         rows = [graph_row(name, *spec, card)
                 for name, spec in programs.items()]
@@ -1123,7 +1155,14 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
               and bits_equal(vmap.cloud.mask, grown.mask),
               "graphs stale inputs: the replayed fusion is not the eager "
               "one")
-        index = vmap.build_index(cell=cell)
+        old_keys = index.keys.clone()
+        index = vmap.build_index(cell=cell)      # a replay of the build
+        fresh = build_grid_index(vmap.cloud, cell)
+        check(all(bits_equal(a, b) for a, b in zip(
+            graphs.flatten(index)[0], graphs.flatten(fresh)[0]))
+            and not torch.equal(index.keys, old_keys),
+            "graphs stale inputs: the index build's replay after an insert "
+            "is not a fresh eager build of the new map")
         for k, f in refines.items():
             after = f(False).clone()
             eager = f(True)
@@ -1134,7 +1173,8 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
                   f"graphs stale inputs: the {k} replay did not see the "
                   f"insert")
         log(f"[graphs] stale inputs: after a keyframe fused in (the "
-            f"fusion replayed, bit-equal to eager) and the index rebuilt, "
+            f"fusion replayed, bit-equal to eager) and the index rebuilt "
+            f"(its build replayed, bit-equal to a fresh eager build), "
             f"the projective, grid and ring replays equal their eager "
             f"refinements against the new map of {int(vmap.cloud.count())} "
             f"points and differ from the replays before ({card})")
@@ -1154,7 +1194,7 @@ def graphs_phase(dev, card: str, height: int = 480,
     operations a call and the pool memory the capture added; a changed K
     gets a graph of its own.  Returns the table."""
     from tpuslam_torch import graphs
-    from tpuslam_torch.backend import loopclosure, posegraph
+    from tpuslam_torch.backend import loopclosure, posegraph, relocalize
     from tpuslam_torch.bench.harness import _render_sequence
     from tpuslam_torch.bench.profile_odometry import synthetic_graph
     from tpuslam_torch.config import SLAMConfig
@@ -1166,8 +1206,10 @@ def graphs_phase(dev, card: str, height: int = 480,
         promote_bundle_jit,
         scan_chunk,
         scan_odometry,
+        scan_odometry_boundary_jit,
         scan_superchunk_frozen,
     )
+    from tpuslam_torch.icp import align_clouds_jit, align_frames_jit
     from tpuslam_torch.icp import pack_pyramid
 
     graphs.clear()
@@ -1201,6 +1243,15 @@ def graphs_phase(dev, card: str, height: int = 480,
     cand_j = torch.as_tensor([j for _, j in padded], dtype=torch.int32,
                              device=dev)
     h, w = height >> lvl, width >> lvl
+
+    # the verification batches' i sides (clouds), two frames of the loop
+    # for the alignments, and run_bench's 50-iteration one-level config
+    clouds_i = [promote_bundle_jit(d[i], K, cfg, False)[2]
+                for i, _ in padded]
+    pyr_a, pyr_b = (preprocess(d[i], K, cfg) for i in (0, 1))
+    one_level = dataclasses.replace(cfg.icp, pyramid_levels=1,
+                                    iters_per_level=(50,), tol_delta=0.0)
+    K_lvl = K.scaled(1.0 / 2 ** lvl)
 
     def attempt(eager):
         return loopclosure.fused_attempt_jit(
@@ -1241,6 +1292,41 @@ def graphs_phase(dev, card: str, height: int = 480,
                 eager=e), 0, True, False, "one solve"),
         "fused_attempt_jit": (attempt, 3, True, True,
                               "one attempt, B=4, 3 live"),
+        # the reference's last compiled programs
+        "scan_odometry_boundary_jit": (
+            lambda e: scan_odometry_boundary_jit(d, K, cfg, 8, eager=e), 2,
+            False, True, f"{frames} frames, 3 chunks"),
+        "align_frames_jit": (
+            lambda e: align_frames_jit(pyr_b, pyr_a, K, eye, cfg.icp,
+                                       eager=e), 10, True, True,
+            "one pyramid pair, the target packed"),
+        "align_frames_jit 50 iterations": (
+            lambda e: align_frames_jit((pyr_b[0],), (pyr_a[0],), K, eye,
+                                       one_level, eager=e), 10, True, True,
+            "run_bench's icp_iter_latency_ms call"),
+        "align_clouds_jit": (
+            lambda e: align_clouds_jit(clouds[0], clouds_i[0], T_inits[0],
+                                       cfg.icp, eager=e), 10, True, True,
+            "one pair of keyframe clouds, the index built"),
+        "_verify_pairs_jit": (
+            lambda e: loopclosure.verify_batch_grid(
+                clouds_i, clouds, T_inits, len(pairs), cfg.icp, eager=e), 5,
+            True, True, "B=4, 3 live, 3 indexes built"),
+        "_verify_projective_pairs_jit": (
+            lambda e: loopclosure.verify_batch(
+                tables, [c.points for c in clouds],
+                [c.normals for c in clouds], [c.mask for c in clouds], K_lvl,
+                T_inits, len(pairs), h, w, cfg.icp, eager=e), 5, True, True,
+            "B=4, 3 live"),
+        "_batch_verify_jit": (
+            lambda e: relocalize._batch_verify_jit(clouds[1], clouds_i,
+                                                   T_inits, cfg.icp,
+                                                   eager=e), 5, True, True,
+            "B=4, 4 indexes built"),
+        "_batch_verify_projective_jit": (
+            lambda e: relocalize._batch_verify_projective_jit(
+                clouds[1], tables, K_lvl, T_inits, h, w, cfg.icp, eager=e),
+            5, True, True, "B=4"),
     }
 
     table = [graph_row(name, *spec, card)
@@ -2323,7 +2409,11 @@ def dist_phase(dev, card: str, counters, orbit, pg_in, ba_in) -> dict:
     from tpuslam_torch.bench.harness import run_bench
     from tpuslam_torch.config import SLAMConfig
     from tpuslam_torch.dist.batch_eval import make_batched_aligner
-    from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
+    from tpuslam_torch.dist.mesh import (
+        drop_graphs,
+        initialize_distributed,
+        make_mesh,
+    )
     from tpuslam_torch.dist.sharded_icp import align_frames_spmd
     from tpuslam_torch.frontend import preprocess
     from tpuslam_torch.icp import Frame, align_frames
@@ -2423,6 +2513,8 @@ def dist_phase(dev, card: str, counters, orbit, pg_in, ba_in) -> dict:
         check(rb["n_devices"] == 1 and rb["spmd_align_ms"] > 0,
               f"dist one rank: run_bench {rb}")
     finally:
+        # run_bench's sharded ICP graph holds NCCL collectives
+        drop_graphs()
         dist.destroy_process_group()
 
     # ---- 16.2: four gloo ranks sharing the card ----
@@ -3138,20 +3230,40 @@ def main() -> int:
                     sequence=orbit, slam_frames=None, loader_frames=None)
     launches, plain = read_counts()
     log(f"[main] {json.dumps(res)}")
+    # the ICP iteration latency op by op, beside run_bench's replayed one
+    from tpuslam_torch.icp import align_frames_jit
+
+    K_o, _, d_o = orbit
+    d_o = torch.as_tensor(d_o[:2], device=dev)
+    cfg_o = SLAMConfig(height=480, width=640).validate()
+    pa_o, pb_o = (preprocess(d_o[i], K_o, cfg_o)[0] for i in (0, 1))
+    one_level = dataclasses.replace(cfg_o.icp, pyramid_levels=1,
+                                    iters_per_level=(50,), tol_delta=0.0)
+    eager_iter_ms = wall_ms(lambda: align_frames_jit(
+        (pb_o,), (pa_o,), K_o, torch.eye(4, device=dev), one_level,
+        eager=True), 5, False) / 50
     log(f"[main] fps {res['fps']:.3f}, ms/frame {res['ms_per_frame']:.4f}, "
-        f"icp_iter_latency_ms {res['icp_iter_latency_ms']:.5f}, ATE "
-        f"{res['ate_rmse_m']:.3e} m ({card})")
+        f"ATE {res['ate_rmse_m']:.3e} m; boundary fps "
+        f"{res['fps_per_chip_boundary']:.3f}, ms/frame "
+        f"{res['ms_per_frame_boundary']:.4f}, ATE "
+        f"{res['ate_rmse_m_boundary']:.3e} m; headline "
+        f"{res['headline_variant']} {res['fps_headline']:.3f} fps; "
+        f"icp_iter_latency_ms {res['icp_iter_latency_ms']:.5f} replayed "
+        f"(align_frames_jit), {eager_iter_ms:.5f} op by op ({card})")
     log(f"[main] launches {launches} plain calls {plain}")
     check(res["poses_finite"], "main: non-finite poses")
     check(res["ate_rmse_m"] < 1e-3, f"main: ATE {res['ate_rmse_m']} ≥ 1 mm")
+    check(res["ate_rmse_m_boundary"] < 1e-3,
+          f"main: boundary ATE {res['ate_rmse_m_boundary']} ≥ 1 mm")
+    check(res["icp_iter_count"] == 50,
+          f"main: {res['icp_iter_count']} ICP iterations, not 50")
     check(all(launches[k] > 0 for k in ("correspond", "gn_step")),
           f"main: launches {launches}")
     check(launches["gn_partials"] == launches["gn_epilogue"] == 0,
           f"main: the standalone GN kernels ran {launches}")
     check(all(v == 0 for v in plain.values()), f"main: plain calls {plain}")
     # launches a frame on the orbit: one scan of the 240 frames
-    K_o, _, d_o = orbit
-    d_o = torch.as_tensor(d_o, device=dev)
+    d_o = torch.as_tensor(orbit[2], device=dev)
     reset_counts()
     scan_odometry(d_o, K_o, SLAMConfig(height=480, width=640).validate())
     torch.cuda.synchronize()

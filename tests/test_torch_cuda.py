@@ -1915,3 +1915,183 @@ def test_ring_on_a_one_rank_group(dev, backend):
         ring_map.drop_graphs()    # they hold NCCL collectives
         dist.destroy_process_group()
         graphs.clear()
+
+
+# ---- the last compiled programs ------------------------------------------
+
+
+def _last_program_calls(mi, mesh=None):
+    """The boundary scan, the alignments, the index build, the
+    verification batches (B = 4, 2 live) and, on `mesh` (default: one
+    rank without a group), the sharded fusion and ICP, as call(eager) →
+    outputs."""
+    from tpuslam_torch.backend import loopclosure, relocalize
+    from tpuslam_torch.dist.map_fusion import make_fuse_fn
+    from tpuslam_torch.dist.mesh import Mesh
+    from tpuslam_torch.dist.sharded_icp import make_aligned_spmd_fn
+    from tpuslam_torch.frontend import (
+        promote_bundle_jit,
+        scan_odometry_boundary_jit,
+    )
+    from tpuslam_torch.icp import align_clouds_jit, align_frames_jit
+    from tpuslam_torch.kernels.correspond import build_grid_index_jit
+
+    cfg, d, gt = mi["cfg"], mi["d"], mi["gt"]
+    icp, v = cfg.icp, cfg.voxel
+    dev = d.device
+    mesh = mesh or Mesh(None, 0, 1, dev)
+    b = {i: promote_bundle_jit(d[i], K, cfg, False, eager=True)
+         for i in (0, 4, 8)}
+    pairs = ((0, 4), (4, 8), (0, 4), (0, 4))
+    T_inits = torch.as_tensor(np.stack([
+        (np.linalg.inv(gt[i]) @ gt[j]).astype(np.float32)
+        for i, j in pairs]), device=dev)
+    tables = [b[i][1][1] for i, _ in pairs]
+    ci = [b[i][2] for i, _ in pairs]
+    cj = [b[j][2] for _, j in pairs]
+    pyr5 = preprocess(d[5], K, cfg)
+    eye = torch.eye(4, device=dev)
+    fuse = make_fuse_fn(mesh, v, v.capacity)[0]
+    spmd = make_aligned_spmd_fn(mesh, icp)
+    T4 = torch.as_tensor(gt[4].astype(np.float32), device=dev)
+    return {
+        "scan_odometry_boundary_jit": lambda e: scan_odometry_boundary_jit(
+            d[:24], K, cfg, 8, eager=e),
+        "align_frames_jit": lambda e: align_frames_jit(
+            pyr5, mi["pyr"], K, eye, icp, eager=e),
+        "align_clouds_jit": lambda e: align_clouds_jit(
+            b[0][2], b[4][2], T_inits[0], icp, eager=e),
+        "build_grid_index": lambda e: build_grid_index_jit(
+            mi["vmap"].cloud, float(icp.max_corr_dist), eager=e),
+        "_verify_pairs_jit": lambda e: loopclosure.verify_batch_grid(
+            ci, cj, T_inits, 2, icp, eager=e),
+        "_verify_projective_pairs_jit": lambda e: loopclosure.verify_batch(
+            tables, [c.points for c in cj], [c.normals for c in cj],
+            [c.mask for c in cj], K.scaled(0.5), T_inits, 2, H // 2, W // 2,
+            icp, eager=e),
+        "_batch_verify_jit": lambda e: relocalize._batch_verify_jit(
+            mi["cloud"], ci, T_inits, icp, eager=e),
+        "_batch_verify_projective_jit": lambda e: (
+            relocalize._batch_verify_projective_jit(
+                mi["cloud"], tables, K.scaled(0.5), T_inits, H // 2, W // 2,
+                icp, eager=e)),
+        "fuse_sharded": lambda e: fuse(mi["vmap"].cloud, b[8][2], T4,
+                                       eager=e),
+        "align_frames_spmd": lambda e: spmd(pyr5, mi["pyr"], K, eye,
+                                            eager=e),
+    }
+
+
+LAST_PROGRAMS = ("scan_odometry_boundary_jit", "align_frames_jit",
+                 "align_clouds_jit", "build_grid_index", "_verify_pairs_jit",
+                 "_verify_projective_pairs_jit", "_batch_verify_jit",
+                 "_batch_verify_projective_jit", "fuse_sharded",
+                 "align_frames_spmd")
+# each program's kernel whose launches a replay must count
+LAST_KERNELS = {"build_grid_index": "grid_table",
+                "align_clouds_jit": "grid_correspond",
+                "_verify_pairs_jit": "grid_correspond",
+                "_batch_verify_jit": "grid_correspond",
+                "fuse_sharded": None, "align_frames_spmd": "gn_partials"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", LAST_PROGRAMS)
+def test_last_program_replay_bit_equal_to_eager(dev, program):
+    """The first call (the warm-up), the second (capture and replay) and a
+    replay of each program give the eager run's bits; the replays count
+    the graph's kernel launches and no plain twin runs."""
+    from tpuslam_torch import graphs
+    from tpuslam_torch.bench.harness import kernel_counters
+
+    mi = _map_inputs(dev)
+    graphs.clear()
+    call = _last_program_calls(mi)[program]
+    ref = [t.clone() for t in _flat(call(True))]
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    got = [[t.clone() for t in _flat(call(False))] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(_bits_equal(g, ref) for g in got)
+    (entry,) = [e for e in graphs.stats() if e["program"] == program]
+    assert entry["captured"] and entry["replays"] >= 2, graphs.stats()
+    assert all(c.plain_calls == 0 for c in counters.values())
+    name = LAST_KERNELS.get(program, "gn_step")
+    if name is not None:
+        kernel = counters[name]
+        assert entry["kernel_launches"].get(kernel.name, 0) > 0
+        assert kernel.launches % 3 == 0 and kernel.launches > 0
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_index_build_replay_after_an_insert_is_a_fresh_build(dev):
+    """The index build captured against a three-keyframe map, a fourth
+    fused in: the next replay equals a fresh eager build (keys, rows,
+    origin and the table), and differs from the build before."""
+    from tpuslam_torch import graphs
+    from tpuslam_torch.geom.voxel import voxel_downsample
+    from tpuslam_torch.kernels.correspond import build_grid_index
+
+    mi = _map_inputs(dev)
+    graphs.clear()
+    cfg, vmap = mi["cfg"], mi["vmap"]
+    cell = float(cfg.icp.max_corr_dist)
+    before = [vmap.build_index(cell) for _ in range(2)]
+    assert _bits_equal(before[1], before[0])
+    new = preprocess(mi["d"][12], K, cfg)
+    v = cfg.voxel
+    vmap.insert(voxel_downsample(new[0].as_cloud(), v.voxel_size,
+                                 v.capacity, v.origin, v.extent),
+                mi["gt"][12])
+    correspond.table_counter.reset()
+    after = vmap.build_index(cell)
+    assert correspond.table_counter.launches > 0
+    fresh = build_grid_index(vmap.cloud, cell)
+    assert _bits_equal(after, fresh)
+    assert not torch.equal(after.keys, before[1].keys)
+    graphs.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["fuse_sharded", "align_frames_spmd"])
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_sharded_programs_on_a_one_rank_group(dev, backend, program):
+    """The sharded fusion and the point-sharded ICP under a one-rank
+    process group on the card: over NCCL each is captured with its
+    collectives inside and replays bit-equal to the eager run; over gloo
+    neither ever captures."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpuslam_torch import graphs
+    from tpuslam_torch.dist import mesh as mesh_mod
+    from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
+
+    mi = _map_inputs(dev)
+    graphs.clear()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"tcp://localhost:{port}", world_size=1, rank=0,
+                           backend=backend, timeout_s=60)
+    try:
+        mesh = make_mesh(dev)
+        assert mesh_mod.captures(mesh) == (backend == "nccl")
+        call = _last_program_calls(mi, mesh)[program]
+        ref = [t.clone() for t in _flat(call(True))]
+        got = [[t.clone() for t in _flat(call(False))] for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(_bits_equal(g, ref) for g in got)
+        entries = [e for e in graphs.stats() if e["program"] == program]
+        if backend == "nccl":
+            assert len(entries) == 1 and entries[0]["captured"]
+            assert entries[0]["replays"] == 2
+        else:
+            assert entries == []
+    finally:
+        mesh_mod.drop_graphs()    # they hold NCCL collectives
+        dist.destroy_process_group()
+        graphs.clear()

@@ -38,6 +38,22 @@ tests/test_torch_map_slam.py:
   * a replay after an insert or a rebuilt index aligns against the map
     as it is now (inputs copied in, never closed over);
   * a gloo mesh never captures the ring.
+
+The reference's last compiled programs (the boundary scan, the aligners,
+the grid index build, the verification and relocalization batches, the
+sharded fusion and point-sharded ICP), on the same loop:
+
+  * each key changes with each static argument and not with tensor
+    values; under `SimGraphs` a key's first call, its capture and a replay
+    give the eager bits, and a replay is held to the reference's jitted
+    program (JAX on the CPU) with the tolerance of the function's own
+    parity test;
+  * the boundary scan over a whole loop is `scan_odometry_boundary`; the
+    map aligners and the refinements share their graphs; the index build
+    replayed after an insert is a fresh build; the verification batches
+    pad with row 0; a gloo mesh never captures the fusion or the ICP;
+  * a revisit turned by a yaw, verified from the identity through the
+    graphed batches, takes the reference's gate decision.
 """
 
 import contextlib
@@ -45,19 +61,34 @@ import dataclasses
 import sys
 import threading
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import tpuslam.backend.loopclosure as rloop
+import tpuslam.backend.relocalize as rreloc
+import tpuslam.dist.map_fusion as rfusion
+import tpuslam.dist.mesh as rmesh
+import tpuslam.dist.sharded_icp as rsharded
+import tpuslam.frontend as rfront
+import tpuslam.icp as rticp
 from tests.test_slam import loop_trajectory as map_loop_trajectory
 from tests.test_torch_map_slam import CFG as MAP_REF_CFG
 from tests.test_torch_map_slam import K as REF_K
 from tests.test_torch_map_slam import POSE_TOL
 from tests.test_torch_map_slam import run as run_map
+from tpuslam.geom.cloud import PointCloud as RCloud
 from tpuslam.slam import SlamSystem as RSlam
 from tpuslam_torch import graphs, mapping
 from tpuslam_torch import slam as slam_mod
-from tpuslam_torch.backend import loopclosure, map_ba, posegraph
+from tpuslam_torch.backend import (
+    loopclosure,
+    map_ba,
+    posegraph,
+    relocalize,
+)
+from tpuslam_torch.backend.verify import COVERAGE_COL, ROW_SIZE, passes_gates
 from tpuslam_torch.config import (
     ICPConfig,
     Intrinsics,
@@ -67,8 +98,9 @@ from tpuslam_torch.config import (
     VoxelConfig,
 )
 from tpuslam_torch.data.synthetic import loop_trajectory, render_depth
-from tpuslam_torch.dist import ring_map
+from tpuslam_torch.dist import map_fusion, ring_map
 from tpuslam_torch.dist.mesh import Mesh, make_mesh
+from tpuslam_torch.dist.sharded_icp import make_aligned_spmd_fn
 from tpuslam_torch.frontend import (
     FlatChunk,
     FlatFrozen,
@@ -87,15 +119,28 @@ from tpuslam_torch.frontend import (
     promote_bundle_jit,
     scan_chunk,
     scan_odometry,
+    scan_odometry_boundary,
+    scan_odometry_boundary_jit,
     scan_step,
     scan_superchunk_frozen,
 )
 from tpuslam_torch.geom.voxel import voxel_downsample
-from tpuslam_torch.icp import align_map_to_frame, align_to_index
-from tpuslam_torch.icp import flat_icp_scalars
+from tpuslam_torch.icp import (
+    FlatICP,
+    align_clouds_jit,
+    align_frames_jit,
+    align_map_to_frame,
+    align_map_to_frame_jit,
+    align_to_index,
+    align_to_index_jit,
+    flat_icp_scalars,
+)
 from tpuslam_torch.interop import config_from_reference
 from tpuslam_torch.kernels import _build
-from tpuslam_torch.kernels.correspond import build_grid_index
+from tpuslam_torch.kernels.correspond import (
+    build_grid_index,
+    build_grid_index_jit,
+)
 from tpuslam_torch.slam import SlamSystem
 from tpuslam_torch.utils import checkpoint
 
@@ -968,3 +1013,487 @@ def test_a_gloo_mesh_never_captures_the_ring(map_inputs, sim, tmp_path):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.distributed, "get_backend", lambda group: "nccl")
         assert ring_map.captures(nccl)
+
+
+# ---------------------------------------------------------------------------
+# The last compiled programs: the boundary scan, the alignments, the grid
+# index build, the verification batches, the sharded fusion and ICP
+# ---------------------------------------------------------------------------
+
+LAST_PROGRAMS = ("scan_odometry_boundary_jit", "align_frames_jit",
+                 "align_clouds_jit", "build_grid_index", "_verify_pairs_jit",
+                 "_verify_projective_pairs_jit", "_batch_verify_jit",
+                 "_batch_verify_projective_jit", "fuse_sharded",
+                 "align_frames_spmd")
+VERIFY_LVL = 1
+N_LIVE = 2
+# tolerances to the reference, as each function's own parity test holds it
+TOL_SCAN = 1e-4       # tests/test_torch_frontend.py boundary scan
+TOL_ALIGN_T = 5e-5    # tests/test_torch_icp.py, tests/test_torch_grid.py
+TOL_ROW_T = 1e-4      # tests/test_torch_backend.py fused attempt rows
+TOL_SPMD_T = 1e-5     # tests/test_torch_dist.py TOL_ICP_T (iterations ±3)
+
+
+@pytest.fixture(scope="module")
+def last_inputs(map_loop, map_inputs):
+    """map_inputs plus three keyframes' promotion bundles (frames 0, 4,
+    8), four verification pairs of which N_LIVE are live (padding repeats
+    pair 0), their initial guesses from the true poses, frame 5's
+    pyramid, and a one-rank mesh without a group."""
+    gt, depths = map_loop
+    d = torch.as_tensor(depths)
+    bundles = {i: promote_bundle_jit(d[i], K, MAP_CFG, False)
+               for i in (0, 4, 8)}
+    pairs = ((0, 4), (4, 8), (0, 4), (0, 4))
+    return dict(map_inputs, d=d, gt=gt, bundles=bundles, pairs=pairs,
+                T_inits=_pose(np.stack([np.linalg.inv(gt[i]) @ gt[j]
+                                        for i, j in pairs])),
+                pyr5=preprocess(d[5], K, MAP_CFG),
+                mesh=Mesh(None, 0, 1, torch.device("cpu")))
+
+
+def _last_program_calls(li):
+    """name → (call(**changes) with the program's arguments, {what: the
+    changes that give another key}, changes of tensor values only)."""
+    cfg, icp, v = MAP_CFG, MAP_CFG.icp, MAP_CFG.voxel
+    icp2 = dataclasses.replace(icp, max_iters=icp.max_iters + 1)
+    b = li["bundles"]
+    pairs = li["pairs"]
+    tables = [b[i][1][VERIFY_LVL] for i, _ in pairs]
+    clouds_i = [b[i][2] for i, _ in pairs]
+    clouds_j = [b[j][2] for _, j in pairs]
+    K_lvl = K.scaled(1.0 / 2 ** VERIFY_LVL)
+    h, w = H >> VERIFY_LVL, W >> VERIFY_LVL
+    eye = torch.eye(4)
+    moved = li["T_inits"].clone()
+    moved[:, 0, 3] += 0.01
+    group = Mesh(GROUPS[0], 0, 1, torch.device("cpu"))
+
+    def verify_projective(n_live=N_LIVE, B=4, K_lvl=K_lvl, icp=icp,
+                          T_inits=li["T_inits"], eager=False):
+        return loopclosure.verify_batch(
+            tables[:B], [c.points for c in clouds_j[:B]],
+            [c.normals for c in clouds_j[:B]],
+            [c.mask for c in clouds_j[:B]], K_lvl, T_inits[:B], n_live, h,
+            w, icp, eager=eager)
+
+    def fuse(mesh=li["mesh"], vox=v, map=li["map"], T=li["T"],
+             eager=False):
+        fn = map_fusion.make_fuse_fn(mesh, vox, v.capacity)[0]
+        return fn(map, b[8][2], T, eager=eager)
+
+    return {
+        "scan_odometry_boundary_jit": (
+            lambda depths=li["d"], K=K, cfg=cfg, chunk=8, eager=False:
+            scan_odometry_boundary_jit(depths, K, cfg, chunk, eager=eager),
+            {"chunk": dict(chunk=4), "K": dict(K=K._replace(fx=K.fx * 1.01)),
+             "cfg": dict(cfg=cfg.replace(icp=icp2)),
+             "shape": dict(depths=li["d"][:, :, :W // 2])},
+            dict(depths=li["d"] * 1.01)),
+        "align_frames_jit": (
+            lambda src=li["pyr5"], dst=li["pyr"], K=K, icp=icp, T0=eye,
+            eager=False: align_frames_jit(src, dst, K, T0, icp, eager=eager),
+            {"K": dict(K=K._replace(cy=K.cy + 0.5)), "cfg": dict(icp=icp2),
+             "shape": dict(src=li["pyr5"][:2], dst=li["pyr"][:2])},
+            dict(T0=li["T0"])),
+        "align_clouds_jit": (
+            lambda dst=b[4][2], icp=icp, use_grid=True, T0=li["T_inits"][0],
+            eager=False: align_clouds_jit(b[0][2], dst, T0, icp, use_grid,
+                                          eager=eager),
+            {"use_grid": dict(use_grid=False), "cfg": dict(icp=icp2),
+             "capacity": dict(dst=_half(b[4][2]))},
+            dict(T0=moved[0])),
+        "build_grid_index": (
+            lambda dst=li["map"], cell=0.25, origin=None, eager=False:
+            build_grid_index_jit(dst, cell, origin, eager=eager),
+            {"cell": dict(cell=0.3), "rows": dict(dst=_half(li["map"])),
+             "origin given": dict(origin=torch.zeros(3))},
+            dict(dst=li["map"]._replace(points=li["map"].points * 1.01))),
+        "_verify_pairs_jit": (
+            lambda n_live=N_LIVE, B=4, icp=icp, T_inits=li["T_inits"],
+            eager=False: loopclosure.verify_batch_grid(
+                clouds_i[:B], clouds_j[:B], T_inits[:B], n_live, icp,
+                eager=eager),
+            {"live": dict(n_live=3), "B": dict(B=2), "cfg": dict(icp=icp2)},
+            dict(T_inits=moved)),
+        "_verify_projective_pairs_jit": (
+            verify_projective,
+            {"live": dict(n_live=3), "B": dict(B=2),
+             "K": dict(K_lvl=K.scaled(0.25)), "cfg": dict(icp=icp2)},
+            dict(T_inits=moved)),
+        "_batch_verify_jit": (
+            lambda B=4, icp=icp, T_inits=li["T_inits"], eager=False:
+            relocalize._batch_verify_jit(li["cloud"], clouds_i[:B],
+                                         T_inits[:B], icp, eager=eager),
+            {"B": dict(B=2), "cfg": dict(icp=icp2)}, dict(T_inits=moved)),
+        "_batch_verify_projective_jit": (
+            lambda B=4, K_lvl=K_lvl, icp=icp, T_inits=li["T_inits"],
+            eager=False: relocalize._batch_verify_projective_jit(
+                li["cloud"], tables[:B], K_lvl, T_inits[:B], h, w, icp,
+                eager=eager),
+            {"B": dict(B=2), "K": dict(K_lvl=K.scaled(0.25)),
+             "cfg": dict(icp=icp2)}, dict(T_inits=moved)),
+        "fuse_sharded": (
+            fuse,
+            {"a mesh of a group": dict(mesh=group),
+             "voxel cfg": dict(vox=dataclasses.replace(
+                 v, map_voxel_size=v.map_voxel_size * 2)),
+             "map capacity": dict(map=_half(li["map"]))},
+            dict(T=li["T0"])),
+        "align_frames_spmd": (
+            lambda mesh=li["mesh"], icp=icp, K=K, T0=eye, eager=False:
+            make_aligned_spmd_fn(mesh, icp)(li["pyr5"], li["pyr"], K, T0,
+                                            eager=eager),
+            {"a mesh of a group": dict(mesh=group), "cfg": dict(icp=icp2),
+             "K": dict(K=K._replace(fx=K.fx * 1.01))},
+            dict(T0=li["T0"])),
+    }
+
+
+def test_last_program_calls_cover_every_program(last_inputs):
+    assert tuple(_last_program_calls(last_inputs)) == LAST_PROGRAMS
+    assert set(LAST_PROGRAMS) <= {p.name for p in graphs._programs}
+
+
+@pytest.mark.parametrize("program", LAST_PROGRAMS)
+def test_last_program_key_changes_with_each_static_argument(
+        last_inputs, monkeypatch, program):
+    monkeypatch.setattr(torch.distributed, "get_backend",
+                        lambda group: "nccl")
+    call, changes, values = _last_program_calls(last_inputs)[program]
+    k0 = entry_key(call)
+    assert entry_key(lambda: call(**values)) == k0          # values: no
+    keys = {what: entry_key(lambda kw=kw: call(**kw))
+            for what, kw in changes.items()}
+    assert all(k != k0 for k in keys.values()), keys
+    assert len(set(keys.values())) == len(keys)
+
+
+@pytest.mark.parametrize("program", LAST_PROGRAMS)
+def test_last_program_replays_give_its_eager_bits(last_inputs, sim,
+                                                  program):
+    """The first call (the warm-up), the second (the capture and a
+    replay) and a third (a replay), each bit-equal to the eager run."""
+    call = _last_program_calls(last_inputs)[program][0]
+    ref = bits(call(eager=True))
+    got = [bits(call()) for _ in range(3)]
+    assert all(same_bits(g, ref) for g in got)
+    (entry,) = [e for e in graphs.stats() if e["program"] == program]
+    # the boundary scan replays once a chunk: its first call warms up on
+    # chunk 0 and captures on chunk 1
+    assert entry["captured"] and entry["replays"] == (
+        5 if program == "scan_odometry_boundary_jit" else 2)
+
+
+def test_boundary_scan_over_the_loop_is_the_eager_scan(loop, sim):
+    """#1 over the 48-frame loop, six chunks, each a replay after the
+    first two: poses, flags and inlier fractions are the bits of
+    `scan_odometry_boundary`, with promotions."""
+    d = torch.as_tensor(loop[1])
+    got = scan_odometry_boundary_jit(d, K, CFG, 8)
+    graphs.clear()
+    want = scan_odometry_boundary(d, K, CFG, 8)
+    assert same_bits(got, want)
+    assert int(want[1].sum()) >= 2
+
+
+@pytest.mark.parametrize("name", ["align_to_index_jit",
+                                  "align_map_to_frame_jit"])
+def test_the_map_alignments_share_the_refinements_graphs(last_inputs, sim,
+                                                         name):
+    """icp's jitted map alignments and the SLAM system's refinements are
+    one program: a key captured through one replays through the other."""
+    li, icp = last_inputs, MAP_CFG.icp
+    if name == "align_to_index_jit":
+        def align():
+            return align_to_index_jit(li["cloud"], li["index"], li["T0"],
+                                      icp)
+
+        def refine():
+            return slam_mod._refine_grid_jit(li["cloud"], li["index"],
+                                             li["T0"], icp)
+        program = "_refine_grid_jit"
+    else:
+        def align():
+            return align_map_to_frame_jit(li["map"], li["pyr"][0], K,
+                                          li["T0"], icp)
+
+        def refine():
+            return slam_mod._refine_projective_jit(li["map"], li["pyr"][0],
+                                                   K, li["T0"], icp)
+        program = "_refine_projective_jit"
+    res, flat = align()
+    assert same_bits(flat, flat_icp_scalars(res))
+    again = align()                       # the capture
+    assert same_bits(again, (res, flat))
+    assert same_bits(refine(), flat)      # a replay of that graph
+    (entry,) = [e for e in graphs.stats() if e["program"] == program]
+    assert entry["captured"] and entry["replays"] == 2
+
+
+def test_index_build_replay_after_an_insert_is_a_fresh_build(map_loop,
+                                                             sim):
+    """The index build captured on a two-keyframe map, a third keyframe
+    fused in: the next replay equals a fresh eager build of the new map
+    (the cloud copied in, the index copied out), table and all."""
+    gt, depths = map_loop
+    d = torch.as_tensor(depths)
+    cfg, v = MAP_CFG, MAP_CFG.voxel
+    cell = float(cfg.icp.max_corr_dist)
+    clouds = [promote_bundle_jit(d[i], K, cfg, False)[2] for i in (0, 5, 10)]
+    vmap = mapping.VoxelMap(v, device="cpu")
+    for c, i in zip(clouds[:2], (0, 5)):
+        vmap.insert(c, gt[i])
+    before = [vmap.build_index(cell) for _ in range(2)]
+    assert same_bits(before[1], before[0])
+    vmap.insert(clouds[2], gt[10])
+    after = vmap.build_index(cell)
+    fresh = build_grid_index(vmap.cloud, cell)
+    assert same_bits(after, fresh) and after.cell == fresh.cell
+    assert not torch.equal(after.keys, before[1].keys)
+    (entry,) = [e for e in graphs.stats()
+                if e["program"] == "build_grid_index"]
+    assert entry["captured"] and entry["replays"] == 2
+
+
+@pytest.mark.parametrize("program", ["_verify_pairs_jit",
+                                     "_verify_projective_pairs_jit"])
+def test_verification_batches_pad_with_row_zero(last_inputs, sim, program):
+    """`verify_batch`'s rule in both batches, replayed: rows past the
+    N_LIVE live candidates are row 0 (the padding repeats candidate 0),
+    and the live rows are each candidate's own verification."""
+    call = _last_program_calls(last_inputs)[program][0]
+    for _ in range(2):
+        call()
+    rows = call()
+    assert rows.shape == (4, ROW_SIZE)
+    assert all(torch.equal(rows[b], rows[0]) for b in range(N_LIVE, 4))
+    assert not torch.equal(rows[1], rows[0])
+    assert bool((rows[:N_LIVE, FlatICP.CONVERGED] > 0.5).all())
+    one = call(n_live=1, B=1, eager=True)
+    assert torch.equal(one[0], rows[0])
+
+
+@pytest.mark.parametrize("program", ["fuse_sharded", "align_frames_spmd"])
+def test_a_gloo_mesh_never_captures_the_fusion_or_the_sharded_icp(
+        last_inputs, sim, tmp_path, program):
+    """On a gloo group #7 and #8 run op by op whatever the tensors'
+    device (`mesh.captures`): no key is ever made, and every call gives
+    the eager bits."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh("cpu")
+        assert mesh.backend == "gloo" and not ring_map.captures(mesh)
+        call = _last_program_calls(last_inputs)[program][0]
+        outs = [bits(call(mesh=mesh)) for _ in range(3)]
+        assert not [e for e in graphs.stats() if e["program"] == program]
+        assert all(same_bits(o, outs[0]) for o in outs[1:])
+        assert same_bits(outs[0], call(mesh=mesh, eager=True))
+    finally:
+        dist.destroy_process_group()
+
+
+# -- held to the reference (JAX on the CPU), replayed through SimGraphs ----
+
+
+def _r(t) -> "jnp.ndarray":
+    return jnp.asarray(np.asarray(t))
+
+
+def _r_cloud(c):
+    return RCloud(*(_r(t) for t in c))
+
+
+def _r_stack(clouds):
+    return RCloud(*(jnp.stack([_r(getattr(c, f)) for c in clouds])
+                    for f in ("points", "normals", "mask")))
+
+
+def _r_pyr(pyr):
+    return tuple(rticp.Frame(*(_r(t) for t in f)) for f in pyr)
+
+
+def check_rows(got, want, tol_t):
+    """Verification rows: converged and the gates equal, T within tol_t,
+    inlier fraction 1e-3, RMS 1e-3 relative, coverage 1e-4 (the fused
+    attempt's rows, tests/test_torch_backend.py)."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(got[:, FlatICP.CONVERGED],
+                                  want[:, FlatICP.CONVERGED])
+    pg = MAP_CFG.posegraph
+    assert [passes_gates(r, pg) for r in got] == [
+        passes_gates(r, pg) for r in want]
+    np.testing.assert_allclose(got[:, FlatICP.T], want[:, FlatICP.T],
+                               atol=tol_t)
+    np.testing.assert_allclose(got[:, FlatICP.INLIER_FRACTION],
+                               want[:, FlatICP.INLIER_FRACTION], atol=1e-3)
+    np.testing.assert_allclose(got[:, FlatICP.RMS], want[:, FlatICP.RMS],
+                               rtol=1e-3)
+    np.testing.assert_allclose(got[:, COVERAGE_COL], want[:, COVERAGE_COL],
+                               atol=1e-4)
+
+
+def check_alignment(got, want, tol_t, iters_tol=0):
+    assert abs(int(got.iters) - int(want.iters)) <= iters_tol
+    assert bool(got.converged) == bool(want.converged)
+    np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T),
+                               atol=tol_t)
+    np.testing.assert_allclose(float(got.inlier_fraction),
+                               float(want.inlier_fraction), atol=1e-3)
+
+
+REFERENCE_PROGRAMS = tuple(p for p in LAST_PROGRAMS
+                           if p != "build_grid_index")
+
+
+@pytest.mark.parametrize("program", REFERENCE_PROGRAMS)
+def test_last_program_replay_matches_reference(last_inputs, sim, program,
+                                               monkeypatch):
+    """Each program's third call (a replay) against the reference's
+    jitted program on the same inputs, with the tolerance its own parity
+    test states; the sharded two on a one-rank mesh (the reference on a
+    one-device mesh)."""
+    li = last_inputs
+    call = _last_program_calls(li)[program][0]
+    for _ in range(2):
+        call()
+    got = call()
+    ricp_cfg, b, pairs = MAP_REF_CFG.icp, li["bundles"], li["pairs"]
+    T_inits = _r(li["T_inits"])
+    K_lvl = REF_K.scaled(1.0 / 2 ** VERIFY_LVL)
+    h, w = H >> VERIFY_LVL, W >> VERIFY_LVL
+    if program == "scan_odometry_boundary_jit":
+        rp, rpr, ri = rfront.scan_odometry_boundary_jit(
+            _r(li["d"]), REF_K, MAP_REF_CFG, 8)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(rpr))
+        assert int(got[1].sum()) >= 2
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(rp),
+                                   atol=TOL_SCAN)
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(ri),
+                                   atol=TOL_SCAN)
+    elif program == "align_frames_jit":
+        want = rticp.align_frames_jit(_r_pyr(li["pyr5"]), _r_pyr(li["pyr"]),
+                                      REF_K, jnp.eye(4), ricp_cfg)
+        check_alignment(got, want, TOL_ALIGN_T)
+    elif program == "align_clouds_jit":
+        want = rticp.align_clouds_jit(_r_cloud(b[0][2]), _r_cloud(b[4][2]),
+                                      T_inits[0], ricp_cfg, True)
+        check_alignment(got, want, TOL_ALIGN_T)
+    elif program == "_verify_pairs_jit":
+        want = rloop._verify_pairs_jit(
+            _r_stack([b[i][2] for i, _ in pairs]),
+            _r_stack([b[j][2] for _, j in pairs]), T_inits, ricp_cfg)
+        check_rows(got, want, TOL_ALIGN_T)
+    elif program == "_verify_projective_pairs_jit":
+        want = rloop._verify_projective_pairs_jit(
+            jnp.stack([_r(b[i][1][VERIFY_LVL]) for i, _ in pairs]),
+            _r_stack([b[j][2] for _, j in pairs]), K_lvl, T_inits, h, w,
+            ricp_cfg)
+        check_rows(got, want, TOL_ROW_T)
+    elif program == "_batch_verify_jit":
+        want = rreloc._batch_verify_jit(
+            _r_cloud(li["cloud"]), _r_stack([b[i][2] for i, _ in pairs]),
+            T_inits, ricp_cfg)
+        check_rows(got, want, TOL_ALIGN_T)
+    elif program == "_batch_verify_projective_jit":
+        want = rreloc._batch_verify_projective_jit(
+            _r_cloud(li["cloud"]),
+            jnp.stack([_r(b[i][1][VERIFY_LVL]) for i, _ in pairs]), K_lvl,
+            T_inits, h, w, ricp_cfg)
+        check_rows(got, want, TOL_ROW_T)
+    elif program == "fuse_sharded":
+        fuse = rfusion.make_fuse_fn(rmesh.make_mesh(1), MAP_REF_CFG.voxel,
+                                    MAP_CFG.voxel.capacity)[0]
+        shard, stats = fuse(_r_cloud(li["map"]), _r_cloud(b[8][2]),
+                            _r(li["T"]))
+        np.testing.assert_array_equal(got[0].mask.numpy(),
+                                      np.asarray(shard.mask))
+        np.testing.assert_allclose(got[0].points.numpy(),
+                                   np.asarray(shard.points), atol=1e-5)
+        np.testing.assert_allclose(got[0].normals.numpy(),
+                                   np.asarray(shard.normals), atol=1e-4)
+        assert int(got[1].dropped) == int(stats.dropped) == 0
+        assert int(got[1].routed) == int(stats.routed) > 0
+    else:
+        fn = rsharded.make_aligned_spmd_fn(rmesh.make_mesh(1), ricp_cfg)
+        want = fn(_r_pyr(li["pyr5"]), _r_pyr(li["pyr"]), REF_K, jnp.eye(4))
+        check_alignment(got, want, TOL_SPMD_T, iters_tol=3)
+
+
+# -- a revisit with a yaw offset, verified from the identity --------------
+
+REVISIT_YAWS = (0.05, 0.1, 0.15, 0.3)
+
+
+def _yawed(T: np.ndarray, yaw: float) -> np.ndarray:
+    """T with the camera turned by `yaw` about its own y axis (image
+    down: a yaw of the view)."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.eye(4)
+    R[0, 0], R[0, 2], R[2, 0], R[2, 2] = c, s, -s, c
+    return T @ R
+
+
+@pytest.mark.parametrize("path", ["projective", "grid"])
+@pytest.mark.parametrize("yaw", REVISIT_YAWS)
+def test_yawed_revisit_through_graphed_verification_matches_reference(
+        map_loop, sim, yaw, path):
+    """The descriptor candidate's case: keyframe 4 revisited from its own
+    position turned by `yaw`, verified from the identity (as
+    `propose_attempt` seeds a descriptor pair) through the graphed batch
+    (B = 2, one live), replayed, against the reference's jitted batch.
+    Both packages take the same gate decision; where they close the loop
+    the row agrees to the batch's tolerance (a rejected row never reaches
+    the graph, and the path of an ICP that does not converge is not held
+    to float32 agreement).  The gap to the true relative pose is printed.
+    The smallest yaw closes in both."""
+    gt, depths = map_loop
+    cfg = MAP_CFG
+    T_i = gt[4]
+    T_j = _yawed(T_i, yaw)
+    d_j = render_depth(T_j, K, H, W, seed=99).astype(np.float32)
+    bi = promote_bundle_jit(torch.as_tensor(depths[4]), K, cfg, False)
+    bj = promote_bundle_jit(torch.as_tensor(d_j), K, cfg, False)
+    T_inits = torch.eye(4).expand(2, 4, 4).contiguous()
+    K_lvl = K.scaled(1.0 / 2 ** VERIFY_LVL)
+    h, w = H >> VERIFY_LVL, W >> VERIFY_LVL
+    cj = bj[2]
+    if path == "projective":
+        def call():
+            return loopclosure.verify_batch(
+                [bi[1][VERIFY_LVL]] * 2, [cj.points] * 2, [cj.normals] * 2,
+                [cj.mask] * 2, K_lvl, T_inits, 1, h, w, cfg.icp)
+        want = rloop._verify_projective_pairs_jit(
+            jnp.stack([_r(bi[1][VERIFY_LVL])] * 2), _r_stack([cj] * 2),
+            REF_K.scaled(1.0 / 2 ** VERIFY_LVL), _r(T_inits), h, w,
+            MAP_REF_CFG.icp)
+        tol = TOL_ROW_T
+    else:
+        def call():
+            return loopclosure.verify_batch_grid([bi[2]] * 2, [cj] * 2,
+                                                 T_inits, 1, cfg.icp)
+        want = rloop._verify_pairs_jit(_r_stack([bi[2]] * 2),
+                                       _r_stack([cj] * 2), _r(T_inits),
+                                       MAP_REF_CFG.icp)
+        tol = TOL_ALIGN_T
+    for _ in range(2):
+        call()
+    got = call().numpy()
+    (entry,) = [e for e in graphs.stats() if e["replays"] == 2]
+    assert entry["captured"]
+    closes = passes_gates(got[0], cfg.posegraph)
+    assert closes == passes_gates(np.asarray(want)[0], MAP_REF_CFG.posegraph)
+    if closes:
+        check_rows(got, want, tol)
+    T_true = np.linalg.inv(T_i) @ T_j
+    E = np.linalg.inv(got[0][FlatICP.T].reshape(4, 4)) @ T_true
+    gap_t = float(np.linalg.norm(E[:3, 3]))
+    gap_r = float(np.arccos(np.clip((np.trace(E[:3, :3]) - 1) / 2, -1, 1)))
+    print(f"yaw {yaw} {path}: closes {closes} in both, gap {gap_t:.3e} m, "
+          f"{gap_r:.3e} rad")
+    if yaw == REVISIT_YAWS[0]:
+        assert closes

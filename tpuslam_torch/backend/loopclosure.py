@@ -18,7 +18,10 @@ and the pose-graph solve on the device without reading anything back, so
 the host pays one readback per attempt (on the card one replay of a CUDA
 graph, tpuslam_torch/graphs.py).  The per-pair API is
 `verify_closure` (one pair, one readback), `propose_and_verify` (no
-readback) and `find_closures` (one readback a pass).
+readback) and `find_closures` (one readback a pass).  Each verification
+batch — projective (`verify_batch`) or grid-hash (`verify_batch_grid`,
+`verify_closure` its B = 1 case) — is one graph a key on the card as
+well, the reference's jitted batches.
 """
 
 from __future__ import annotations
@@ -146,16 +149,29 @@ def propose_descriptor_candidates(
     return out
 
 
-def verify_batch_grid(clouds_i, clouds_j, T_inits: torch.Tensor,
-                      n_live: int, icp_cfg: ICPConfig) -> torch.Tensor:
-    """(B, ROW_SIZE) grid-hash verification rows of B candidate pairs, the
-    fallback of `verify_batch` for keyframes without uniform tables.  The
-    `n_live` real candidates run one after another; the padding rows copy
-    row 0, as in `verify_batch`."""
+def _verify_batch_grid(_state, clouds_i, clouds_j, T_inits, *, n_live: int,
+                       icp_cfg: ICPConfig):
     rows = [verify_grid(clouds_j[b], clouds_i[b], T_inits[b], icp_cfg)
             for b in range(n_live)]
     rows += [rows[0]] * (len(clouds_i) - n_live)
-    return torch.stack(rows)
+    return (), torch.stack(rows)
+
+
+# the reference's _verify_pairs_jit (and _verify_jit, its B = 1 case): one
+# graph a (B, live candidates, the clouds' shapes, icp_cfg)
+_VERIFY_PAIRS = graphs.Program("_verify_pairs_jit", _verify_batch_grid)
+
+
+def verify_batch_grid(clouds_i, clouds_j, T_inits: torch.Tensor,
+                      n_live: int, icp_cfg: ICPConfig,
+                      eager: bool = False) -> torch.Tensor:
+    """(B, ROW_SIZE) grid-hash verification rows of B candidate pairs, the
+    fallback of `verify_batch` for keyframes without uniform tables.  The
+    `n_live` real candidates run one after another (each index built, then
+    probed); the padding rows copy row 0, as in `verify_batch`.  One CUDA
+    graph on the card, unless `eager`."""
+    return _VERIFY_PAIRS.run(list(clouds_i), list(clouds_j), T_inits,
+                             eager=eager, n_live=n_live, icp_cfg=icp_cfg)
 
 
 def verify_closure(
@@ -167,12 +183,12 @@ def verify_closure(
 ) -> Closure | None:
     """Verify one candidate by the grid-hash ICP: keyframe j's cloud onto
     keyframe i's, both in their own camera frames, from `T_init_ij` (the
-    graph's node_i ← node_j).  One readback; the ids of the Closure
-    returned are -1."""
-    T0 = upload(np.asarray(T_init_ij, dtype=np.float32),
+    graph's node_i ← node_j); `verify_batch_grid`'s B = 1 graph.  One
+    readback; the ids of the Closure returned are -1."""
+    T0 = upload(np.asarray(T_init_ij, dtype=np.float32)[None],
                 cloud_i.points.device)
-    s = verify_grid(cloud_j, cloud_i, T0, icp_cfg).cpu().numpy()
-    return _gate_row(s, pg_cfg)
+    s = verify_batch_grid([cloud_i], [cloud_j], T0, 1, icp_cfg)
+    return _gate_row(s[0].cpu().numpy(), pg_cfg)
 
 
 def _gate_row(s: np.ndarray, pg_cfg: PoseGraphConfig) -> Closure | None:
@@ -251,21 +267,37 @@ def propose_attempt(
     return live, padded, attempted, v0
 
 
+def _verify_batch(_state, tables, pts, nrm, msk, T_inits, *,
+                  K_lvl: Intrinsics, n_live: int, h: int, w: int,
+                  icp_cfg: ICPConfig):
+    rows = [flat_verify_scalars(align_cloud_to_organized(
+        PointCloud(points=pts[b], normals=nrm[b], mask=msk[b]), tables[b],
+        h, w, K_lvl, T_inits[b], icp_cfg)) for b in range(n_live)]
+    rows += [rows[0]] * (len(tables) - n_live)
+    return (), torch.stack(rows)
+
+
+# the reference's _verify_projective_pairs_jit: one graph a (B, live
+# candidates, the tables' and clouds' shapes, K, h, w, icp_cfg)
+_VERIFY_PROJECTIVE_PAIRS = graphs.Program("_verify_projective_pairs_jit",
+                                          _verify_batch)
+
+
 def verify_batch(tables, pts, nrm, msk, K_lvl: Intrinsics,
                  T_inits: torch.Tensor, n_live: int, h: int, w: int,
-                 icp_cfg: ICPConfig) -> torch.Tensor:
+                 icp_cfg: ICPConfig, eager: bool = False) -> torch.Tensor:
     """(B, ROW_SIZE) verification rows of B candidates, on the device.
 
     The reference vmaps one alignment over the padded batch; here the
     `n_live` real candidates run one after another through the same ICP
     kernels (carries on the device), and the padding rows — repeats of
     candidate 0 by construction — copy row 0 instead of recomputing it.
+    One CUDA graph on the card (inline inside `fused_attempt_jit`'s),
+    unless `eager`.
     """
-    rows = [flat_verify_scalars(align_cloud_to_organized(
-        PointCloud(points=pts[b], normals=nrm[b], mask=msk[b]), tables[b],
-        h, w, K_lvl, T_inits[b], icp_cfg)) for b in range(n_live)]
-    rows += [rows[0]] * (len(tables) - n_live)
-    return torch.stack(rows)
+    return _VERIFY_PROJECTIVE_PAIRS.run(
+        list(tables), list(pts), list(nrm), list(msk), T_inits, eager=eager,
+        K_lvl=K_lvl, n_live=n_live, h=h, w=w, icp_cfg=icp_cfg)
 
 
 def propose_and_verify(

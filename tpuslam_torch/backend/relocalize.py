@@ -8,7 +8,8 @@ initial guesses (the current estimate and identity) by aligning the lost
 frame's voxel cloud onto the keyframe's retained organized table or, when
 the candidates carry no uniform tables (or no intrinsics are given), onto
 the keyframe's cloud through the grid-hash probe; judged by the
-loop-closure gates.  One readback per attempt.
+loop-closure gates.  One readback per attempt; on the card the candidate
+batch is one replay of a CUDA graph (tpuslam_torch/graphs.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpuslam_torch import graphs
 from tpuslam_torch.backend.verify import (
     flat_verify_scalars,
     passes_gates,
@@ -37,26 +39,48 @@ class Relocalization(NamedTuple):
     inlier_fraction: float
 
 
-def _batch_verify_projective_jit(frame_cloud: PointCloud, tables,
-                                 K_lvl: Intrinsics, T_inits: torch.Tensor,
-                                 h: int, w: int,
-                                 icp_cfg: ICPConfig) -> torch.Tensor:
-    """(B, ROW_SIZE) rows: the lost frame's cloud aligned onto each
-    candidate table from its initial guess (one alignment after another,
-    carries on the device)."""
-    return torch.stack([flat_verify_scalars(align_cloud_to_organized(
+def _batch_verify_projective(_state, frame_cloud, tables, T_inits, *,
+                             K_lvl: Intrinsics, h: int, w: int,
+                             icp_cfg: ICPConfig):
+    return (), torch.stack([flat_verify_scalars(align_cloud_to_organized(
         frame_cloud, table, h, w, K_lvl, T_inits[b], icp_cfg))
         for b, table in enumerate(tables)])
 
 
+def _batch_verify(_state, frame_cloud, kf_clouds, T_inits, *,
+                  icp_cfg: ICPConfig):
+    return (), torch.stack([verify_grid(frame_cloud, cloud, T_inits[b],
+                                        icp_cfg)
+                            for b, cloud in enumerate(kf_clouds)])
+
+
+# one graph a (B, the shapes, K, h, w, icp_cfg) and a (B, the shapes,
+# icp_cfg): the reference's two jitted batches
+_BATCH_VERIFY_PROJECTIVE = graphs.Program("_batch_verify_projective_jit",
+                                          _batch_verify_projective)
+_BATCH_VERIFY = graphs.Program("_batch_verify_jit", _batch_verify)
+
+
+def _batch_verify_projective_jit(frame_cloud: PointCloud, tables,
+                                 K_lvl: Intrinsics, T_inits: torch.Tensor,
+                                 h: int, w: int, icp_cfg: ICPConfig,
+                                 eager: bool = False) -> torch.Tensor:
+    """(B, ROW_SIZE) rows: the lost frame's cloud aligned onto each
+    candidate table from its initial guess (one alignment after another,
+    carries on the device); one CUDA graph on the card unless `eager`."""
+    return _BATCH_VERIFY_PROJECTIVE.run(frame_cloud, list(tables), T_inits,
+                                        eager=eager, K_lvl=K_lvl, h=h, w=w,
+                                        icp_cfg=icp_cfg)
+
+
 def _batch_verify_jit(frame_cloud: PointCloud, kf_clouds,
-                      T_inits: torch.Tensor,
-                      icp_cfg: ICPConfig) -> torch.Tensor:
+                      T_inits: torch.Tensor, icp_cfg: ICPConfig,
+                      eager: bool = False) -> torch.Tensor:
     """(B, ROW_SIZE) rows: the lost frame's cloud aligned onto each
     candidate keyframe's cloud by the grid-hash ICP (`align_clouds`), one
-    alignment after another."""
-    return torch.stack([verify_grid(frame_cloud, cloud, T_inits[b], icp_cfg)
-                        for b, cloud in enumerate(kf_clouds)])
+    alignment after another; one CUDA graph on the card unless `eager`."""
+    return _BATCH_VERIFY.run(frame_cloud, list(kf_clouds), T_inits,
+                             eager=eager, icp_cfg=icp_cfg)
 
 
 def relocalize(

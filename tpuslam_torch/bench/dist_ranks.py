@@ -284,7 +284,11 @@ def main(argv=None) -> int:
 
     import torch.distributed as dist
 
-    from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
+    from tpuslam_torch.dist.mesh import (
+        drop_graphs,
+        initialize_distributed,
+        make_mesh,
+    )
 
     initialize_distributed(args.init_method, world_size=args.world,
                            rank=args.rank, backend=args.backend,
@@ -295,6 +299,7 @@ def main(argv=None) -> int:
         out["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(args.output, **out)
     finally:
+        drop_graphs()         # graphs holding NCCL kernels go first
         dist.destroy_process_group()
     return 0
 

@@ -531,6 +531,11 @@ def track_map(args, card, dev) -> None:
                 frames_profiled=[MAP_WARM, last - 1], map_loop_vga=cell,
                 stages_ms=stages)), flush=True)
     finally:
+        # graphs holding NCCL kernels go before the group (ring_map's name
+        # for it: a parent checkout has it there too)
+        from tpuslam_torch.dist.ring_map import drop_graphs
+
+        drop_graphs()
         dist.destroy_process_group()
 
 

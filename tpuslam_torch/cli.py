@@ -122,7 +122,7 @@ def _distributed(args):
     import torch
     import torch.distributed as dist
 
-    from tpuslam_torch.dist.mesh import initialize_distributed
+    from tpuslam_torch.dist.mesh import drop_graphs, initialize_distributed
 
     backend = "nccl" if torch.device(args.device).type == "cuda" else "gloo"
     initialize_distributed("tcp://" + args.coordinator, args.num_processes,
@@ -130,6 +130,7 @@ def _distributed(args):
     try:
         yield
     finally:
+        drop_graphs()         # graphs holding NCCL kernels go first
         dist.destroy_process_group()
 
 

@@ -25,7 +25,12 @@ import numpy as np
 import torch
 
 from tpuslam_torch.config import VoxelConfig
-from tpuslam_torch.dist.mesh import Mesh, shard_cloud
+from tpuslam_torch.dist.mesh import (
+    Mesh,
+    captures,
+    collective_program,
+    shard_cloud,
+)
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.geom.voxel import voxel_downsample, voxel_keys
 from tpuslam_torch.transfer import upload
@@ -76,7 +81,11 @@ def _bucket_by_owner(pts, nrm, valid, owner, n_dev: int, bucket_cap: int):
     o = torch.where(valid, owner, n_dev).to(torch.int64)
     order = torch.sort(o, stable=True).indices
     rows = torch.cat([pts, nrm], dim=1)[order]             # owner-sorted
-    counts = torch.bincount(o, minlength=n_dev + 1)[:n_dev]
+    # a scatter-add, not `bincount`: bincount reads its maximum back to
+    # the host, which a CUDA graph's capture refuses
+    counts = torch.zeros(n_dev + 1, dtype=torch.int64,
+                         device=pts.device).scatter_add_(
+        0, o, torch.ones_like(o))[:n_dev]
     starts = torch.cumsum(counts, 0) - counts              # exclusive
     j = torch.arange(bucket_cap, device=pts.device)
     take = torch.clamp(counts, max=bucket_cap)             # rows shipped
@@ -108,23 +117,42 @@ def _fuse_shard(map_shard: PointCloud, new_local: PointCloud,
     return fused, FusionStats(dropped=counts[0], routed=counts[1])
 
 
+def _fuse_program(_state, map_shard, new_local, T_world, *, mesh: Mesh,
+                  bucket_cap: int, shard_cap: int, cfg: VoxelConfig):
+    return (), _fuse_shard(map_shard, new_local, T_world, mesh, bucket_cap,
+                           shard_cap, cfg)
+
+
+# the reference's jitted fusion: one graph a (mesh, capacities, cfg, the
+# shapes), its all-to-all and all-reduce inside, where `captures` allows
+_FUSE_SHARDED = collective_program("fuse_sharded", _fuse_program)
+
+
 def make_fuse_fn(mesh: Mesh, cfg: VoxelConfig, new_capacity: int,
                  bucket_slack: float = 2.0):
     """The sharded-fusion step for fixed capacities.
 
     Returns `(fuse, bucket_cap, shard_cap)`; `fuse(map_shard, new_local,
-    T_world) -> (map_shard, stats)` takes this rank's map shard
-    (`cfg.map_capacity // D` rows) and its slice of the incoming keyframe
-    cloud (`new_capacity / D` rows, frame-major).
+    T_world, eager=False) -> (map_shard, stats)` takes this rank's map
+    shard (`cfg.map_capacity // D` rows) and its slice of the incoming
+    keyframe cloud (`new_capacity / D` rows, frame-major).  On the card it
+    is one CUDA graph a key on a mesh without a group or over NCCL
+    (`mesh.captures`); over gloo, on the CPU or with `eager` it runs op by
+    op.  The map shard and the cloud are copied in and the fused shard is
+    copied out at every call.
     """
     n_dev = mesh.size
     local_n = -(-new_capacity // n_dev)
     bucket_cap = max(8, int(np.ceil(local_n / n_dev * bucket_slack)))
     shard_cap = -(-cfg.map_capacity // n_dev)
+    graphed = captures(mesh)
 
-    def fuse(map_shard: PointCloud, new_local: PointCloud, T_world):
-        return _fuse_shard(map_shard, new_local, T_world, mesh, bucket_cap,
-                           shard_cap, cfg)
+    def fuse(map_shard: PointCloud, new_local: PointCloud, T_world,
+             eager: bool = False):
+        return _FUSE_SHARDED.run(map_shard, new_local, T_world,
+                                 eager=eager or not graphed, mesh=mesh,
+                                 bucket_cap=bucket_cap, shard_cap=shard_cap,
+                                 cfg=cfg)
 
     return fuse, bucket_cap, shard_cap
 

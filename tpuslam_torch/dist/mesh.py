@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from tpuslam_torch import graphs
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.transfer import resolve_device
 
@@ -104,6 +105,36 @@ class Mesh:
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t.contiguous(), group=self.group)
         return torch.cat(parts, dim=0)
+
+
+def captures(mesh: Mesh) -> bool:
+    """Whether a program with collectives (the ring, the sharded fusion,
+    the point-sharded ICP) replays a CUDA graph on this mesh: without a
+    group (one rank, no collectives) or over NCCL, whose collectives and
+    P2P run on the card and are captured into the graph.  Over gloo it
+    runs op by op: gloo copies every CUDA collective through host memory,
+    which a capture cannot hold.  A decision from the group's backend,
+    taken before the call; nothing falls back at run time."""
+    return mesh.backend in ("none", "nccl")
+
+
+# the programs whose graphs may hold NCCL kernels (`drop_graphs`)
+_collective_programs: list = []
+
+
+def collective_program(name: str, fn) -> graphs.Program:
+    """A `graphs.Program` whose graphs may hold a group's collectives."""
+    program = graphs.Program(name, fn)
+    _collective_programs.append(program)
+    return program
+
+
+def drop_graphs() -> None:
+    """Drop every graph that may hold collectives.  Their NCCL kernels use
+    the communicator of the group they were captured on: call this before
+    that group is destroyed."""
+    for program in _collective_programs:
+        program.drop()
 
 
 def initialize_distributed(init_method: Optional[str] = None,

@@ -52,9 +52,15 @@ from functools import lru_cache
 import torch
 import torch.distributed as dist
 
-from tpuslam_torch import graphs
 from tpuslam_torch.config import ICPConfig
-from tpuslam_torch.dist.mesh import Mesh, pad_to_multiple, shard_cloud
+from tpuslam_torch.dist.mesh import (
+    Mesh,
+    captures,
+    collective_program,
+    drop_graphs,  # noqa: F401 — the ring's callers drop its graphs here
+    pad_to_multiple,
+    shard_cloud,
+)
 from tpuslam_torch.geom import se3
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.icp import ICPResult, _result, flat_icp_scalars
@@ -165,16 +171,6 @@ def _ring_icp(frame: PointCloud, shard: torch.Tensor, T0: torch.Tensor,
     return _result(carry, tol_sq)
 
 
-def captures(mesh: Mesh) -> bool:
-    """Whether the ring replays a CUDA graph on this mesh: without a group
-    (one rank, no collectives) or over NCCL, whose collectives and P2P
-    run on the card and are captured into the graph.  Over gloo it runs
-    op by op: gloo copies every CUDA collective through host memory,
-    which a capture cannot hold.  A decision from the group's backend,
-    taken before the call; nothing falls back at run time."""
-    return mesh.backend in ("none", "nccl")
-
-
 def _ring_align(_state, frame: PointCloud, map_shard: PointCloud,
                 T0: torch.Tensor, *, mesh: Mesh, cfg: ICPConfig,
                 backend: str):
@@ -191,14 +187,7 @@ def _ring_align(_state, frame: PointCloud, map_shard: PointCloud,
     return (), (res, flat_icp_scalars(res))
 
 
-_RING_ALIGN = graphs.Program("ring_align", _ring_align)
-
-
-def drop_graphs() -> None:
-    """Drop the ring's captured graphs.  Their NCCL kernels use the
-    communicator of the group they were captured on: call this before
-    that group is destroyed."""
-    _RING_ALIGN.drop()
+_RING_ALIGN = collective_program("ring_align", _ring_align)
 
 
 @lru_cache(maxsize=32)

@@ -27,6 +27,8 @@ import torch
 from tpuslam_torch.config import ICPConfig, Intrinsics
 from tpuslam_torch.dist.mesh import (
     Mesh,
+    captures,
+    collective_program,
     pad_to_multiple,
     replicate,
     shard_cloud,
@@ -117,10 +119,28 @@ def align_frames_spmd(src_pyr, dst_pyr, K: Intrinsics, T0: torch.Tensor,
     return result
 
 
+def _align_spmd_program(_state, src_pyr, dst_pyr, T0, *, K: Intrinsics,
+                        cfg: ICPConfig, mesh: Mesh):
+    return (), align_frames_spmd(src_pyr, dst_pyr, K, T0, cfg, mesh)
+
+
+# the reference's jitted SPMD aligner: one graph a (mesh, K, cfg, the
+# pyramids' shapes), its all-reduces inside, where `captures` allows
+_ALIGN_SPMD = collective_program("align_frames_spmd", _align_spmd_program)
+
+
 def make_aligned_spmd_fn(mesh: Mesh, cfg: ICPConfig):
-    """`fn(src_pyr, dst_pyr, K, T0) -> ICPResult`: `align_frames_spmd` on
-    this mesh and config, its result whole on every rank."""
-    def fn(src_pyr, dst_pyr, K: Intrinsics, T0: torch.Tensor) -> ICPResult:
-        return align_frames_spmd(src_pyr, dst_pyr, K, T0, cfg, mesh)
+    """`fn(src_pyr, dst_pyr, K, T0, eager=False) -> ICPResult`:
+    `align_frames_spmd` on this mesh and config, its result whole on every
+    rank.  On the card one CUDA graph a key on a mesh without a group or
+    over NCCL (`mesh.captures`); over gloo, on the CPU or with `eager` op
+    by op."""
+    graphed = captures(mesh)
+
+    def fn(src_pyr, dst_pyr, K: Intrinsics, T0: torch.Tensor,
+           eager: bool = False) -> ICPResult:
+        return _ALIGN_SPMD.run(tuple(src_pyr), tuple(dst_pyr), T0,
+                               eager=eager or not graphed, K=K, cfg=cfg,
+                               mesh=mesh)
 
     return fn

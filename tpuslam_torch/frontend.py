@@ -2,8 +2,8 @@
 
 Three loops over one tracking step (`track_step_packed`):
 
-  * `scan_odometry` / `scan_odometry_boundary` — a whole sequence with every
-    piece of state on the input's device: the keyframe is kept as its
+  * `scan_odometry` / `scan_odometry_boundary_jit` — a whole sequence with
+    every piece of state on the input's device: the keyframe is kept as its
     packed gather tables, per-frame outputs go into preallocated tensors
     that the caller reads back once.  Nothing inside a frame waits for the
     GPU.
@@ -22,8 +22,10 @@ in `_jit` are the reference's.  The reference's compiled programs are CUDA
 graphs here (tpuslam_torch/graphs.py), replayed on the card: the frame step
 of `scan_odometry` and `scan_chunk` (one replay a frame, the scan's state
 carried in the graph), `process_frame_jit` (one replay a frame), the
-sub-chunk of `scan_superchunk_frozen` (one replay a sub-chunk), and a
-promotion's `promote_bundle_jit`, `pack_pyramid_jit` and `_kf_cloud_jit`.
+sub-chunk of `scan_superchunk_frozen` (one replay a sub-chunk), the chunk
+of `scan_odometry_boundary_jit` (one replay a chunk, the keyframe's world
+pose carried with the sub-chunk's carry), and a promotion's
+`promote_bundle_jit`, `pack_pyramid_jit` and `_kf_cloud_jit`.
 On the CPU, or with `eager=True`, they run op by op.
 
 Keyframe criterion: relative motion (translation/rotation) beyond
@@ -751,12 +753,42 @@ def fuse_readbacks_jit(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                       b.reshape(-1).to(torch.float32)])
 
 
-def scan_odometry_boundary(depths: torch.Tensor, K: Intrinsics,
-                           cfg: SLAMConfig, chunk: int = 8):
+class BoundaryState(NamedTuple):
+    """Carry of `scan_odometry_boundary_jit` between chunks: the frozen
+    keyframe's tables and poses, and the world pose of that keyframe."""
+
+    carry: SuperChunkCarry
+    T_world_kf: torch.Tensor    # (4, 4)
+
+
+def _boundary_chunk(state: BoundaryState, depths: torch.Tensor, *,
+                    K: Intrinsics, cfg: SLAMConfig):
+    """One chunk of the boundary scan: the sub-chunk against the frozen
+    keyframe (`_sub_chunk`), its world poses, and the keyframe's world pose
+    moved to the chunk's LAST frame where any frame flags promotion (a
+    `torch.where` on the device).  Returns (new state, (rows, world))."""
+    carry, rows = _sub_chunk(state.carry, depths, K=K, cfg=cfg)
+    world = state.T_world_kf @ rows[:, FlatFrozen.REL_T].reshape(-1, 4, 4)
+    any_p = torch.any(rows[:, FlatFrozen.PROMOTE] > 0.5)
+    return BoundaryState(carry=carry, T_world_kf=_select(
+        any_p, world[-1], state.T_world_kf)), (rows, world)
+
+
+# the reference's scan_odometry_boundary_jit: one graph a (K, cfg, chunk,
+# frame size), one replay a chunk, the BoundaryState carried in the graph
+_BOUNDARY_CHUNK = graphs.Program("scan_odometry_boundary_jit",
+                                 _boundary_chunk)
+
+
+def scan_odometry_boundary_jit(depths: torch.Tensor, K: Intrinsics,
+                               cfg: SLAMConfig, chunk: int = 8,
+                               eager: bool = False):
     """Full-sequence odometry with BOUNDARY keyframe promotion: each chunk
     tracks against a frozen keyframe, and when any frame of the chunk flags
     promotion the chunk's LAST frame becomes the keyframe, its world pose
-    the last frame's tracked pose.
+    the last frame's tracked pose.  On the card each chunk is one replay of
+    a CUDA graph, the carry and the keyframe's world pose kept in the graph
+    between them, with no host synchronisation, unless `eager`.
 
     Args:
       depths: (F, H, W) depth on the device, F divisible by `chunk`.
@@ -766,20 +798,25 @@ def scan_odometry_boundary(depths: torch.Tensor, K: Intrinsics,
     F = depths.shape[0]
     if F % chunk:
         raise ValueError(f"frames ({F}) must be divisible by chunk ({chunk})")
-    eye = torch.eye(4, dtype=torch.float32, device=depths.device)
-    carry = SuperChunkCarry(
-        kf_packed=pack_pyramid(preprocess(depths[0], K, cfg), cfg.icp),
-        T_kf_cam=eye, last_delta=eye)
-    T_world_kf = eye
+    st = initial_state(depths[0], K, cfg)
+    state = BoundaryState(
+        carry=SuperChunkCarry(kf_packed=st.kf_packed, T_kf_cam=st.T_kf_cam,
+                              last_delta=st.last_delta),
+        T_world_kf=st.T_world_kf)
     ys = torch.empty((F, FlatFrozen.SIZE), dtype=torch.float32,
                      device=depths.device)
     poses = torch.empty((F, 4, 4), dtype=torch.float32, device=depths.device)
-    for c0 in range(0, F, chunk):
-        carry, rows = _sub_chunk(carry, depths[c0:c0 + chunk], K=K, cfg=cfg)
-        ys[c0:c0 + chunk] = rows
-        world = T_world_kf @ rows[:, FlatFrozen.REL_T].reshape(-1, 4, 4)
-        poses[c0:c0 + chunk] = world
-        any_p = torch.any(rows[:, FlatFrozen.PROMOTE] > 0.5)
-        T_world_kf = _select(any_p, world[-1], T_world_kf)
+    with _BOUNDARY_CHUNK.loop(state, eager=eager, K=K, cfg=cfg) as lp:
+        for c0 in range(0, F, chunk):
+            rows, world = lp.step(depths[c0:c0 + chunk])
+            ys[c0:c0 + chunk].copy_(rows)
+            poses[c0:c0 + chunk].copy_(world)
     return (poses, ys[:, FlatFrozen.PROMOTE] > 0.5,
             ys[:, FlatFrozen.INLIER_FRACTION])
+
+
+def scan_odometry_boundary(depths: torch.Tensor, K: Intrinsics,
+                           cfg: SLAMConfig, chunk: int = 8):
+    """`scan_odometry_boundary_jit` op by op (the reference's unjitted
+    scan)."""
+    return scan_odometry_boundary_jit(depths, K, cfg, chunk, eager=True)

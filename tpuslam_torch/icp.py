@@ -23,6 +23,12 @@ of the fused kernel instead (kernels/gn_fused.py: the association's row,
 its gates, the residual, Huber, the reduction, the solve and the carry
 update), and an outer iteration issues nothing else.  The unorganized
 paths (`align_to_index`, `align_clouds`) have no fused form.
+
+The reference's jitted entry points are CUDA graphs here
+(tpuslam_torch/graphs.py), one a key, op by op on the CPU or with
+`eager=True`: `align_frames_jit`, `align_clouds_jit` (the index build
+inside), and `align_map_to_frame_jit` / `align_to_index_jit`, whose graphs
+the SLAM system's map refinements replay too.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpuslam_torch import graphs
 from tpuslam_torch.config import ICPConfig, Intrinsics
 from tpuslam_torch.geom import se3
 from tpuslam_torch.geom.backproject import project
@@ -39,7 +46,7 @@ from tpuslam_torch.kernels import gn_epilogue as ep
 from tpuslam_torch.kernels.correspond import (
     GridIndex,
     brute_force_correspond,
-    build_grid_index,
+    build_grid_index_jit,
     correspondence_buffers,
     grid_correspond_at_pose,
     pack_organized_target,
@@ -369,7 +376,7 @@ def align_frames(src_pyr, dst_pyr, K: Intrinsics, T0: torch.Tensor,
 
 def _build_index(dst: PointCloud, cfg: ICPConfig) -> GridIndex:
     # cell edge ≥ the correspondence radius: the 27-cell probe suffices
-    return build_grid_index(dst, cell=float(cfg.max_corr_dist))
+    return build_grid_index_jit(dst, cell=float(cfg.max_corr_dist))
 
 
 def align_to_index(src: PointCloud, index: GridIndex, T0: torch.Tensor,
@@ -403,3 +410,84 @@ def align_clouds(src: PointCloud, dst: PointCloud, T0: torch.Tensor,
         for o, c in zip(out, corr):
             o.copy_(c)
     return _icp_loop(associate, src, T0, cfg, cfg.max_iters)
+
+
+# ---------------------------------------------------------------------------
+# The reference's jitted entry points: one CUDA graph a key on the card
+# (tpuslam_torch/graphs.py), op by op on the CPU or with `eager`.
+# ---------------------------------------------------------------------------
+
+
+def _align_frames_program(_state, src_pyr, dst_pyr, T0, *, K: Intrinsics,
+                          cfg: ICPConfig):
+    return (), align_frames(src_pyr, dst_pyr, K, T0, cfg)
+
+
+_ALIGN_FRAMES = graphs.Program("align_frames_jit", _align_frames_program)
+
+
+def align_frames_jit(src_pyr, dst_pyr, K: Intrinsics, T0: torch.Tensor,
+                     cfg: ICPConfig, eager: bool = False) -> ICPResult:
+    """`align_frames`, the target's packing included, as one CUDA graph on
+    the card (keyed by K, cfg and the pyramids' shapes), unless `eager`."""
+    return _ALIGN_FRAMES.run(tuple(src_pyr), tuple(dst_pyr), T0, eager=eager,
+                             K=K, cfg=cfg)
+
+
+def _align_clouds_program(_state, src, dst, T0, *, cfg: ICPConfig,
+                          use_grid: bool):
+    return (), align_clouds(src, dst, T0, cfg, use_grid)
+
+
+_ALIGN_CLOUDS = graphs.Program("align_clouds_jit", _align_clouds_program)
+
+
+def align_clouds_jit(src: PointCloud, dst: PointCloud, T0: torch.Tensor,
+                     cfg: ICPConfig, use_grid: bool = True,
+                     eager: bool = False) -> ICPResult:
+    """`align_clouds` as one CUDA graph on the card (dst's index build and
+    the alignment; keyed by cfg, `use_grid` and the clouds' shapes), unless
+    `eager`."""
+    return _ALIGN_CLOUDS.run(src, dst, T0, eager=eager, cfg=cfg,
+                             use_grid=use_grid)
+
+
+def _align_map_to_frame_program(_state, map_cloud, frame, T0, *,
+                                K: Intrinsics, cfg: ICPConfig):
+    res = align_map_to_frame(map_cloud, frame, K, T0, cfg)
+    return (), (res, flat_icp_scalars(res))
+
+
+def _align_to_index_program(_state, src, index, T0, *, cfg: ICPConfig):
+    res = align_to_index(src, index, T0, cfg)
+    return (), (res, flat_icp_scalars(res))
+
+
+# These two graphs are the SLAM system's map refinements too
+# (slam._refine_projective_jit, slam._refine_grid_jit): one graph a key
+# for both callers, named after the refinements in graphs.stats().
+_ALIGN_MAP_TO_FRAME = graphs.Program("_refine_projective_jit",
+                                     _align_map_to_frame_program)
+_ALIGN_TO_INDEX = graphs.Program("_refine_grid_jit", _align_to_index_program)
+
+
+def align_map_to_frame_jit(map_cloud: PointCloud, frame: Frame,
+                           K: Intrinsics, T0_world_cam: torch.Tensor,
+                           cfg: ICPConfig, eager: bool = False):
+    """`align_map_to_frame` as one CUDA graph on the card (keyed by K, cfg
+    and the shapes, the map's capacity among them), unless `eager`.  The
+    map, the frame and the warm start are copied in at every call, so a
+    replay aligns against the map as it is now.  Returns (ICPResult, its
+    `flat_icp_scalars`), as the ring's call does."""
+    return _ALIGN_MAP_TO_FRAME.run(map_cloud, frame, T0_world_cam,
+                                   eager=eager, K=K, cfg=cfg)
+
+
+def align_to_index_jit(src: PointCloud, index: GridIndex, T0: torch.Tensor,
+                       cfg: ICPConfig, eager: bool = False):
+    """`align_to_index` as one CUDA graph on the card (keyed by cfg, the
+    index's cell and the shapes), unless `eager`; the index (keys, rows,
+    origin, table) is copied in at every call, so a replay probes the
+    index rebuilt after the latest insert.  Returns (ICPResult, its
+    `flat_icp_scalars`)."""
+    return _ALIGN_TO_INDEX.run(src, index, T0, eager=eager, cfg=cfg)

@@ -35,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpuslam_torch import graphs
 from tpuslam_torch.config import Intrinsics
 from tpuslam_torch.geom.backproject import device_scalar, project
 from tpuslam_torch.geom.cloud import PointCloud
@@ -380,6 +381,27 @@ def build_grid_index(dst: PointCloud, cell: float,
     return with_cell_table(GridIndex(
         keys=keys[order].contiguous(), rows=rows.contiguous(),
         origin=origin.contiguous(), cell=float(cell)))
+
+
+def _build_grid_index_program(_state, dst, origin, *, cell: float):
+    return (), build_grid_index(dst, cell, origin)
+
+
+# one graph a (rows, cell, whether `origin` is given): the centroid, the key
+# packing, the stable sort, the row gather and the table's launches
+_BUILD_GRID_INDEX = graphs.Program("build_grid_index",
+                                   _build_grid_index_program)
+
+
+def build_grid_index_jit(dst: PointCloud, cell: float,
+                         origin: torch.Tensor | None = None,
+                         eager: bool = False) -> GridIndex:
+    """`build_grid_index` as one CUDA graph on the card, unless `eager`.
+    The cloud (and `origin`) are copied in at every call and the index
+    (keys, rows, origin, table) is copied out, so a build after an insert
+    sorts the map as it is now and no index is a buffer a later replay
+    writes."""
+    return _BUILD_GRID_INDEX.run(dst, origin, eager=eager, cell=float(cell))
 
 
 def cell_table_size(m: int) -> int:

@@ -10,8 +10,8 @@ inputs, copied in, and the fused map comes out as a copy, so the map is
 never a buffer that the next replay writes.  Frame-to-map tracking reads
 it through `icp.align_map_to_frame` (reverse projective association) or,
 with `map_track_mode="grid"`, through the grid-hash index that
-`build_index` sorts (kernels/correspond.py; the build runs op by op, once
-an insert).
+`build_index` sorts (kernels/correspond.py; a graph of its own on the
+card, once an insert).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from tpuslam_torch import graphs
 from tpuslam_torch.config import VoxelConfig
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.geom.voxel import voxel_downsample
-from tpuslam_torch.kernels.correspond import GridIndex, build_grid_index
+from tpuslam_torch.kernels.correspond import GridIndex, build_grid_index_jit
 from tpuslam_torch.transfer import resolve_device, upload
 
 
@@ -82,9 +82,10 @@ class VoxelMap:
         """Grid-hash index over the current map (for frame-to-map ICP).
 
         Rebuilt per map update, not per frame; anchored at the map centroid
-        so the 256³ local grid (cell·256 span) covers a room-scale map.
+        so the 256³ local grid (cell·256 span) covers a room-scale map.  A
+        replay of `build_grid_index_jit`'s graph on the card.
         """
-        return build_grid_index(self.cloud, cell=cell)
+        return build_grid_index_jit(self.cloud, cell=cell)
 
     def size(self) -> int:
         return int(self.cloud.count())

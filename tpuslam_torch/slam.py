@@ -58,7 +58,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpuslam_torch import graphs
 from tpuslam_torch.backend.loopclosure import (
     extend_with_candidates,
     fused_attempt_jit,
@@ -91,9 +90,8 @@ from tpuslam_torch.geom.voxel import voxel_downsample
 from tpuslam_torch.icp import (
     FlatICP,
     Frame,
-    align_map_to_frame,
-    align_to_index,
-    flat_icp_scalars,
+    align_map_to_frame_jit,
+    align_to_index_jit,
 )
 from tpuslam_torch.kernels.correspond import GridIndex
 from tpuslam_torch.mapping import VoxelMap
@@ -111,40 +109,20 @@ LC_EDGE_WEIGHT = 2.0
 WORKER_JOIN_S = 120.0
 
 
-def _refine_projective(_state, map_cloud, frame, T0, *, K: Intrinsics,
-                       cfg: ICPConfig):
-    return (), flat_icp_scalars(align_map_to_frame(map_cloud, frame, K, T0,
-                                                   cfg))
-
-
-def _refine_grid(_state, cloud, index, T0, *, cfg: ICPConfig):
-    return (), flat_icp_scalars(align_to_index(cloud, index, T0, cfg))
-
-
-_REFINE_PROJECTIVE = graphs.Program("_refine_projective_jit",
-                                    _refine_projective)
-_REFINE_GRID = graphs.Program("_refine_grid_jit", _refine_grid)
-
-
 def _refine_projective_jit(map_cloud: PointCloud, frame: Frame,
                            K: Intrinsics, T0: torch.Tensor, cfg: ICPConfig,
                            eager: bool = False) -> torch.Tensor:
-    """The projective map refinement's flat scalars (icp.FlatICP): one
-    CUDA graph on the card, keyed by K, cfg and the shapes (the map's
-    capacity among them), unless `eager`.  The map, the frame and T0 are
-    inputs copied in at every call: a replay aligns against the map as it
-    is now, never the map of its capture."""
-    return _REFINE_PROJECTIVE.run(map_cloud, frame, T0, eager=eager, K=K,
-                                  cfg=cfg)
+    """The projective map refinement's flat scalars (icp.FlatICP): the
+    graph of `icp.align_map_to_frame_jit`, unless `eager`."""
+    return align_map_to_frame_jit(map_cloud, frame, K, T0, cfg,
+                                  eager=eager)[1]
 
 
 def _refine_grid_jit(cloud: PointCloud, index: GridIndex, T0: torch.Tensor,
                      cfg: ICPConfig, eager: bool = False) -> torch.Tensor:
-    """The grid map refinement's flat scalars: one CUDA graph on the card,
-    keyed by cfg, the index's cell and the shapes, unless `eager`; the
-    index (keys, rows, origin, table) is copied in at every call, so a
-    replay probes the index rebuilt after the latest insert."""
-    return _REFINE_GRID.run(cloud, index, T0, eager=eager, cfg=cfg)
+    """The grid map refinement's flat scalars: the graph of
+    `icp.align_to_index_jit`, unless `eager`."""
+    return align_to_index_jit(cloud, index, T0, cfg, eager=eager)[1]
 
 
 class PendingAttempt(NamedTuple):
