@@ -39,7 +39,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                 pair: tpuslam_torch/bench/profile_odometry.py --mode solve);
                 torch.searchsorted of the probe's 16,384 × 27 cell keys
                 into the index's sorted keys as the grid table's library
-                time
+                time, and with the gather of each key's first row as the
+                library route of the table's work (set against the probe
+                with its build amortized in phase 12b)
  3b. graphs   — the captured programs (tpuslam_torch/graphs.py) at
                 640×480: scan_odometry (plain and fused), process_frame_jit,
                 scan_chunk, scan_superchunk_frozen (sub 8 and 4), the dense
@@ -52,7 +54,10 @@ Phases, in order (any failure raises and the script exits non-zero):
                 relocalization's (_batch_verify_jit,
                 _batch_verify_projective_jit), the grid index build (and
                 its replay after an insert against a fresh build), the
-                sharded fusion and the point-sharded ICP on a one-rank
+                sharded fusion and the point-sharded ICP, and the
+                distributed programs (optimize_pose_graph_spmd on the
+                32-node bucket, optimize_map_ba_spmd on map BA's problem,
+                the batched aligner on 4 pairs) on a one-rank
                 NCCL group, each run eagerly
                 against a key's first call (the warm-up), its second (the
                 capture and a replay) and a replay: every output bit-equal;
@@ -69,7 +74,10 @@ Phases, in order (any failure raises and the script exits non-zero):
   6. main     — tpuslam_torch.bench.harness.run_bench: 240 frames at
                 640×480, default config; ATE < 1 mm for the classic and
                 the boundary scan, the headline variant, the replayed ICP
-                iteration latency beside the eager one; every kernel of the
+                iteration latency beside the eager one; both scans held to
+                the reference's (tpuslam_torch/bench/data/reference_vga.npz,
+                written by tests/torch_reference_poses.py): promotion
+                flags equal, poses within 1e-4; every kernel of the
                 path launched (correspond, gn_step; not the standalone
                 gn_partials or gn_epilogue), no plain twin called; then one
                 scan of the orbit counted for launches a frame
@@ -86,7 +94,10 @@ Phases, in order (any failure raises and the script exits non-zero):
   9. slam     — run_slam_bench: 120 frames at 640×480, boundary chunks,
                 backend sync and deferred, fused_gn False and True; ATE
                 < 1 mm, ≥ 1 closure, every kernel launched, no twin called,
-                no standalone gn_epilogue or gn_partials
+                no standalone gn_epilogue or gn_partials; every unfused
+                synchronous pass held to the reference's chunked pass
+                (reference_vga.npz): keyframes and closure pairs equal,
+                poses within 1e-3
  9b. drift    — slam-drift-vga: SlamSystem on phase 9's 120-frame 640×480
                 loop, boundary chunks of 8 (sub-chunks of 4), the deferred
                 backend, 0.012 m of world-anchor drift injected before
@@ -136,7 +147,7 @@ Phases, in order (any failure raises and the script exits non-zero):
                 the association nor the ring's solves transform the points
                 outside a kernel; sharded: fewer extra fills than ring
                 hops, which allocate and fill nothing)
- 12b. grid    — this slice's path: run_map_bench with
+ 12b. grid    — the grid path: run_map_bench with
                 map_track_mode="grid" and map BA, 120 frames at 640×480
                 (ATE < 0.02 m, refinement ok share > 0.5, map BA over
                 > 100 observations, ATE after BA < max(1.5 × before,
@@ -145,7 +156,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                 frames 40-47's stages on the host clock (refinement, index
                 build, insert), frames 48-55 under torch.profiler (idle
                 share, grid_correspond's device µs a launch) and map BA's
-                time, one probe launch
+                time, one probe launch; the probe with its table build
+                amortized over this run's probes an index against phase
+                3's library route
  13. cli      — the user's entry point, `python -m tpuslam_torch.cli`, in
                 process: a 120-frame 640×480 two-lap sequence written in
                 TUM's layout, run_slam with chunks of 8 (sub-chunks of 4),
@@ -207,7 +220,11 @@ Phases, in order (any failure raises and the script exits non-zero):
                 after; (b) bench_slam: 120 frames at 640×480, its five
                 variants (per frame sync and with the worker thread,
                 boundary chunks sync and deferred, inline chunks), each
-                after an uncounted pass: ATE per frame and inline < 1 mm,
+                after an uncounted pass: every per-frame and boundary-chunk
+                synchronous pass held to the reference's (reference_vga.npz:
+                keyframes and closure pairs equal, poses within 1e-3, the
+                largest error and the first frame over it printed); ATE
+                per frame and inline < 1 mm,
                 each worker pass's ATE < max(2 × per frame, 0.02 m), ≥ 1
                 closure in every pass of the worker and every variant,
                 correspond and gn_step launched, no twin called, the
@@ -873,6 +890,14 @@ def grid_correspond_phase(dev, card: str):
     near_keys = ((near[:, 0] << 16) | (near[:, 1] << 8)
                  | near[:, 2]).to(index.keys.dtype)
     library_ms = time_ms(lambda: torch.searchsorted(index.keys, near_keys))
+
+    # the library route of the table and its lookups: each query's 27 cell
+    # keys searched, and the row at each key's first slot gathered (the
+    # probe's scan of a run and its choice of the nearest row left out)
+    def searched_and_gathered():
+        pos = torch.searchsorted(index.keys, near_keys)
+        return index.rows.index_select(0, pos.clamp(max=m - 1))
+    library_probe_ms = time_ms(searched_and_gathered)
     size = index.table.shape[0]
     runs = correspond.cell_runs_reference(index.keys)[2]
     tb = bound(nbytes(index.keys, index.table),
@@ -884,7 +909,8 @@ def grid_correspond_phase(dev, card: str):
         f"unique_consecutive) {table_plain_ms:.5f} ms, bound "
         f"{tb['bound_ms']:.5f} ms by {tb['bound_by']}, torch.searchsorted "
         f"of {near_keys.numel()} cell keys into {index.keys.numel()} sorted "
-        f"keys {library_ms:.5f} ms; entries and lookups "
+        f"keys {library_ms:.5f} ms, with the gather of each key's first "
+        f"row {library_probe_ms:.5f} ms; entries and lookups "
         f"equal to cell_runs_reference at {m} rows, all rows masked and one "
         f"row ({card})")
     return ({"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
@@ -892,6 +918,7 @@ def grid_correspond_phase(dev, card: str):
              "device_us_full_launch_voxel_order": us_v, **b},
             {"ms": table_ms, "plain_ms": table_plain_ms, "max_abs_err": 0.0,
              "library_ms": library_ms,
+             "searchsorted_gather_ms": library_probe_ms,
              "device_us_full_launch": table_us, "table_bytes":
              nbytes(index.table), "cells": cells, **tb})
 
@@ -1020,8 +1047,11 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
     from tpuslam_torch import graphs, mapping
     from tpuslam_torch import slam as slam_mod
     from tpuslam_torch.backend import map_ba
+    from tpuslam_torch.backend.distba import optimize_pose_graph_spmd
     from tpuslam_torch.backend.posegraph import GraphHost
     from tpuslam_torch.bench.harness import slam_bench_config
+    from tpuslam_torch.bench.profile_odometry import synthetic_graph
+    from tpuslam_torch.dist.batch_eval import make_batched_aligner
     from tpuslam_torch.dist.map_fusion import make_fuse_fn
     from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
     from tpuslam_torch.dist.ring_map import make_ring_align_fn
@@ -1033,6 +1063,7 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
         promote_bundle_jit,
     )
     from tpuslam_torch.geom.voxel import voxel_downsample
+    from tpuslam_torch.icp import Frame
     from tpuslam_torch.kernels.correspond import (
         build_grid_index,
         build_grid_index_jit,
@@ -1088,6 +1119,17 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
         fuse_sharded = make_fuse_fn(mesh, v, v.capacity)[0]
         spmd = make_aligned_spmd_fn(mesh, icp)
         pyr10 = preprocess(d[10], K, cfg)
+        # the distributed programs: the 32-node bucket's graph of
+        # graphs_phase, this map BA problem, and frames 10-13 each against
+        # the one before, batched
+        g32 = synthetic_graph(dev, 24).graph(bucketed=True)
+        batched = make_batched_aligner(mesh, icp)
+        pyrs = [preprocess(d[i], K, cfg) for i in range(9, 14)]
+        src, dst = (tuple(Frame(*(torch.stack([p[li][k] for p in ps])
+                                  for k in range(3)))
+                          for li in range(len(pyr)))
+                    for ps in (pyrs[1:], pyrs[:-1]))
+        T0s = torch.eye(4, device=dev).repeat(4, 1, 1)
         programs = {
             "_refine_projective_jit": (
                 lambda e: slam_mod._refine_projective_jit(
@@ -1134,6 +1176,20 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
             "align_frames_spmd (one NCCL rank)": (
                 lambda e: spmd(pyr, pyr10, K, pose(np.eye(4)), eager=e), 10,
                 True, True, "one pyramid pair: an all-reduce a solve"),
+            # the distributed programs
+            "optimize_pose_graph_spmd (one NCCL rank)": (
+                lambda e: optimize_pose_graph_spmd(g32, cfg.posegraph, mesh,
+                                                   eager=e), 3, True, True,
+                "one solve, 32-node bucket: an all-reduce a round"),
+            "optimize_map_ba_spmd (one NCCL rank)": (
+                lambda e: map_ba.optimize_map_ba_spmd(
+                    graph, prob, cfg.posegraph, mesh,
+                    huber_delta=icp.huber_delta, eager=e), 2, True, True,
+                "optimize_map_ba's problem: an all-reduce a round, then "
+                "the map's all-gather"),
+            "batched_align_frames (one NCCL rank)": (
+                lambda e: batched(src, dst, K, T0s, eager=e), 5, True, True,
+                "4 pyramid pairs, then one all-gather"),
         }
         rows = [graph_row(name, *spec, card)
                 for name, spec in programs.items()]
@@ -1715,10 +1771,14 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float) -> dict:
         dist.destroy_process_group()
 
 
-def grid_phase(dev, card: str, counters, loop, map_fps: float) -> dict:
+def grid_phase(dev, card: str, counters, loop, map_fps: float,
+               probe: dict, table: dict) -> dict:
     """The grid path at full width (phase 12b): run_map_bench's 120 frames
     at 640×480 with map_track_mode="grid" and map BA at the end
-    (unsharded).  Returns the timed pass's launches by kernel."""
+    (unsharded).  `probe` and `table` are phase 3's stats of the probe and
+    the table build: the table is set against the library route of equal
+    work on this run's probes an index.  Returns the timed pass's launches
+    by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpuslam_torch.bench.harness import run_map_bench, slam_bench_config
@@ -1752,6 +1812,21 @@ def grid_phase(dev, card: str, counters, loop, map_fps: float) -> dict:
           f"grid: launches {launches}")
     check(all(v == 0 for v in plain.values()), f"grid: plain {plain}")
     log_map_graphs("grid", card)
+    # equal work: the probe with its table, the build amortized over the
+    # probes an index on this path, against the library's searches and
+    # gather of the same 27 cells a query (phase 3's shapes)
+    per_build = launches["grid_correspond"] / launches["grid_table"]
+    amortized = table["ms"] / per_build
+    log(f"[grid] the table against the library on equal work: "
+        f"{per_build:.3f} probes an index build on this path; the probe "
+        f"(voxel-key order) {probe['ms_voxel_order']:.5f} ms + the build "
+        f"{table['ms']:.5f} ms / {per_build:.3f} = "
+        f"{probe['ms_voxel_order'] + amortized:.5f} ms a probe with its "
+        f"table, of which the table {amortized:.5f} ms; torch.searchsorted "
+        f"of the 27 cell keys a query with the gather of each key's first "
+        f"row {table['searchsorted_gather_ms']:.5f} ms (its scan and "
+        f"choice of the nearest row not counted), the search alone "
+        f"{table['library_ms']:.5f} ms ({card})")
 
     # frames 40-47 on the host clock, each stage fenced: the refinement
     # (which includes the index build after a keyframe), the index build,
@@ -2509,7 +2584,7 @@ def dist_phase(dev, card: str, counters, orbit, pg_in, ba_in) -> dict:
             f"spmd_align_ms {rb['spmd_align_ms']:.4f}, single_align_ms "
             f"{rb['single_align_ms']:.4f}, scaling_efficiency "
             f"{rb['scaling_efficiency']:.4f}, n_devices {rb['n_devices']}, "
-            f"fps {rb['fps']:.3f} ({card})")
+            f"fps {rb['fps_per_chip']:.3f} ({card})")
         check(rb["n_devices"] == 1 and rb["spmd_align_ms"] > 0,
               f"dist one rank: run_bench {rb}")
     finally:
@@ -2589,8 +2664,8 @@ def dist_phase(dev, card: str, counters, orbit, pg_in, ba_in) -> dict:
             f" card: not a scaling figure: spmd_align_ms "
             f"{rb['spmd_align_ms']:.4f}, single_align_ms "
             f"{rb['single_align_ms']:.4f}, scaling_efficiency "
-            f"{rb['scaling_efficiency']:.4f}, fps {rb['fps']:.3f}, ATE "
-            f"{rb['ate_rmse_m']:.3e} m ({card})")
+            f"{rb['scaling_efficiency']:.4f}, fps {rb['fps_per_chip']:.3f}, "
+            f"ATE {rb['ate_rmse_m']:.3e} m ({card})")
         check(rb["n_devices"] == DIST_WORLD and rb["ate_rmse_m"] < 1e-3,
               f"dist rank {r}: run_bench {rb}")
     return {"nccl_one_rank_icp": one,
@@ -2607,6 +2682,95 @@ REF_BENCH_SLAM = {"loop_closures": 38, "loop_closures_chunked_inline": 38,
 SLAM_ATE_M = 1e-3           # the reference's SLAM gate
 ASYNC_ATE_FLOOR_M = 0.02    # tests/test_async_backend.py:34
 CHUNKED_ATE_M = 0.02        # tests/test_chunked_slam.py:120
+
+
+# the reference's full-width results (tests/torch_reference_poses.py runs
+# tpuslam on the CPU and writes them): the 240-frame orbit's scans and two
+# of bench_slam's passes over the 120-frame loop
+REFERENCE_FILE = os.path.join("tpuslam_torch", "bench", "data",
+                              "reference_vga.npz")
+TOL_REF_ORBIT = 1e-4        # the card's orbit poses against the reference's
+TOL_REF_LOOP_M = 1e-3       # the reference's SLAM gate (PERF.md §2)
+
+
+def reference_results() -> dict:
+    """The arrays of the reference's committed results file."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        REFERENCE_FILE)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def first_over(err: np.ndarray, tol: float):
+    """The first index where `err` exceeds `tol`, or None."""
+    over = np.nonzero(err > tol)[0]
+    return int(over[0]) if over.size else None
+
+
+def hold_orbit(ref: dict, scan: str, out, card: str) -> float:
+    """One of run_bench's scans of the 240-frame orbit (poses, promotion
+    flags, inlier fractions) against the reference's: flags equal, every
+    pose element within TOL_REF_ORBIT.  Returns the largest error."""
+    poses, promote, inliers = (t.cpu().numpy() for t in out)
+    want = ref[f"orbit_{scan}_poses"]
+    check(poses.shape == want.shape,
+          f"reference orbit {scan}: {poses.shape} against {want.shape}")
+    err = np.abs(poses.astype(np.float64) - want).max(axis=(1, 2))
+    flags = np.nonzero(promote != ref[f"orbit_{scan}_promote"])[0]
+    inl = float(np.abs(inliers - ref[f"orbit_{scan}_inliers"]).max())
+    log(f"[main] {scan} scan against the reference's ({REFERENCE_FILE}): "
+        f"pose max err {err.max():.3e} at frame {int(err.argmax())}, first "
+        f"frame over {TOL_REF_ORBIT}: {first_over(err, TOL_REF_ORBIT)}; "
+        f"promotion flags {'equal' if not flags.size else 'DIFFER'} "
+        f"({int(promote.sum())} promotions), inlier fraction max err "
+        f"{inl:.3e} ({card})")
+    check(not flags.size, f"reference orbit {scan}: flags differ at frames "
+          f"{flags[:10].tolist()}")
+    check(err.max() <= TOL_REF_ORBIT,
+          f"reference orbit {scan}: pose err {err.max()}")
+    return float(err.max())
+
+
+def hold_loop(ref: dict, variant: str, passes: list, tag: str,
+              card: str) -> float:
+    """Passes of one of bench_slam's variants over the 120-frame loop
+    (`per_frame` or `chunked`) against the reference's: keyframe frame
+    indices and closure pairs equal, every frame's pose within
+    TOL_REF_LOOP_M.  Returns the largest pose error."""
+    want_p = ref[f"loop_{variant}_poses"]
+    want_k = ref[f"loop_{variant}_keyframes"].tolist()
+    want_c = [tuple(c) for c in ref[f"loop_{variant}_closures"].tolist()]
+    worst = 0.0
+    for n, slam in enumerate(passes):
+        est = slam.trajectory()[1]
+        kf = [k.index for k in slam.odo.keyframes]
+        cl = [(c.i, c.j) for c in slam.closures]
+        check(est.shape == want_p.shape,
+              f"{tag}: {variant} poses {est.shape} against {want_p.shape}")
+        err = np.abs(est - want_p).max(axis=(1, 2))
+        part_k = next((i for i, (a, b) in enumerate(zip(kf, want_k))
+                       if a != b), None if len(kf) == len(want_k)
+                      else min(len(kf), len(want_k)))
+        part_c = next((i for i, (a, b) in enumerate(zip(cl, want_c))
+                       if a != b), None if len(cl) == len(want_c)
+                      else min(len(cl), len(want_c)))
+        log(f"[{tag}] {variant} pass {n} against the reference's "
+            f"({REFERENCE_FILE}): pose max err {err.max():.3e} at frame "
+            f"{int(err.argmax())}, first frame over {TOL_REF_LOOP_M}: "
+            f"{first_over(err, TOL_REF_LOOP_M)}; keyframes {len(kf)} "
+            + ("equal" if part_k is None else
+               f"DIFFER from keyframe {part_k}") + f", closures {len(cl)} "
+            + ("equal" if part_c is None else
+               f"DIFFER from closure {part_c}: {cl} against {want_c}")
+            + f" ({card})")
+        check(part_k is None, f"{tag}: {variant} keyframes {kf} against "
+              f"{want_k}")
+        check(part_c is None, f"{tag}: {variant} closures {cl} against "
+              f"{want_c}")
+        check(err.max() <= TOL_REF_LOOP_M,
+              f"{tag}: {variant} pose err {err.max()}")
+        worst = max(worst, float(err.max()))
+    return worst
 
 
 class PassLog:
@@ -2700,12 +2864,14 @@ def coldstart_runs(card: str, build_line: str) -> list:
     return runs
 
 
-def backend_phase(dev, card: str, counters, loop, build_line: str) -> dict:
+def backend_phase(dev, card: str, counters, loop, build_line: str,
+                  ref: dict) -> dict:
     """Phase 17 (module doc): the kernels on two streams, bench_slam's five
     variants at 640×480 with the worker thread's attempts on a stream of
-    their own, inline chunks with the worker against the CPU twins, and
-    the cold start twice.  Returns the main path's launches (17b) and the
-    worker streams' share."""
+    their own (its per-frame and chunked synchronous passes held to the
+    reference's results `ref`), inline chunks with the worker against the
+    CPU twins, and the cold start twice.  Returns the main path's launches
+    (17b) and the worker streams' share."""
     from tpuslam_torch.bench.harness import bench_slam
     from tpuslam_torch.bench.two_streams import check_two_streams
     from tpuslam_torch.config import (
@@ -2798,6 +2964,13 @@ def backend_phase(dev, card: str, counters, loop, build_line: str) -> dict:
     check(main_stream not in w_handles and on_workers["gn_step"] > 0
           and on_workers["correspond"] > 0,
           f"backend: the worker streams launched {on_workers}")
+    # the reference's per-frame and boundary-chunk synchronous passes
+    sync = [(c, s) for c, o, _, s in passes.made
+            if not o.get("async_backend")
+            and o.get("chunk_mode", "boundary") == "boundary"]
+    hold_loop(ref, "per_frame", [s for c, s in sync if c == 0], "backend",
+              card)
+    hold_loop(ref, "chunked", [s for c, s in sync if c], "backend", card)
     log(f"[backend] (b) took {time.perf_counter() - t0:.3f} s")
 
     # (c) inline chunks of 8 with the worker on the card against the same
@@ -3226,10 +3399,16 @@ def main() -> int:
     # ---- 6. main path of the odometry slice (unfused) ----
     orbit = _render_sequence(240, 480, 640)
     reset_counts()
+    scans: dict = {}
     res = run_bench(frames=240, height=480, width=640, device="cuda",
-                    sequence=orbit, slam_frames=None, loader_frames=None)
+                    sequence=orbit, slam_frames=None, loader_frames=None,
+                    outputs=scans)
     launches, plain = read_counts()
     log(f"[main] {json.dumps(res)}")
+    ref = reference_results()
+    for scan in ("classic", "boundary"):
+        hold_orbit(ref, scan, scans[scan], card)
+    del scans
     # the ICP iteration latency op by op, beside run_bench's replayed one
     from tpuslam_torch.icp import align_frames_jit
 
@@ -3242,8 +3421,8 @@ def main() -> int:
     eager_iter_ms = wall_ms(lambda: align_frames_jit(
         (pb_o,), (pa_o,), K_o, torch.eye(4, device=dev), one_level,
         eager=True), 5, False) / 50
-    log(f"[main] fps {res['fps']:.3f}, ms/frame {res['ms_per_frame']:.4f}, "
-        f"ATE {res['ate_rmse_m']:.3e} m; boundary fps "
+    log(f"[main] fps {res['fps_per_chip']:.3f}, ms/frame "
+        f"{res['ms_per_frame']:.4f}, ATE {res['ate_rmse_m']:.3e} m; boundary fps "
         f"{res['fps_per_chip_boundary']:.3f}, ms/frame "
         f"{res['ms_per_frame_boundary']:.4f}, ATE "
         f"{res['ate_rmse_m_boundary']:.3e} m; headline "
@@ -3283,8 +3462,8 @@ def main() -> int:
                       loader_frames=None)
     launches_f, plain_f = read_counts()
     log(f"[fused] {json.dumps(res_f)}")
-    log(f"[fused] fps {res_f['fps']:.3f} (unfused, phase 6: "
-        f"{res['fps']:.3f}), ms/frame {res_f['ms_per_frame']:.4f} "
+    log(f"[fused] fps {res_f['fps_per_chip']:.3f} (unfused, phase 6: "
+        f"{res['fps_per_chip']:.3f}), ms/frame {res_f['ms_per_frame']:.4f} "
         f"(unfused {res['ms_per_frame']:.4f}), icp_iter_latency_ms "
         f"{res_f['icp_iter_latency_ms']:.5f} (unfused "
         f"{res['icp_iter_latency_ms']:.5f}), ATE {res_f['ate_rmse_m']:.3e} m"
@@ -3394,9 +3573,16 @@ def main() -> int:
     slam_res = {}
     for fused in (False, True):
         before, _ = read_counts()
-        r = run_slam_bench(120, 480, 640, device="cuda", fused_gn=fused,
-                           reps=3, sequence=loop)
+        with PassLog() as passes:
+            r = run_slam_bench(120, 480, 640, device="cuda", fused_gn=fused,
+                               reps=3, sequence=loop)
         after, _ = read_counts()
+        if not fused:
+            # the synchronous passes are bench_slam's chunked variant
+            hold_loop(ref, "chunked", [
+                s for _, o, _, s in passes.made
+                if not o.get("async_backend")], "slam", card)
+        del passes
         slam_res[fused] = r
         ran = {k: after[k] - before[k] for k in after}
         log(f"[slam] {json.dumps(r)}")
@@ -3584,7 +3770,8 @@ def main() -> int:
         return optimize_map_ba(graph, prob, pg_cfg, huber_delta=huber_delta)
     slam_module.optimize_map_ba = keep_ba     # phase 16 re-solves its BA
     try:
-        launches_grid = grid_phase(dev, card, counters, loop, map_fps)
+        launches_grid = grid_phase(dev, card, counters, loop, map_fps,
+                                   grid_stats, table_stats)
     finally:
         slam_module.optimize_map_ba = optimize_map_ba
     log(f"[grid] phase took {time.perf_counter() - t0:.3f} s")
@@ -3614,7 +3801,7 @@ def main() -> int:
 
     # ---- 17. backend: the worker thread's stream, bench_slam, cold start --
     t0 = time.perf_counter()
-    backend = backend_phase(dev, card, counters, loop, build_line)
+    backend = backend_phase(dev, card, counters, loop, build_line, ref)
     log(f"[backend] phase took {time.perf_counter() - t0:.3f} s")
     del loop
 

@@ -2,7 +2,9 @@
 harness.py) against the reference's (tpuslam/bench/harness.py) at cut
 sizes, on CPU; `bench_slam`'s keys against the reference's (read from its
 source: running its five JAX variants would compile each) and `run_bench`'s
-nested `slam` and `loader`; `run_bench`'s boundary variant and headline
+nested `slam` and `loader`; `run_bench`'s top-level keys against the
+reference's on the same call (a superset, `fps_reps` rounded to 0.1, the
+reference's default of 120 frames); its boundary variant and headline
 (its keys read from the reference's source, its boundary poses against
 the reference's scan on the same depths, the headline by the reference's
 own selection statement, executed).
@@ -176,6 +178,23 @@ def test_headline_variant_is_the_reference_rule(ate, ate_b,
     assert port.headline_variant(ate, spf, ate_b, spf_b) == want
 
 
+def test_run_bench_keys_are_a_superset_of_the_references():
+    """`run_bench` at 16 frames 120×160, the port's and the reference's
+    on the same call (one device, no SLAM pass): every top-level key the
+    reference returns, `fps_reps` rounded to 0.1 as the reference rounds
+    them, and the reference's default of 120 frames."""
+    kw = dict(frames=16, height=120, width=160, warmup=0, slam_frames=None)
+    want = ref.run_bench(devices=1, **kw)
+    got = port.run_bench(device="cpu", reps=1, **kw)
+    assert set(want) <= set(got), set(want) - set(got)
+    for key in ("fps_reps", "fps_reps_boundary"):
+        assert got[key] == [round(v, 1) for v in got[key]], key
+    assert got["ms_per_frame"] == pytest.approx(1e3 / got["fps_per_chip"])
+    assert got["compile_plus_first_run_s"] > 0
+    for fn in (ref.run_bench, port.run_bench):
+        assert inspect.signature(fn).parameters["frames"].default == 120
+
+
 def test_run_bench_boundary_variant_matches_reference(monkeypatch):
     """16 frames of the orbit at 120×160: `run_bench` returns every key
     the reference's returns for the boundary variant and the headline;
@@ -224,9 +243,9 @@ def test_run_bench_boundary_variant_matches_reference(monkeypatch):
     assert len(r["fps_reps_boundary"]) == 1
     want = reference_headline_rule()(
         {"rmse": r["ate_rmse_m"]}, {"rmse": r["ate_rmse_m_boundary"]},
-        16 / r["fps"], 16, 16 / r["fps_per_chip_boundary"], 16,
-        {"fps_per_chip": r["fps"],
+        16 / r["fps_per_chip"], 16, 16 / r["fps_per_chip_boundary"], 16,
+        {"fps_per_chip": r["fps_per_chip"],
          "fps_per_chip_boundary": r["fps_per_chip_boundary"]})
     assert r["headline_variant"] == want
     assert r["fps_headline"] == (r["fps_per_chip_boundary"]
-                                 if want == "boundary" else r["fps"])
+                                 if want == "boundary" else r["fps_per_chip"])

@@ -2095,3 +2095,93 @@ def test_sharded_programs_on_a_one_rank_group(dev, backend, program):
         mesh_mod.drop_graphs()    # they hold NCCL collectives
         dist.destroy_process_group()
         graphs.clear()
+
+
+# ---- the distributed programs ---------------------------------------------
+
+
+def _dist_program_calls(mi, mesh):
+    """The edge-sharded pose graph and the landmark-sharded map BA on
+    `_graph_and_problem`'s chain, and the batched aligner on two pairs
+    (frame 5 against frame 6, from the identity and from 1 cm off), on
+    `mesh`, as call(eager) → outputs."""
+    from tpuslam_torch.backend import map_ba
+    from tpuslam_torch.backend.distba import optimize_pose_graph_spmd
+    from tpuslam_torch.dist.batch_eval import make_batched_aligner
+    from tpuslam_torch.icp import Frame
+
+    dev = mi["d"].device
+    graph, prob, pg = _graph_and_problem(dev)
+    pyr5 = preprocess(mi["d"][5], K, mi["cfg"])
+    src, dst = (tuple(Frame(*(torch.stack([t, t]) for t in f)) for f in p)
+                for p in (pyr5, mi["pyr"]))
+    T0s = torch.eye(4, device=dev).repeat(2, 1, 1)
+    T0s[1, 0, 3] = 0.01
+    batched = make_batched_aligner(mesh, mi["cfg"].icp)
+    return {
+        "optimize_pose_graph_spmd": lambda e: optimize_pose_graph_spmd(
+            graph, pg, mesh, eager=e),
+        "optimize_map_ba_spmd": lambda e: map_ba.optimize_map_ba_spmd(
+            graph, prob, pg, mesh, eager=e),
+        "batched_align_frames": lambda e: batched(src, dst, K, T0s,
+                                                  eager=e),
+    }
+
+
+DIST_PROGRAMS = ("optimize_pose_graph_spmd", "optimize_map_ba_spmd",
+                 "batched_align_frames")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", DIST_PROGRAMS)
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_distributed_programs_on_a_one_rank_group(dev, backend, program):
+    """The edge-sharded pose graph, the landmark-sharded map BA and the
+    batched aligner under a one-rank process group on the card: over NCCL
+    each is captured with its collectives inside and replays bit-equal to
+    the eager run, its replays counting the graph's hand-kernel launches
+    (the aligner's gn_step and correspond); over gloo none ever captures.
+    No plain twin runs."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpuslam_torch import graphs
+    from tpuslam_torch.bench.harness import kernel_counters
+    from tpuslam_torch.dist import mesh as mesh_mod
+    from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
+
+    mi = _map_inputs(dev)
+    graphs.clear()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"tcp://localhost:{port}", world_size=1, rank=0,
+                           backend=backend, timeout_s=60)
+    try:
+        mesh = make_mesh(dev)
+        assert mesh_mod.captures(mesh) == (backend == "nccl")
+        call = _dist_program_calls(mi, mesh)[program]
+        ref = [t.clone() for t in _flat(call(True))]
+        counters = kernel_counters()
+        for c in counters.values():
+            c.reset()
+        got = [[t.clone() for t in _flat(call(False))] for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(_bits_equal(g, ref) for g in got)
+        assert all(c.plain_calls == 0 for c in counters.values())
+        entries = [e for e in graphs.stats() if e["program"] == program]
+        if backend == "nccl":
+            assert len(entries) == 1 and entries[0]["captured"]
+            assert entries[0]["replays"] == 2
+            if program == "batched_align_frames":
+                for name in ("gn_step", "correspond"):
+                    assert entries[0]["kernel_launches"][
+                        counters[name].name] > 0
+                    assert counters[name].launches % 3 == 0
+        else:
+            assert entries == []
+    finally:
+        mesh_mod.drop_graphs()    # they hold NCCL collectives
+        dist.destroy_process_group()
+        graphs.clear()

@@ -224,5 +224,5 @@ def test_harness_runs_small_on_cpu():
     assert res["device"] == "cpu" and res["frames"] == 6
     assert res["poses_finite"] and res["ate_rmse_m"] < 1e-3
     assert res["icp_iter_count"] == 50
-    for key in ("fps", "ms_per_frame", "icp_iter_latency_ms"):
+    for key in ("fps_per_chip", "ms_per_frame", "icp_iter_latency_ms"):
         assert res[key] > 0

@@ -54,6 +54,17 @@ sharded fusion and point-sharded ICP), on the same loop:
     pad with row 0; a gloo mesh never captures the fusion or the ICP;
   * a revisit turned by a yaw, verified from the identity through the
     graphed batches, takes the reference's gate decision.
+
+The distributed programs (the edge-sharded pose graph, the landmark-
+sharded map BA, the batched aligner), on the reference's own problems of
+tests/test_torch_dist.py and two frame pairs of the loop: each key
+changes with each static argument (a mesh of another group, the config,
+the Huber widths, the bucket, landmarks and observations, K, the batch
+size, the pyramid's levels) and not with tensor values; under `SimGraphs`
+a key's first call, its capture and a replay give the eager bits on a
+one-rank mesh without a group; a gloo mesh never captures them; a replay
+is held to the reference's jitted program on one device with the
+tolerance of the function's own parity test.
 """
 
 import contextlib
@@ -1497,3 +1508,217 @@ def test_yawed_revisit_through_graphed_verification_matches_reference(
           f"{gap_r:.3e} rad")
     if yaw == REVISIT_YAWS[0]:
         assert closes
+
+
+# ---------------------------------------------------------------------------
+# The distributed programs: the edge-sharded pose graph, the landmark-
+# sharded map BA and the batched aligner
+# ---------------------------------------------------------------------------
+
+DIST_PROGRAMS = ("optimize_pose_graph_spmd", "optimize_map_ba_spmd",
+                 "batched_align_frames")
+# tolerances to the reference, as each function's own parity test holds it
+TOL_DIST_PG = 5e-4      # tests/test_torch_dist.py TOL_PG
+TOL_DIST_BA = 5e-5      # tests/test_torch_map_ba.py (tests/test_map_ba.py)
+TOL_DIST_BATCH = 2e-4   # tests/test_torch_batch_eval.py TOL_T
+
+
+@pytest.fixture(scope="module")
+def dist_inputs(last_inputs):
+    """The reference's own problems of tests/test_torch_dist.py (the noisy
+    10-node ring with a loop edge; tests/test_map_ba.py's SLAM-like map BA
+    problem), as the reference's trees and the port's, and a batch of two
+    frame pairs (frame 5 against frame 6, from the identity and from 1 cm
+    off)."""
+    from tests.test_torch_dist import ring_graph, slam_cfg
+    from tests.test_map_ba import _make_slam_like
+    from tpuslam_torch.icp import Frame
+    from tpuslam_torch.interop import (
+        map_ba_problem_from_reference,
+        pose_graph_from_reference,
+    )
+
+    r_graph, r_pg_cfg = ring_graph()
+    _gt, _init, r_prob, r_bgraph, r_ba_cfg, _m = _make_slam_like(
+        np.random.default_rng(1))
+    li = last_inputs
+    moved = torch.eye(4)
+    moved[0, 3] = 0.01
+    T0s = torch.stack([torch.eye(4), moved])
+
+    def stack(pyr):
+        return tuple(Frame(*(torch.stack([t, t]) for t in f)) for f in pyr)
+
+    return dict(
+        mesh=li["mesh"], r_graph=r_graph, r_pg_cfg=r_pg_cfg,
+        graph=pose_graph_from_reference(r_graph, "cpu"),
+        pg_cfg=slam_cfg(posegraph=r_pg_cfg).posegraph,
+        r_bgraph=r_bgraph, r_prob=r_prob, r_ba_cfg=r_ba_cfg,
+        bgraph=pose_graph_from_reference(r_bgraph, "cpu"),
+        prob=map_ba_problem_from_reference(r_prob, "cpu"),
+        ba_cfg=slam_cfg(posegraph=r_ba_cfg).posegraph,
+        src=stack(li["pyr5"]), dst=stack(li["pyr"]), T0s=T0s)
+
+
+def first_members(pyr, n: int):
+    """The first `n` members of a batched pyramid."""
+    return tuple(type(f)(*(t[:n] for t in f)) for f in pyr)
+
+
+def _dist_program_calls(di):
+    """name → (call(**changes) with the program's arguments, {what: the
+    changes that give another key}, changes of tensor values only)."""
+    from tpuslam_torch.backend.distba import optimize_pose_graph_spmd
+    from tpuslam_torch.dist.batch_eval import make_batched_aligner
+
+    group = Mesh(GROUPS[0], 0, 1, torch.device("cpu"))
+    icp = MAP_CFG.icp
+    icp2 = dataclasses.replace(icp, max_iters=icp.max_iters + 1)
+    g, pg = di["graph"], di["pg_cfg"]
+    prob, ba = di["prob"], di["ba_cfg"]
+    # another bucket: the graph's storage doubled with unused slots
+    g2 = posegraph.PoseGraph(
+        torch.cat([g.poses, torch.eye(4).expand_as(g.poses)]),
+        torch.cat([g.node_mask, torch.zeros_like(g.node_mask)]),
+        *(torch.cat([t, torch.zeros_like(t)]) for t in g[2:]))
+    noisy = g._replace(poses=g.poses.clone())
+    noisy.poses[1:, 0, 3] += 0.01
+    # more landmarks (the map twice: every observation still indexes it)
+    wide = prob._replace(**{f: torch.cat([getattr(prob, f)] * 2) for f in (
+        "map_points", "map_normals", "map_mask")})
+    half = prob._replace(**{f: getattr(prob, f)[:prob.obs_w.shape[0] // 2]
+                            for f in ("obs_pose", "obs_map", "obs_p",
+                                      "obs_w")})
+    moved = di["T0s"].clone()
+    moved[:, 1, 3] += 0.01
+    return {
+        "optimize_pose_graph_spmd": (
+            lambda mesh=di["mesh"], graph=g, cfg=pg, huber=0.5,
+            eager=False: optimize_pose_graph_spmd(graph, cfg, mesh, huber,
+                                                  eager=eager),
+            {"a mesh of a group": dict(mesh=group),
+             "cfg": dict(cfg=dataclasses.replace(pg, gn_iters=3)),
+             "huber": dict(huber=0.4), "bucket": dict(graph=g2)},
+            dict(graph=noisy)),
+        "optimize_map_ba_spmd": (
+            lambda mesh=di["mesh"], graph=di["bgraph"], prob=prob, cfg=ba,
+            huber=0.05, edge_huber=0.5, eager=False:
+            map_ba.optimize_map_ba_spmd(graph, prob, cfg, mesh, huber,
+                                        edge_huber, eager=eager),
+            {"a mesh of a group": dict(mesh=group),
+             "cfg": dict(cfg=dataclasses.replace(ba, gn_iters=3)),
+             "huber": dict(huber=0.04), "edge huber": dict(edge_huber=0.4),
+             "landmarks": dict(prob=wide), "observations": dict(prob=half)},
+            dict(prob=prob._replace(obs_p=prob.obs_p * 1.01))),
+        "batched_align_frames": (
+            lambda mesh=di["mesh"], icp=icp, K=K, src=di["src"],
+            dst=di["dst"], T0s=di["T0s"], eager=False:
+            make_batched_aligner(mesh, icp)(src, dst, K, T0s, eager=eager),
+            {"a mesh of a group": dict(mesh=group), "cfg": dict(icp=icp2),
+             "K": dict(K=K._replace(fx=K.fx * 1.01)),
+             "batch": dict(src=first_members(di["src"], 1),
+                           dst=first_members(di["dst"], 1),
+                           T0s=di["T0s"][:1]),
+             "levels": dict(src=di["src"][:2], dst=di["dst"][:2])},
+            dict(T0s=moved)),
+    }
+
+
+def test_dist_program_calls_cover_every_program(dist_inputs):
+    assert tuple(_dist_program_calls(dist_inputs)) == DIST_PROGRAMS
+    assert set(DIST_PROGRAMS) <= {p.name for p in graphs._programs}
+    from tpuslam_torch.dist import mesh as mesh_mod
+
+    assert set(DIST_PROGRAMS) <= {p.name for p in
+                                  mesh_mod._collective_programs}
+
+
+@pytest.mark.parametrize("program", DIST_PROGRAMS)
+def test_dist_program_key_changes_with_each_static_argument(
+        dist_inputs, monkeypatch, program):
+    monkeypatch.setattr(torch.distributed, "get_backend",
+                        lambda group: "nccl")
+    call, changes, values = _dist_program_calls(dist_inputs)[program]
+    k0 = entry_key(call)
+    assert entry_key(lambda: call(**values)) == k0          # values: no
+    keys = {what: entry_key(lambda kw=kw: call(**kw))
+            for what, kw in changes.items()}
+    assert all(k != k0 for k in keys.values()), keys
+    assert len(set(keys.values())) == len(keys)
+
+
+@pytest.mark.parametrize("program", DIST_PROGRAMS)
+def test_dist_program_replays_give_its_eager_bits(dist_inputs, sim,
+                                                  program):
+    """The first call (the warm-up), the second (the capture and a
+    replay) and a third (a replay), each bit-equal to the eager run, on a
+    one-rank mesh without a group."""
+    call = _dist_program_calls(dist_inputs)[program][0]
+    ref = bits(call(eager=True))
+    got = [bits(call()) for _ in range(3)]
+    assert all(same_bits(g, ref) for g in got)
+    (entry,) = [e for e in graphs.stats() if e["program"] == program]
+    assert entry["captured"] and entry["replays"] == 2
+
+
+@pytest.mark.parametrize("program", DIST_PROGRAMS)
+def test_a_gloo_mesh_never_captures_the_distributed_programs(
+        dist_inputs, sim, tmp_path, program):
+    """On a gloo group each runs op by op whatever the tensors' device
+    (`mesh.captures`): no key is ever made, and every call gives the
+    eager bits."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh("cpu")
+        assert mesh.backend == "gloo" and not ring_map.captures(mesh)
+        call = _dist_program_calls(dist_inputs)[program][0]
+        outs = [bits(call(mesh=mesh)) for _ in range(3)]
+        assert not [e for e in graphs.stats() if e["program"] == program]
+        assert all(same_bits(o, outs[0]) for o in outs[1:])
+        assert same_bits(outs[0], call(mesh=mesh, eager=True))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("program", DIST_PROGRAMS)
+def test_dist_program_replay_matches_reference(dist_inputs, sim, program):
+    """Each program's third call (a replay) on a one-rank mesh against the
+    reference's jitted program on a one-device mesh, with the tolerance
+    of the function's own parity test."""
+    from tpuslam.backend import map_ba as rba
+    from tpuslam.backend.distba import optimize_pose_graph_spmd as r_pg
+    from tpuslam.dist import batch_eval as rbatch
+
+    di = dist_inputs
+    call = _dist_program_calls(di)[program][0]
+    for _ in range(2):
+        call()
+    got = call()
+    rmesh1 = rmesh.make_mesh(1)
+    if program == "optimize_pose_graph_spmd":
+        want, want_cost = r_pg(di["r_graph"], di["r_pg_cfg"], rmesh1)
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want),
+                                   atol=TOL_DIST_PG)
+        np.testing.assert_allclose(float(got[1]), float(want_cost),
+                                   rtol=1e-3)
+    elif program == "optimize_map_ba_spmd":
+        rp, rm, _rc = rba.optimize_map_ba_spmd(
+            di["r_bgraph"], di["r_prob"], di["r_ba_cfg"], rmesh1)
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(rp),
+                                   atol=TOL_DIST_BA)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(rm),
+                                   atol=TOL_DIST_BA)
+    else:
+        want = rbatch.make_batched_aligner(rmesh1, MAP_REF_CFG.icp)(
+            _r_pyr(di["src"]), _r_pyr(di["dst"]), REF_K, _r(di["T0s"]))
+        assert got.T.shape == (2, 4, 4)
+        np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T),
+                                   atol=TOL_DIST_BATCH)
+        np.testing.assert_array_equal(got.iters.numpy(),
+                                      np.asarray(want.iters))
+        np.testing.assert_array_equal(got.converged.numpy(),
+                                      np.asarray(want.converged))

@@ -33,7 +33,10 @@ by the rank that owns their landmark, on the host) and the graph's edges
 as `backend/distba.py` does.  Each rank eliminates its own landmarks,
 adds its edges' system, and one `all_reduce` a GN round sums the reduced
 (6N, 6N) systems and costs; every rank solves the sum and back-substitutes
-only its own landmarks, so no landmark crosses ranks until the end.
+only its own landmarks, so no landmark crosses ranks until the end.  Its
+rounds and the closing `all_gather` of the map are one CUDA graph on a
+mesh without a group or over NCCL (`mesh.captures`); over gloo they run
+op by op.  The partition stays on the host, as in the reference.
 """
 
 from __future__ import annotations
@@ -53,7 +56,12 @@ from tpuslam_torch.backend.posegraph import (
 )
 from tpuslam_torch.backend.distba import all_reduce_system, shard_edges
 from tpuslam_torch.config import PoseGraphConfig
-from tpuslam_torch.dist.mesh import Mesh, replicate
+from tpuslam_torch.dist.mesh import (
+    Mesh,
+    captures,
+    collective_program,
+    replicate,
+)
 from tpuslam_torch.geom import se3
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.kernels.correspond import (
@@ -245,19 +253,57 @@ def partition_observations(prob: MapBAProblem, n_dev: int,
     return new_prob, m_per, dropped
 
 
+def _optimize_map_ba_spmd(_state, graph: PoseGraph, local: MapBAProblem,
+                          *, cfg: PoseGraphConfig, huber_delta: float,
+                          edge_huber_delta: float, mesh: Mesh,
+                          landmarks: int):
+    """The rounds on this rank's landmarks, observations and edges
+    (`graph`'s edge arrays), then the map gathered and cut to the
+    problem's `landmarks`."""
+    info = _info_vector(cfg, graph.poses)
+    poses, map_pts = graph.poses, local.map_points
+    cost = torch.full((), float("inf"), device=poses.device)
+    for _ in range(cfg.gn_iters):
+        p = local._replace(map_points=map_pts)
+        H_pp, b_p, U, a, c, cost_map = map_ba_partials(poses, p, huber_delta)
+        # this rank's landmarks eliminated here, then the one all-reduce
+        H_red, b_red = schur_reduce(H_pp, b_p, U, a, c)
+        H_e, b_e, cost_e = edge_normal_system(
+            poses, graph.edge_i, graph.edge_j, graph.edge_T,
+            graph.edge_weight, info, edge_huber_delta)
+        H, b, cost = all_reduce_system(mesh, H_red + H_e, b_red + b_e,
+                                       cost_map + cost_e)
+        delta = _solve_gauged(poses, graph.node_mask, H, b, cfg)
+        ds = backsub_landmarks(delta, U, a, c)     # our landmarks only
+        poses = se3.exp(delta.reshape(-1, 6)) @ poses
+        map_pts = map_pts + ds[:, None] * local.map_normals
+    return (), (poses, mesh.all_gather(map_pts)[:landmarks], cost)
+
+
+# the reference's jitted shard_map: one graph a (mesh, cfg, Huber widths,
+# the graph's buckets, landmarks a rank, the observations' capacity, the
+# problem's landmarks), its all-reduces and all-gather inside, where
+# `captures` allows
+_OPTIMIZE_MAP_BA_SPMD = collective_program("optimize_map_ba_spmd",
+                                           _optimize_map_ba_spmd)
+
+
 def optimize_map_ba_spmd(graph: PoseGraph, prob: MapBAProblem,
                          cfg: PoseGraphConfig, mesh: Mesh,
                          huber_delta: float = 0.05,
-                         edge_huber_delta: float = 0.5):
+                         edge_huber_delta: float = 0.5,
+                         eager: bool = False):
     """Distributed `optimize_map_ba`: the same inputs and outputs (poses
     (N, 4, 4), map points (M, 3), the last round's cost ()), whole on every
     rank and on the mesh's device.
 
     The landmarks and their observations are split by
-    `partition_observations`, the edges by `distba.shard_edges`.  The sums
-    of the ranks' partial systems are the single-device sums up to the
-    order of float additions; observations over a bucket's capacity are
-    dropped, as in the reference.
+    `partition_observations`, the edges by `distba.shard_edges`, on the
+    host.  The sums of the ranks' partial systems are the single-device
+    sums up to the order of float additions; observations over a bucket's
+    capacity are dropped, as in the reference.  On the card the rounds and
+    the gather are one CUDA graph a key on a mesh without a group or over
+    NCCL (`mesh.captures`); over gloo, on the CPU or with `eager` op by op.
     """
     M = prob.map_points.shape[0]
     sprob, m_per, _dropped = partition_observations(prob, mesh.size)
@@ -271,23 +317,12 @@ def optimize_map_ba_spmd(graph: PoseGraph, prob: MapBAProblem,
         obs_map=sprob.obs_map[ob], obs_p=sprob.obs_p[ob],
         obs_w=sprob.obs_w[ob]), mesh)
     edge_i, edge_j, edge_T, edge_w = shard_edges(graph, mesh)
-    info = _info_vector(cfg, graph.poses)
-    poses, map_pts = graph.poses, local.map_points
-    cost = torch.full((), float("inf"), device=poses.device)
-    for _ in range(cfg.gn_iters):
-        p = local._replace(map_points=map_pts)
-        H_pp, b_p, U, a, c, cost_map = map_ba_partials(poses, p, huber_delta)
-        # this rank's landmarks eliminated here, then the one all-reduce
-        H_red, b_red = schur_reduce(H_pp, b_p, U, a, c)
-        H_e, b_e, cost_e = edge_normal_system(
-            poses, edge_i, edge_j, edge_T, edge_w, info, edge_huber_delta)
-        H, b, cost = all_reduce_system(mesh, H_red + H_e, b_red + b_e,
-                                       cost_map + cost_e)
-        delta = _solve_gauged(poses, graph.node_mask, H, b, cfg)
-        ds = backsub_landmarks(delta, U, a, c)     # our landmarks only
-        poses = se3.exp(delta.reshape(-1, 6)) @ poses
-        map_pts = map_pts + ds[:, None] * local.map_normals
-    return poses, mesh.all_gather(map_pts)[:M], cost
+    graph = graph._replace(edge_i=edge_i, edge_j=edge_j, edge_T=edge_T,
+                           edge_weight=edge_w)
+    return _OPTIMIZE_MAP_BA_SPMD.run(
+        graph, local, eager=eager or not captures(mesh), cfg=cfg,
+        huber_delta=huber_delta, edge_huber_delta=edge_huber_delta,
+        mesh=mesh, landmarks=M)
 
 
 def build_map_ba_problem(kf_poses: torch.Tensor, kf_points: torch.Tensor,

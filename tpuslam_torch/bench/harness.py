@@ -91,12 +91,13 @@ def _device_name(dev: torch.device) -> str:
             else str(dev))
 
 
-def run_bench(frames: int = 240, height: int = 480, width: int = 640,
+def run_bench(frames: int = 120, height: int = 480, width: int = 640,
               device: str = "cuda", warmup: int = 1, reps: int = 3,
               fused_gn: bool = False, sequence=None,
               config_path: str | None = None,
               devices: int | None = None, slam_frames: int | None = 120,
-              loader_frames: int | None = 40) -> dict:
+              loader_frames: int | None = 40,
+              outputs: dict | None = None) -> dict:
     """Odometry throughput and ATE of the classic and the boundary scan,
     the headline variant, ICP-iteration latency (module doc), then, as the
     reference's, the host loader (`loader`: `bench_loader` on
@@ -112,7 +113,10 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
     single-rank `align_frames_jit`, each a replay on the card
     (`spmd_align_ms`, `single_align_ms`,
     `scaling_efficiency`, `n_devices`); with no `devices` a group of more
-    than one rank adds them too, as the reference does for its devices."""
+    than one rank adds them too, as the reference does for its devices.
+    `outputs`: a dict that receives the last timed call's outputs of each
+    scan, `classic` and `boundary`, each (poses, promotion flags, inlier
+    fractions) on the device."""
     from tpuslam_torch.dist.mesh import make_mesh
     from tpuslam_torch.eval.ate import ate_rmse
     from tpuslam_torch.frontend import (
@@ -153,7 +157,7 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
     t0 = time.perf_counter()
     out = scan_odometry(depths, K, cfg)
     _fence(dev)
-    result["first_run_s"] = time.perf_counter() - t0
+    result["compile_plus_first_run_s"] = time.perf_counter() - t0
     for _ in range(warmup):
         scan_odometry(depths, K, cfg)
     _fence(dev)
@@ -164,10 +168,12 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
         _fence(dev)
         walls.append(time.perf_counter() - t0)
     wall = min(walls)
-    result["fps"] = frames / wall
+    result["fps_per_chip"] = frames / wall
     result["ms_per_frame"] = wall / frames * 1e3
-    result["fps_reps"] = [frames / w for w in walls]
+    result["fps_reps"] = [round(frames / w, 1) for w in walls]
 
+    if outputs is not None:
+        outputs["classic"] = out
     poses = out[0].cpu().numpy().astype(np.float64)
     result["poses_finite"] = bool(np.all(np.isfinite(poses)))
     result["keyframes"] = int(out[1].sum().item())
@@ -183,7 +189,7 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
     bchunk = 8
     fb = frames - frames % bchunk
     result["headline_variant"] = "classic"
-    result["fps_headline"] = result["fps"]
+    result["fps_headline"] = result["fps_per_chip"]
     if fb:
         depths_b = depths[:fb]
         scan_odometry_boundary_jit(depths_b, K, cfg, bchunk)
@@ -195,9 +201,11 @@ def run_bench(frames: int = 240, height: int = 480, width: int = 640,
             _fence(dev)
             walls_b.append(time.perf_counter() - t0)
         wall_b = min(walls_b)
+        if outputs is not None:
+            outputs["boundary"] = out_b
         result["fps_per_chip_boundary"] = fb / wall_b
         result["ms_per_frame_boundary"] = wall_b / fb * 1e3
-        result["fps_reps_boundary"] = [fb / w for w in walls_b]
+        result["fps_reps_boundary"] = [round(fb / w, 1) for w in walls_b]
         ate_b = ate_rmse(ts[:fb], out_b[0].cpu().numpy().astype(np.float64),
                          ts[:fb], np.asarray(gt_poses)[:fb])["rmse"]
         result["ate_rmse_m_boundary"] = ate_b

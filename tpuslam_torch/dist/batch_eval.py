@@ -8,7 +8,11 @@ results in batch order.
 
 Where the reference `vmap`s `icp.align_frames` (each member stops with its
 own result), a rank here runs `icp.align_frames` on its members one after
-another, with its kernels on the card (`correspond`, `gn_step`).
+another, with its kernels on the card (`correspond`, `gn_step`).  Each
+member's loops have a fixed budget and a DONE flag on the device (icp.py),
+so nothing reads back to the host: the members and the `all_gather` are
+one CUDA graph, as the reference jits its `vmap`, on a mesh without a
+group or over NCCL (`mesh.captures`); over gloo they run op by op.
 """
 
 from __future__ import annotations
@@ -16,7 +20,13 @@ from __future__ import annotations
 import torch
 
 from tpuslam_torch.config import ICPConfig, Intrinsics
-from tpuslam_torch.dist.mesh import Mesh, shard_leading, tree_map
+from tpuslam_torch.dist.mesh import (
+    Mesh,
+    captures,
+    collective_program,
+    shard_leading,
+    tree_map,
+)
 from tpuslam_torch.icp import ICPResult, align_frames
 
 # an ICPResult's fields as one float32 row, for the one all_gather
@@ -51,19 +61,35 @@ def _unpack(rows: torch.Tensor) -> ICPResult:
         num_inliers=out["num_inliers"][:, 0])
 
 
+def _batched_program(_state, src_pyrs, dst_pyrs, T0s, *, K: Intrinsics,
+                     cfg: ICPConfig, mesh: Mesh):
+    rows = torch.stack([_pack(align_frames(
+        _member(src_pyrs, b), _member(dst_pyrs, b), K, T0s[b], cfg))
+        for b in range(T0s.shape[0])])
+    return (), _unpack(mesh.all_gather(rows))
+
+
+# the reference's jitted vmap: one graph a (mesh, K, cfg, the batch size
+# and the pyramids' shapes), its all-gather inside, where `captures` allows
+_BATCHED = collective_program("batched_align_frames", _batched_program)
+
+
 def make_batched_aligner(mesh: Mesh, cfg: ICPConfig):
-    """`fn(src_pyrs, dst_pyrs, K, T0s) -> ICPResult` with a leading batch
-    dimension on every field.
+    """`fn(src_pyrs, dst_pyrs, K, T0s, eager=False) -> ICPResult` with a
+    leading batch dimension on every field.
 
     Every tensor of the src / dst pyramids and of T0s carries a leading
     batch dimension and is this rank's block of it (`shard_batch`); the
-    result holds the whole batch, in batch order, on every rank.
+    result holds the whole batch, in batch order, on every rank.  On the
+    card one CUDA graph a key on a mesh without a group or over NCCL
+    (`mesh.captures`); over gloo, on the CPU or with `eager` op by op.
     """
-    def fn(src_pyrs, dst_pyrs, K: Intrinsics, T0s: torch.Tensor
-           ) -> ICPResult:
-        rows = torch.stack([_pack(align_frames(
-            _member(src_pyrs, b), _member(dst_pyrs, b), K, T0s[b], cfg))
-            for b in range(T0s.shape[0])])
-        return _unpack(mesh.all_gather(rows))
+    graphed = captures(mesh)
+
+    def fn(src_pyrs, dst_pyrs, K: Intrinsics, T0s: torch.Tensor,
+           eager: bool = False) -> ICPResult:
+        return _BATCHED.run(tuple(src_pyrs), tuple(dst_pyrs), T0s,
+                            eager=eager or not graphed, K=K, cfg=cfg,
+                            mesh=mesh)
 
     return fn
