@@ -174,6 +174,60 @@ def test_correspond_at_pose_matches_reference(level):
         assert torch.equal(a, b)
 
 
+def test_posed_association_on_degraded_depth_parts_only_by_the_transform():
+    """bench_pathology's degraded 640×480 depth (Kinect z² noise, dropout
+    holes, 2% pixel dropout), frame 2 against frame 0 at their true
+    relative pose: the posed association parts from the reference's in a
+    few rows, and every one of them is the ordered transform's 1-ulp
+    rounding: fed the port's transformed points and normals, the
+    reference's association gives the port's rows exactly.  On such depth
+    a flipped row moves a converged pose by ~1e-5, and the reference's own
+    pathology pass moves by up to 8.0e-5 when its depth moves by 1-2 ulp
+    (tests/torch_reference_poses.py, `pathology_rounding_spread`)."""
+    from tpuslam.data.synthetic import burst_trajectory, degrade_depth
+    from tpuslam.geom.backproject import backproject
+
+    Kv = Intrinsics(525.0, 525.0, 319.5, 239.5)
+    gt = burst_trajectory(60, burst_start=30, burst_len=8, burst_rate=0.05)
+    pts, nrm, msk = [], [], []
+    for i in (0, 2):
+        d = degrade_depth(render_depth(gt[i], Kv, 480, 640, seed=i),
+                          seed=100 + i, z_noise_coeff=0.0019,
+                          dropout_holes=3,
+                          edge_dropout=0.02).astype(np.float32)
+        p, m = backproject(jnp.asarray(d), Kv)
+        n, g = r_normals(p, m)
+        pts.append(p), nrm.append(n), msk.append(m & g)
+    table = r_pack(pts[0], nrm[0], msk[0], dtype=jnp.float16)
+    src, src_n = pts[1].reshape(-1, 3), nrm[1].reshape(-1, 3)
+    mask = msk[1].reshape(-1)
+    T = jnp.asarray(np.linalg.inv(gt[0]) @ gt[2], jnp.float32)
+    ref = r_corr(rse3.transform_points(T, src), mask, table, 480, 640, Kv,
+                 0.25, src_normals_in_dst=rse3.rotate_vectors(T, src_n),
+                 normal_dot_min=0.5)
+    ours = correspond.projective_correspond_at_pose(
+        t(src), t(mask), t(src_n), t(table), 480, 640, PIntrinsics(*Kv),
+        0.25, 0.5, gn_epilogue.init_carry(t(T), 12))
+    x = pse3.transform_points_ordered(t(T), t(src)).numpy()
+    n_rot = pse3.rotate_vectors_ordered(t(T), t(src_n)).numpy()
+    ulp = np.abs(x - np.asarray(rse3.transform_points(T, src)))
+    fed = r_corr(jnp.asarray(x), mask, table, 480, 640, Kv, 0.25,
+                 src_normals_in_dst=jnp.asarray(n_rot), normal_dot_min=0.5)
+
+    def differ(a):
+        return ((ours.idx.numpy() != np.asarray(a.idx))
+                | (ours.w.numpy() != np.asarray(a.w)))
+
+    print(f"{int(differ(ref).sum())} of {int(mask.sum())} rows differ; "
+          f"{int((ulp > 0).any(-1).sum())} points 1 ulp apart "
+          f"(max {ulp.max():.2e})")
+    assert differ(ref).mean() <= POSED_MISMATCH_SHARE
+    assert ulp.max() <= 2.4e-7 and (ulp > 0).any()
+    assert not differ(fed).any()
+    for a, b in ((ours.q, fed.q), (ours.n, fed.n)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 def test_ordered_transform_rounds_each_step():
     """transform_points_ordered / rotate_vectors_ordered round every
     product and sum to float32 in the kernels' order (numpy float32)."""

@@ -3,8 +3,11 @@
 tests/torch_reference_poses.py from `tpuslam` on the CPU), on the CPU:
 
   * the file is current: its configs are today's `tpuslam` defaults as
-    the script sets them, and every `tpuslam` file it ran has the blob
-    hash it recorded (a stale file fails here);
+    the script sets them, each pass's config is also the one the port's
+    runner builds (`harness.drift_config`, `scale_config`, ...), the drift
+    bias is the harness's, every pass has its keys (with its short run
+    and, where measured, its spread), and every `tpuslam` file it ran has
+    the blob hash it recorded (a stale file fails here);
   * the port's `scan_odometry` and `scan_odometry_boundary` (chunks of 8)
     over the first 24 frames of the 240-frame 640×480 orbit, rendered by
     the port,
@@ -21,6 +24,7 @@ chip_smoke.py holds the card's whole orbit and the 120-frame loop to the
 same file.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -28,6 +32,7 @@ import pytest
 import torch
 
 from tests import torch_reference_poses as script
+from tpuslam_torch.bench import harness
 from tpuslam_torch.bench.harness import (
     _intrinsics,
     _render_sequence,
@@ -62,12 +67,73 @@ def orbit(ref):
     return K, torch.as_tensor(depths.astype(np.float32))
 
 
+def port_configs() -> dict:
+    """The port's config of each pass the file keeps, by the writer's
+    name (`script.configs`)."""
+    h, w = script.HEIGHT, script.WIDTH
+    orbit = SLAMConfig(height=h, width=w)
+    return {"orbit": orbit, "orbit_fused": orbit.replace(
+                icp=dataclasses.replace(orbit.icp, fused_gn=True)),
+            "loop": slam_bench_config(h, w, False),
+            "loop_fused": slam_bench_config(h, w, True),
+            "drift_off": harness.drift_config(False),
+            "drift_on": harness.drift_config(True),
+            "scale": harness.scale_config(script.SCALE_HEIGHT,
+                                          script.SCALE_WIDTH),
+            "pathology": SLAMConfig(height=h, width=w)}
+
+
+PASSES = ("orbit_classic", "orbit_boundary", "orbit_fused",
+          "loop_per_frame", "loop_chunked", "loop_deferred",
+          "loop_fused_chunked", "drift_off", "drift_on", "map_projective",
+          "map_grid", "map_sharded", "scale", "pathology")
+
+
 def test_the_file_is_current(ref):
     assert script.OUT.stat().st_size < 1 << 20
     assert str(ref["orbit_config"]) == script.orbit_config().to_json()
     assert str(ref["loop_config"]) == script.loop_config().to_json()
+    # every pass's config: the file's, the writer's and the port's runner's
+    configs = json.loads(str(ref["configs"]))
+    port = port_configs()
+    assert set(configs) == set(port)
+    for name, cfg in script.configs().items():
+        assert configs[name] == cfg.to_json(), name
+        assert port[name].to_json() == cfg.to_json(), name
+    # the drift helpers: the writer's copy and the harness's
+    assert float(ref["drift_per_chunk"]) == script.DRIFT_PER_CHUNK == (
+        harness.DRIFT_PER_CHUNK)
+    assert json.loads(str(ref["short_frames"])) == script.SHORT
+    assert ref["spread_deltas"].tolist() == list(script.SPREAD_DELTAS)
+    for p in PASSES:
+        for k in ("poses", "keyframes", "closures", "ate_rmse_m", "seconds"):
+            assert f"{p}_{k}" in ref, f"{p}_{k}"
+        if p in script.SHORT:
+            n = script.SHORT[p]
+            assert ref[f"{p}_short_poses"].shape == (n, 4, 4), p
+    for q in ("pathology", "pathology_short"):
+        assert ref[f"{q}_rounding_spread"].shape == (
+            script.PATHOLOGY_FRAMES,) and f"{q}_stable" not in ref
+    for q in ("map_grid", "map_grid_short"):
+        assert ref[f"{q}_spread_before_ba"].shape == ref[f"{q}_spread"].shape
+        for span, k in (("obs", "num_obs"), ("cost", "cost")):
+            lo, hi = ref[f"{q}_span_map_ba_{span}"]
+            assert lo <= ref[f"{q}_map_ba_{k}"] <= hi, (q, k)
+    for q in script.SPREAD_RUNS:
+        assert ref[f"{q}_spread"].shape == ref[f"{q}_poses"].shape[:1]
+        if ref[f"{q}_stable"]:     # a stable pass: one count each
+            assert ref[f"{q}_spread"].max() <= script.STABLE_SPREAD
+            for k in ("keyframes", "closures"):
+                lo, hi = ref[f"{q}_span_{k}"]
+                assert lo == hi == len(ref[f"{q}_{k}"]), (q, k)
+    assert ref["pathology_ulps"].tolist() == list(script.PATHOLOGY_ULPS)
+    assert ref["map_grid_poses_before_ba"].shape == (script.LOOP_FRAMES, 4,
+                                                     4)
+    assert ref["scale_poses"].shape == (script.SCALE_FRAMES, 4, 4)
     blobs = json.loads(str(ref["reference_blobs"]))
-    assert "tpuslam/frontend.py" in blobs and "tpuslam/slam.py" in blobs
+    for f in ("frontend", "slam", "mapping", "backend/map_ba",
+              "backend/loopclosure"):
+        assert f"tpuslam/{f}.py" in blobs, f
     for path, blob in blobs.items():
         assert script.blob_hash(script.ROOT / path) == blob, path
     assert (int(ref["height"]), int(ref["width"])) == (480, 640)

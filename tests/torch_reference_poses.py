@@ -1,39 +1,83 @@
 """Write the reference's full-width results for the port to be held to.
 
     JAX_PLATFORMS=cpu python tests/torch_reference_poses.py [OUT.npz]
+        [--jobs N] [--keep DIR]
 
 Runs the JAX package (`tpuslam`) on the CPU and writes
 `tpuslam_torch/bench/data/reference_vga.npz` (or OUT.npz), which the port
-reads with numpy alone:
+reads with numpy alone.  Each pass runs in a process of its own, `--jobs`
+(default 4) at a time.  Every pass mirrors, option by option, the port's
+runner that `chip_smoke.py` drives at full width (`tpuslam_torch/bench/
+harness.py`), on the inputs that runner renders:
 
-  * `orbit_*`: the 240-frame 640×480 orbit of `bench.py`
-    (`tpuslam.bench.harness._render_sequence`, the defaults at that size):
-    the poses, promotion flags and inlier fractions of the classic scan
-    (`scan_odometry_jit`) and of the boundary scan
-    (`scan_odometry_boundary_jit`, chunks of 8);
+  * `orbit_{classic,boundary,fused}_*`: the 240-frame 640×480 orbit of
+    `bench.py` at the defaults, `run_bench`'s scans: the classic scan
+    (`scan_odometry_jit`), the boundary scan (chunks of 8) and the classic
+    scan with `fused_gn=True`: poses, promotion flags, inlier fractions;
   * `loop_<variant>_*`: the 120-frame 640×480 two-lap loop of
-    `tpuslam.bench.harness.bench_slam`, its config (lc_min_gap 8) and two
-    of its passes, `per_frame` (`SlamSystem.process` a frame, backend
-    synchronous) and `chunked` (boundary chunks of 8, `chunk_sub=4`,
-    synchronous): each pass's per-frame poses (`trajectory()`), its
-    keyframes' frame indices, its closure pairs (i, j) and its ATE
-    (`max_difference=0.005`, as bench_slam takes it);
-  * metadata: frames, sizes, both configs as `SLAMConfig.to_json`, the
-    git blob hash of every `tpuslam` file the run imported, and the
-    seconds each part took.
+    `bench_slam` / `run_slam_bench` at `loop_config` (lc_min_gap 8):
+    `per_frame` (backend synchronous), `chunked` (boundary chunks of 8,
+    `chunk_sub=4`, synchronous), `deferred` (the same, `async_backend=
+    True`) and `fused_chunked` (`chunked` with `fused_gn=True`);
+  * `drift_{off,on}_*`: slam-drift-vga, that loop deferred with 0.012 m of
+    world-anchor bias before every chunk but the first, `drift_config`'s
+    gates, `lc_descriptor` off / on;
+  * `map_projective_*`, `map_grid_*` and `map_sharded_*`: `run_map_bench`
+    over that loop, `track_against_map=True` per frame then `finalize`;
+    the grid pass with `map_track_mode="grid"` and `map_ba=True`; the
+    sharded pass with `sharded_map=True` (the ring on one device; no short
+    run: its pass takes ~10 min on a CPU, `map_sharded_seconds`);
+  * `scale_*`: `bench_scale`, 2,000 frames 320×240, chunks of 32;
+  * `pathology_*`: `bench_pathology`, 60 degraded 640×480 frames.
+
+For every SLAM pass: per-frame poses (`trajectory()`), the keyframes'
+frame indices, the closure pairs (i, j), the ATE (`max_difference=0.005`)
+and the pass's seconds, with the extras of `record`.  `<prefix>_short_*`
+is the same pass over the first SHORT[prefix] frames of the same inputs
+(rendered at the full length and cut), then `finalize`: the port's CPU
+tests run those.
+
+For each run of SPREAD_RUNS the reference is rerun with `voxel.origin`
+moved by each of SPREAD_DELTAS m: `<p>_spread` is the per-frame maximum
+over those runs of the largest pose-element difference from the unmoved
+run, `<p>_span_keyframes` / `<p>_span_closures` the least and greatest
+counts over all five runs, `<p>_ate_max_m` the largest ATE of the five,
+and `<p>_stable` whether the largest spread is at most STABLE_SPREAD with
+keyframes and closure pairs equal in all five runs.  The grid pass adds
+`<p>_spread_before_ba` (its poses before map BA) and `<p>_span_map_ba_obs`
+/ `<p>_span_map_ba_cost` (map BA's observation count and final cost, least
+and greatest of the five).  A pass without a spread (the whole scale
+run's is left out: see SPREAD_RUNS) is held as a stable one.
+
+The pathology pass keeps no map and closes no loop, so a moved voxel
+origin does not perturb it: its depth is moved by each of PATHOLOGY_ULPS
+float32 ulps instead, and `pathology_rounding_spread` is the per-frame
+maximum of those runs' pose difference.  It is not a spread of the rule
+above: it makes no pass chaotic, and only the port's CPU pathology test
+reads it.
+
+`--keep DIR` keeps each job's result in DIR and runs only the jobs whose
+result is missing there.
 
 Not a test module and not part of the test run: tests/
-test_torch_reference_file.py holds the port's CPU scans to the file, and
+test_torch_reference_file.py checks the file is current and holds the
+orbit and the synchronous loop passes; test_torch_reference_passes.py and
+test_torch_reference_map.py hold the port's short runs to it on the CPU;
 chip_smoke.py holds the card's full-width runs to it.  Rerun it when a
-default of `tpuslam.config` or the synthetic scene changes (that test
-fails on a stale file).
+default of `tpuslam.config` or the synthetic scene changes (the first of
+those tests fails on a stale file).
 """
 
+import argparse
+import dataclasses
 import hashlib
 import json
 import os
+import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -50,24 +94,388 @@ LOOP_CYCLES = 2
 CHUNK = 8                   # the boundary scan's and bench_slam's chunk
 CHUNK_SUB = 4               # bench_slam's promotion sub-chunk
 ATE_MAX_DIFFERENCE = 0.005  # bench_slam's association window
+DRIFT_PER_CHUNK = 0.012     # m a chunk, tests/test_descriptor_lc.py:33
+SCALE_FRAMES, SCALE_HEIGHT, SCALE_WIDTH = 2000, 240, 320
+SCALE_CYCLES, SCALE_CHUNK = 5, 32
+PATHOLOGY_FRAMES = 60
+KINECT_NOISE = 0.0019       # bench_pathology's z² coefficient
+SHORT = {"loop_deferred": 24, "loop_fused_chunked": 24, "drift_off": 24,
+         "drift_on": 24, "map_projective": 24, "map_grid": 24, "scale": 200,
+         "pathology": 60}
+# the runs rerun for the reference's own spread: the map, grid and drift
+# passes and their short runs, and the scale pass's short run (one whole
+# scale run takes 19-62 min on an 8-core CPU, past the ~15 min a spread run
+# may take: its spread is left out)
+SPREAD_RUNS = ("map_projective", "map_projective_short", "map_grid",
+               "map_grid_short", "drift_on", "drift_on_short", "scale_short")
+SPREAD_DELTAS = (-2e-4, -1e-4, 1e-4, 2e-4)
+# the pathology pass (its own short run) is rerun with its depth moved by
+# these ulps (module doc): the rounding-level difference a backend makes
+# (the port's transform is 1 ulp from XLA's in ~28% of points)
+PATHOLOGY_ULPS = (-2, -1, 1, 2)
+STABLE_SPREAD = 1e-4
 
 
-def orbit_config():
-    """`run_bench`'s config: the defaults at 640×480."""
+def perturbations(prefix: str) -> list:
+    """(job suffix, delta) of each rerun of a spread run or of the
+    pathology pass."""
+    if prefix.startswith("pathology"):
+        return [(f"@{u:+d}ulp", u) for u in PATHOLOGY_ULPS]
+    return [(f"@{d:+.0e}", d) for d in SPREAD_DELTAS]
+
+
+# ---- configs: each the port's runner's, built from `tpuslam.config` ----
+
+def orbit_config(fused: bool = False):
+    """`run_bench`'s config: the defaults at 640×480 (`fused_gn` on for
+    the fused scan)."""
     from tpuslam.config import SLAMConfig
 
-    return SLAMConfig().replace(height=HEIGHT, width=WIDTH)
+    cfg = SLAMConfig().replace(height=HEIGHT, width=WIDTH)
+    if fused:
+        cfg = cfg.replace(icp=dataclasses.replace(cfg.icp, fused_gn=True))
+    return cfg
 
 
-def loop_config():
-    """`bench_slam`'s config: the defaults at 640×480, lc_min_gap 8."""
-    import dataclasses
+def loop_config(fused: bool = False):
+    """`slam_bench_config`: the defaults at 640×480, lc_min_gap 8 (also
+    `run_map_bench`'s)."""
+    from tpuslam.config import ICPConfig, SLAMConfig
 
+    cfg = SLAMConfig(height=HEIGHT, width=WIDTH, icp=ICPConfig(
+        fused_gn=fused))
+    return cfg.replace(posegraph=dataclasses.replace(cfg.posegraph,
+                                                     lc_min_gap=8))
+
+
+def drift_config(lc_descriptor: bool):
+    """slam-drift-vga's config (`harness.drift_config`): `loop_config`
+    with tests/test_descriptor_lc.py's loop-closure gates."""
+    base = loop_config()
+    return base.replace(
+        keyframe=dataclasses.replace(base.keyframe, verify_level=1),
+        posegraph=dataclasses.replace(
+            base.posegraph, lc_min_gap=3, lc_max_dist=0.02,
+            lc_max_residual=0.05, lc_min_inliers=0.3,
+            lc_descriptor=lc_descriptor))
+
+
+def scale_config():
+    """`bench_scale`'s config: tests/test_config5_scale.py's at 320×240."""
+    from tpuslam.config import (
+        KeyframeConfig,
+        PoseGraphConfig,
+        SLAMConfig,
+        VoxelConfig,
+    )
+
+    return SLAMConfig(
+        height=SCALE_HEIGHT, width=SCALE_WIDTH,
+        keyframe=KeyframeConfig(max_translation=0.015, max_rotation=0.03,
+                                max_keyframes=48, sparsify_protect_recent=4),
+        posegraph=PoseGraphConfig(max_nodes=32, max_edges=64, gn_iters=15,
+                                  solver="auto", dense_max_nodes=256,
+                                  lc_min_gap=20, lc_max_dist=0.08,
+                                  lc_max_residual=0.05, lc_min_inliers=0.3),
+        voxel=VoxelConfig(capacity=1 << 12, map_capacity=1 << 15))
+
+
+def pathology_config():
+    """`bench_pathology`'s config: the defaults at 640×480."""
     from tpuslam.config import SLAMConfig
 
-    cfg = SLAMConfig()
-    return cfg.replace(height=HEIGHT, width=WIDTH, posegraph=dataclasses
-                       .replace(cfg.posegraph, lc_min_gap=8))
+    return SLAMConfig(height=HEIGHT, width=WIDTH)
+
+
+def configs() -> dict:
+    """Every pass's config as `SLAMConfig.to_json` (the file keeps them)."""
+    return {"orbit": orbit_config(), "orbit_fused": orbit_config(True),
+            "loop": loop_config(), "loop_fused": loop_config(True),
+            "drift_off": drift_config(False), "drift_on": drift_config(True),
+            "scale": scale_config(), "pathology": pathology_config()}
+
+
+def moved(cfg, delta: float):
+    """`cfg` with its voxel grid's origin moved by `delta` m."""
+    return cfg.replace(voxel=dataclasses.replace(
+        cfg.voxel, origin=cfg.voxel.origin + delta))
+
+
+# ---- inputs: each rendered as the port's runner renders it ----
+
+def intrinsics(height: int, width: int):
+    from tpuslam.config import Intrinsics
+
+    return Intrinsics(525.0 * width / 640.0, 525.0 * height / 480.0,
+                      width / 2 - 0.5, height / 2 - 0.5)
+
+
+def loop_inputs(frames: int):
+    """K, ground truth and depth of the first `frames` frames of the
+    120-frame 640×480 two-lap loop."""
+    from tpuslam.data.synthetic import loop_trajectory, render_depth
+
+    K = intrinsics(HEIGHT, WIDTH)
+    gt = loop_trajectory(LOOP_FRAMES, cycles=LOOP_CYCLES, radius=0.35)
+    return K, gt[:frames], np.stack(
+        [render_depth(gt[i], K, HEIGHT, WIDTH, seed=i)
+         for i in range(frames)]).astype(np.float32)
+
+
+def scale_inputs(frames: int):
+    from tpuslam.data.synthetic import loop_trajectory, render_depth
+
+    K = intrinsics(SCALE_HEIGHT, SCALE_WIDTH)
+    gt = loop_trajectory(SCALE_FRAMES, cycles=SCALE_CYCLES)
+    return K, gt[:frames], np.stack(
+        [render_depth(gt[i], K, SCALE_HEIGHT, SCALE_WIDTH, seed=i)
+         for i in range(frames)]).astype(np.float32)
+
+
+def pathology_inputs(frames: int):
+    from tpuslam.data.synthetic import (
+        burst_trajectory,
+        degrade_depth,
+        render_depth,
+    )
+
+    K = intrinsics(HEIGHT, WIDTH)
+    gt = burst_trajectory(PATHOLOGY_FRAMES, burst_start=PATHOLOGY_FRAMES // 2,
+                          burst_len=8, burst_rate=0.05)
+    return K, gt[:frames], np.stack([
+        degrade_depth(render_depth(gt[i], K, HEIGHT, WIDTH, seed=i),
+                      seed=100 + i, z_noise_coeff=KINECT_NOISE,
+                      dropout_holes=3, edge_dropout=0.02)
+        for i in range(frames)]).astype(np.float32)
+
+
+# ---- loops: the port's runners' loops over the reference's system ----
+
+def run_chunked(slam, d, ts, chunk: int) -> None:
+    """Whole chunks through process_chunk, the remainder per frame, then
+    finalize (`harness._run_chunked`)."""
+    full = d.shape[0] - d.shape[0] % chunk
+    for i in range(0, full, chunk):
+        slam.process_chunk(d[i:i + chunk], ts[i:i + chunk])
+    for i in range(full, d.shape[0]):
+        slam.process(d[i], timestamp=ts[i])
+    slam.finalize()
+
+
+def drive_drifted(slam, d, ts, chunk: int = CHUNK) -> None:
+    """`harness.drive_drifted` over every frame, then finalize."""
+    bias = np.eye(4, dtype=np.float32)
+    bias[2, 3] = DRIFT_PER_CHUNK
+    for i in range(0, d.shape[0], chunk):
+        if i > 0:
+            slam.odo.T_world_kf = bias @ slam.odo.T_world_kf.astype(
+                np.float32)
+        slam.process_chunk(d[i:i + chunk], ts[i:i + chunk])
+    slam.finalize()
+
+
+def record(slam, ts, gt) -> dict:
+    """A SLAM pass's result: poses, keyframe frame indices, closure pairs,
+    ATE, lost flags, graph nodes."""
+    from tpuslam.eval.ate import ate_rmse
+
+    t_est, est = slam.trajectory()
+    return {
+        "poses": np.asarray(est, np.float64),
+        "keyframes": np.asarray([k.index for k in slam.odo.keyframes],
+                                np.int64),
+        "closures": np.asarray([(c.i, c.j) for c in slam.closures],
+                               np.int64).reshape(-1, 2),
+        "ate_rmse_m": np.float64(ate_rmse(
+            t_est, est, ts, gt, max_difference=ATE_MAX_DIFFERENCE)["rmse"]),
+        "lost": np.asarray([bool(s.get("lost")) for s in slam.odo.stats]),
+        "graph_nodes": np.int64(slam._num_graph_nodes),
+    }
+
+
+def ulp_moved(d: np.ndarray, ulps: int) -> np.ndarray:
+    """Depth with every valid pixel moved by `ulps` float32 ulps (zeros,
+    the missing pixels, stay zero)."""
+    out = d.copy()
+    for _ in range(abs(ulps)):
+        out = np.nextafter(out, np.float32(np.inf if ulps > 0 else -np.inf),
+                           dtype=np.float32)
+    out[~(d > 0)] = d[~(d > 0)]
+    return out
+
+
+def run_pass(name: str, frames: int, delta: float = 0.0) -> dict:
+    """One SLAM pass of the reference (module doc) over its first `frames`
+    frames, the voxel origin moved by `delta` m (the pathology pass: its
+    depth moved by `delta` ulps)."""
+    import jax.numpy as jnp
+
+    from tpuslam.slam import SlamSystem
+
+    if name == "scale":
+        K, gt, d = scale_inputs(frames)
+    elif name == "pathology":
+        K, gt, d = pathology_inputs(frames)
+        d, delta = ulp_moved(d, int(delta)), 0.0
+    else:
+        K, gt, d = loop_inputs(frames)
+    dev = jnp.asarray(d)
+    ts = np.arange(frames) / 30.0
+    extra: dict = {}
+    t0 = time.perf_counter()
+    if name.startswith("map_"):
+        grid = name == "map_grid"
+        slam = SlamSystem(K, moved(loop_config(), delta),
+                          enable_loop_closure=True, track_against_map=True,
+                          map_track_mode="grid" if grid else "projective",
+                          map_ba=grid, sharded_map=name == "map_sharded")
+        for i in range(frames):
+            slam.process(dev[i], timestamp=ts[i])
+        if grid:
+            extra["poses_before_ba"] = slam.trajectory()[1]
+        slam.finalize()
+        extra["map_size"] = np.int64(slam.map.size())
+        extra["refine_ok"] = np.asarray(
+            [s["ok"] for s in slam.map_refine_stats])
+        if grid:
+            ba = slam.map_ba_stats or {}
+            extra["map_ba_num_obs"] = np.int64(ba.get("num_obs", -1))
+            extra["map_ba_cost"] = np.float64(ba.get("cost", np.nan))
+    elif name.startswith("drift_"):
+        slam = SlamSystem(K, moved(drift_config(name == "drift_on"), delta),
+                          enable_loop_closure=True, async_backend=True,
+                          chunk_mode="boundary", chunk_sub=CHUNK_SUB)
+        drive_drifted(slam, dev, ts)
+    elif name == "scale":
+        slam = SlamSystem(K, moved(scale_config(), delta),
+                          enable_loop_closure=True, chunk_mode="boundary",
+                          async_backend=True, chunk_sub=1)
+        run_chunked(slam, dev, ts, SCALE_CHUNK)
+    elif name == "pathology":
+        slam = SlamSystem(K, moved(pathology_config(), delta),
+                          enable_loop_closure=True, chunk_mode="boundary",
+                          async_backend=True)
+        run_chunked(slam, dev, ts, CHUNK)
+    else:
+        cfg = moved(loop_config(name == "loop_fused_chunked"), delta)
+        if name == "loop_per_frame":
+            slam = SlamSystem(K, cfg, enable_loop_closure=True,
+                              async_backend=False)
+            run_chunked(slam, dev, ts, 1 << 30)
+        else:
+            slam = SlamSystem(K, cfg, enable_loop_closure=True,
+                              async_backend=name == "loop_deferred",
+                              chunk_mode="boundary", chunk_sub=CHUNK_SUB)
+            run_chunked(slam, dev, ts, CHUNK)
+    seconds = time.perf_counter() - t0
+    return {**record(slam, ts, gt), **extra, "seconds": np.float64(seconds)}
+
+
+def run_orbit() -> dict:
+    """`run_bench`'s three scans of the 240-frame orbit."""
+    import jax.numpy as jnp
+
+    from tpuslam.bench.harness import _render_sequence
+    from tpuslam.eval.ate import ate_rmse
+    from tpuslam.frontend import scan_odometry_boundary_jit, scan_odometry_jit
+
+    K, gt, depths = _render_sequence(ORBIT_FRAMES, HEIGHT, WIDTH)
+    d = jnp.asarray(depths)
+    ts = np.arange(ORBIT_FRAMES, dtype=np.float64)
+    out = {}
+    for name, run in (
+            ("classic", lambda: scan_odometry_jit(d, K, orbit_config())),
+            ("boundary", lambda: scan_odometry_boundary_jit(
+                d, K, orbit_config(), CHUNK)),
+            ("fused", lambda: scan_odometry_jit(d, K, orbit_config(True)))):
+        t0 = time.perf_counter()
+        poses, promote, inliers = (np.asarray(a) for a in run())
+        out[f"orbit_{name}_seconds"] = np.float64(time.perf_counter() - t0)
+        out[f"orbit_{name}_poses"] = poses
+        out[f"orbit_{name}_promote"] = promote
+        out[f"orbit_{name}_inliers"] = inliers
+        out[f"orbit_{name}_keyframes"] = np.nonzero(promote)[0].astype(
+            np.int64)
+        out[f"orbit_{name}_closures"] = np.zeros((0, 2), np.int64)
+        n = poses.shape[0]
+        out[f"orbit_{name}_ate_rmse_m"] = np.float64(ate_rmse(
+            ts[:n], poses.astype(np.float64), ts[:n], gt[:n])["rmse"])
+    return out
+
+
+# ---- jobs: one process each ----
+
+def jobs() -> list:
+    """(job name, pass, frames, origin delta) of every run the file
+    needs."""
+    out = [("orbit", "orbit", ORBIT_FRAMES, 0.0)]
+    full = {"loop_per_frame": LOOP_FRAMES, "loop_chunked": LOOP_FRAMES,
+            **{p: LOOP_FRAMES for p in ("loop_deferred", "loop_fused_chunked",
+                                        "drift_off", "drift_on",
+                                        "map_projective", "map_grid",
+                                        "map_sharded")},
+            "scale": SCALE_FRAMES, "pathology": PATHOLOGY_FRAMES}
+    for p, n in full.items():
+        lengths = {p: n}
+        if p in SHORT and SHORT[p] != n:
+            lengths[f"{p}_short"] = SHORT[p]
+        for prefix, frames in lengths.items():
+            out.append((prefix, p, frames, 0.0))
+            if prefix in SPREAD_RUNS or prefix == "pathology":
+                out += [(prefix + sfx, p, frames, d)
+                        for sfx, d in perturbations(prefix)]
+    return out
+
+
+def run_job(name: str, into: Path) -> None:
+    spec = {j[0]: j for j in jobs()}[name]
+    _, p, frames, delta = spec
+    rec = run_orbit() if p == "orbit" else run_pass(p, frames, delta)
+    np.savez(into / f"{name}.npz", **rec,
+             blobs=np.asarray(json.dumps(reference_blobs())))
+
+
+def pose_spread(base: dict, runs: list, key: str = "poses") -> np.ndarray:
+    """Per frame, the largest pose-element difference of `runs` from
+    `base`."""
+    return np.max([np.abs(r[key] - base[key]).max(axis=(1, 2))
+                   for r in runs], axis=0)
+
+
+def span(values) -> np.ndarray:
+    """The least and greatest of `values`."""
+    return np.asarray([min(values), max(values)])
+
+
+def spread(base: dict, runs: list, prefix: str) -> dict:
+    """The reference's own spread over the moved-origin runs (module
+    doc)."""
+    every = [base] + runs
+    diff = pose_spread(base, runs)
+    kfs = [r["keyframes"].size for r in every]
+    cls = [r["closures"].shape[0] for r in every]
+    same = all(np.array_equal(r["keyframes"], base["keyframes"])
+               and np.array_equal(r["closures"], base["closures"])
+               for r in runs)
+    out = {}
+    if "map_ba_num_obs" in base:
+        out = {f"{prefix}_spread_before_ba": pose_spread(
+                   base, runs, "poses_before_ba"),
+               f"{prefix}_span_map_ba_obs": span(
+                   [int(r["map_ba_num_obs"]) for r in every]),
+               f"{prefix}_span_map_ba_cost": span(
+                   [float(r["map_ba_cost"]) for r in every])}
+    return {**out, f"{prefix}_spread": diff,
+            f"{prefix}_span_keyframes": span(kfs).astype(np.int64),
+            f"{prefix}_span_closures": span(cls).astype(np.int64),
+            f"{prefix}_spread_ates": np.asarray(
+                [r["ate_rmse_m"] for r in every], np.float64),
+            f"{prefix}_ate_max_m": np.float64(max(r["ate_rmse_m"]
+                                                  for r in every)),
+            f"{prefix}_spread_seconds": np.float64(sum(r["seconds"]
+                                                       for r in runs)),
+            f"{prefix}_stable": np.bool_(float(diff.max()) <= STABLE_SPREAD
+                                         and same)}
 
 
 def blob_hash(path: Path) -> str:
@@ -88,110 +496,112 @@ def reference_blobs() -> dict:
     return dict(sorted(out.items()))
 
 
-def orbit(out: dict) -> None:
-    import jax.numpy as jnp
-
-    from tpuslam.bench.harness import _render_sequence
-    from tpuslam.frontend import scan_odometry_boundary_jit, scan_odometry_jit
-
-    K, _gt, depths = _render_sequence(ORBIT_FRAMES, HEIGHT, WIDTH)
-    d = jnp.asarray(depths)
-    cfg = orbit_config()
-    for name, run in (("classic", lambda: scan_odometry_jit(d, K, cfg)),
-                      ("boundary", lambda: scan_odometry_boundary_jit(
-                          d, K, cfg, CHUNK))):
-        poses, promote, inliers = (np.asarray(a) for a in run())
-        out[f"orbit_{name}_poses"] = poses
-        out[f"orbit_{name}_promote"] = promote
-        out[f"orbit_{name}_inliers"] = inliers
-
-
-def loop(out: dict) -> None:
-    """bench_slam's per-frame and chunked synchronous passes, each as its
-    `one_pass` / `one_pass_chunked` runs it."""
-    import jax.numpy as jnp
-
-    from tpuslam.config import Intrinsics
-    from tpuslam.data.synthetic import loop_trajectory, render_depth
-    from tpuslam.eval.ate import ate_rmse
-    from tpuslam.slam import SlamSystem
-
-    F = LOOP_FRAMES
-    K = Intrinsics(525.0 * WIDTH / 640.0, 525.0 * HEIGHT / 480.0,
-                   WIDTH / 2 - 0.5, HEIGHT / 2 - 0.5)
-    gt = loop_trajectory(F, cycles=LOOP_CYCLES, radius=0.35)
-    depths = np.stack([render_depth(gt[i], K, HEIGHT, WIDTH, seed=i)
-                       for i in range(F)]).astype(np.float32)
-    dev = jnp.asarray(depths)
-    ts = np.arange(F) / 30.0
-    cfg = loop_config()
-
-    def per_frame():
-        slam = SlamSystem(K, cfg, enable_loop_closure=True,
-                          async_backend=False)
-        for i in range(F):
-            slam.process(dev[i], timestamp=ts[i])
-        slam.finalize()
-        return slam
-
-    def chunked():
-        slam = SlamSystem(K, cfg, enable_loop_closure=True,
-                          async_backend=False, chunk_mode="boundary",
-                          chunk_sub=CHUNK_SUB)
-        for i in range(0, F - F % CHUNK, CHUNK):
-            slam.process_chunk(dev[i:i + CHUNK], ts[i:i + CHUNK])
-        for i in range(F - F % CHUNK, F):
-            slam.process(dev[i], timestamp=ts[i])
-        slam.finalize()
-        return slam
-
-    for name, run in (("per_frame", per_frame), ("chunked", chunked)):
-        t0 = time.perf_counter()
-        slam = run()
-        t_est, est = slam.trajectory()
-        out[f"loop_{name}_poses"] = np.asarray(est, np.float64)
-        out[f"loop_{name}_keyframes"] = np.asarray(
-            [kf.index for kf in slam.odo.keyframes], np.int64)
-        out[f"loop_{name}_closures"] = np.asarray(
-            [(c.i, c.j) for c in slam.closures], np.int64).reshape(-1, 2)
-        out[f"loop_{name}_ate_rmse_m"] = np.float64(ate_rmse(
-            t_est, est, ts, gt, max_difference=ATE_MAX_DIFFERENCE)["rmse"])
-        out[f"loop_{name}_seconds"] = np.float64(time.perf_counter() - t0)
-
-
 def main(argv) -> int:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    path = Path(argv[1]) if len(argv) > 1 else OUT
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("out", nargs="?", default=str(OUT))
+    ap.add_argument("--jobs", type=int, default=4)
+    ap.add_argument("--keep", help="a directory for each job's result; a "
+                    "job whose result is there already is not run again")
+    ap.add_argument("--job", help=argparse.SUPPRESS)
+    ap.add_argument("--into", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv[1:])
+    if args.job:
+        run_job(args.job, Path(args.into))
+        return 0
+
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        if args.keep:
+            tmp = args.keep
+            os.makedirs(tmp, exist_ok=True)
+
+        def one(job):
+            if (Path(tmp) / f"{job[0]}.npz").exists():
+                return 0.0
+            t0 = time.perf_counter()
+            done = subprocess.run([sys.executable, __file__, "--job", job[0],
+                                   "--into", tmp], capture_output=True,
+                                  text=True)
+            if done.returncode:
+                raise RuntimeError(f"job {job[0]}: exit {done.returncode}\n"
+                                   f"{done.stderr[-4000:]}")
+            s = time.perf_counter() - t0
+            print(f"job {job[0]}: {s:.1f} s", flush=True)
+            return s
+
+        # the longest first, so the pool ends together
+        order = sorted(jobs(), key=lambda j: -j[2] * {
+            "map_grid": 4, "map_sharded": 40}.get(j[1], 1))
+        with ThreadPoolExecutor(args.jobs) as pool:
+            list(pool.map(one, order))
+        runs = {j[0]: dict(np.load(Path(tmp) / f"{j[0]}.npz"))
+                for j in jobs()}
+    blobs: dict = {}
+    for rec in runs.values():
+        blobs.update(json.loads(str(rec.pop("blobs"))))
     out: dict = {}
-    t0 = time.perf_counter()
-    orbit(out)
-    out["orbit_seconds"] = np.float64(time.perf_counter() - t0)
-    t1 = time.perf_counter()
-    loop(out)
-    out["loop_seconds"] = np.float64(time.perf_counter() - t1)
+    for name, rec in runs.items():
+        if "@" in name:
+            continue
+        if name == "orbit":
+            out.update(rec)
+            continue
+        out.update({f"{name}_{k}": v for k, v in rec.items()})
+        moved_runs = [runs.get(name + sfx) for sfx, _ in perturbations(name)]
+        if name in SPREAD_RUNS:
+            out.update(spread(rec, moved_runs, name))
+        elif name == "pathology":
+            out["pathology_rounding_spread"] = pose_spread(rec, moved_runs)
+    # the pathology pass is its own short run
+    for k in [k for k in out if k.startswith("pathology_")]:
+        out[k.replace("pathology_", "pathology_short_", 1)] = out[k]
+    for k in ("scale_poses", "scale_short_poses"):   # the capacity run's
+        out[k] = out[k].astype(np.float32)
     out.update(
         height=np.int64(HEIGHT), width=np.int64(WIDTH),
         orbit_frames=np.int64(ORBIT_FRAMES), loop_frames=np.int64(LOOP_FRAMES),
         loop_cycles=np.int64(LOOP_CYCLES), chunk=np.int64(CHUNK),
         chunk_sub=np.int64(CHUNK_SUB),
         ate_max_difference=np.float64(ATE_MAX_DIFFERENCE),
+        drift_per_chunk=np.float64(DRIFT_PER_CHUNK),
+        short_frames=np.asarray(json.dumps(SHORT)),
+        spread_deltas=np.asarray(SPREAD_DELTAS, np.float64),
+        pathology_ulps=np.asarray(PATHOLOGY_ULPS, np.int64),
+        stable_spread=np.float64(STABLE_SPREAD),
         orbit_config=np.asarray(orbit_config().to_json()),
         loop_config=np.asarray(loop_config().to_json()),
-        reference_blobs=np.asarray(json.dumps(reference_blobs())),
-        jax_version=np.asarray(jax.__version__))
+        configs=np.asarray(json.dumps({k: c.to_json()
+                                       for k, c in configs().items()})),
+        reference_blobs=np.asarray(json.dumps(dict(sorted(blobs.items())))),
+        jax_version=np.asarray(jax.__version__),
+        seconds=np.float64(time.perf_counter() - t_all))
+    path = Path(args.out)
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, **out)
-    print(json.dumps({"out": str(path), "bytes": path.stat().st_size,
-                      "orbit_s": float(out["orbit_seconds"]),
-                      "loop_s": float(out["loop_seconds"]),
-                      **{f"loop_{n}": {
-                          "keyframes": int(out[f"loop_{n}_keyframes"].size),
-                          "closures": int(out[f"loop_{n}_closures"].shape[0]),
-                          "ate_rmse_m": float(out[f"loop_{n}_ate_rmse_m"])}
-                         for n in ("per_frame", "chunked")}}))
+    summary = {"out": str(path), "bytes": path.stat().st_size,
+               "seconds": float(out["seconds"])}
+    for name in sorted(runs):
+        if "@" in name or name == "orbit":
+            continue
+        summary[name] = {
+            "seconds": float(out[f"{name}_seconds"]),
+            "keyframes": int(out[f"{name}_keyframes"].size),
+            "closures": int(out[f"{name}_closures"].shape[0]),
+            "ate_rmse_m": float(out[f"{name}_ate_rmse_m"])}
+        if f"{name}_stable" in out:
+            summary[name].update(
+                stable=bool(out[f"{name}_stable"]),
+                spread=float(out[f"{name}_spread"].max()),
+                spread_seconds=float(out[f"{name}_spread_seconds"]))
+    summary["pathology"]["rounding_spread"] = float(
+        out["pathology_rounding_spread"].max())
+    summary["orbit"] = {s: float(out[f"orbit_{s}_seconds"])
+                        for s in ("classic", "boundary", "fused")}
+    print(json.dumps(summary, indent=1))
     return 0
 
 

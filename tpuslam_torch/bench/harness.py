@@ -37,6 +37,13 @@ that starts at 32 nodes and must double, and a cloud budget of 48.
 `bench_pathology` runs the degraded sensor (Kinect z² noise, dropout
 holes, 2% pixel dropout) through a fast-rotation burst at 640×480.
 
+slam-drift-vga's config and loop (`drift_config`, `drive_drifted`) live
+here too, for `chip_smoke.py` and the CPU tests.  `run_bench`,
+`run_map_bench`, `bench_scale` and `bench_pathology` hand their timed pass
+back through `outputs=`; `hold_to_reference` holds a pass to the
+reference's committed results (`data/reference_vga.npz`, written by
+tests/torch_reference_poses.py with the JAX package on the CPU).
+
 Every result names the device it ran on; timings on a GPU are fenced with
 `torch.cuda.synchronize()`.
 """
@@ -44,6 +51,7 @@ Every result names the device it ran on; timings on a GPU are fenced with
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -471,12 +479,44 @@ def run_slam_bench(frames: int = 120, height: int = 480, width: int = 640,
     return result
 
 
+DRIFT_PER_CHUNK = 0.012     # m a chunk, tests/test_descriptor_lc.py:33
+
+
+def drift_config(lc_descriptor: bool, verify_level: int = 1) -> SLAMConfig:
+    """slam-drift-vga's config: `slam_bench_config` with
+    tests/test_descriptor_lc.py's loop-closure gates (lc_min_gap 3;
+    lc_max_dist 0.02 m, far below the injected drift: proximity cannot
+    nominate the revisit)."""
+    base = slam_bench_config(480, 640, False)
+    return base.replace(
+        keyframe=dataclasses.replace(base.keyframe,
+                                     verify_level=verify_level),
+        posegraph=dataclasses.replace(
+            base.posegraph, lc_min_gap=3, lc_max_dist=0.02,
+            lc_max_residual=0.05, lc_min_inliers=0.3,
+            lc_descriptor=lc_descriptor))
+
+
+def drive_drifted(slam, d, ts, lo: int, hi: int, chunk: int = 8) -> None:
+    """tests/test_descriptor_lc.py:62-78's loop over frames lo..hi:
+    boundary chunks, a world anchor bias of DRIFT_PER_CHUNK composed onto
+    the live keyframe before every chunk but the first (tracking stays
+    exact, keyframe poses drift)."""
+    bias = np.eye(4, dtype=np.float32)
+    bias[2, 3] = DRIFT_PER_CHUNK
+    for i in range(lo, hi, chunk):
+        if i > 0:
+            slam.odo.T_world_kf = bias @ slam.odo.T_world_kf.astype(
+                np.float32)
+        slam.process_chunk(d[i:i + chunk], ts[i:i + chunk])
+
+
 def run_map_bench(frames: int = 120, height: int = 480, width: int = 640,
                   sharded: bool = False, device: str = "cuda",
                   cycles: int = 2, warmup: int = 1, sequence=None,
                   voxel: VoxelConfig | None = None,
                   map_track_mode: str = "projective",
-                  map_ba: bool = False) -> dict:
+                  map_ba: bool = False, outputs: dict | None = None) -> dict:
     """Frame-to-map tracking (BASELINE config 4): `SlamSystem.process` per
     frame over the `cycles`-lap loop with `track_against_map=True` and
     `slam_bench_config` (fused_gn off), the map unsharded (VoxelMap +
@@ -491,7 +531,9 @@ def run_map_bench(frames: int = 120, height: int = 480, width: int = 640,
     `map_track_mode="grid"` refines by the grid probe against a sorted map
     index; with `map_ba` `finalize` ends with map BA, and the result adds
     its stats and the ATE before it (`ate_before_ba_m`, read inside the
-    timed pass).
+    timed pass).  `outputs`: a dict that receives the timed pass's
+    SlamSystem (`slam`) and, with `map_ba`, its trajectory before
+    `finalize` (`before_ba`: timestamps, poses).
     """
     from tpuslam_torch.eval.ate import ate_rmse
     from tpuslam_torch.slam import SlamSystem
@@ -527,6 +569,10 @@ def run_map_bench(frames: int = 120, height: int = 480, width: int = 640,
     for c in counters.values():
         c.reset()
     wall, slam, before = one_pass()
+    if outputs is not None:
+        outputs["slam"] = slam
+        if map_ba:
+            outputs["before_ba"] = before
     t_est, est = slam.trajectory()
     refine_ok = [s["ok"] for s in slam.map_refine_stats]
     extra = {}
@@ -595,28 +641,14 @@ def _run_chunked(slam, depths: torch.Tensor, ts: np.ndarray,
     slam.finalize()
 
 
-def bench_scale(frames: int = 2000, height: int = 240, width: int = 320,
-                chunk: int = 32, chunk_mode: str = "boundary",
-                async_backend: bool = True, chunk_sub: int = 1,
-                device: str = "cuda") -> dict:
-    """BASELINE config 5 at scale on the device (module doc): the five-lap
-    loop through `SlamSystem.process_chunk` (boundary chunks of `chunk`,
-    the deferred backend, promotion sub-chunks of 1 — this config promotes
-    every ~5 frames) on device-resident depth, one pass.  Reports fps, the
-    graph's nodes and capacity, keyframes, retained clouds, closures, ATE
-    and lost frames."""
-    from tpuslam_torch.data.synthetic import loop_trajectory, render_depth
-    from tpuslam_torch.eval.ate import ate_rmse
-    from tpuslam_torch.slam import SlamSystem
-
+def scale_config(height: int = 240, width: int = 320) -> SLAMConfig:
+    """`bench_scale`'s config: tests/test_config5_scale.py's with the
+    default ICP: tight promotion (~310 keyframes over 2,000 frames), a
+    cloud budget of 48, a graph that starts at 32 nodes and 64 edges and
+    must double."""
     from tpuslam_torch.config import KeyframeConfig, PoseGraphConfig
 
-    dev = torch.device(device)
-    K = _intrinsics(height, width)
-    # tests/test_config5_scale.py's config with the default ICP: tight
-    # promotion (~310 keyframes over 2,000 frames), a cloud budget of 48, a
-    # graph that starts at 32 nodes and 64 edges and must double
-    cfg = SLAMConfig(
+    return SLAMConfig(
         height=height, width=width,
         keyframe=KeyframeConfig(max_translation=0.015, max_rotation=0.03,
                                 max_keyframes=48, sparsify_protect_recent=4),
@@ -626,8 +658,28 @@ def bench_scale(frames: int = 2000, height: int = 240, width: int = 320,
                                   lc_max_residual=0.05, lc_min_inliers=0.3),
         voxel=VoxelConfig(capacity=1 << 12, map_capacity=1 << 15),
     ).validate()
-    gt = loop_trajectory(frames, cycles=5)
+
+
+def bench_scale(frames: int = 2000, height: int = 240, width: int = 320,
+                chunk: int = 32, chunk_mode: str = "boundary",
+                async_backend: bool = True, chunk_sub: int = 1,
+                device: str = "cuda", outputs: dict | None = None) -> dict:
+    """BASELINE config 5 at scale on the device (module doc): the five-lap
+    loop through `SlamSystem.process_chunk` (boundary chunks of `chunk`,
+    the deferred backend, promotion sub-chunks of 1 — this config promotes
+    every ~5 frames) on device-resident depth, one pass.  Reports fps, the
+    graph's nodes and capacity, keyframes, retained clouds, closures, ATE
+    and lost frames.  `outputs`: a dict that receives the pass's
+    SlamSystem (`slam`)."""
+    from tpuslam_torch.data.synthetic import loop_trajectory, render_depth
+    from tpuslam_torch.eval.ate import ate_rmse
+    from tpuslam_torch.slam import SlamSystem
+
+    dev = torch.device(device)
+    cfg = scale_config(height, width)
     t0 = time.perf_counter()
+    K = _intrinsics(height, width)
+    gt = loop_trajectory(frames, cycles=5)
     depths_np = np.stack([render_depth(gt[i], K, height, width, seed=i)
                           for i in range(frames)]).astype(np.float32)
     render_s = time.perf_counter() - t0
@@ -641,6 +693,8 @@ def bench_scale(frames: int = 2000, height: int = 240, width: int = 320,
     _run_chunked(slam, depths, ts, chunk)
     _fence(dev)
     wall = time.perf_counter() - t0
+    if outputs is not None:
+        outputs["slam"] = slam
     t_est, est = slam.trajectory()
     return {
         "device": _device_name(dev),
@@ -668,31 +722,39 @@ def bench_scale(frames: int = 2000, height: int = 240, width: int = 320,
 KINECT_NOISE = 0.0019      # bench_pathology's z² coefficient (the reference's)
 
 
-def bench_pathology(frames: int = 60, height: int = 480, width: int = 640,
-                    device: str = "cuda") -> dict:
-    """The degraded-sensor run (module doc) at the device's production
-    shapes: Kinect z² noise, 3 dropout holes, 2% pixel dropout, and an
-    8-frame burst of 0.05 rad/frame extra yaw halfway; boundary chunks of
-    8 with the deferred backend (a chunk that loses tracking replays per
-    frame).  One uncounted pass, then the timed one."""
+def pathology_sequence(frames: int, height: int, width: int):
+    """`bench_pathology`'s inputs: K, the burst trajectory, and its depth
+    with Kinect z² noise, 3 dropout holes and 2% pixel dropout."""
     from tpuslam_torch.data.synthetic import (
         burst_trajectory,
         degrade_depth,
         render_depth,
     )
-    from tpuslam_torch.eval.ate import ate_rmse
-    from tpuslam_torch.slam import SlamSystem
 
-    dev = torch.device(device)
     K = _intrinsics(height, width)
-    cfg = SLAMConfig(height=height, width=width).validate()
     gt = burst_trajectory(frames, burst_start=frames // 2, burst_len=8,
                           burst_rate=0.05)
-    depths_np = np.stack([
+    return K, gt, np.stack([
         degrade_depth(render_depth(gt[i], K, height, width, seed=i),
                       seed=100 + i, z_noise_coeff=KINECT_NOISE,
                       dropout_holes=3, edge_dropout=0.02)
         for i in range(frames)]).astype(np.float32)
+
+
+def bench_pathology(frames: int = 60, height: int = 480, width: int = 640,
+                    device: str = "cuda",
+                    outputs: dict | None = None) -> dict:
+    """The degraded-sensor run (module doc) at the device's production
+    shapes: `pathology_sequence` (an 8-frame burst of 0.05 rad/frame extra
+    yaw halfway); boundary chunks of 8 with the deferred backend (a chunk
+    that loses tracking replays per frame).  One uncounted pass, then the
+    timed one, whose SlamSystem `outputs` (a dict) receives as `slam`."""
+    from tpuslam_torch.eval.ate import ate_rmse
+    from tpuslam_torch.slam import SlamSystem
+
+    dev = torch.device(device)
+    cfg = SLAMConfig(height=height, width=width).validate()
+    K, gt, depths_np = pathology_sequence(frames, height, width)
     depths = torch.as_tensor(depths_np, device=dev)
     _fence(dev)
     ts = np.arange(frames) / 30.0
@@ -708,6 +770,8 @@ def bench_pathology(frames: int = 60, height: int = 480, width: int = 640,
 
     run()                                         # uncounted: first use
     wall, slam = run()
+    if outputs is not None:
+        outputs["slam"] = slam
     t_est, est = slam.trajectory()
     return {
         "device": _device_name(dev),
@@ -721,3 +785,198 @@ def bench_pathology(frames: int = 60, height: int = 480, width: int = 640,
         "keyframes": len(slam.odo.keyframes),
         "poses_finite": bool(np.all(np.isfinite(est))),
     }
+
+
+# ---- the reference's committed results (tests/torch_reference_poses.py) --
+
+REFERENCE_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "data", "reference_vga.npz")
+SPREAD_FACTOR = 2.0           # a chaotic pass: × the reference's own spread
+CHAOTIC_ATE_SLACK_M = 1e-3    # a chaotic pass's ATE: its largest + this
+MAP_BA_COST_REL = 1e-4        # a stable pass's map BA cost, relative
+
+
+def reference_results(path: str = REFERENCE_FILE) -> dict:
+    """The arrays of the reference's results file, by key."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def pass_result(slam, ts: np.ndarray, gt: np.ndarray) -> dict:
+    """A SLAM pass as the reference's file keeps it: per-frame poses,
+    keyframe frame indices, closure pairs, and the ATE against the ground
+    truth `gt` at timestamps `ts` (the benches' 5 ms window)."""
+    from tpuslam_torch.eval.ate import ate_rmse
+
+    t_est, est = slam.trajectory()
+    return {"poses": est,
+            "keyframes": [k.index for k in slam.odo.keyframes],
+            "closures": [(c.i, c.j) for c in slam.closures],
+            "ate_rmse_m": ate_rmse(t_est, est, ts, gt,
+                                   max_difference=0.005)["rmse"]}
+
+
+def _first_difference(got: list, want: list):
+    """The first index where two lists part, or None when equal."""
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                None if len(got) == len(want) else min(len(got), len(want)))
+
+
+def _pose_error(got, want: np.ndarray) -> np.ndarray:
+    """Per frame, the largest pose-element error (inf where the shapes
+    differ)."""
+    got = np.asarray(got, np.float64)
+    if got.shape != want.shape:
+        return np.full(max(len(got), 1), np.inf)
+    return np.abs(got - want).max(axis=(1, 2))
+
+
+def hold_to_reference(ref: dict, prefix: str, got: dict,
+                      tol: float) -> dict:
+    """The rule that holds a pass to the reference's (`ref`, the file's
+    arrays; `prefix`, its pass).  `got`: `pass_result`'s keys with, where
+    the pass has them, `promote` (the scan's flags), `inliers`, and map
+    BA's `map_ba_num_obs`, `map_ba_cost` and `poses_before_ba`.
+
+    A stable pass (the reference's poses move by at most the file's
+    `stable_spread` when its voxel origin moves by up to 2e-4 m, and its
+    keyframes and closures do not; a pass without a spread counts as
+    stable): keyframes and closure pairs equal, every pose element (also
+    before map BA) within `tol`, promotion flags equal, map BA's
+    observations equal and its cost within a relative MAP_BA_COST_REL.  A
+    chaotic pass: the largest pose error at most SPREAD_FACTOR × the
+    reference's largest spread (before map BA: × its spread there), the
+    ATE at most the largest of its five ATEs + CHAOTIC_ATE_SLACK_M, the
+    keyframe and closure counts inside their spans, and map BA's
+    observation count and cost each within SPREAD_FACTOR × the reference's
+    own reach from its unmoved run (the span's farther end).
+
+    Returns the report: `failures` (empty when held), the largest pose
+    error and its frame, the first frame over the limit, where keyframes
+    and closures part (None: equal), stable or not with the spread."""
+    want = ref[f"{prefix}_poses"]
+    err = _pose_error(got["poses"], want)
+    failures = []
+    if np.shape(got["poses"]) != want.shape:
+        failures.append(f"poses {np.shape(got['poses'])} against "
+                        f"{want.shape}")
+    kf = [int(k) for k in got["keyframes"]]
+    cl = [tuple(int(x) for x in c) for c in got["closures"]]
+    want_k = ref[f"{prefix}_keyframes"].tolist()
+    want_c = [tuple(c) for c in ref[f"{prefix}_closures"].tolist()]
+    stable = bool(ref.get(f"{prefix}_stable", True))
+    spread = (float(ref[f"{prefix}_spread"].max())
+              if f"{prefix}_spread" in ref else None)
+    rep = {"prefix": prefix, "stable": stable, "spread": spread,
+           "err_max": float(err.max()), "err_frame": int(err.argmax()),
+           "keyframes": len(kf), "keyframes_want": len(want_k),
+           "keyframes_part": _first_difference(kf, want_k),
+           "closures": len(cl), "closures_want": len(want_c),
+           "closures_part": _first_difference(cl, want_c),
+           "ate_rmse_m": got.get("ate_rmse_m"),
+           "ate_want_m": float(ref[f"{prefix}_ate_rmse_m"])}
+    ba = "map_ba_num_obs" in got
+    if ba:
+        n, c = got["map_ba_num_obs"], got["map_ba_cost"]
+        n_want = int(ref[f"{prefix}_map_ba_num_obs"])
+        c_want = float(ref[f"{prefix}_map_ba_cost"])
+        rep["map_ba"] = (n, n_want, c, c_want)
+    if stable:
+        rep["limit"] = rep["before_ba_limit"] = tol
+        if rep["keyframes_part"] is not None:
+            failures.append(f"keyframes {kf} against {want_k}")
+        if rep["closures_part"] is not None:
+            failures.append(f"closures {cl} against {want_c}")
+        if ba and (n != n_want
+                   or not abs(c - c_want) <= MAP_BA_COST_REL * abs(c_want)):
+            failures.append(f"map BA obs {n} cost {c} against {n_want} "
+                            f"{c_want}")
+    else:
+        rep["limit"] = SPREAD_FACTOR * spread
+        ate_max = float(ref[f"{prefix}_ate_max_m"]) + CHAOTIC_ATE_SLACK_M
+        rep["ate_limit_m"] = ate_max
+        span_k = ref[f"{prefix}_span_keyframes"].tolist()
+        span_c = ref[f"{prefix}_span_closures"].tolist()
+        rep["span_keyframes"], rep["span_closures"] = span_k, span_c
+        if not got["ate_rmse_m"] <= ate_max:
+            failures.append(f"ATE {got['ate_rmse_m']} over {ate_max}")
+        if not span_k[0] <= len(kf) <= span_k[1]:
+            failures.append(f"{len(kf)} keyframes outside {span_k}")
+        if not span_c[0] <= len(cl) <= span_c[1]:
+            failures.append(f"{len(cl)} closures outside {span_c}")
+        if f"{prefix}_spread_before_ba" in ref:
+            rep["before_ba_limit"] = SPREAD_FACTOR * float(
+                ref[f"{prefix}_spread_before_ba"].max())
+        if ba:
+            reach = [SPREAD_FACTOR * max(hi - x0, x0 - lo) for x0, (lo, hi)
+                     in ((n_want, ref[f"{prefix}_span_map_ba_obs"]),
+                         (c_want, ref[f"{prefix}_span_map_ba_cost"]))]
+            rep["map_ba_limits"] = reach
+            if not (abs(n - n_want) <= reach[0]
+                    and abs(c - c_want) <= reach[1]):
+                failures.append(f"map BA obs {n} cost {c} against {n_want} "
+                                f"{c_want}: more than {reach[0]:g} / "
+                                f"{reach[1]:.6e} apart")
+    if not rep["err_max"] <= rep["limit"]:
+        failures.append(f"pose err {rep['err_max']} over {rep['limit']} "
+                        f"at frame {rep['err_frame']}")
+    over = np.nonzero(~(err <= rep["limit"]))[0]
+    rep["first_over"] = int(over[0]) if over.size else None
+    if "poses_before_ba" in got:
+        before = _pose_error(got["poses_before_ba"],
+                             ref[f"{prefix}_poses_before_ba"])
+        rep["before_ba_err"] = float(before.max())
+        if not rep["before_ba_err"] <= rep["before_ba_limit"]:
+            failures.append(f"pose err before map BA {rep['before_ba_err']}"
+                            f" over {rep['before_ba_limit']}")
+    if "promote" in got:
+        flags = np.nonzero(np.asarray(got["promote"])
+                           != ref[f"{prefix}_promote"])[0]
+        rep["flags_part"] = int(flags[0]) if flags.size else None
+        if flags.size:
+            failures.append(f"flags differ at frames {flags[:10].tolist()}")
+    if "inliers" in got:
+        rep["inliers_err"] = float(np.abs(
+            np.asarray(got["inliers"]) - ref[f"{prefix}_inliers"]).max())
+    rep["failures"] = failures
+    return rep
+
+
+def describe_hold(rep: dict) -> str:
+    """One line of a `hold_to_reference` report."""
+    def part(name, at):
+        return "equal" if at is None else f"DIFFER from {name} {at}"
+
+    line = (f"{rep['prefix']} against the reference's: pose max err "
+            f"{rep['err_max']:.3e} at frame {rep['err_frame']}, first frame "
+            f"over {rep['limit']:.3e}: {rep['first_over']}; keyframes "
+            f"{rep['keyframes']} ({rep['keyframes_want']}) "
+            f"{part('keyframe', rep['keyframes_part'])}, closures "
+            f"{rep['closures']} ({rep['closures_want']}) "
+            f"{part('closure', rep['closures_part'])}")
+    if rep.get("ate_rmse_m") is not None:
+        line += (f"; ATE {rep['ate_rmse_m']:.4e} m (the reference on the "
+                 f"CPU: {rep['ate_want_m']:.4e}"
+                 + (f", limit {rep['ate_limit_m']:.4e}" if "ate_limit_m"
+                    in rep else "") + ")")
+    if "flags_part" in rep:
+        line += f"; promotion flags {part('frame', rep['flags_part'])}"
+    if "inliers_err" in rep:
+        line += f", inlier fraction max err {rep['inliers_err']:.3e}"
+    if "before_ba_err" in rep:
+        line += (f"; before map BA: pose max err {rep['before_ba_err']:.3e}"
+                 f" (limit {rep['before_ba_limit']:.3e})")
+    if "map_ba" in rep:
+        n, n_want, c, c_want = rep["map_ba"]
+        line += f"; map BA obs {n} ({n_want}), cost {c:.6e} ({c_want:.6e})"
+        if "map_ba_limits" in rep:
+            line += (f", limits ±{rep['map_ba_limits'][0]:g} / "
+                     f"±{rep['map_ba_limits'][1]:.6e}")
+    line += ("; stable" if rep["stable"] else "; chaotic") + (
+        f", the reference's spread {rep['spread']:.3e}"
+        if rep["spread"] is not None else ", no spread measured")
+    if not rep["stable"]:
+        line += (f", keyframes span {rep['span_keyframes']}, closures span "
+                 f"{rep['span_closures']}")
+    return line + ("; FAILS: " + "; ".join(rep["failures"])
+                   if rep["failures"] else "; held")
