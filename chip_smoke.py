@@ -100,7 +100,8 @@ Phases, in order (any failure raises and the script exits non-zero):
                 to the reference's (reference_vga.npz): unfused
                 synchronous to `loop_chunked`, unfused deferred to
                 `loop_deferred`, fused synchronous to
-                `loop_fused_chunked` (keyframes and closure pairs equal,
+                `loop_fused_chunked`, fused deferred to
+                `loop_fused_deferred` (keyframes and closure pairs equal,
                 poses within 1e-3)
  9b. drift    — slam-drift-vga: SlamSystem on phase 9's 120-frame 640×480
                 loop, boundary chunks of 8 (sub-chunks of 4), the deferred
@@ -170,14 +171,19 @@ Phases, in order (any failure raises and the script exits non-zero):
                 is stable; its poses before BA logged)
  13. cli      — the user's entry point, `python -m tpuslam_torch.cli`, in
                 process: a 120-frame 640×480 two-lap sequence written in
-                TUM's layout, run_slam with chunks of 8 (sub-chunks of 4),
-                the deferred backend, --upload-raw and a checkpoint every
-                48 frames (ATE < 1 mm, ≥ 1 closure, correspond and gn_step
-                launched, no twin called; fps and fps_steady beside phase
-                9's deferred fps); the same with the float32 upload and no
-                checkpoint (the same trajectory bits; its fps is decode and
-                upload without the saves); a resume from the checkpoint (within
-                1e-5 of the uninterrupted run); run_odometry; eval of the
+                TUM's layout (each decoded depth PNG's sha256 equal to the
+                reference writer's, `cli_slam_depth_sha256`), run_slam with
+                chunks of 8 (sub-chunks of 4), the deferred backend,
+                --upload-raw and a checkpoint every 48 frames (ATE < 1 mm,
+                ≥ 1 closure, correspond and gn_step launched, no twin
+                called; fps and fps_steady beside phase 9's deferred fps);
+                the same with the float32 upload and no checkpoint (the
+                same trajectory bits; its fps is decode and upload without
+                the saves); a resume from the checkpoint (within 1e-5 of
+                the uninterrupted run); each of the three held to the
+                reference CLI's own run (`cli_slam`: keyframes and closure
+                pairs equal, poses within 1e-3); run_odometry, held to
+                `cli_odometry` (keyframes equal, poses within 1e-4); eval of the
                 written trajectory (its ATE); run_slam --track-against-map
                 --sharded-map on the first 48 frames (one rank, no process
                 group: ring_nn, gn_partials, gn_epilogue launched);
@@ -229,12 +235,14 @@ Phases, in order (any failure raises and the script exits non-zero):
                 after; (b) bench_slam: 120 frames at 640×480, its five
                 variants (per frame sync and with the worker thread,
                 boundary chunks sync and deferred, inline chunks), each
-                after an uncounted pass: every per-frame synchronous and
-                boundary-chunk pass held to the reference's
-                (reference_vga.npz: `loop_per_frame`, `loop_chunked`,
-                `loop_deferred`; keyframes and closure pairs equal, poses
-                within 1e-3, the largest error and the first frame over it
-                printed); ATE
+                after an uncounted pass: every pass held to the
+                reference's (reference_vga.npz: `loop_per_frame`,
+                `loop_worker`, `loop_chunked`, `loop_deferred`,
+                `loop_chunked_inline`; keyframes and closure pairs equal,
+                poses within 1e-3, the largest error and the first frame
+                over it printed; the worker's four passes by the rule of
+                its spread over the worker's timing, every closure pair in
+                the union of the reference's timed runs); ATE
                 per frame and inline < 1 mm,
                 each worker pass's ATE < max(2 × per frame, 0.02 m), ≥ 1
                 closure in every pass of the worker and every variant,
@@ -2214,10 +2222,24 @@ def png_filter_rates(reps: int = 3) -> dict:
     return out
 
 
-def cli_phase(card: str, counters, slam_fps: float) -> dict:
-    """The user's entry point at full width (module doc, phase 13).  Returns
+def graph_closures(system) -> list:
+    """The loop-closure pairs of a SlamSystem's pose graph in the order they
+    were added: its edges of the closure weight (a system that has made no
+    relocalization has no other such edge)."""
+    from tpuslam_torch.slam import LC_EDGE_WEIGHT
+
+    g = system.graph
+    n = g.num_edges
+    return [(int(i), int(j)) for i, j, w in zip(
+        g._edge_i[:n], g._edge_j[:n], g._edge_w[:n]) if w == LC_EDGE_WEIGHT]
+
+
+def cli_phase(card: str, counters, slam_fps: float, ref: dict) -> dict:
+    """The user's entry point at full width (module doc, phase 13), its
+    runs held to the reference CLI's (`ref`, the file's arrays).  Returns
     the kernels' launches, {"run_slam": …, "sharded": …, "grid": …}:
     run_slam (the main path), the sharded run and the grid run."""
+    import hashlib
     import io
     import tempfile
     from contextlib import redirect_stdout
@@ -2233,6 +2255,8 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
         loop_trajectory,
         write_tum_sequence,
     )
+    from tpuslam_torch.frontend import Odometry
+    from tpuslam_torch.slam import SlamSystem
 
     def counts():
         return ({k: c.launches for k, c in counters.items()},
@@ -2246,6 +2270,27 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
         check(rc == 0, f"cli {' '.join(argv)}: exit code {rc}")
         return (json.loads(buf.getvalue().strip().splitlines()[-1]),
                 time.perf_counter() - t0)
+
+    def held(prefix, summary, path, made, tol=TOL_REF_LOOP_M):
+        """A CLI run held to the reference CLI's: the poses written to
+        `path` at full precision, the keyframes of the system `made` (a
+        LastInstance) and its closure pairs as its pose graph holds them
+        (`graph_closures`: a resumed system's `closures` are only those it
+        found after the checkpoint, its graph has them all)."""
+        system = made.made
+        odo = getattr(system, "odo", system)
+        closures = []
+        if odo is not system:
+            closures = graph_closures(system)
+            own = [(c.i, c.j) for c in system.closures]
+            check(not system.relocalizations and (not own or closures[
+                -len(own):] == own), f"cli {prefix}: the graph's loop edges "
+                  f"{closures} against the system's closures {own}")
+        hold_pass(ref, prefix, {
+            "poses": written[path],
+            "keyframes": [k.index for k in odo.keyframes],
+            "closures": closures, "ate_rmse_m": summary["ate_rmse_m"]},
+            "cli", card, tol)
 
     # the poses each run writes, to compare bits (the file holds 6 digits)
     written = {}
@@ -2264,6 +2309,17 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
                            poses=loop_trajectory(120, cycles=2, radius=0.35))
         log(f"[cli] wrote 120 frames 640×480 in TUM's layout in "
             f"{time.perf_counter() - t0:.3f} s")
+        # the reference's CLI read the same depth: each decoded PNG's hash
+        hashes = [hashlib.sha256(np.ascontiguousarray(f.depth, "<u2")
+                                 .tobytes()).hexdigest()
+                  for f in tum.TumSequence(seq).frames(raw=True)]
+        want = ref["cli_slam_depth_sha256"].tolist() if (
+            "cli_slam_depth_sha256" in ref) else None
+        log(f"[cli] the decoded depth PNGs' sha256 against the reference "
+            f"writer's: {'equal' if hashes == want else 'DIFFER'} "
+            f"({len(hashes)} frames)")
+        check(hashes == want, "cli: the written sequence decodes to other "
+              "depth than the reference's")
         with open(cfg_path, "w") as f:
             f.write(slam_bench_config(480, 640, False).to_json())
         common = ("run_slam", "--sequence", seq, "--config", cfg_path,
@@ -2274,10 +2330,13 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
         try:
             for c in counters.values():
                 c.reset()
-            raw, wall = run(*common, "--upload-raw", "--checkpoint", ck,
-                            "--checkpoint-every", "48", "--traj-out",
-                            traj["raw"], "--log-jsonl", f"{tmp}/log.jsonl")
+            with LastInstance(SlamSystem) as made:
+                raw, wall = run(*common, "--upload-raw", "--checkpoint", ck,
+                                "--checkpoint-every", "48", "--traj-out",
+                                traj["raw"], "--log-jsonl",
+                                f"{tmp}/log.jsonl")
             launches, plain = counts()
+            held("cli_slam", raw, traj["raw"], made)
             out["run_slam"] = launches
             log(f"[cli] run_slam --upload-raw: {json.dumps(raw)}")
             log(f"[cli] run_slam --upload-raw: fps {raw['fps']:.3f}, "
@@ -2295,7 +2354,9 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
 
             # no checkpoint: the fps of decode and upload alone, and the
             # saves' drains must not change the trajectory either
-            f32, wall = run(*common, "--traj-out", traj["f32"])
+            with LastInstance(SlamSystem) as made:
+                f32, wall = run(*common, "--traj-out", traj["f32"])
+            held("cli_slam", f32, traj["f32"], made)
             same = np.array_equal(written[traj["raw"]], written[traj["f32"]])
             log(f"[cli] run_slam float32 upload, no checkpoint: fps "
                 f"{f32['fps']:.3f}, "
@@ -2304,8 +2365,10 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
                 f"--upload-raw: {same} ({card})")
             check(same, "cli: --upload-raw differs from the float32 upload")
 
-            res, wall = run(*common, "--upload-raw", "--resume", ck,
-                            "--traj-out", traj["resumed"])
+            with LastInstance(SlamSystem) as made:
+                res, wall = run(*common, "--upload-raw", "--resume", ck,
+                                "--traj-out", traj["resumed"])
+            held("cli_slam", res, traj["resumed"], made)
             err = float(np.abs(written[traj["resumed"]]
                                - written[traj["raw"]]).max())
             log(f"[cli] resumed from the checkpoint at frame 96 "
@@ -2314,8 +2377,11 @@ def cli_phase(card: str, counters, slam_fps: float) -> dict:
                 f"{err:.3e}")
             check(err <= TOL_RESUME, f"cli: resume err {err}")
 
-            odo, wall = run("run_odometry", "--sequence", seq, "--config",
-                            cfg_path, "--traj-out", traj["odo"])
+            with LastInstance(Odometry) as made:
+                odo, wall = run("run_odometry", "--sequence", seq,
+                                "--config", cfg_path, "--traj-out",
+                                traj["odo"])
+            held("cli_odometry", odo, traj["odo"], made, TOL_REF_ORBIT)
             log(f"[cli] run_odometry: fps {odo['fps']:.3f}, ATE "
                 f"{odo['ate_rmse_m']:.4e} m, keyframes {odo['keyframes']} "
                 f"({card})")
@@ -2734,13 +2800,15 @@ def hold_pass(ref: dict, prefix: str, got: dict, tag: str, card: str,
     """One pass held to the reference's `prefix` pass: one log line with
     the largest pose error and its frame, the first frame over the limit,
     keyframes and closures equal or where they part, stable or chaotic
-    with the reference's spread, and the card.  A failure is kept in
+    with the reference's spread, and the card (the worker pass:
+    `hold_worker_to_reference`).  A failure is kept in
     HOLD_FAILURES (main fails at its end, after every phase has logged its
     holds).  Returns the report."""
     from tpuslam_torch.bench.harness import (
         REFERENCE_FILE,
         describe_hold,
         hold_to_reference,
+        hold_worker_to_reference,
     )
 
     path = os.path.relpath(REFERENCE_FILE)
@@ -2748,7 +2816,9 @@ def hold_pass(ref: dict, prefix: str, got: dict, tag: str, card: str,
         log(f"[{tag}] hold {prefix}: FAILS: no such pass in {path} ({card})")
         HOLD_FAILURES.append(f"{tag}: {prefix}: not in the file")
         return {}
-    rep = hold_to_reference(ref, prefix, got, tol)
+    hold = (hold_worker_to_reference if prefix.startswith("loop_worker")
+            else hold_to_reference)
+    rep = hold(ref, prefix, got, tol)
     HOLDS.append((tag, rep))
     log(f"[{tag}] hold {describe_hold(rep)} ({path}; {card})")
     if rep["failures"]:
@@ -2945,9 +3015,11 @@ def backend_phase(dev, card: str, counters, loop, build_line: str,
         f"{r['slam_chunked_ate_rmse_m']:.4e}, deferred "
         f"{r['slam_chunked_async_ate_rmse_m']:.4e}; keyframes "
         f"{r['keyframes']} / {r['keyframes_chunked']}; per frame "
-        f"{ref_outcome(ref, 'loop_per_frame')}; boundary "
+        f"{ref_outcome(ref, 'loop_per_frame')}; the worker "
+        f"{ref_outcome(ref, 'loop_worker')}; boundary "
         f"{ref_outcome(ref, 'loop_chunked')}; deferred "
-        f"{ref_outcome(ref, 'loop_deferred')} (no inline pass in the file)")
+        f"{ref_outcome(ref, 'loop_deferred')}; inline "
+        f"{ref_outcome(ref, 'loop_chunked_inline')}")
     log(f"[backend] launches {launches}, on the worker streams "
         f"{on_workers}, plain calls {plain}")
     log("[backend] seconds a pass (all passes of a variant): " + "; ".join(
@@ -2970,14 +3042,16 @@ def backend_phase(dev, card: str, counters, loop, build_line: str,
     check(main_stream not in w_handles and on_workers["gn_step"] > 0
           and on_workers["correspond"] > 0,
           f"backend: the worker streams launched {on_workers}")
-    # the reference's per-frame synchronous and boundary-chunk passes
+    # every pass, the uncounted ones too, against the reference's of its
+    # variant: per frame synchronous and with the worker, boundary chunks
+    # synchronous and deferred, inline chunks
     for c, o, _, s in passes.made:
-        if o.get("chunk_mode", "boundary") != "boundary" or (
-                o.get("async_backend") and not c):
-            continue
-        hold_pass(ref, "loop_" + ("per_frame" if not c else "deferred"
-                                  if o.get("async_backend") else "chunked"),
-                  pass_result(s, ts, gt_l), "backend", card)
+        worker = bool(o.get("async_backend"))
+        name = (("worker" if worker else "per_frame") if not c
+                else "chunked_inline" if o.get("chunk_mode") == "inline"
+                else "deferred" if worker else "chunked")
+        hold_pass(ref, f"loop_{name}", pass_result(s, ts, gt_l), "backend",
+                  card)
     log(f"[backend] (b) took {time.perf_counter() - t0:.3f} s")
 
     # (c) inline chunks of 8 with the worker on the card against the same
@@ -3593,15 +3667,12 @@ def main() -> int:
                                reps=3, sequence=loop)
         after, _ = read_counts()
         # every pass, the uncounted one too: the synchronous passes are
-        # bench_slam's chunked variant, the deferred ones its
-        # chunked_async (no reference pass holds fused and deferred)
+        # bench_slam's chunked variant, the deferred ones its chunked_async
         for _, o, _, s in passes.made:
-            name = ("loop_fused_chunked" if fused else "loop_chunked") if (
-                not o.get("async_backend")) else (
-                None if fused else "loop_deferred")
-            if name:
-                hold_pass(ref, name, pass_result(s, np.arange(120) / 30.0,
-                                              loop[1]), "slam", card)
+            name = "loop_" + ("fused_" if fused else "") + (
+                "deferred" if o.get("async_backend") else "chunked")
+            hold_pass(ref, name, pass_result(s, np.arange(120) / 30.0,
+                                          loop[1]), "slam", card)
         del passes
         slam_res[fused] = r
         ran = {k: after[k] - before[k] for k in after}
@@ -3800,7 +3871,7 @@ def main() -> int:
     # ---- 13-15. the CLI (this slice's main path), scale, pathology ----
     t0 = time.perf_counter()
     launches_cli = cli_phase(card, counters,
-                             slam_res[False]["deferred"]["fps"])
+                             slam_res[False]["deferred"]["fps"], ref)
     log(f"[cli] phase took {time.perf_counter() - t0:.3f} s")
     for name, fn in (("scale", scale_phase), ("pathology", pathology_phase)):
         t0 = time.perf_counter()

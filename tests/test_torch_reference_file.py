@@ -76,6 +76,7 @@ def port_configs() -> dict:
                 icp=dataclasses.replace(orbit.icp, fused_gn=True)),
             "loop": slam_bench_config(h, w, False),
             "loop_fused": slam_bench_config(h, w, True),
+            "cli": slam_bench_config(h, w, False),
             "drift_off": harness.drift_config(False),
             "drift_on": harness.drift_config(True),
             "scale": harness.scale_config(script.SCALE_HEIGHT,
@@ -85,8 +86,9 @@ def port_configs() -> dict:
 
 PASSES = ("orbit_classic", "orbit_boundary", "orbit_fused",
           "loop_per_frame", "loop_chunked", "loop_deferred",
-          "loop_fused_chunked", "drift_off", "drift_on", "map_projective",
-          "map_grid", "map_sharded", "scale", "pathology")
+          "loop_fused_chunked", "loop_fused_deferred", "loop_chunked_inline",
+          "loop_worker", "cli_slam", "cli_odometry", "drift_off", "drift_on",
+          "map_projective", "map_grid", "map_sharded", "scale", "pathology")
 
 
 def test_the_file_is_current(ref):
@@ -126,6 +128,16 @@ def test_the_file_is_current(ref):
             for k in ("keyframes", "closures"):
                 lo, hi = ref[f"{q}_span_{k}"]
                 assert lo == hi == len(ref[f"{q}_{k}"]), (q, k)
+    # the worker pass: its spread over the worker's timing, the closure
+    # pairs of every timed run, whether their keyframes were the same
+    for q in ("loop_worker", "loop_worker_short"):
+        union = {tuple(c) for c in ref[f"{q}_closure_union"].tolist()}
+        assert {tuple(c) for c in ref[f"{q}_closures"].tolist()} <= union
+        assert ref[f"{q}_span_closures"][1] <= len(union)
+        assert ref[f"{q}_keyframes_fixed"].dtype == bool
+    assert ref["loop_worker_short_closures"].shape[0] >= 1
+    # the CLI passes read the loop written by the reference's writer
+    assert ref["cli_slam_depth_sha256"].shape == (script.LOOP_FRAMES,)
     assert ref["pathology_ulps"].tolist() == list(script.PATHOLOGY_ULPS)
     assert ref["map_grid_poses_before_ba"].shape == (script.LOOP_FRAMES, 4,
                                                      4)

@@ -241,3 +241,45 @@ def test_hold_rule_stable_and_chaotic():
         rep = harness.hold_to_reference(chaotic, "p", {**ok, **change}, 1e-5)
         assert len(rep["failures"]) == 1, (change, rep["failures"])
     assert "limits ±40" in harness.describe_hold(rep)
+
+
+def test_hold_rule_closure_union():
+    """Where the file keeps a pass's `closure_union` (the worker pass: the
+    closure pairs of every timed run of the reference), a pair outside it
+    fails the hold, stable or chaotic, and nothing else changes; the
+    worker's hold also keeps its keyframes equal where the reference's
+    were the same in every timed run (`keyframes_fixed`)."""
+    rng = np.random.default_rng(1)
+    poses = rng.normal(size=(6, 4, 4))
+    ref = {"p_poses": poses, "p_keyframes": np.asarray([0, 3]),
+           "p_closures": np.asarray([[3, 0]]), "p_ate_rmse_m": 1e-3,
+           "p_stable": np.bool_(False),
+           "p_spread": np.asarray([0, 0, 1e-3, 0, 0, 0]),
+           "p_ate_max_m": 2e-3, "p_span_keyframes": np.asarray([2, 3]),
+           "p_span_closures": np.asarray([1, 2])}
+    got = {"poses": poses + 1e-3, "keyframes": [0, 3],
+           "closures": [(3, 0), (5, 1)], "ate_rmse_m": 1e-3}
+    # without the key: counts in their spans hold, whatever the pairs
+    rep = harness.hold_to_reference(ref, "p", got, 1e-5)
+    assert not rep["failures"] and "closures_outside" not in rep
+    ref["p_closure_union"] = np.asarray([[3, 0], [5, 1], [4, 0]])
+    rep = harness.hold_to_reference(ref, "p", got, 1e-5)
+    assert not rep["failures"] and rep["closures_outside"] == []
+    assert "outside the reference's union none" in harness.describe_hold(rep)
+    rep = harness.hold_to_reference(
+        ref, "p", {**got, "closures": [(3, 0), (5, 2)]}, 1e-5)
+    assert rep["closures_outside"] == [(5, 2)]
+    assert len(rep["failures"]) == 1 and "(5, 2)" in rep["failures"][0]
+    stable = {**ref, "p_stable": np.bool_(True)}
+    rep = harness.hold_to_reference(
+        stable, "p", {**got, "poses": poses, "closures": [(4, 1)]}, 1e-5)
+    assert len(rep["failures"]) == 2       # the pairs differ; outside too
+    # keyframes: inside the span unless every timed run had the same ones
+    moved = {**got, "keyframes": [0, 2, 4]}
+    assert not harness.hold_worker_to_reference(ref, "p", moved,
+                                                1e-5)["failures"]
+    ref["p_keyframes_fixed"] = np.bool_(True)
+    rep = harness.hold_worker_to_reference(ref, "p", moved, 1e-5)
+    assert len(rep["failures"]) == 1 and "keyframes" in rep["failures"][0]
+    assert not harness.hold_worker_to_reference(ref, "p", got,
+                                                1e-5)["failures"]

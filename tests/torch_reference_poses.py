@@ -18,7 +18,20 @@ harness.py`), on the inputs that runner renders:
     `bench_slam` / `run_slam_bench` at `loop_config` (lc_min_gap 8):
     `per_frame` (backend synchronous), `chunked` (boundary chunks of 8,
     `chunk_sub=4`, synchronous), `deferred` (the same, `async_backend=
-    True`) and `fused_chunked` (`chunked` with `fused_gn=True`);
+    True`), `fused_chunked` (`chunked` with `fused_gn=True`),
+    `fused_deferred` (`deferred` with `fused_gn=True`), `chunked_inline`
+    (inline chunks of 8, synchronous) and `worker` (per frame with the
+    backend on the worker thread: `async_backend=True`, inline mode);
+  * `cli_slam_*` and `cli_odometry_*`: the reference's own CLI
+    (`tpuslam.cli.main`) on that loop written to disk by its own
+    `write_tum_sequence` (16-bit PNG depth, TUM's layout) and read back:
+    `run_slam --config <loop_config> --chunk 8 --chunk-sub 4
+    --async-backend --upload-raw` and `run_odometry --config
+    <loop_config>`, the poses caught at full precision where the CLI
+    writes its trajectory file, the keyframes and closures from the
+    system it made; `cli_slam_depth_sha256` is each decoded depth PNG's
+    sha256 (uint16 counts), so a reader checks that its own writer made
+    the same input;
   * `drift_{off,on}_*`: slam-drift-vga, that loop deferred with 0.012 m of
     world-anchor bias before every chunk but the first, `drift_config`'s
     gates, `lc_descriptor` off / on;
@@ -31,8 +44,9 @@ harness.py`), on the inputs that runner renders:
   * `pathology_*`: `bench_pathology`, 60 degraded 640×480 frames.
 
 For every SLAM pass: per-frame poses (`trajectory()`), the keyframes'
-frame indices, the closure pairs (i, j), the ATE (`max_difference=0.005`)
-and the pass's seconds, with the extras of `record`.  `<prefix>_short_*`
+frame indices, the closure pairs (i, j), the ATE (`max_difference=0.005`;
+the CLI passes: the CLI's own summary) and the pass's seconds, with the
+extras of `record`.  `<prefix>_short_*`
 is the same pass over the first SHORT[prefix] frames of the same inputs
 (rendered at the full length and cut), then `finalize`: the port's CPU
 tests run those.
@@ -43,7 +57,16 @@ over those runs of the largest pose-element difference from the unmoved
 run, `<p>_span_keyframes` / `<p>_span_closures` the least and greatest
 counts over all five runs, `<p>_ate_max_m` the largest ATE of the five,
 and `<p>_stable` whether the largest spread is at most STABLE_SPREAD with
-keyframes and closure pairs equal in all five runs.  The grid pass adds
+keyframes and closure pairs equal in all five runs.  The worker pass
+(`loop_worker`, and its short run) is perturbed in its timing instead:
+it is rerun with the worker never behind (tracking waits after each
+frame for every attempt queued), with each of its attempts delayed by
+each of WORKER_DELAYS s, and with every attempt held until `finalize`
+(the attempt `finalize` makes on the main thread is never delayed); its
+spread is over those eight runs, and it adds `<p>_closure_union` (every
+closure pair of the eight) and `<p>_keyframes_fixed` (their keyframes
+equal).  Its short run is the shortest prefix of the loop on which the
+undelayed run closes a loop (WORKER_SHORT).  The grid pass adds
 `<p>_spread_before_ba` (its poses before map BA) and `<p>_span_map_ba_obs`
 / `<p>_span_map_ba_cost` (map BA's observation count and final cost, least
 and greatest of the five).  A pass without a spread (the whole scale
@@ -57,12 +80,18 @@ above: it makes no pass chaotic, and only the port's CPU pathology test
 reads it.
 
 `--keep DIR` keeps each job's result in DIR and runs only the jobs whose
-result is missing there.
+result is missing there and whose pass OUT does not hold yet: where OUT
+was written from the same `tpuslam` files (their blob hashes) and the
+same configs, its entries of a pass are kept as they are.  So, after a
+pass is added here, `--jobs N --keep DIR` runs that pass alone; delete OUT
+first to rerun every pass (after a change to how this script drives a
+pass; after a change to `tpuslam` nothing is kept anyway).
 
 Not a test module and not part of the test run: tests/
 test_torch_reference_file.py checks the file is current and holds the
 orbit and the synchronous loop passes; test_torch_reference_passes.py and
-test_torch_reference_map.py hold the port's short runs to it on the CPU;
+test_torch_reference_map.py and test_torch_reference_cli.py hold the
+port's short runs to it on the CPU;
 chip_smoke.py holds the card's full-width runs to it.  Rerun it when a
 default of `tpuslam.config` or the synthetic scene changes (the first of
 those tests fails on a stale file).
@@ -71,11 +100,13 @@ those tests fails on a stale file).
 import argparse
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -99,16 +130,27 @@ SCALE_FRAMES, SCALE_HEIGHT, SCALE_WIDTH = 2000, 240, 320
 SCALE_CYCLES, SCALE_CHUNK = 5, 32
 PATHOLOGY_FRAMES = 60
 KINECT_NOISE = 0.0019       # bench_pathology's z² coefficient
+WORKER_SHORT = 59           # the worker's first closure (module doc)
 SHORT = {"loop_deferred": 24, "loop_fused_chunked": 24, "drift_off": 24,
          "drift_on": 24, "map_projective": 24, "map_grid": 24, "scale": 200,
-         "pathology": 60}
+         "pathology": 60, "loop_chunked_inline": 24,
+         "loop_fused_deferred": 24, "loop_worker": WORKER_SHORT,
+         "cli_slam": 24, "cli_odometry": 24}
 # the runs rerun for the reference's own spread: the map, grid and drift
 # passes and their short runs, and the scale pass's short run (one whole
 # scale run takes 19-62 min on an 8-core CPU, past the ~15 min a spread run
 # may take: its spread is left out)
 SPREAD_RUNS = ("map_projective", "map_projective_short", "map_grid",
-               "map_grid_short", "drift_on", "drift_on_short", "scale_short")
+               "map_grid_short", "drift_on", "drift_on_short", "scale_short",
+               "loop_worker", "loop_worker_short")
 SPREAD_DELTAS = (-2e-4, -1e-4, 1e-4, 2e-4)
+# the worker pass's reruns: the worker never behind (-inf: tracking waits
+# after each frame until every queued attempt is committed, as if each took
+# no time), each worker attempt delayed by these seconds (a frame of this
+# loop takes ~0.3 s here: the last two put the worker a frame or more
+# behind its tracking), then every one held until finalize (inf) --
+# together they bracket any speed a worker can have against its tracking
+WORKER_DELAYS = (0.002, 0.010, 0.050, 0.25, 1.0)
 # the pathology pass (its own short run) is rerun with its depth moved by
 # these ulps (module doc): the rounding-level difference a backend makes
 # (the port's transform is 1 ulp from XLA's in ~28% of points)
@@ -121,6 +163,10 @@ def perturbations(prefix: str) -> list:
     pathology pass."""
     if prefix.startswith("pathology"):
         return [(f"@{u:+d}ulp", u) for u in PATHOLOGY_ULPS]
+    if prefix.startswith("loop_worker"):
+        return [("@never_behind", -np.inf)] + [
+            (f"@{1e3 * d:g}ms", d) for d in WORKER_DELAYS] + [
+            ("@finalize", np.inf)]
     return [(f"@{d:+.0e}", d) for d in SPREAD_DELTAS]
 
 
@@ -191,6 +237,7 @@ def configs() -> dict:
     """Every pass's config as `SLAMConfig.to_json` (the file keeps them)."""
     return {"orbit": orbit_config(), "orbit_fused": orbit_config(True),
             "loop": loop_config(), "loop_fused": loop_config(True),
+            "cli": loop_config(),
             "drift_off": drift_config(False), "drift_on": drift_config(True),
             "scale": scale_config(), "pathology": pathology_config()}
 
@@ -304,14 +351,66 @@ def ulp_moved(d: np.ndarray, ulps: int) -> np.ndarray:
     return out
 
 
+def delay_worker(slam, delay: float) -> None:
+    """Delay each loop-closure attempt of `slam`'s worker thread by `delay`
+    s (inf: hold each until `finalize` is called; -inf: none, but tracking
+    waits after each frame until every attempt queued so far is
+    committed, so the worker is never behind).  The attempt `finalize`
+    makes on the main thread runs at once."""
+    attempt, finalize, process = (slam._attempt_loop_closure, slam.finalize,
+                                  slam.process)
+    released, committed = threading.Event(), threading.Condition()
+    count = {"queued": 0, "done": 0}
+    put = slam._backend_queue.put
+
+    def counted(item, *a, **k):
+        if item is not None:
+            with committed:
+                count["queued"] += 1
+        put(item, *a, **k)
+
+    def delayed():
+        if threading.current_thread() is not slam._backend_thread:
+            return attempt()
+        try:
+            if delay == np.inf:
+                released.wait()
+            elif delay > 0:
+                time.sleep(delay)
+            return attempt()
+        finally:
+            with committed:
+                count["done"] += 1
+                committed.notify_all()
+
+    def waiting(*a, **k):
+        out = process(*a, **k)
+        with committed:
+            committed.wait_for(lambda: count["done"] == count["queued"])
+        return out
+
+    def releasing():
+        released.set()
+        finalize()
+
+    slam._backend_queue.put = counted
+    slam._attempt_loop_closure = delayed
+    slam.finalize = releasing
+    if delay == -np.inf:
+        slam.process = waiting
+
+
 def run_pass(name: str, frames: int, delta: float = 0.0) -> dict:
     """One SLAM pass of the reference (module doc) over its first `frames`
     frames, the voxel origin moved by `delta` m (the pathology pass: its
-    depth moved by `delta` ulps)."""
+    depth moved by `delta` ulps; the worker pass: its attempts delayed by
+    `delta` s)."""
     import jax.numpy as jnp
 
     from tpuslam.slam import SlamSystem
 
+    if name.startswith("cli_"):
+        return run_cli(name, frames)
     if name == "scale":
         K, gt, d = scale_inputs(frames)
     elif name == "pathology":
@@ -356,19 +455,115 @@ def run_pass(name: str, frames: int, delta: float = 0.0) -> dict:
                           enable_loop_closure=True, chunk_mode="boundary",
                           async_backend=True)
         run_chunked(slam, dev, ts, CHUNK)
+    elif name == "loop_worker":
+        slam = SlamSystem(K, loop_config(), enable_loop_closure=True,
+                          async_backend=True, chunk_mode="inline",
+                          chunk_sub=CHUNK_SUB)
+        if delta:
+            delay_worker(slam, delta)
+        run_chunked(slam, dev, ts, 1 << 30)
     else:
-        cfg = moved(loop_config(name == "loop_fused_chunked"), delta)
+        cfg = moved(loop_config(name in ("loop_fused_chunked",
+                                         "loop_fused_deferred")), delta)
         if name == "loop_per_frame":
             slam = SlamSystem(K, cfg, enable_loop_closure=True,
                               async_backend=False)
             run_chunked(slam, dev, ts, 1 << 30)
         else:
-            slam = SlamSystem(K, cfg, enable_loop_closure=True,
-                              async_backend=name == "loop_deferred",
-                              chunk_mode="boundary", chunk_sub=CHUNK_SUB)
+            slam = SlamSystem(
+                K, cfg, enable_loop_closure=True,
+                async_backend=name in ("loop_deferred",
+                                       "loop_fused_deferred"),
+                chunk_mode=("inline" if name == "loop_chunked_inline"
+                            else "boundary"), chunk_sub=CHUNK_SUB)
             run_chunked(slam, dev, ts, CHUNK)
     seconds = time.perf_counter() - t0
     return {**record(slam, ts, gt), **extra, "seconds": np.float64(seconds)}
+
+
+def depth_hashes(seq: str, frames: int) -> np.ndarray:
+    """sha256 of each of the first `frames` depth PNGs of the TUM sequence
+    `seq`, decoded to uint16 counts by the reference's loader."""
+    from tpuslam.data.tum import TumSequence
+
+    return np.asarray([
+        hashlib.sha256(np.ascontiguousarray(f.depth, "<u2").tobytes())
+        .hexdigest()
+        for f in TumSequence(seq).frames(stop=frames, raw=True)])
+
+
+def run_cli(name: str, frames: int) -> dict:
+    """The reference's CLI (`cli_slam`: run_slam, `cli_odometry`:
+    run_odometry) over the first `frames` frames of the loop written to
+    disk by its own writer (module doc).  The poses are the ones the CLI
+    hands to `write_trajectory`; the keyframes and closures those of the
+    system it made."""
+    from contextlib import redirect_stdout
+
+    import tpuslam.frontend
+    import tpuslam.slam
+    from tpuslam import cli
+    from tpuslam.data import tum
+    from tpuslam.data.synthetic import loop_trajectory, write_tum_sequence
+
+    made, written = [], {}
+    slam_cls, odo_cls = tpuslam.slam.SlamSystem, tpuslam.frontend.Odometry
+    write_trajectory = tum.write_trajectory
+
+    def kept(cls):
+        class Kept(cls):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+        return Kept
+
+    def capture(path, ts, poses):
+        written["poses"] = np.array(poses)
+        write_trajectory(path, ts, poses)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, cfg_path = f"{tmp}/seq", f"{tmp}/cfg.json"
+        write_tum_sequence(seq, LOOP_FRAMES, intrinsics(HEIGHT, WIDTH),
+                           HEIGHT, WIDTH, poses=loop_trajectory(
+                               LOOP_FRAMES, cycles=LOOP_CYCLES, radius=0.35))
+        with open(cfg_path, "w") as f:
+            f.write(loop_config().to_json())
+        argv = (["run_slam", "--sequence", seq, "--config", cfg_path,
+                 "--chunk", str(CHUNK), "--chunk-sub", str(CHUNK_SUB),
+                 "--async-backend", "--upload-raw"]
+                if name == "cli_slam" else
+                ["run_odometry", "--sequence", seq, "--config", cfg_path])
+        argv += ["--stop", str(frames), "--traj-out", f"{tmp}/traj.txt"]
+        buf = io.StringIO()
+        tpuslam.slam.SlamSystem = kept(slam_cls)
+        tpuslam.frontend.Odometry = kept(odo_cls)
+        tum.write_trajectory = capture
+        t0 = time.perf_counter()
+        try:
+            with redirect_stdout(buf):
+                rc = cli.main(argv)
+        finally:
+            tpuslam.slam.SlamSystem, tpuslam.frontend.Odometry = (slam_cls,
+                                                                  odo_cls)
+            tum.write_trajectory = write_trajectory
+        seconds = time.perf_counter() - t0
+        if rc:
+            raise RuntimeError(f"{' '.join(argv)}: exit {rc}")
+        hashes = depth_hashes(seq, frames)
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    system = made[-1]
+    odo = system.odo if name == "cli_slam" else system
+    out = {"poses": np.asarray(written["poses"], np.float64),
+           "keyframes": np.asarray([k.index for k in odo.keyframes],
+                                   np.int64),
+           "closures": np.asarray([(c.i, c.j) for c in getattr(
+               system, "closures", [])], np.int64).reshape(-1, 2),
+           "ate_rmse_m": np.float64(summary["ate_rmse_m"]),
+           "lost": np.asarray([bool(s.get("lost")) for s in odo.stats]),
+           "depth_sha256": hashes, "seconds": np.float64(seconds)}
+    if name == "cli_slam":
+        out["graph_nodes"] = np.int64(system._num_graph_nodes)
+    return out
 
 
 def run_orbit() -> dict:
@@ -411,6 +606,9 @@ def jobs() -> list:
     out = [("orbit", "orbit", ORBIT_FRAMES, 0.0)]
     full = {"loop_per_frame": LOOP_FRAMES, "loop_chunked": LOOP_FRAMES,
             **{p: LOOP_FRAMES for p in ("loop_deferred", "loop_fused_chunked",
+                                        "loop_fused_deferred",
+                                        "loop_chunked_inline", "loop_worker",
+                                        "cli_slam", "cli_odometry",
                                         "drift_off", "drift_on",
                                         "map_projective", "map_grid",
                                         "map_sharded")},
@@ -448,16 +646,23 @@ def span(values) -> np.ndarray:
 
 
 def spread(base: dict, runs: list, prefix: str) -> dict:
-    """The reference's own spread over the moved-origin runs (module
-    doc)."""
+    """The reference's own spread over the moved-origin runs, or over the
+    worker's delayed runs (module doc)."""
     every = [base] + runs
     diff = pose_spread(base, runs)
     kfs = [r["keyframes"].size for r in every]
     cls = [r["closures"].shape[0] for r in every]
-    same = all(np.array_equal(r["keyframes"], base["keyframes"])
-               and np.array_equal(r["closures"], base["closures"])
-               for r in runs)
+    same_kf = all(np.array_equal(r["keyframes"], base["keyframes"])
+                  for r in runs)
+    same = same_kf and all(np.array_equal(r["closures"], base["closures"])
+                           for r in runs)
     out = {}
+    if prefix.startswith("loop_worker"):
+        union = sorted({tuple(c) for r in every
+                        for c in r["closures"].tolist()})
+        out = {f"{prefix}_closure_union": np.asarray(
+                   union, np.int64).reshape(-1, 2),
+               f"{prefix}_keyframes_fixed": np.bool_(same_kf)}
     if "map_ba_num_obs" in base:
         out = {f"{prefix}_spread_before_ba": pose_spread(
                    base, runs, "poses_before_ba"),
@@ -496,6 +701,42 @@ def reference_blobs() -> dict:
     return dict(sorted(out.items()))
 
 
+def owner(key: str, prefixes) -> str | None:
+    """The pass whose entry `key` is: the longest of `prefixes` it starts
+    with (`loop_chunked_inline_poses` is loop_chunked_inline's, not
+    loop_chunked's)."""
+    return max((p for p in prefixes if key.startswith(p + "_")), key=len,
+               default=None)
+
+
+def kept_passes(path: Path) -> dict:
+    """The entries of the passes that the file at `path` holds, by pass,
+    where it was written from today's `tpuslam` files and configs (module
+    doc, `--keep`); {} otherwise."""
+    if not path.exists():
+        return {}
+    with np.load(path) as z:
+        old = {k: z[k] for k in z.files}
+    now = {k: c.to_json() for k, c in configs().items()}
+    was = json.loads(str(old["configs"]))
+    blobs = json.loads(str(old["reference_blobs"]))
+    if any(was[k] != now[k] for k in was.keys() & now.keys()) or any(
+            not (ROOT / f).exists() or blob_hash(ROOT / f) != b
+            for f, b in blobs.items()):
+        return {}
+    names = {j[0] for j in jobs() if "@" not in j[0]}
+    short = json.loads(str(old["short_frames"]))
+    out: dict = {}
+    for k, v in old.items():
+        p = owner(k, names)
+        if p is not None and short.get(p.removesuffix("_short")) == SHORT.get(
+                p.removesuffix("_short")):
+            out.setdefault(p, {})[k] = v
+    out["blobs"] = blobs
+    return {p: e for p, e in out.items()
+            if p == "blobs" or f"{p}_poses" in e or p == "orbit"}
+
+
 def main(argv) -> int:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
@@ -514,6 +755,10 @@ def main(argv) -> int:
         return 0
 
     t_all = time.perf_counter()
+    kept = kept_passes(Path(args.out)) if args.keep else {}
+    todo = [j for j in jobs() if j[0].split("@")[0] not in kept]
+    if kept:
+        print(f"kept from {args.out}: {', '.join(sorted(kept))}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         if args.keep:
             tmp = args.keep
@@ -534,16 +779,27 @@ def main(argv) -> int:
             return s
 
         # the longest first, so the pool ends together
-        order = sorted(jobs(), key=lambda j: -j[2] * {
+        order = sorted(todo, key=lambda j: -j[2] * {
             "map_grid": 4, "map_sharded": 40}.get(j[1], 1))
         with ThreadPoolExecutor(args.jobs) as pool:
             list(pool.map(one, order))
         runs = {j[0]: dict(np.load(Path(tmp) / f"{j[0]}.npz"))
-                for j in jobs()}
-    blobs: dict = {}
+                for j in todo}
+    blobs: dict = kept.pop("blobs", {})
     for rec in runs.values():
         blobs.update(json.loads(str(rec.pop("blobs"))))
     out: dict = {}
+    for entries in kept.values():
+        out.update(entries)
+    # the CLI passes read one sequence: one copy of its depth hashes
+    hashes = {n: rec.pop("depth_sha256") for n, rec in runs.items()
+              if "depth_sha256" in rec}
+    for n, h in hashes.items():
+        if n.split("@")[0] != "cli_slam":
+            want = hashes.get("cli_slam", out.get("cli_slam_depth_sha256"))
+            assert want is not None and (h == want[:h.size]).all(), n
+    if "cli_slam" in hashes:
+        out["cli_slam_depth_sha256"] = hashes["cli_slam"]
     for name, rec in runs.items():
         if "@" in name:
             continue
@@ -557,7 +813,8 @@ def main(argv) -> int:
         elif name == "pathology":
             out["pathology_rounding_spread"] = pose_spread(rec, moved_runs)
     # the pathology pass is its own short run
-    for k in [k for k in out if k.startswith("pathology_")]:
+    for k in [k for k in out if k.startswith("pathology_")
+              and "pathology" in runs]:
         out[k.replace("pathology_", "pathology_short_", 1)] = out[k]
     for k in ("scale_poses", "scale_short_poses"):   # the capacity run's
         out[k] = out[k].astype(np.float32)
@@ -597,10 +854,12 @@ def main(argv) -> int:
                 stable=bool(out[f"{name}_stable"]),
                 spread=float(out[f"{name}_spread"].max()),
                 spread_seconds=float(out[f"{name}_spread_seconds"]))
-    summary["pathology"]["rounding_spread"] = float(
-        out["pathology_rounding_spread"].max())
-    summary["orbit"] = {s: float(out[f"orbit_{s}_seconds"])
-                        for s in ("classic", "boundary", "fused")}
+    if "pathology" in summary:
+        summary["pathology"]["rounding_spread"] = float(
+            out["pathology_rounding_spread"].max())
+    if "orbit" in runs:
+        summary["orbit"] = {s: float(out[f"orbit_{s}_seconds"])
+                            for s in ("classic", "boundary", "fused")}
     print(json.dumps(summary, indent=1))
     return 0
 

@@ -849,7 +849,9 @@ def hold_to_reference(ref: dict, prefix: str, got: dict,
     ATE at most the largest of its five ATEs + CHAOTIC_ATE_SLACK_M, the
     keyframe and closure counts inside their spans, and map BA's
     observation count and cost each within SPREAD_FACTOR × the reference's
-    own reach from its unmoved run (the span's farther end).
+    own reach from its unmoved run (the span's farther end).  Where the
+    file keeps the pass's `closure_union` (the worker pass: every closure
+    pair of the reference's timed runs), every closure pair is in it.
 
     Returns the report: `failures` (empty when held), the largest pose
     error and its frame, the first frame over the limit, where keyframes
@@ -917,6 +919,12 @@ def hold_to_reference(ref: dict, prefix: str, got: dict,
                 failures.append(f"map BA obs {n} cost {c} against {n_want} "
                                 f"{c_want}: more than {reach[0]:g} / "
                                 f"{reach[1]:.6e} apart")
+    if f"{prefix}_closure_union" in ref:
+        union = {tuple(c) for c in ref[f"{prefix}_closure_union"].tolist()}
+        rep["closures_outside"] = [c for c in cl if c not in union]
+        if rep["closures_outside"]:
+            failures.append(f"closures {rep['closures_outside']} in none of "
+                            f"the reference's runs")
     if not rep["err_max"] <= rep["limit"]:
         failures.append(f"pose err {rep['err_max']} over {rep['limit']} "
                         f"at frame {rep['err_frame']}")
@@ -939,6 +947,24 @@ def hold_to_reference(ref: dict, prefix: str, got: dict,
         rep["inliers_err"] = float(np.abs(
             np.asarray(got["inliers"]) - ref[f"{prefix}_inliers"]).max())
     rep["failures"] = failures
+    return rep
+
+
+def hold_worker_to_reference(ref: dict, prefix: str, got: dict,
+                             tol: float) -> dict:
+    """`hold_to_reference` for the worker pass (its spread is over the
+    worker's timing): where the reference's keyframes were the same in
+    every timed run (`keyframes_fixed`), a chaotic pass's keyframes must
+    equal them too, not only fall inside their span."""
+    rep = hold_to_reference(ref, prefix, got, tol)
+    rep["keyframes_fixed"] = bool(ref.get(f"{prefix}_keyframes_fixed",
+                                          False))
+    if (rep["keyframes_fixed"] and not rep["stable"]
+            and rep["keyframes_part"] is not None):
+        rep["failures"].append(
+            f"keyframes {[int(k) for k in got['keyframes']]} against "
+            f"{ref[f'{prefix}_keyframes'].tolist()} (the same in every "
+            f"timed run of the reference)")
     return rep
 
 
@@ -978,5 +1004,10 @@ def describe_hold(rep: dict) -> str:
     if not rep["stable"]:
         line += (f", keyframes span {rep['span_keyframes']}, closures span "
                  f"{rep['span_closures']}")
+    if rep.get("keyframes_fixed"):
+        line += ", keyframes the same in every timed run"
+    if "closures_outside" in rep:
+        line += (f", closures outside the reference's union "
+                 f"{rep['closures_outside'] or 'none'}")
     return line + ("; FAILS: " + "; ".join(rep["failures"])
                    if rep["failures"] else "; held")
