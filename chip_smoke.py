@@ -162,8 +162,8 @@ Phases, in order (any failure raises and the script exits non-zero):
                 0.02 m), grid_correspond, correspond and gn_step launched,
                 no twin called; fps beside phase 12's unsharded fps); then
                 frames 40-47's stages on the host clock (refinement, index
-                build, insert), frames 48-55 under torch.profiler (idle
-                share, grid_correspond's device µs a launch) and map BA's
+                build, insert), frames 48-55 under torch.profiler (device
+                busy, grid_correspond's device µs a launch) and map BA's
                 time, one probe launch; the probe with its table build
                 amortized over this run's probes an index against phase
                 3's library route; the pass held to the reference's
@@ -1772,9 +1772,8 @@ def map_phase(dev, card: str, counters, loop, slam_ate: float,
             rows = device_rows(prof)
             busy = sum(r[0] for r in rows)
             log(f"[map profile] sharded={sharded}, frames 48-55: wall "
-                f"{wall_us:.1f} us (profiled), device busy {busy:.1f} us, "
-                f"idle share "
-                f"{1 - busy / wall_us if busy else float('nan'):.4f} ({card})")
+                f"{wall_us:.1f} us (profiled), device busy {busy:.1f} us "
+                f"({card})")
             for dt, cnt, key in rows[:10]:
                 log(f"[map profile]   {dt:10.1f} us  {cnt:6d}x  {key[:90]}")
             # unsharded, the association's transform is inside its kernel:
@@ -1927,8 +1926,7 @@ def grid_phase(dev, card: str, counters, loop, map_fps: float,
     busy = sum(r_[0] for r_ in rows)
     hit = per_launch_us(rows, "grid_correspond")
     log(f"[grid profile] frames 48-55: wall {wall_us:.1f} us (profiled), "
-        f"device busy {busy:.1f} us, idle share "
-        f"{1 - busy / wall_us if busy else float('nan'):.4f}; "
+        f"device busy {busy:.1f} us; "
         + (f"grid_correspond {hit[0]:.3f} us a launch, {hit[1]} launches"
            if hit else "grid_correspond: not seen") + f" ({card})")
     for dt, cnt, key in rows[:10]:
@@ -3736,8 +3734,7 @@ def main() -> int:
         if busy > 0:
             gemms_by[fused] = count_ops(rows, "gemm")
             log(f"[profile] fused_gn={fused}, 8 frames: wall {wall_us:.1f} us "
-                f"(profiled), device busy {busy:.1f} us, idle share "
-                f"{1 - busy / wall_us:.4f}, device ops "
+                f"(profiled), device busy {busy:.1f} us, device ops "
                 f"{sum(r[1] for r in rows)}, GEMMs {gemms_by[fused]} "
                 f"({card})")
             for dt, cnt, key in rows[:15]:
@@ -3828,8 +3825,7 @@ def main() -> int:
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     log(f"[profile chunk] frames 72-79: wall {wall_us:.1f} us (profiled), "
-        f"device busy {busy:.1f} us, idle share "
-        f"{1 - busy / wall_us if busy else float('nan'):.4f}, attempt "
+        f"device busy {busy:.1f} us, attempt "
         f"pending after: {slam._pending_attempt is not None} ({card})")
     for ev in prof.key_averages():
         if ev.key.startswith("slam."):

@@ -285,7 +285,7 @@ def test_profiling_and_metrics(tmp_path):
     from tpuslam_torch.utils import metrics, profiling
 
     with profiling.trace(str(tmp_path / "trace")) as path:
-        with profiling.scope("stage"):
+        with profiling.span("stage"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -296,9 +296,3 @@ def test_profiling_and_metrics(tmp_path):
         lg.write(frame=0, ms=1.5)
         lg.write(frame=1, ms=2.5)
     assert jsonl(log) == [{"frame": 0, "ms": 1.5}, {"frame": 1, "ms": 2.5}]
-    t = metrics.Timer()
-    for _ in range(3):
-        with t:
-            pass
-    s = t.summary()
-    assert s["count"] == 3 and s["max_ms"] >= s["p50_ms"] >= 0

@@ -114,7 +114,7 @@ def profile_rows(prof):
     return busy, ops, kernels, rows
 
 
-def report(tag, card, package, frames, walls, wall_us, prof, **extra):
+def report(tag, card, package, frames, walls, prof, **extra):
     busy, ops, kernels, rows = profile_rows(prof)
     f = frames
     return {
@@ -126,7 +126,6 @@ def report(tag, card, package, frames, walls, wall_us, prof, **extra):
         "fills_per_frame": sum(n for _, n, k in rows if "Fill" in k) / f,
         "gemms_per_frame": sum(n for _, n, k in rows
                                if "gemm" in k.lower()) / f,
-        "idle_share_profiled": 1 - busy / wall_us,
         "kernels": {k: {"launches_per_frame": n / f, "device_us_per_launch":
                         us / n} for k, (us, n) in kernels.items()},
         "top": [{"op": key[:80], "per_frame": n / f, "us_per_frame": dt / f}
@@ -160,14 +159,12 @@ def odometry(args, card, dev) -> None:
         scan_odometry(d, K, cfg)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         scan_odometry(d, K, cfg)
         torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
     print(json.dumps(report(args.tag, card, tpuslam_torch.__file__,
-                            args.frames, walls, wall_us, prof,
+                            args.frames, walls, prof,
                             mode="odometry", fused=args.fused)), flush=True)
 
 
@@ -518,16 +515,14 @@ def track_map(args, card, dev) -> None:
                 walls[0] += time.perf_counter() - t0
             stages = staged_frames(warm(), d, ts, MAP_WARM, last)
             slam = warm()
-            t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for i in range(MAP_WARM, last):
                     slam.process(d[i], timestamp=ts[i])
                 torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
             print(json.dumps(report(
                 args.tag, card, tpuslam_torch.__file__, MAP_FRAMES, walls,
-                wall_us, prof, mode="map", sharded=sharded,
+                prof, mode="map", sharded=sharded,
                 frames_profiled=[MAP_WARM, last - 1], map_loop_vga=cell,
                 stages_ms=stages)), flush=True)
     finally:
@@ -677,13 +672,11 @@ def grid(args, card, dev) -> None:
 
     stages = staged_frames(warm(), d, ts, MAP_WARM, MAP_WARM + MAP_FRAMES)
     slam = warm()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(MAP_WARM, MAP_WARM + MAP_FRAMES):
             slam.process(d[i], timestamp=ts[i])
         torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
     busy, _, kernels, _ = profile_rows(prof)
     us, launches = kernels.get("grid_correspond_kernel", (0.0, 0))
     print(json.dumps({
@@ -697,7 +690,7 @@ def grid(args, card, dev) -> None:
             "frames_profiled": [MAP_WARM, MAP_WARM + MAP_FRAMES - 1],
             "grid_correspond_device_us": us,
             "grid_correspond_launches": launches,
-            "device_busy_us": busy, "idle_share": 1 - busy / wall_us,
+            "device_busy_us": busy,
             "kernels_device_us": {k: v[0] for k, v in kernels.items()}},
     }), flush=True)
 

@@ -56,6 +56,7 @@ from tpuslam_torch.icp import (
     pack_pyramid,
 )
 from tpuslam_torch.transfer import resolve_device, upload
+from tpuslam_torch.utils import profiling
 
 
 def damped_velocity(delta: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -508,44 +509,48 @@ class Odometry:
 
     def process(self, depth, timestamp: float = 0.0) -> np.ndarray:
         """Feed one depth frame (H, W) metres; returns world←cam pose (4, 4)."""
-        depth = self.as_depth(depth)
-        if self.kf_pyr is None:
-            pyr = preprocess(depth, self.K, self.cfg)
-            self.last_pyr = pyr
-            self._promote(pyr, timestamp)
-            T_world_cam = self.T_world_kf
-            self.stats.append({"iters": 0, "rms": 0.0, "inliers": 1.0,
-                               "promoted": True})
-            self.frame_refs.append((len(self.keyframes) - 1, np.eye(4)))
-        else:
-            pyr, T_new, delta, flat = process_frame_jit(
-                depth, self.kf_packed, self.K, self.T_kf_cam,
-                self.last_delta, self.cfg)
-            self.last_pyr = pyr
-            s = flat.cpu().numpy()   # the ONE host sync of the frame
-            T_rel = s[FlatTrack.T].reshape(4, 4)
-            promoted = s[FlatTrack.PROMOTE] > 0.5
-            self.last_delta = delta  # device-resident; never read back
-            self.T_kf_cam = T_new
-            T_world_cam = (self.T_world_kf @ T_rel).astype(np.float32)
-            if promoted:
-                self.T_world_kf = T_world_cam
-                self.T_kf_cam = torch.eye(4, device=self.device)
+        with profiling.span("odo.process"):
+            depth = self.as_depth(depth)
+            if self.kf_pyr is None:
+                with profiling.span("odo.preprocess", device=depth.is_cuda,
+                                    eager=True):
+                    pyr = preprocess(depth, self.K, self.cfg)
+                self.last_pyr = pyr
                 self._promote(pyr, timestamp)
+                T_world_cam = self.T_world_kf
+                self.stats.append({"iters": 0, "rms": 0.0, "inliers": 1.0,
+                                   "promoted": True})
                 self.frame_refs.append((len(self.keyframes) - 1, np.eye(4)))
             else:
-                self.frame_refs.append((len(self.keyframes) - 1, T_rel))
-            self.stats.append({
-                "iters": int(s[FlatTrack.ITERS]),
-                "rms": float(s[FlatTrack.RMS]),
-                "inliers": float(s[FlatTrack.INLIER_FRACTION]),
-                "promoted": bool(promoted),
-                "lost": bool(s[FlatTrack.LOST] > 0.5),
-            })
-        self.trajectory.append(np.asarray(T_world_cam, dtype=np.float64))
-        self.timestamps.append(timestamp)
-        self.frame_idx += 1
-        return self.trajectory[-1]
+                pyr, T_new, delta, flat = process_frame_jit(
+                    depth, self.kf_packed, self.K, self.T_kf_cam,
+                    self.last_delta, self.cfg)
+                self.last_pyr = pyr
+                s = flat.cpu().numpy()   # the ONE host sync of the frame
+                T_rel = s[FlatTrack.T].reshape(4, 4)
+                promoted = s[FlatTrack.PROMOTE] > 0.5
+                self.last_delta = delta  # device-resident; never read back
+                self.T_kf_cam = T_new
+                T_world_cam = (self.T_world_kf @ T_rel).astype(np.float32)
+                if promoted:
+                    self.T_world_kf = T_world_cam
+                    self.T_kf_cam = torch.eye(4, device=self.device)
+                    self._promote(pyr, timestamp)
+                    self.frame_refs.append((len(self.keyframes) - 1,
+                                            np.eye(4)))
+                else:
+                    self.frame_refs.append((len(self.keyframes) - 1, T_rel))
+                self.stats.append({
+                    "iters": int(s[FlatTrack.ITERS]),
+                    "rms": float(s[FlatTrack.RMS]),
+                    "inliers": float(s[FlatTrack.INLIER_FRACTION]),
+                    "promoted": bool(promoted),
+                    "lost": bool(s[FlatTrack.LOST] > 0.5),
+                })
+            self.trajectory.append(np.asarray(T_world_cam, dtype=np.float64))
+            self.timestamps.append(timestamp)
+            self.frame_idx += 1
+            return self.trajectory[-1]
 
 
 class ScanState(NamedTuple):
@@ -798,21 +803,26 @@ def scan_odometry_boundary_jit(depths: torch.Tensor, K: Intrinsics,
     F = depths.shape[0]
     if F % chunk:
         raise ValueError(f"frames ({F}) must be divisible by chunk ({chunk})")
-    st = initial_state(depths[0], K, cfg)
-    state = BoundaryState(
-        carry=SuperChunkCarry(kf_packed=st.kf_packed, T_kf_cam=st.T_kf_cam,
-                              last_delta=st.last_delta),
-        T_world_kf=st.T_world_kf)
-    ys = torch.empty((F, FlatFrozen.SIZE), dtype=torch.float32,
-                     device=depths.device)
-    poses = torch.empty((F, 4, 4), dtype=torch.float32, device=depths.device)
-    with _BOUNDARY_CHUNK.loop(state, eager=eager, K=K, cfg=cfg) as lp:
-        for c0 in range(0, F, chunk):
-            rows, world = lp.step(depths[c0:c0 + chunk])
-            ys[c0:c0 + chunk].copy_(rows)
-            poses[c0:c0 + chunk].copy_(world)
-    return (poses, ys[:, FlatFrozen.PROMOTE] > 0.5,
-            ys[:, FlatFrozen.INLIER_FRACTION])
+    with profiling.span("odo.scan", n=F):
+        with profiling.span("odo.initial_state", device=depths.is_cuda,
+                            eager=True):
+            st = initial_state(depths[0], K, cfg)
+        state = BoundaryState(
+            carry=SuperChunkCarry(kf_packed=st.kf_packed,
+                                  T_kf_cam=st.T_kf_cam,
+                                  last_delta=st.last_delta),
+            T_world_kf=st.T_world_kf)
+        ys = torch.empty((F, FlatFrozen.SIZE), dtype=torch.float32,
+                         device=depths.device)
+        poses = torch.empty((F, 4, 4), dtype=torch.float32,
+                            device=depths.device)
+        with _BOUNDARY_CHUNK.loop(state, eager=eager, K=K, cfg=cfg) as lp:
+            for c0 in range(0, F, chunk):
+                rows, world = lp.step(depths[c0:c0 + chunk])
+                ys[c0:c0 + chunk].copy_(rows)
+                poses[c0:c0 + chunk].copy_(world)
+        return (poses, ys[:, FlatFrozen.PROMOTE] > 0.5,
+                ys[:, FlatFrozen.INLIER_FRACTION])
 
 
 def scan_odometry_boundary(depths: torch.Tensor, K: Intrinsics,

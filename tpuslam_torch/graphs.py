@@ -44,6 +44,11 @@ capture (`_build.LaunchCounter`), and every replay adds them to the
 counters under the replaying stream.  The warm-up's launches count under
 the calling stream too.
 
+Spans.  A replay is the span `graphs.replay` (`utils/profiling.py`): its
+host interval runs from the step's call to its outputs, its device edges
+around the graph's launch alone.  Warm-ups and captures are the spans and
+counters `graphs.warm_up` and `graphs.capture`.
+
 CPU tensors run the function eagerly (the path the CPU tests hold to the
 reference); `eager=True` runs it eagerly on the card, for a comparison of
 the two paths.  A function that fails to capture raises `CaptureError`:
@@ -62,6 +67,7 @@ from typing import Callable
 import torch
 
 from tpuslam_torch.kernels import _build
+from tpuslam_torch.utils import profiling
 
 
 class CaptureError(RuntimeError):
@@ -343,78 +349,87 @@ class Program:
         """A key's first call: its entry's static buffers, and the warm-up
         (the function, eagerly, on the lane's capture stream).  Returns
         (entry, the warm-up's outputs)."""
-        be = _backend
-        e = _Entry(self)
-        e.state_spec = state_spec
-        t0 = time.perf_counter()
-        e.state_bufs = [t.contiguous().clone() for t in state_leaves]
-        e.input_bufs = [t.contiguous().clone() for t in in_leaves]
-        e.input_sig = _sig(e.input_bufs)
+        profiling.count("graphs.warm_up")
+        with profiling.span("graphs.warm_up"):
+            be = _backend
+            e = _Entry(self)
+            e.state_spec = state_spec
+            t0 = time.perf_counter()
+            e.state_bufs = [t.contiguous().clone() for t in state_leaves]
+            e.input_bufs = [t.contiguous().clone() for t in in_leaves]
+            e.input_sig = _sig(e.input_bufs)
 
-        def body():
-            new_state, out = self.fn(unflatten(state_spec, e.state_bufs),
-                                     *unflatten(in_spec, e.input_bufs),
-                                     **static)
-            new_leaves, _ = flatten(new_state)
-            if _sig(new_leaves) != _sig(e.state_bufs):
-                raise CaptureError(
-                    f"{self.name}: the new state's tensors "
-                    f"{_sig(new_leaves)} differ from the state's "
-                    f"{_sig(e.state_bufs)}")
-            _copy_in(e.state_bufs, new_leaves)
-            out_leaves, e.out_spec = flatten(out)
-            return out_leaves
+            def body():
+                new_state, out = self.fn(unflatten(state_spec, e.state_bufs),
+                                         *unflatten(in_spec, e.input_bufs),
+                                         **static)
+                new_leaves, _ = flatten(new_state)
+                if _sig(new_leaves) != _sig(e.state_bufs):
+                    raise CaptureError(
+                        f"{self.name}: the new state's tensors "
+                        f"{_sig(new_leaves)} differ from the state's "
+                        f"{_sig(e.state_bufs)}")
+                _copy_in(e.state_bufs, new_leaves)
+                out_leaves, e.out_spec = flatten(out)
+                return out_leaves
 
-        e.body = body
-        e.warm_threads.add(threading.get_ident())
-        with be.on_capture_stream(dev, lane), _inside(), \
-                _build.scratch_scope(("graph", e.id), lane):
-            warm = body()
-        # the call keeps the warm-up's outputs; one that is a static
-        # buffer would change under a later replay
-        static_ptrs = {t.data_ptr() for t in e.state_bufs + e.input_bufs}
-        warm = [t.clone() if t.data_ptr() in static_ptrs else t
-                for t in warm]
-        be.keep_for(warm, dev)
-        e.warm_s = time.perf_counter() - t0
-        self._entries[key] = e
-        return e, warm
+            e.body = body
+            e.warm_threads.add(threading.get_ident())
+            with be.on_capture_stream(dev, lane), _inside(), \
+                    _build.scratch_scope(("graph", e.id), lane):
+                warm = body()
+            # the call keeps the warm-up's outputs; one that is a static
+            # buffer would change under a later replay
+            static_ptrs = {t.data_ptr() for t in e.state_bufs + e.input_bufs}
+            warm = [t.clone() if t.data_ptr() in static_ptrs else t
+                    for t in warm]
+            be.keep_for(warm, dev)
+            e.warm_s = time.perf_counter() - t0
+            self._entries[key] = e
+            return e, warm
 
     def _capture(self, e: _Entry, dev, lane) -> None:
         """A key's second call: capture its graph (which the call then
         replays).  A failure raises, now and at every later call."""
         if e.error is not None:
             raise CaptureError(e.error)
-        be = _backend
-        t0 = time.perf_counter()
-        with be.on_capture_stream(dev, lane), _inside(), \
-                _build.scratch_scope(("graph", e.id), lane):
-            if threading.get_ident() not in e.warm_threads:
-                # cuBLAS and cuSOLVER handles are the calling thread's:
-                # this one's are made by a warm-up of its own, which
-                # leaves the state as it found it
-                saved = _clone(e.state_bufs)
-                e.body()
-                _copy_in(e.state_bufs, saved)
-                e.warm_threads.add(threading.get_ident())
-            mem0 = be.memory(dev)
-            with _build.recording() as rec:
-                try:
-                    e.graph, e.outs = be.capture(dev, lane, e.body,
-                                                 e.state_bufs)
-                except CaptureError as err:
-                    e.error = str(err)
-                    raise
-                except Exception as err:   # noqa: BLE001 — re-raised
-                    e.error = (f"{self.name}: capture failed: "
-                               f"{type(err).__name__}: {err}")
-                    raise CaptureError(e.error) from err
-            e.pool_bytes = be.memory(dev) - mem0
-        e.launches = dict(rec)
-        e.capture_s = time.perf_counter() - t0
+        profiling.count("graphs.capture")
+        with profiling.span("graphs.capture"):
+            be = _backend
+            t0 = time.perf_counter()
+            with be.on_capture_stream(dev, lane), _inside(), \
+                    _build.scratch_scope(("graph", e.id), lane):
+                if threading.get_ident() not in e.warm_threads:
+                    # cuBLAS and cuSOLVER handles are the calling thread's:
+                    # this one's are made by a warm-up of its own, which
+                    # leaves the state as it found it
+                    saved = _clone(e.state_bufs)
+                    e.body()
+                    _copy_in(e.state_bufs, saved)
+                    e.warm_threads.add(threading.get_ident())
+                mem0 = be.memory(dev)
+                with _build.recording() as rec:
+                    try:
+                        e.graph, e.outs = be.capture(dev, lane, e.body,
+                                                     e.state_bufs)
+                    except CaptureError as err:
+                        e.error = str(err)
+                        raise
+                    except Exception as err:   # noqa: BLE001 — re-raised
+                        e.error = (f"{self.name}: capture failed: "
+                                   f"{type(err).__name__}: {err}")
+                        raise CaptureError(e.error) from err
+                e.pool_bytes = be.memory(dev) - mem0
+            e.launches = dict(rec)
+            e.capture_s = time.perf_counter() - t0
 
-    def _replay(self, e: _Entry, dev, lane) -> list:
+    def _replay(self, e: _Entry, dev, lane, sp) -> list:
+        cuda = dev.type == "cuda"
+        if cuda:
+            sp.edge_in()
         outs = _backend.replay(e.graph, e.outs)
+        if cuda:
+            sp.edge_out()
         e.replays += 1
         for counter, n in e.launches.items():
             counter.replayed(n, lane)
@@ -464,6 +479,7 @@ class Loop:
         """One step on `args`; returns its outputs.  Replayed outputs are
         the graph's buffers, valid until the next replay of the lane,
         unless `copy`."""
+        t0 = profiling.now()
         p = self.program
         state_leaves, state_spec = flatten(self._state)
         in_leaves, in_spec = flatten(args)
@@ -488,15 +504,17 @@ class Loop:
                 return unflatten(e.out_spec, warm)
             self._entry = e
             _copy_in(e.state_bufs, state_leaves)
-        e = self._entry
-        if _sig(in_leaves) != e.input_sig:
-            raise ValueError(f"{p.name}: a loop's inputs keep their shapes: "
-                             f"{_sig(in_leaves)} against {e.input_sig}")
-        _copy_in(e.input_bufs, in_leaves)
-        if e.graph is None:
-            p._capture(e, self._dev, self._lane)
-        outs = p._replay(e, self._dev, self._lane)
-        return unflatten(e.out_spec, _clone(outs) if copy else outs)
+        with profiling.span("graphs.replay", since=t0) as sp:
+            e = self._entry
+            if _sig(in_leaves) != e.input_sig:
+                raise ValueError(f"{p.name}: a loop's inputs keep their "
+                                 f"shapes: {_sig(in_leaves)} against "
+                                 f"{e.input_sig}")
+            _copy_in(e.input_bufs, in_leaves)
+            if e.graph is None:
+                p._capture(e, self._dev, self._lane)
+            outs = p._replay(e, self._dev, self._lane, sp)
+            return unflatten(e.out_spec, _clone(outs) if copy else outs)
 
     def state(self):
         """The carried state: a copy of the graph's buffers."""

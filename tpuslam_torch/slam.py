@@ -96,6 +96,7 @@ from tpuslam_torch.icp import (
 from tpuslam_torch.kernels.correspond import GridIndex
 from tpuslam_torch.mapping import VoxelMap
 from tpuslam_torch.transfer import upload
+from tpuslam_torch.utils import profiling
 
 # Information weight of verified loop-closure / relocalization edges
 # relative to odometry edges (1.0).  The fused attempt's candidate weights,
@@ -145,13 +146,6 @@ class PendingAttempt(NamedTuple):
     @property
     def size(self) -> int:
         return math.prod(self.rows_shape) + math.prod(self.poses_shape)
-
-
-def _span(name: str):
-    """A named range for torch.profiler traces (about a microsecond when
-    no profiler runs): the chunk's scan dispatch, readback, promotion
-    bundles, closure-attempt dispatch and drain."""
-    return torch.profiler.record_function(name)
 
 
 _STOP = object()     # the backend worker's last queue item
@@ -324,22 +318,24 @@ class SlamSystem:
     def finalize(self) -> None:
         """Drain the deferred backend, join the worker (re-raising its
         error) and run a final global optimization."""
-        self._drain_pending()
-        if self._backend_thread is not None:
-            self._backend_queue.put(_STOP)
-            self._backend_thread.join(timeout=WORKER_JOIN_S)
-            if self._backend_thread.is_alive():
-                raise TimeoutError(f"backend worker still running after "
-                                   f"{WORKER_JOIN_S} s")
-            self._backend_thread = None
-            if self._backend_error is not None:
-                raise self._backend_error
-        if self.enable_loop_closure:
-            self._attempt_loop_closure()
-        if self.graph.num_edges > 0:
-            self._optimize()
-        if self.map_ba:
-            self.refine_map_ba()
+        with profiling.span("slam.finalize"):
+            self._drain_pending()
+            if self._backend_thread is not None:
+                self._backend_queue.put(_STOP)
+                self._backend_thread.join(timeout=WORKER_JOIN_S)
+                if self._backend_thread.is_alive():
+                    raise TimeoutError(f"backend worker still running after "
+                                       f"{WORKER_JOIN_S} s")
+                self._backend_thread = None
+                if self._backend_error is not None:
+                    raise self._backend_error
+            if self.enable_loop_closure:
+                self._attempt_loop_closure()
+            if self.graph.num_edges > 0:
+                with profiling.span("slam.final_solve"):
+                    self._optimize()
+            if self.map_ba:
+                self.refine_map_ba()
 
     def _sync_graph_with_keyframes(self) -> bool:
         """Add any newly promoted keyframes as nodes + odometry edges."""
@@ -703,20 +699,22 @@ class SlamSystem:
         carry = SuperChunkCarry(kf_packed=odo.kf_packed,
                                 T_kf_cam=odo.T_kf_cam,
                                 last_delta=odo.last_delta)
-        with _span("slam.scan"):
+        with profiling.span("slam.scan", n=n):
             new_carry, ys = scan_superchunk_frozen(depths, odo.K, carry,
                                                    self.cfg, sub)
         pending, self._pending_attempt = self._pending_attempt, None
+        readback = profiling.span("slam.readback", device=depths.is_cuda,
+                                  eager=True)
         if pending is not None:
             # one readback covers BOTH the deferred attempt and this scan
-            with _span("slam.readback"):
+            with readback:
                 combined = fuse_readbacks_jit(pending.packed,
                                               ys).cpu().numpy()
             s = combined[pending.size:].reshape(n, FlatFrozen.SIZE)
-            with _span("slam.drain"):
+            with profiling.span("slam.drain"):
                 self._drain_closure_attempt(pending, combined[:pending.size])
         else:
-            with _span("slam.readback"):
+            with readback:
                 s = ys.cpu().numpy()       # the ONE host sync of the chunk
         if np.any(s[:, FlatFrozen.LOST] > 0.5):
             # tracking failed mid-chunk: nothing was committed — replay the
@@ -754,7 +752,7 @@ class SlamSystem:
                 # pyramid, tables, cloud and descriptor derive from the
                 # device-resident depth without a sync
                 odo.T_world_kf = (base_T @ rels[p]).astype(np.float32)
-                with _span("slam.promote_bundle"):
+                with profiling.span("slam.promote_bundle"):
                     pyr, packed, cloud, desc = promote_bundle_jit(
                         depths[g0 + p], odo.K, self.cfg, with_desc)
                 odo._promote_from_bundle(pyr, packed, cloud, desc,
@@ -772,13 +770,13 @@ class SlamSystem:
         new_kf = self._commit_chunk_end()
         if new_kf and self.enable_loop_closure:
             # ONE coalesced attempt per call at the 4-candidate budget
-            with _span("slam.attempt"):
+            with profiling.span("slam.attempt"):
                 att = self._dispatch_closure_attempt()
             if att is not None:
                 if self.async_backend:
                     self._pending_attempt = att   # deferred to next chunk
                 else:
-                    with _span("slam.drain"):
+                    with profiling.span("slam.drain"):
                         self._drain_closure_attempt(att)
         return np.stack(out)
 
@@ -806,8 +804,10 @@ class SlamSystem:
                 # bootstrap exactly ONE sub-chunk per frame (seeding the
                 # keyframe), then scan the tail, so keyframe decisions do
                 # not depend on the call's length
-                head = np.stack([self.process(depths[i], float(timestamps[i]))
-                                 for i in range(sub)])
+                with profiling.span("slam.bootstrap"):
+                    head = np.stack([self.process(depths[i],
+                                                  float(timestamps[i]))
+                                     for i in range(sub)])
                 tail = self._process_chunk_boundary(depths[sub:],
                                                     timestamps[sub:])
                 return np.concatenate([head, tail])
