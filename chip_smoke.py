@@ -4,7 +4,7 @@
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device   — require a CUDA device; print its name and power limit
-  2. build    — build the seven CUDA kernels from tpuslam_torch/csrc (one
+  2. build    — build the eight CUDA kernels from tpuslam_torch/csrc (one
                 nvcc per source, in parallel), with ptxas's registers,
                 stack frames and spills
   3. kernels  — each kernel against its plain PyTorch twin at the main
@@ -68,6 +68,13 @@ Phases, in order (any failure raises and the script exits non-zero):
                 the graphs, and its launch checks count the replays
   4. uint16   — raw uint16 depth divided on the device is bit-equal to
                 host-divided float32 depth
+ 4b. preprocess — the one-launch pyramid (csrc/preprocess.cu) against its
+                eager twin on the same CUDA tensors at 640×480, 3 levels,
+                from float32, float16 and uint16 depth: every level's
+                points, normals and mask bit-equal (as int32); its device
+                time (50 calls in one CUDA graph, by CUDA events) and its
+                time as the host issues it, each beside the twin's, its
+                byte bound and its device µs of one full launch
   5. small    — a 12-frame 120×160 scan on the GPU against the same scan
                 through the plain twins on the CPU (the twins are held to
                 the JAX reference by tests/test_torch_*.py)
@@ -391,7 +398,8 @@ KERNEL_SYMBOLS = {"correspond": "correspond_kernel",
                   "gn_fused": "gn_fused_step_kernel",
                   "ring_nn": "ring_nn_kernel",
                   "grid_correspond": "grid_correspond_kernel",
-                  "grid_table": "grid_table_"}  # its fill and insert
+                  "grid_table": "grid_table_",  # its fill and insert
+                  "preprocess": "preprocess_kernel"}
 
 
 def count_ops(rows, word: str) -> int:
@@ -3102,6 +3110,68 @@ def backend_phase(dev, card: str, counters, loop, build_line: str,
     return {"launches": launches, "worker_streams": on_workers}
 
 
+def graph_ms(fn, reps: int = 50) -> float:
+    """Mean device time of fn() in ms: `reps` calls captured into one CUDA
+    graph, its replay timed by CUDA events (no host gap between calls)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    del g
+    return ms
+
+
+def preprocess_phase(dev, card: str, K, depths_np, cfg) -> dict:
+    """Phase 4b: the pyramid kernel against its eager twin, bit for bit,
+    and its time beside the twin's and its byte bound."""
+    from tpuslam_torch.kernels import preprocess as pp
+
+    raw = np.round(depths_np * cfg.depth_scale).astype(np.uint16)
+    inputs = [torch.as_tensor(d, device=dev) for d in depths_np]
+    inputs += [t.to(torch.float16) for t in inputs]
+    inputs += [torch.as_tensor(r, device=dev) for r in raw]
+    for t in inputs:
+        got, want = pp.preprocess(t, K, cfg), pp.preprocess_reference(t, K,
+                                                                       cfg)
+        torch.cuda.synchronize()
+        for li, (g, w) in enumerate(zip(got, want)):
+            for name, a, b in zip(g._fields, g, w):
+                check(bits_equal(a, b), f"preprocess {t.dtype} level {li} "
+                      f"{name}: not bit-equal to the eager twin")
+    d0 = inputs[0]
+    pyr = pp.preprocess(d0, K, cfg)
+    n_bytes = nbytes(d0) + sum(nbytes(*f) for f in pyr)
+    stats = {
+        # device time: 50 calls captured in one CUDA graph, replayed
+        "ms": graph_ms(lambda: pp.preprocess(d0, K, cfg)),
+        "plain_ms": graph_ms(lambda: pp.preprocess_reference(d0, K, cfg)),
+        # as the host issues them, one call after another
+        "eager_ms": time_ms(lambda: pp.preprocess(d0, K, cfg)),
+        "plain_eager_ms": time_ms(
+            lambda: pp.preprocess_reference(d0, K, cfg)),
+        **bound(n_bytes, 0.0), "bytes": n_bytes,
+        "pixels": sum(f.mask.numel() for f in pyr),
+        "device_us_full_launch": full_launch_us(
+            lambda: pp.preprocess(d0, K, cfg), "preprocess"),
+        "bit_equal_inputs": len(inputs), "levels": len(pyr)}
+    log(f"[preprocess] {json.dumps(stats)} ({card})")
+    return stats
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -3456,6 +3526,9 @@ def main() -> int:
                   "uint16 preprocess is not bit-equal to float32")
     log(f"[uint16] device divide bit-equal to host-divided float32 "
         f"({raw.shape[0]} frames, 3 levels)")
+
+    # ---- 4b. the pyramid kernel against its eager twin ----
+    pre_stats = preprocess_phase(dev, card, K, depths_np, cfg)
 
     # ---- 5. small scan: GPU kernels vs CPU twins ----
     from tpuslam_torch.config import Intrinsics
@@ -3999,6 +4072,7 @@ def main() -> int:
     check(not HOLD_FAILURES, f"{len(HOLD_FAILURES)} of {len(HOLDS)} passes "
           f"part from the reference's: " + " | ".join(HOLD_FAILURES))
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"preprocess": pre_stats}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2185,3 +2185,177 @@ def test_distributed_programs_on_a_one_rank_group(dev, backend, program):
         mesh_mod.drop_graphs()    # they hold NCCL collectives
         dist.destroy_process_group()
         graphs.clear()
+
+
+# ---------------------------------------------------------------------------
+# Preprocessing: the one-launch pyramid against its eager twin on the card.
+# ---------------------------------------------------------------------------
+
+
+def _int_bits_equal(a, b) -> bool:
+    """Equal bit for bit: float32 compared as int32, so -0.0 ≠ 0.0."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _pyramids_equal(got, want) -> list:
+    """The (level, field) pairs where two pyramids differ."""
+    assert len(got) == len(want)
+    return [(li, name) for li, (g, w) in enumerate(zip(got, want))
+            for name, a, b in zip(g._fields, g, w)
+            if not _int_bits_equal(a, b)]
+
+
+def _seeded_depth(h, w, seed):
+    """Depth with holes, NaN, ±inf, out-of-range values and steps over
+    depth_disc (0.1 m)."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.3, 6.0, size=(h, w)).astype(np.float32)
+    d[:, w // 3:] += 0.25
+    d[h // 2:, :] -= 0.15
+    d[rng.uniform(size=(h, w)) < 0.05] = 0.0
+    d[rng.uniform(size=(h, w)) < 0.01] = np.nan
+    d[rng.uniform(size=(h, w)) < 0.01] = np.inf
+    d[rng.uniform(size=(h, w)) < 0.01] = -np.inf
+    d[rng.uniform(size=(h, w)) < 0.01] = 11.0
+    return d
+
+
+def _smooth_depth(h, w, seed):
+    """A tilted plane with a few holes: most pixels get a normal."""
+    rng = np.random.default_rng(seed)
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = (1.5 + 0.002 * u - 0.001 * v
+         + rng.normal(scale=1e-3, size=(h, w))).astype(np.float32)
+    d[rng.uniform(size=(h, w)) < 0.02] = 0.0
+    return d
+
+
+@pytest.mark.cuda
+def test_three_wide_sum_order_on_card(dev):
+    """torch.sum over a contiguous 3-wide row on the card adds
+    (x0 + x2) + x1, the order csrc/preprocess.cu's sum3 writes; checked on
+    random triples of wide exponent range, at the pyramid's shapes."""
+    rng = np.random.default_rng(7)
+    for shape in ((480, 640), (240, 320), (120, 160), (61, 83), (3, 5),
+                  (1 << 16,)):
+        x = (rng.normal(size=(*shape, 3))
+             * 10.0 ** rng.integers(-6, 6, size=(*shape, 3)))
+        t = torch.as_tensor(x.astype(np.float32), device=dev)
+        got = torch.sum(t, dim=-1)
+        want = (t[..., 0] + t[..., 2]) + t[..., 1]
+        left = (t[..., 0] + t[..., 1]) + t[..., 2]
+        assert _int_bits_equal(got, want), shape
+        if shape == (480, 640):
+            assert not _int_bits_equal(got, left)   # the order matters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traffic", ["orbit-hover", "loop-2lap"])
+def test_preprocess_kernel_bit_equal_on_benchmark_sessions(dev, traffic):
+    """Every frame of the benchmark's rendered VGA session pool: the
+    kernel's pyramid equals the eager twin's on the same CUDA tensor at
+    every level, under the benchmark's configuration."""
+    from slambench.core import spec
+    from slambench.inputs import scene
+    from tpuslam_torch.kernels import preprocess as pp
+
+    cfg = SLAMConfig()
+    pool = scene.render_pool(spec.traffic(traffic), 480, 640, 20260518, dev)
+    K = Intrinsics(*pool["K"])
+    depth = pool["depth"]
+    for s in range(depth.shape[0]):
+        for f in range(depth.shape[1]):
+            d = depth[s, f]
+            diff = _pyramids_equal(pp.preprocess(d, K, cfg),
+                                   pp.preprocess_reference(d, K, cfg))
+            assert diff == [], (s, f, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(480, 640), (479, 641), (61, 83), (3, 5),
+                                 (1, 1), (2, 9)])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+def test_preprocess_kernel_bit_equal_on_seeded_depth(dev, h, w, levels):
+    """Holes, NaN, ±inf, out-of-range values, depth steps and a smooth
+    plane, at odd sizes and 1-4 levels, as float32, float16 and uint16
+    (counts of depth_scale) input: the kernel equals the eager twin."""
+    from tpuslam_torch.kernels import preprocess as pp
+
+    cfg = SLAMConfig(icp=ICPConfig(pyramid_levels=levels,
+                                   iters_per_level=(4,) * levels))
+    K = Intrinsics(525.0 * w / 640, 525.0 * h / 480, w / 2 - 0.5,
+                   h / 2 - 0.5)
+    for seed, make in ((h * w + levels, _seeded_depth),
+                       (levels, _smooth_depth)):
+        d = make(h, w, seed)
+        raw = np.round(np.nan_to_num(d, nan=0.0, posinf=0.0, neginf=0.0)
+                       .clip(0, 13) * cfg.depth_scale).astype(np.uint16)
+        for t in (torch.as_tensor(d, device=dev),
+                  torch.as_tensor(d, device=dev).to(torch.float16),
+                  torch.as_tensor(raw, device=dev)):
+            diff = _pyramids_equal(pp.preprocess(t, K, cfg),
+                                   pp.preprocess_reference(t, K, cfg))
+            assert diff == [], (make.__name__, t.dtype, diff)
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_reads_a_strided_view(dev):
+    """A view with strides (a decimated plane, a transposed one) gives the
+    pyramid of its contiguous copy."""
+    from tpuslam_torch.kernels import preprocess as pp
+
+    d = torch.as_tensor(_smooth_depth(480, 640, 3), device=dev)
+    for view in (d[::2, ::2], d.t(), d[1:, 3:]):
+        diff = _pyramids_equal(pp.preprocess(view, K, CFG),
+                               pp.preprocess(view.contiguous(), K, CFG))
+        assert diff == []
+
+
+@pytest.mark.cuda
+def test_preprocess_is_one_launch_and_replays_bit_equal(dev):
+    """`frontend.preprocess` on a CUDA tensor is one kernel and nothing
+    else on the device; through a captured program its warm-up, capture
+    and replays each count one launch and equal the eager call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch import graphs
+    from tpuslam_torch.kernels import preprocess as pp
+
+    cfg = SLAMConfig()
+    d = torch.as_tensor(depths(2), device=dev)
+    Kv = Intrinsics(525.0, 525.0, 319.5, 239.5)
+    d = torch.nn.functional.interpolate(d[:, None], size=(480, 640))[:, 0]
+    want = pp.preprocess_reference(d[1], Kv, cfg)
+    preprocess(d[0], Kv, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = preprocess(d[1], Kv, cfg)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "preprocess_kernel" in kernels[0], kernels
+    assert _pyramids_equal(got, want) == []
+
+    prog = graphs.Program("test_preprocess",
+                          lambda _s, depth, *, K, cfg: ((), preprocess(
+                              depth, K, cfg)))
+    wants = [want, pp.preprocess_reference(d[0], Kv, cfg)]
+    pp.counter.reset()
+    try:
+        for i in range(4):            # warm-up, capture + replay, replays
+            out = prog.run(d[1 - i % 2], K=Kv, cfg=cfg)
+            torch.cuda.synchronize()
+            assert pp.counter.launches == i + 1
+            assert _pyramids_equal(out, wants[i % 2]) == [], i
+        (entry,) = [e.info() for e in prog.entries()]
+        assert entry["captured"] and entry["replays"] == 3
+        assert entry["kernel_launches"] == {"preprocess": 1}
+        assert pp.counter.plain_calls == 0
+    finally:
+        prog.drop()

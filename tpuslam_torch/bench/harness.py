@@ -295,6 +295,7 @@ def kernel_counters() -> dict:
         gn_fused,
         gn_partials,
         gn_step,
+        preprocess,
         ring_nn,
     )
 
@@ -304,7 +305,8 @@ def kernel_counters() -> dict:
             "gn_step": gn_step.counter,
             "gn_fused": gn_fused.counter, "ring_nn": ring_nn.counter,
             "grid_correspond": correspond.grid_counter,
-            "grid_table": correspond.table_counter}
+            "grid_table": correspond.table_counter,
+            "preprocess": preprocess.counter}
 
 
 def slam_bench_config(height: int, width: int,

@@ -44,9 +44,7 @@ import torch
 from tpuslam_torch import graphs
 from tpuslam_torch.config import Intrinsics, SLAMConfig
 from tpuslam_torch.geom import se3
-from tpuslam_torch.geom.backproject import backproject, device_scalar
 from tpuslam_torch.geom.cloud import PointCloud
-from tpuslam_torch.geom.normals import organized_normals
 from tpuslam_torch.geom.voxel import voxel_downsample
 from tpuslam_torch.icp import (
     Frame,
@@ -55,6 +53,7 @@ from tpuslam_torch.icp import (
     align_frames_packed,
     pack_pyramid,
 )
+from tpuslam_torch.kernels.preprocess import preprocess
 from tpuslam_torch.transfer import resolve_device, upload
 from tpuslam_torch.utils import profiling
 
@@ -67,37 +66,6 @@ def damped_velocity(delta: torch.Tensor, gamma: float) -> torch.Tensor:
     if gamma == 1.0:
         return delta
     return se3.exp(gamma * se3.log(delta))
-
-
-def decimate2(d: torch.Tensor) -> torch.Tensor:
-    """Stride-2 decimation of an (H, W) plane (the reference's CPU path;
-    its TPU one-hot matmul is bit-identical to this slice)."""
-    return d[::2, ::2]
-
-
-def preprocess(depth: torch.Tensor, K: Intrinsics, cfg: SLAMConfig):
-    """depth (H, W) → organized pyramid [finest..coarsest] of Frames.
-
-    The depth image is decimated first and each level backprojected with
-    its own scaled intrinsics.  Input dtypes: float32 metres; uint16 raw
-    counts, divided here by `cfg.depth_scale` with a true IEEE divide (a 0-d
-    device tensor divisor — a Python-scalar divisor would become a multiply
-    by the reciprocal on CUDA), so the result is bit-equal to host-divided
-    float32 depth; float16 metres.
-    """
-    d = depth.to(torch.float32)
-    if depth.dtype == torch.uint16:
-        d = d / device_scalar(cfg.depth_scale, d)
-    pyr = []
-    for li in range(cfg.icp.pyramid_levels):
-        pts, mask = backproject(d, K.scaled(1.0 / (2 ** li)),
-                                depth_min=cfg.icp.depth_min,
-                                depth_max=cfg.icp.depth_max)
-        nrm, nmask = organized_normals(pts, mask)
-        pyr.append(Frame(points=pts, normals=nrm, mask=mask & nmask))
-        if li + 1 < cfg.icp.pyramid_levels:
-            d = decimate2(d)
-    return tuple(pyr)
 
 
 class TrackResult(NamedTuple):

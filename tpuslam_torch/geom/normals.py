@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import torch
 
+DEPTH_DISC = 0.1    # m: the neighbour-pair discontinuity gate's default
+NORM_EPS = 1e-12    # the least cross-product norm that makes a normal
+
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a × b over the last axis, in the reference's component order."""
@@ -20,7 +23,7 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def organized_normals(points: torch.Tensor, mask: torch.Tensor,
-                      depth_disc: float = 0.1):
+                      depth_disc: float = DEPTH_DISC):
     """Estimate normals of an organized cloud.
 
     Args:
@@ -54,9 +57,9 @@ def organized_normals(points: torch.Tensor, mask: torch.Tensor,
         mask
         & m_right & m_left & m_down & m_up
         & ok_u & ok_v
-        & (norm[..., 0] > 1e-12)
+        & (norm[..., 0] > NORM_EPS)
     )
-    n = n / torch.clamp(norm, min=1e-12)
+    n = n / torch.clamp(norm, min=NORM_EPS)
     flip = torch.sum(n * points, dim=-1, keepdim=True) > 0
     n = torch.where(flip, -n, n)
     # Zero out the image border (roll wraps around).
