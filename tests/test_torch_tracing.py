@@ -232,7 +232,10 @@ def test_a_slam_session_has_one_bootstrap_and_one_finalize(tracer):
     assert len(boots) == len(tr.named("slam.finalize")) == sessions
     procs = tr.named("odo.process")
     assert len(procs) == 4 * sessions
-    assert all(by[p.parent].name == "slam.bootstrap" for p in procs)
+    # each bootstrap frame is a `SlamSystem.process` call
+    assert all(by[p.parent].name == "slam.process" for p in procs)
+    assert all(by[by[p.parent].parent].name == "slam.bootstrap"
+               for p in procs)
     assert [by[p.parent].name for p in tr.named("odo.preprocess")] == [
         "odo.process"] * sessions
     assert all(by[s.parent].name == "slam.finalize"

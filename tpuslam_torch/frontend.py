@@ -494,7 +494,9 @@ class Odometry:
                     depth, self.kf_packed, self.K, self.T_kf_cam,
                     self.last_delta, self.cfg)
                 self.last_pyr = pyr
-                s = flat.cpu().numpy()   # the ONE host sync of the frame
+                with profiling.span("odo.readback", device=depth.is_cuda,
+                                    eager=True):
+                    s = flat.cpu().numpy()   # the ONE host sync of the frame
                 T_rel = s[FlatTrack.T].reshape(4, 4)
                 promoted = s[FlatTrack.PROMOTE] > 0.5
                 self.last_delta = delta  # device-resident; never read back
@@ -503,7 +505,9 @@ class Odometry:
                 if promoted:
                     self.T_world_kf = T_world_cam
                     self.T_kf_cam = torch.eye(4, device=self.device)
-                    self._promote(pyr, timestamp)
+                    profiling.count("odo.promotions")
+                    with profiling.span("odo.promote"):
+                        self._promote(pyr, timestamp)
                     self.frame_refs.append((len(self.keyframes) - 1,
                                             np.eye(4)))
                 else:

@@ -878,36 +878,41 @@ class SlamSystem:
 
     def process(self, depth, timestamp: float = 0.0) -> np.ndarray:
         """Track one frame (per-frame path); returns its world←cam pose."""
-        self._drain_pending()
-        with self._lock:
-            self.odo.process(depth, timestamp)
-            if self.odo.stats[-1].get("lost"):
-                self._lost_streak += 1
-                if (self.enable_relocalization
-                        and self._lost_streak >= self._reloc_backoff):
-                    r = self._attempt_relocalization()
-                    if r is True:
-                        self._lost_streak = 0
-                        self._reloc_backoff = self.reloc_after
-                    elif r is False:
-                        # genuine miss: back off
-                        self._lost_streak = 0
-                        self._reloc_backoff = min(2 * self._reloc_backoff,
-                                                  64)
-                    # r is None: no usable data — keep the streak
-            else:
-                self._lost_streak = 0
-                self._reloc_backoff = self.reloc_after
-            new_kf = self._sync_graph_with_keyframes()
-        if new_kf and self._backend_thread is not None:
-            self._queue_attempt()
-        elif new_kf and self.enable_loop_closure:
-            self._attempt_loop_closure()
-        if self.track_against_map:
+        with profiling.span("slam.process", n=1):
+            self._drain_pending()
             with self._lock:
-                self._refine_against_map()
-        kf_id, T_rel = self.odo.frame_refs[-1]
-        return self.odo.keyframes[kf_id].T_world_kf.astype(np.float64) @ T_rel
+                self.odo.process(depth, timestamp)
+                if self.odo.stats[-1].get("lost"):
+                    self._lost_streak += 1
+                    if (self.enable_relocalization
+                            and self._lost_streak >= self._reloc_backoff):
+                        r = self._attempt_relocalization()
+                        if r is True:
+                            self._lost_streak = 0
+                            self._reloc_backoff = self.reloc_after
+                        elif r is False:
+                            # genuine miss: back off
+                            self._lost_streak = 0
+                            self._reloc_backoff = min(
+                                2 * self._reloc_backoff, 64)
+                        # r is None: no usable data — keep the streak
+                else:
+                    self._lost_streak = 0
+                    self._reloc_backoff = self.reloc_after
+                new_kf = self._sync_graph_with_keyframes()
+            if new_kf and self._backend_thread is not None:
+                self._queue_attempt()
+            elif new_kf and self.enable_loop_closure:
+                # synchronous: dispatch and drain inside this frame
+                profiling.count("slam.frame_attempts")
+                with profiling.span("slam.frame_attempt"):
+                    self._attempt_loop_closure()
+            if self.track_against_map:
+                with self._lock:
+                    self._refine_against_map()
+            kf_id, T_rel = self.odo.frame_refs[-1]
+            T_world_kf = self.odo.keyframes[kf_id].T_world_kf
+            return T_world_kf.astype(np.float64) @ T_rel
 
     def trajectory(self) -> tuple[np.ndarray, np.ndarray]:
         """(timestamps (F,), poses (F, 4, 4)) with every frame re-anchored
