@@ -4,7 +4,7 @@
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device   — require a CUDA device; print its name and power limit
-  2. build    — build the eight CUDA kernels from tpuslam_torch/csrc (one
+  2. build    — build the nine CUDA kernels from tpuslam_torch/csrc (one
                 nvcc per source, in parallel), with ptxas's registers,
                 stack frames and spills
   3. kernels  — each kernel against its plain PyTorch twin at the main
@@ -74,7 +74,12 @@ Phases, in order (any failure raises and the script exits non-zero):
                 points, normals and mask bit-equal (as int32); its device
                 time (50 calls in one CUDA graph, by CUDA events) and its
                 time as the host issues it, each beside the twin's, its
-                byte bound and its device µs of one full launch
+                byte bound and its device µs of one full launch; then the
+                dense pose-graph solve's kernel (csrc/posegraph_dense.cu)
+                against its twin at the 32-node bucket (posegraph_phase:
+                poses within TOL_POSE, padding bit-equal), timed at 15 and
+                19 live nodes beside the twin's captured solve replayed,
+                with its bound by operations
   5. small    — a 12-frame 120×160 scan on the GPU against the same scan
                 through the plain twins on the CPU (the twins are held to
                 the JAX reference by tests/test_torch_*.py)
@@ -399,7 +404,8 @@ KERNEL_SYMBOLS = {"correspond": "correspond_kernel",
                   "ring_nn": "ring_nn_kernel",
                   "grid_correspond": "grid_correspond_kernel",
                   "grid_table": "grid_table_",  # its fill and insert
-                  "preprocess": "preprocess_kernel"}
+                  "preprocess": "preprocess_kernel",
+                  "posegraph_dense": "posegraph_dense_kernel"}
 
 
 def count_ops(rows, word: str) -> int:
@@ -3172,6 +3178,79 @@ def preprocess_phase(dev, card: str, K, depths_np, cfg) -> dict:
     return stats
 
 
+# Floating-point operations of the dense pose-graph solve, counted from
+# csrc/posegraph_dense.cu: an edge's residual (~300), float64 Jacobian
+# (~830) and 6 × 6 block (~540) with the assembly's adds (~230) a round;
+# the Cholesky of the live 6n rows (6n)³/3, its two triangular solves
+# 2(6n)², and ~200 a node for exp and the product.
+POSEGRAPH_FLOPS_EDGE = 1900
+POSEGRAPH_FLOPS_NODE = 200
+
+
+def posegraph_solve_flops(live: int, edges: int, iters: int) -> float:
+    m = 6 * live
+    return iters * (edges * POSEGRAPH_FLOPS_EDGE + m ** 3 / 3 + 2 * m * m
+                    + POSEGRAPH_FLOPS_NODE * live)
+
+
+def posegraph_phase(dev, card: str) -> dict:
+    """Phase 4b, the pose graph: the dense solve's kernel at the 32-node
+    bucket against its twin on the card over `posegraph_cases` (poses
+    within TOL_POSE, padding bit-equal, a second launch bit-equal); then at
+    15 and 19 live nodes (synthetic_graph's loop, 64 edges) and with a
+    fused attempt's four candidates (68 edges): the kernel's device time
+    (50 launches in one CUDA graph), the twin's (one solve captured and
+    replayed: what `optimize_pose_graph 32` replayed before the kernel),
+    `optimize_pose_graph` as the host issues it (the entry point's
+    replay), the bound by operations and the device µs of one launch."""
+    from tpuslam_torch.backend import posegraph
+    from tpuslam_torch.bench.profile_odometry import (
+        posegraph_cases,
+        synthetic_graph,
+    )
+    from tpuslam_torch.config import PoseGraphConfig
+    from tpuslam_torch.kernels import posegraph_dense as pd
+
+    cfg = PoseGraphConfig()
+    cases = posegraph_cases(dev)
+    worst = 0.0
+    for name, g in cases.items():
+        got = pd.launch(*g, cfg, 0.5)
+        again = pd.launch(*g, cfg, 0.5)
+        want = posegraph.optimize_dense_reference(g, cfg, 0.5)
+        torch.cuda.synchronize()
+        live = int(g.node_mask.sum())
+        err = float((got[0] - want[0]).abs().max())
+        worst = max(worst, err)
+        check(bits_equal(got[0], again[0]) and bits_equal(got[1], again[1]),
+              f"posegraph_dense {name}: a second launch differs")
+        check(bits_equal(got[0][live:], g.poses[live:].contiguous()),
+              f"posegraph_dense {name}: padding poses moved")
+        check(err <= pd.TOL_POSE, f"posegraph_dense {name}: poses {err} "
+              f"from the twin's (limit {pd.TOL_POSE})")
+    rows = {}
+    for label, g, live in (
+            ("15 live", synthetic_graph(dev, 15).graph(bucketed=True), 15),
+            ("19 live", synthetic_graph(dev, 19).graph(bucketed=True), 19),
+            ("19 live + 4 candidates", cases["candidates"], 19)):
+        edges = g.edge_i.shape[0]
+        flops = posegraph_solve_flops(live, edges, cfg.gn_iters)
+        rows[label] = {
+            "bucket": [g.poses.shape[0], edges],
+            "ms": graph_ms(lambda: pd.launch(*g, cfg, 0.5)),
+            "plain_replay_ms": graph_ms(
+                lambda: posegraph.optimize_dense_reference(g, cfg, 0.5), 1),
+            "entry_ms": time_ms(lambda: posegraph.optimize_pose_graph(g, cfg),
+                                reps=20),
+            **bound(nbytes(*g), flops), "flops": flops,
+            "device_us_full_launch": full_launch_us(
+                lambda: pd.launch(*g, cfg, 0.5), "posegraph_dense")}
+    stats = {"cases": len(cases), "worst_pose_err": worst,
+             "tol_pose": pd.TOL_POSE, "rows": rows}
+    log(f"[posegraph] {json.dumps(stats)} ({card})")
+    return stats
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -3529,6 +3608,7 @@ def main() -> int:
 
     # ---- 4b. the pyramid kernel against its eager twin ----
     pre_stats = preprocess_phase(dev, card, K, depths_np, cfg)
+    pre_stats["posegraph"] = posegraph_phase(dev, card)
 
     # ---- 5. small scan: GPU kernels vs CPU twins ----
     from tpuslam_torch.config import Intrinsics

@@ -28,6 +28,7 @@ from tpuslam_torch.kernels import (
     gn_fused,
     gn_partials,
     gn_step,
+    posegraph_dense,
     ring_nn,
 )
 
@@ -483,6 +484,8 @@ def test_slam_gpu_matches_cpu_twins(dev, fused):
     kc, cc, ec = run("cpu")
     counters = ((gn_fused.counter,) if fused else
                 (correspond.counter, gn_step.counter))
+    # every solve's node bucket is 32: the dense solve's kernel runs them
+    counters += (posegraph_dense.counter,)
     for c in counters + (gn_partials.counter, gn_epilogue.counter):
         c.reset()
     kg, cg, eg = run(dev)
@@ -2359,3 +2362,110 @@ def test_preprocess_is_one_launch_and_replays_bit_equal(dev):
         assert pp.counter.plain_calls == 0
     finally:
         prog.drop()
+
+
+# ---- the dense pose-graph solve in one launch (csrc/posegraph_dense.cu) ----
+
+POSEGRAPH_CASES = ["loop 15", "loop 19", "loop 24", "loop 32", "candidates",
+                   "rotated 0.06", "rotated 0.13", "rotated 1.56",
+                   "nan candidate, weight 0", "nan candidate, weight 2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", POSEGRAPH_CASES)
+def test_posegraph_dense_kernel_matches_twin(dev, case):
+    """At the 32-node bucket (`profile_odometry.posegraph_cases`: loops of
+    15-32 nodes, a fused attempt's candidates with zero-weight repeats and
+    a closure past the Huber width, rotations on both sides of the Taylor
+    switch and near π, a NaN candidate pose at weight 0 and 2): the poses
+    within TOL_POSE of the twin's on the card and the cost within
+    TOL_COST_REL + TOL_COST_ABS (another summation order, Cholesky in place
+    of LU; kernels/posegraph_dense.py), padding poses bit-equal to what
+    came in, and the guard leaving every pose as it was."""
+    from tpuslam_torch.backend import posegraph
+    from tpuslam_torch.bench.profile_odometry import posegraph_cases
+    from tpuslam_torch.config import PoseGraphConfig
+
+    cfg = PoseGraphConfig()
+    g = posegraph_cases(dev)[case]
+    posegraph_dense.counter.reset()
+    got, cost = posegraph.optimize_pose_graph(g, cfg, eager=True)
+    want, want_cost = posegraph.optimize_dense_reference(g, cfg, 0.5)
+    torch.cuda.synchronize()
+    assert posegraph_dense.counter.launches == 1
+    assert posegraph_dense.counter.plain_calls == 1      # the twin above
+    live = int(g.node_mask.sum())
+    assert _int_bits_equal(got[live:], g.poses[live:].contiguous())
+    assert float((got - want).abs().max()) <= posegraph_dense.TOL_POSE
+    if case.startswith("nan"):
+        assert _int_bits_equal(got, g.poses.contiguous())
+        assert bool(torch.isnan(cost)) and bool(torch.isnan(want_cost))
+    else:
+        assert float((want - g.poses).abs().max()) > 1e-3
+        assert abs(float(cost - want_cost)) <= (
+            posegraph_dense.TOL_COST_REL * abs(float(want_cost))
+            + posegraph_dense.TOL_COST_ABS)
+
+
+@pytest.mark.cuda
+def test_posegraph_dense_is_one_launch_and_replays_bit_equal(dev):
+    """One kernel and nothing else on the device; launches again, and the
+    captured program's warm-up, capture and replays, give the eager
+    call's bits and count one launch each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch import graphs
+    from tpuslam_torch.backend import posegraph
+    from tpuslam_torch.bench.profile_odometry import posegraph_cases
+    from tpuslam_torch.config import PoseGraphConfig
+
+    cfg = PoseGraphConfig()
+    g = posegraph_cases(dev)["candidates"]
+    want = posegraph_dense.launch(*g, cfg, 0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = posegraph_dense.launch(*g, cfg, 0.5)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "posegraph_dense_kernel" in kernels[0], \
+        kernels
+    assert _bits_equal(got, want)
+    for _ in range(3):
+        assert _bits_equal(posegraph.optimize_pose_graph(g, cfg, eager=True),
+                           want)
+    graphs.clear()
+    posegraph_dense.counter.reset()
+    try:
+        for i in range(4):            # warm-up, capture + replay, replays
+            out = posegraph.optimize_pose_graph(g, cfg)
+            torch.cuda.synchronize()
+            assert posegraph_dense.counter.launches == i + 1
+            assert _bits_equal(out, want), i
+        (entry,) = [e.info() for e in posegraph._DENSE.entries()]
+        assert entry["captured"] and entry["replays"] == 3
+        assert entry["kernel_launches"] == {"posegraph_dense": 1}
+        assert posegraph_dense.counter.plain_calls == 0
+    finally:
+        graphs.clear()
+
+
+@pytest.mark.cuda
+def test_posegraph_dense_leaves_bucket_64_to_the_twin(dev):
+    """A 40-node graph (the 64-node bucket) runs the twin on the card,
+    counted by `plain()`, and never the kernel."""
+    from tpuslam_torch.backend import posegraph
+    from tpuslam_torch.bench.profile_odometry import synthetic_graph
+    from tpuslam_torch.config import PoseGraphConfig
+
+    cfg = PoseGraphConfig()
+    g = synthetic_graph(dev, 40).graph(bucketed=True)
+    assert g.poses.shape[0] == 64
+    posegraph_dense.counter.reset()
+    poses, _ = posegraph.optimize_pose_graph(g, cfg, eager=True)
+    torch.cuda.synchronize()
+    assert posegraph_dense.counter.launches == 0
+    assert posegraph_dense.counter.plain_calls == 1
+    assert bool(torch.isfinite(poses).all())

@@ -6,18 +6,24 @@ fixed, padded capacity (masked nodes, zero-weight edges); `GraphHost`
 doubles its host storage when full and hands the device power-of-two
 buckets.  Per-edge Jacobians (left-twist parametrization) are closed-form
 where the reference uses `jax.jacfwd`.  Two inner solvers: dense (assemble
-the (6N, 6N) system and LU-solve it) and matrix-free block-Jacobi-
+the (6N, 6N) system and solve it) and matrix-free block-Jacobi-
 preconditioned CG.  Node 0 is gauge-fixed by a strong prior.
 
-Nothing here reads a tensor back to the host: the solve is `solve_ex` /
-`inv_ex` (their plain forms check the solver's status on the host), and
-CG runs a fixed budget of `cg_iters` iterations with a device-side
-convergence flag after which iterations leave x unchanged — the
-reference's while-loop exit, without a host round trip.  So each solver is
-one CUDA graph on the card (tpuslam_torch/graphs.py), keyed by the node and
-edge buckets, the config and the Huber width: ~11,700 ops of a 32-node
-solve become one replay.  On the CPU, or with `eager=True`, it runs op by
-op.
+The dense solve of a CUDA graph whose node bucket is at most 32 is one
+launch of `kernels/posegraph_dense.py` (`csrc/posegraph_dense.cu`: every
+round in one block's shared memory, a Cholesky solve).  The CPU and larger
+buckets run its plain twin `optimize_dense_reference`, which assembles the
+system by scatter-adds and LU-solves it.
+
+Nothing here reads a tensor back to the host: the twin's solve is
+`solve_ex` / `inv_ex` (their plain forms check the solver's status on the
+host), and CG runs a fixed budget of `cg_iters` iterations with a
+device-side convergence flag after which iterations leave x unchanged —
+the reference's while-loop exit, without a host round trip.  So each
+solver is one CUDA graph on the card (tpuslam_torch/graphs.py), keyed by
+the node and edge buckets, the config and the Huber width: the twin's
+~11,700 ops a solve become one replay.  On the CPU, or with
+`eager=True`, it runs op by op.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from tpuslam_torch import graphs
 from tpuslam_torch.config import PoseGraphConfig
 from tpuslam_torch.geom import se3
+from tpuslam_torch.kernels import posegraph_dense
 from tpuslam_torch.transfer import resolve_device, upload
 
 
@@ -380,8 +387,13 @@ def optimize_pose_graph_cg(graph: PoseGraph, cfg: PoseGraphConfig,
                    cg_iters=cg_iters, cg_tol=cg_tol)
 
 
-def _optimize_dense(_state, graph: PoseGraph, *, cfg: PoseGraphConfig,
-                    huber_delta: float):
+def optimize_dense_reference(graph: PoseGraph, cfg: PoseGraphConfig,
+                             huber_delta: float):
+    """Plain PyTorch twin of `csrc/posegraph_dense.cu`, op by op:
+    `gn_iters` rounds of the normal system by scatter-adds, an LU solve and
+    the left update.  Returns (poses, cost of the last round's
+    linearization point)."""
+    posegraph_dense.counter.plain()
     info = _info_vector(cfg, graph.poses)
     poses = graph.poses
     cost = torch.full((), float("inf"), device=poses.device)
@@ -390,7 +402,15 @@ def _optimize_dense(_state, graph: PoseGraph, *, cfg: PoseGraphConfig,
             poses, graph.edge_i, graph.edge_j, graph.edge_T,
             graph.edge_weight, info, huber_delta)
         poses = solve_and_update(poses, graph.node_mask, H, b, cfg)
-    return (), (poses, cost)
+    return poses, cost
+
+
+def _optimize_dense(_state, graph: PoseGraph, *, cfg: PoseGraphConfig,
+                    huber_delta: float):
+    if posegraph_dense.engages(graph.poses.device.type, graph.poses.shape[0],
+                               graph.edge_i.shape[0]):
+        return (), posegraph_dense.launch(*graph, cfg, huber_delta)
+    return (), optimize_dense_reference(graph, cfg, huber_delta)
 
 
 _DENSE = graphs.Program("optimize_pose_graph", _optimize_dense)
@@ -400,7 +420,8 @@ def optimize_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig,
                         huber_delta: float = 0.5, eager: bool = False):
     """Gauss-Newton over all node poses with the dense solve; returns
     (poses, cost of the last round's linearization point).  One replay of
-    a CUDA graph on the card, unless `eager`.
+    a CUDA graph on the card, unless `eager`: one kernel launch at node
+    buckets up to 32 (`kernels/posegraph_dense.py`), the twin's ops beyond.
 
     Edge weights scale a diagonal information diag(trans_weight·I₃,
     rot_weight·I₃); a Huber factor on the whole-edge residual norm
