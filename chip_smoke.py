@@ -10,10 +10,10 @@ Phases, in order (any failure raises and the script exits non-zero):
   3. kernels  — each kernel against its plain PyTorch twin at the main
                 paths' shapes (all three levels of a 640×480 frame pair;
                 correspond and gn_step from the untransformed source and
-                the carry's pose, correspond bit-equal, also through its
-                unposed call, and writing nothing after DONE; gn_partials
-                at the carry's pose, as the ring ICP calls it, also at the
-                ring's 16,384 points; gn_fused's one-launch solve on its
+                the carry's pose, correspond bit-equal and writing nothing
+                after DONE; gn_partials at the carry's pose, as the ring
+                ICP calls it, the same bits on a second launch, also at
+                the ring's 16,384 points; gn_fused's one-launch solve on its
                 first solve of an outer iteration and with T_gate ≠ T_res:
                 per-block Σvalid exact, the carry within gn_step's
                 tolerances, the gate buffer bit-equal, the same bits again,
@@ -23,8 +23,8 @@ Phases, in order (any failure raises and the script exits non-zero):
                 with the pose, the first hop's start and the last hop's
                 gates bit-equal to its twin in score, row, x, q, n and w,
                 four hops over four shards against one hop, DONE, a NaN
-                point, an all-invalid shard, the tickets back at zero, and
-                the bare hop; grid_correspond at 16,384 queries against a
+                point, an all-invalid shard, the tickets back at zero;
+                grid_correspond at 16,384 queries against a
                 131,072-row index with ~150 points to a cell, posed and
                 pose-less bit-equal in q, n, w, idx, nothing written after
                 DONE, a query outside the grid and one without a
@@ -32,11 +32,9 @@ Phases, in order (any failure raises and the script exits non-zero):
                 its bound and its device µs of one full launch at level 0
                 (ring_nn: one full hop; grid_correspond: one full probe)
                 under torch.profiler; at level 0
-                gn_step against the unmerged pair (gn_partials +
-                gn_epilogue, with and without the transform) in turns, by
-                CUDA events and under torch.profiler, on grids of 132 and
-                264 blocks (gn_fused's solve against the parent commit's
-                pair: tpuslam_torch/bench/profile_odometry.py --mode solve);
+                gn_step against the unmerged pair (gn_partials at the
+                carry's pose + gn_epilogue) in turns, by CUDA events and
+                under torch.profiler, on grids of 132 and 264 blocks;
                 torch.searchsorted of the probe's 16,384 × 27 cell keys
                 into the index's sorted keys as the grid table's library
                 time, and with the gather of each key's first row as the
@@ -332,6 +330,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def posegraph_fixtures():
+    """tests/torch_posegraph_cases.py (`synthetic_graph`,
+    `posegraph_cases`), loaded by its file path: the GPU host has another
+    package named `tests` on its path, which hides this repository's."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_posegraph_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_posegraph_cases",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -444,39 +457,35 @@ def fmt_us(v) -> str:
     return "not measured" if v is None else f"{v:.3f}"
 
 
-def gn_step_ab(card: str, src, x, T, corr, carry, nvs, icp) -> dict:
+def gn_step_ab(card: str, pts, corr, carry, nvs, icp) -> dict:
     """Level 0: one GN solve as gn_step (grids of 132 and 264 blocks)
     against the unmerged pair gn_partials + gn_epilogue at the same
-    inputs, with and without the point transform the pair needs (a cuBLAS
-    GEMM and an add), timed in turns by CUDA events (forward, then back)
-    and each under torch.profiler for its device time a solve."""
+    inputs (the partials at the carry's pose, as the ring ICP launches
+    them), timed in turns by CUDA events (forward, then back) and each
+    under torch.profiler for its device time a solve."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tpuslam_torch.geom import se3
     from tpuslam_torch.kernels import gn_epilogue, gn_partials, gn_step
 
-    pts = src.points.contiguous()
     # is_last False: DONE is never set, so every timed launch does the work
     mid = (nvs, icp.huber_delta, icp.damping, icp.damping_abs,
            icp.max_trans_step, icp.max_rot_step, False, icp.inner_steps, 12,
            icp.tol_delta ** 2)
     sc = carry.clone()
+    T = carry[gn_epilogue.T_SLICE]
 
-    def pair(xs):
-        return gn_epilogue.gn_epilogue(
-            gn_partials.gn_reduce_partials(xs, corr.q, corr.n, corr.w,
-                                           icp.huber_delta, done=carry),
-            carry, *mid[:1], *mid[2:])
+    def partials():
+        return gn_partials.gn_reduce_partials_at_pose(
+            pts, corr.q, corr.n, corr.w, T, icp.huber_delta, done=carry)
 
-    one_row = gn_partials.gn_reduce_partials(
-        x, corr.q, corr.n, corr.w, icp.huber_delta).sum(0, keepdim=True)
+    one_row = partials().sum(0, keepdim=True)
     fns = {
         # the epilogue on this solve's sums as one row: its fold is
         # trivial, so this is the solve's own time (plus a launch)
         "solve alone": lambda: gn_epilogue.gn_epilogue(
             one_row, carry, *mid[:1], *mid[2:]),
-        "pair": lambda: pair(x),
-        "pair+transform": lambda: pair(se3.transform_points(T, src.points)),
+        "pair": lambda: gn_epilogue.gn_epilogue(partials(), carry, *mid[:1],
+                                                *mid[2:]),
         "gn_step/132": lambda: gn_step.gn_step(pts, corr.q, corr.n, corr.w,
                                                sc, *mid, blocks=132),
         "gn_step/264": lambda: gn_step.gn_step(pts, corr.q, corr.n, corr.w,
@@ -567,8 +576,8 @@ def ring_nn_phase(dev, card: str) -> dict:
     .capacity frame points against a map_capacity-row shard of which about
     half the rows are invalid (a map filling up), one point NaN.  The ring
     ICP's hop (`ring_correspond_hop`: the pose, the first hop's start, the
-    last hop's gates) as one hop and as four, DONE, an all-invalid shard,
-    and the bare hop (`ring_nn_hop`)."""
+    last hop's gates) as one hop and as four, DONE and an all-invalid
+    shard."""
     from tpuslam_torch.config import ICPConfig, VoxelConfig
     from tpuslam_torch.geom import se3
     from tpuslam_torch.kernels import gn_epilogue, ring_nn
@@ -644,15 +653,6 @@ def ring_nn_phase(dev, card: str) -> dict:
           and bool((hz.score[fin] > 9e29).all())
           and not bool(hz.row[:, 6].any()) and not bool(hz.w.any()),
           "ring_nn: all-invalid shard")
-    # the bare hop on queries already in the map's frame
-    xb = se3.transform_points_ordered(T, x)
-    bk, bt = ring_nn.init_best(n, dev), ring_nn.init_best(n, dev)
-    ring_nn.ring_nn_hop(xb, shard, *bk)
-    ring_nn.ring_nn_hop_reference(xb, shard, *bt)
-    torch.cuda.synchronize()
-    check(torch.equal(bk[0], bt[0]) and torch.equal(bk[1], bt[1])
-          and torch.equal(bk[0], sk.score) and torch.equal(bk[1], sk.row),
-          "ring_nn: the bare hop differs from its twin or the posed hop")
 
     state = ring_nn.ring_state(n, dev)
 
@@ -661,7 +661,6 @@ def ring_nn_phase(dev, card: str) -> dict:
                                     radius)
     ms = time_ms(hop)
     plain_ms = time_ms(lambda: ring((shard,), st, twin=True), reps=3)
-    bare_ms = time_ms(lambda: ring_nn.ring_nn_hop(xb, shard, *bk))
     full_us = full_launch_us(hop, "ring_nn")
     # the rows a query needs are the valid ones: an invalid row never wins
     # over a valid one
@@ -672,9 +671,9 @@ def ring_nn_phase(dev, card: str) -> dict:
         f"{ms:.5f} ms, device {fmt_us(full_us)} us a full hop, plain "
         f"{plain_ms:.5f} ms, bound {b['bound_ms']:.5f} ms by "
         f"{b['bound_by']} ({b['bound_ms'] / ms:.3f} of it), bit-equal in "
-        f"score, row, x, q, n, w ({int(sk.w.sum())} matches); the bare hop "
-        f"{bare_ms:.5f} ms, bit-equal; 4 hops = 1 hop, DONE, NaN query, "
-        f"all-invalid shard and zero tickets hold ({card})")
+        f"score, row, x, q, n, w ({int(sk.w.sum())} matches); 4 hops = 1 "
+        f"hop, DONE, NaN query, all-invalid shard and zero tickets hold "
+        f"({card})")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "device_us_full_launch": full_us, **b}
 
@@ -1081,7 +1080,6 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
     from tpuslam_torch.backend.distba import optimize_pose_graph_spmd
     from tpuslam_torch.backend.posegraph import GraphHost
     from tpuslam_torch.bench.harness import slam_bench_config
-    from tpuslam_torch.bench.profile_odometry import synthetic_graph
     from tpuslam_torch.dist.batch_eval import make_batched_aligner
     from tpuslam_torch.dist.map_fusion import make_fuse_fn
     from tpuslam_torch.dist.mesh import initialize_distributed, make_mesh
@@ -1153,7 +1151,8 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
         # the distributed programs: the 32-node bucket's graph of
         # graphs_phase, this map BA problem, and frames 10-13 each against
         # the one before, batched
-        g32 = synthetic_graph(dev, 24).graph(bucketed=True)
+        g32 = posegraph_fixtures().synthetic_graph(dev, 24).graph(
+            bucketed=True)
         batched = make_batched_aligner(mesh, icp)
         pyrs = [preprocess(d[i], K, cfg) for i in range(9, 14)]
         src, dst = (tuple(Frame(*(torch.stack([p[li][k] for p in ps])
@@ -1283,7 +1282,6 @@ def graphs_phase(dev, card: str, height: int = 480,
     from tpuslam_torch import graphs
     from tpuslam_torch.backend import loopclosure, posegraph, relocalize
     from tpuslam_torch.bench.harness import _render_sequence
-    from tpuslam_torch.bench.profile_odometry import synthetic_graph
     from tpuslam_torch.config import SLAMConfig
     from tpuslam_torch.frontend import (
         SuperChunkCarry,
@@ -1312,6 +1310,7 @@ def graphs_phase(dev, card: str, height: int = 480,
     pg = cfg.posegraph
     # loops of keyframe poses, each off by ~1 cm, with loop edges: the
     # 32-, 256- and 512-node buckets (dense, dense, CG)
+    synthetic_graph = posegraph_fixtures().synthetic_graph
     g32, g256, g512 = (synthetic_graph(dev, n).graph(bucketed=True)
                        for n in (24, 200, 400))
     # the fused attempt: 3 live revisit candidates padded to 4, tables at
@@ -3204,15 +3203,13 @@ def posegraph_phase(dev, card: str) -> dict:
     `optimize_pose_graph` as the host issues it (the entry point's
     replay), the bound by operations and the device µs of one launch."""
     from tpuslam_torch.backend import posegraph
-    from tpuslam_torch.bench.profile_odometry import (
-        posegraph_cases,
-        synthetic_graph,
-    )
     from tpuslam_torch.config import PoseGraphConfig
     from tpuslam_torch.kernels import posegraph_dense as pd
 
     cfg = PoseGraphConfig()
-    cases = posegraph_cases(dev)
+    fixtures = posegraph_fixtures()
+    synthetic_graph = fixtures.synthetic_graph
+    cases = fixtures.posegraph_cases(dev)
     worst = 0.0
     for name, g in cases.items():
         got = pd.launch(*g, cfg, 0.5)
@@ -3330,7 +3327,6 @@ def main() -> int:
         K_l = K.scaled(1.0 / 2 ** li)
         src = select_level_source(pyr_b, li, icp)
         h, w, _ = pyr_b[li].points.shape
-        x = se3.transform_points(T, src.points)
         # the ICP loop's association: the untransformed source and the
         # carry's pose, the transform in the kernel
         pts, nrm = src.points.contiguous(), src.normals.contiguous()
@@ -3347,12 +3343,6 @@ def main() -> int:
         c_err = max(float((ck.q - cr.q).abs().max()),
                     float((ck.n - cr.n).abs().max()),
                     float((ck.w - cr.w).abs().max()))
-        # the reference-shaped call on points already moved (in the same
-        # order) gives the same association
-        cu = correspond.projective_correspond_packed(
-            se3.transform_points_ordered(T, pts), src.mask, packed[li], h, w,
-            K_l, icp.max_corr_dist, se3.rotate_vectors_ordered(T, nrm),
-            icp.normal_dot_min, done=carry)
         # after DONE the kernel writes nothing into the given buffers
         out = correspond.correspondence_buffers(pts.shape[0], dev)
         for t_ in out:
@@ -3360,21 +3350,17 @@ def main() -> int:
         correspond.projective_correspond_at_pose(
             *args, gn_epilogue.init_carry(T, 0), out=out)
         torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(cu, ck)),
-              f"correspond level {li}: the unposed call differs")
         check(all(bool((t_ == 7).all()) for t_ in out),
               f"correspond level {li}: wrote after DONE")
 
         # gn_partials as the ring ICP calls it: the untransformed points and
         # the carry's pose, which the kernel applies (in the association's
-        # order: the same bits as the reference-shaped call on those x)
+        # order); the same bits on a second launch
         ts = gn_epilogue.T_SLICE
         pargs = (pts, ck.q, ck.n, ck.w, carry[ts], icp.huber_delta)
         pk = gn_partials.gn_reduce_partials_at_pose(*pargs, done=carry)
         pr = gn_partials.gn_reduce_partials_at_pose_reference(*pargs)
-        pu = gn_partials.gn_reduce_partials(
-            se3.transform_points_ordered(T, pts), ck.q, ck.n, ck.w,
-            icp.huber_delta)
+        pa = gn_partials.gn_reduce_partials_at_pose(*pargs, done=carry)
         done_c = gn_epilogue.init_carry(T, 0)
         pd = gn_partials.gn_reduce_partials_at_pose(
             pts, ck.q, ck.n, ck.w, done_c[ts], icp.huber_delta, done=done_c)
@@ -3384,8 +3370,8 @@ def main() -> int:
         p_rel = max(rel_err(a, b) for a, b in zip(fk, fr))
         check(p_rel <= TOL_PARTIALS_REL,
               f"gn_partials level {li}: rel err {p_rel}")
-        check(torch.equal(pk, pu), f"gn_partials level {li}: the posed call "
-              f"differs from the unposed one at the ordered x")
+        check(torch.equal(pk, pa),
+              f"gn_partials level {li}: not the same bits again")
         check(bool((pd == 0).all()), f"gn_partials level {li}: DONE rows")
         p_err = max(float((a - b).abs().max()) for a, b in zip(fk, fr))
 
@@ -3547,29 +3533,29 @@ def main() -> int:
             "correspond": bound(
                 nbytes(pts, src.mask, nrm, ck.q, ck.n, ck.w, ck.idx)
                 + 12 * 4 + row_bytes * torch.unique(ck.idx).numel(),
-                (OPS_TRANSFORM + OPS_ROTATE + OPS_CORRESPOND) * x.shape[0]),
+                (OPS_TRANSFORM + OPS_ROTATE + OPS_CORRESPOND) * pts.shape[0]),
             "gn_partials": bound(nbytes(pts, ck.q, ck.n, ck.w, pk) + 12 * 4,
                                  (OPS_GN_PARTIALS + OPS_TRANSFORM)
-                                 * x.shape[0]),
+                                 * pts.shape[0]),
             "gn_epilogue": bound(
                 nbytes(pk, nvs, ek_step) + 2 * nbytes(carry),
                 pk.shape[0] * gn_partials.NUM_SUMS + OPS_EPILOGUE_SOLVE),
             "gn_step": bound(
                 nbytes(pts, ck.q, ck.n, ck.w, nvs) + 2 * nbytes(carry),
-                (OPS_GN_PARTIALS + OPS_TRANSFORM) * x.shape[0]
+                (OPS_GN_PARTIALS + OPS_TRANSFORM) * pts.shape[0]
                 + OPS_EPILOGUE_SOLVE),
             # the carry read and written, the gate pose written
             "gn_fused": bound(
                 nbytes(pts, nrm, src.mask, nvs) + 2 * nbytes(carry) + 12 * 4
                 + row_bytes * torch.unique(flat).numel(),
-                OPS_GN_FUSED * x.shape[0] + OPS_EPILOGUE_SOLVE),
+                OPS_GN_FUSED * pts.shape[0] + OPS_EPILOGUE_SOLVE),
         }
         for name, (ms, plain_ms) in times.items():
             stats[name][li] = {"ms": ms, "plain_ms": plain_ms,
-                               "max_abs_err": errs[name], "n": x.shape[0],
+                               "max_abs_err": errs[name], "n": pts.shape[0],
                                "device_us_full_launch": full_us[name],
                                **bounds[name]}
-            log(f"[kernels] {name} level {li} N={x.shape[0]}: kernel "
+            log(f"[kernels] {name} level {li} N={pts.shape[0]}: kernel "
                 f"{ms:.5f} ms, device {fmt_us(full_us[name])} us a full "
                 f"launch, plain {plain_ms:.5f} ms, bound "
                 f"{bounds[name]['bound_ms']:.5f} ms by "
@@ -3578,12 +3564,12 @@ def main() -> int:
         log(f"[kernels] level {li}: w mismatch share {w_mis}, partials rel "
             f"{p_rel:.3e}, epilogue T {t_err:.3e} H rel {h_rel:.3e}, "
             f"gn_step T {s_err:.3e} H rel {s_hrel:.3e} (same bits again, "
-            f"nothing written after DONE), posed gn_partials bit-equal to "
-            f"the unposed call at the ordered x, gn_fused T {g_err:.3e} H rel "
+            f"nothing written after DONE), gn_partials the same bits again, "
+            f"gn_fused T {g_err:.3e} H rel "
             f"{g_hrel:.3e} Σvalid {g_valid:.0f} (per block equal, gate "
             f"buffer equal, same bits again, nothing written after DONE)")
         if li == 0:
-            step_ab = gn_step_ab(card, src, x, T, ck, carry, nvs, icp)
+            step_ab = gn_step_ab(card, pts, ck, carry, nvs, icp)
             ring_partials = partials_at_ring_size(card, pts, ck, carry, icp)
     ring_stats = ring_nn_phase(dev, card)
     grid_stats, table_stats = grid_correspond_phase(dev, card)

@@ -70,51 +70,13 @@ def rel(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("level", [0, 1, 2])
-def test_correspond_kernel_bit_equal_to_twin(dev, level):
-    d = torch.as_tensor(depths(4), device=dev)
-    pyr_a, pyr_b = preprocess(d[0], K, CFG), preprocess(d[3], K, CFG)
-    packed = pack_pyramid(pyr_a, CFG.icp)[level]
-    src = select_level_source(pyr_b, level, CFG.icp)
-    h, w, _ = pyr_b[level].points.shape
-    T = se3.exp(torch.tensor([0.01, -0.01, 0.01, 0.01, 0.0, -0.01],
-                             device=dev))
-    args = (se3.transform_points(T, src.points), src.mask, packed, h, w,
-            K.scaled(1.0 / 2 ** level), 0.25,
-            se3.rotate_vectors(T, src.normals), 0.5)
-    done = gn_epilogue.init_carry(T, 4)
-    k = correspond.projective_correspond_packed(*args, done=done)
-    r = correspond.projective_correspond_packed_reference(*args)
-    torch.cuda.synchronize()
-    for a, b in zip(k, r):
-        assert torch.equal(a, b)
-    assert 0.3 < float(k.w.mean()) <= 1.0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 255, 5000, 153600, 1_000_000])
-def test_partials_kernel_matches_twin(dev, n):
-    x, q, nn, w = (torch.as_tensor(a, device=dev) for a in random_points(n))
-    pk = gn_partials.gn_reduce_partials(x, q, nn, w, 0.05)
-    pr = gn_partials.gn_reduce_partials_reference(x, q, nn, w, 0.05)
-    torch.cuda.synchronize()
-    assert pk.shape == pr.shape == (gn_partials.num_blocks(n), 32)
-    for a, b in zip(gn_partials.fold_partials(pk),
-                    gn_partials.fold_partials(pr)):
-        assert rel(a, b) <= 1e-4
-    assert torch.equal(pk, gn_partials.gn_reduce_partials(x, q, nn, w, 0.05))
-    done = gn_epilogue.init_carry(torch.eye(4, device=dev), 0)
-    assert torch.all(gn_partials.gn_reduce_partials(x, q, nn, w, 0.05,
-                                                    done=done) == 0)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["plain", "zero", "non_finite", "last",
                                   "done"])
 def test_epilogue_kernel_matches_twin(dev, case):
     x, q, nn, w = (torch.as_tensor(a, device=dev)
                    for a in random_points(5000, seed=1))
-    partials = gn_partials.gn_reduce_partials(x, q, nn, w, 0.05)
+    partials = gn_partials.gn_reduce_partials_at_pose(
+        x, q, nn, w, torch.eye(4, device=dev), 0.05)
     if case == "zero":
         partials = torch.zeros_like(partials)
     if case == "non_finite":
@@ -188,10 +150,10 @@ def vga_step_inputs(dev, level: int):
     h, w, _ = pyr_b[level].points.shape
     T = se3.exp(torch.tensor([0.01, -0.005, 0.008, 0.004, -0.006, 0.003],
                              device=dev))
-    corr = correspond.projective_correspond_packed(
-        se3.transform_points(T, src.points), src.mask, packed, h, w,
-        Kv.scaled(1.0 / 2 ** level), VGA.icp.max_corr_dist,
-        se3.rotate_vectors(T, src.normals), VGA.icp.normal_dot_min)
+    corr = correspond.projective_correspond_at_pose(
+        src.points.contiguous(), src.mask, src.normals.contiguous(), packed,
+        h, w, Kv.scaled(1.0 / 2 ** level), VGA.icp.max_corr_dist,
+        VGA.icp.normal_dot_min, gn_epilogue.init_carry(T, 12))
     nvs = torch.sum(src.mask.to(torch.float32))
     return (src.points.contiguous(), corr.q, corr.n, corr.w), nvs, T
 
@@ -379,12 +341,12 @@ def test_gn_fused_step_done_writes_nothing(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 5000, 16384, 153600])
+@pytest.mark.parametrize("n", [1, 255, 5000, 16384, 153600, 1_000_000])
 def test_posed_partials_kernel_matches_twin(dev, n):
     """The ring ICP's reduction at the carry's pose: the folded sums within
-    1e-4 of the twin's; the same bits as the reference-shaped call on the
-    points moved in the kernel's order; zero rows after DONE.  16,384 is
-    the ring's frame shard on one rank."""
+    1e-4 of the twin's; the same bits on a second launch; zero rows after
+    DONE.  16,384 is the ring's frame shard on one rank; 255 is one block
+    less a point, 1,000,000 a full grid of 264 blocks."""
     p, q, nn, w = (torch.as_tensor(a, device=dev)
                    for a in random_points(n, seed=3))
     T = se3.exp(torch.tensor([0.02, -0.01, 0.03, 0.01, -0.02, 0.01],
@@ -395,16 +357,17 @@ def test_posed_partials_kernel_matches_twin(dev, n):
                                                 done=carry)
     pr = gn_partials.gn_reduce_partials_at_pose_reference(p, q, nn, w, T,
                                                           0.05)
-    pu = gn_partials.gn_reduce_partials(
-        se3.transform_points_ordered(T, p), q, nn, w, 0.05)
+    again = gn_partials.gn_reduce_partials_at_pose(p, q, nn, w, ts, 0.05,
+                                                   done=carry)
     done = gn_epilogue.init_carry(T, 0)
     pd = gn_partials.gn_reduce_partials_at_pose(
         p, q, nn, w, done[gn_epilogue.T_SLICE], 0.05, done=done)
     torch.cuda.synchronize()
+    assert pk.shape == pr.shape == (gn_partials.num_blocks(n), 32)
     for a, b in zip(gn_partials.fold_partials(pk),
                     gn_partials.fold_partials(pr)):
         assert rel(a, b) <= 1e-4
-    assert torch.equal(pk, pu)
+    assert torch.equal(pk, again)
     assert torch.all(pd == 0)
 
 
@@ -509,44 +472,6 @@ def test_uint16_divide_bit_equal_on_device(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(1, 1), (300, 1000), (513, 2049),
-                                 (4096, 20_000)])
-@pytest.mark.parametrize("case", ["half_valid", "all_invalid", "ties"])
-def test_ring_nn_kernel_bit_equal_to_twin(dev, n, m, case):
-    """One hop and two hops (a ring of two shards) on ragged shapes: the
-    kernel's scores and rows equal the twin's bit for bit, a non-finite
-    query keeps +inf and a zero row, and DONE leaves the best as it is."""
-    rng = np.random.default_rng(n + m)
-    q = rng.uniform(-1.0, 1.0, (m, 3)).astype(np.float32)
-    if case == "ties":
-        q = np.round(q * 4.0) / 4.0          # many exact duplicate rows
-    nrm = rng.normal(size=(m, 3)).astype(np.float32)
-    valid = rng.uniform(size=m) > (1.0 if case == "all_invalid" else 0.5)
-    x = q[rng.integers(0, m, n)] + rng.normal(scale=0.01, size=(n, 3))
-    x = x.astype(np.float32)
-    if case == "ties":
-        x = np.round(x * 4.0) / 4.0
-    x[n // 2] = np.nan
-    shard = ring_nn.pack_cloud_rows(torch.as_tensor(q), torch.as_tensor(nrm),
-                                    torch.as_tensor(valid))
-    xt = torch.as_tensor(x)
-    half = m // 2
-    for parts in ((shard,), (shard[:half], shard[half:])):
-        bc = ring_nn.init_best(n, "cpu")
-        bg = ring_nn.init_best(n, dev)
-        for p in parts:
-            ring_nn.ring_nn_hop(xt, p.contiguous(), *bc)
-            ring_nn.ring_nn_hop(xt.to(dev), p.contiguous().to(dev), *bg)
-        assert torch.equal(bg[0].cpu(), bc[0])
-        assert torch.equal(bg[1].cpu(), bc[1])
-    assert float(bg[0][n // 2]) == float("inf") and not bool(bg[1][n // 2].any())
-    hd = ring_nn.init_best(n, dev)
-    ring_nn.ring_nn_hop(xt.to(dev), shard.to(dev), *hd,
-                        done=torch.ones(1, device=dev))
-    assert bool(torch.isinf(hd[0]).all()) and not bool(hd[1].any())
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("sharded", [False, True],
                          ids=["unsharded", "sharded"])
 def test_map_tracking_gpu_matches_cpu_twins(dev, sharded):
@@ -625,6 +550,34 @@ def test_correspond_at_pose_bit_equal_to_twin(dev, level):
     assert all(torch.equal(a, b) for a, b in zip(out, k))
 
 
+@pytest.mark.cuda
+def test_kernels_refuse_a_null_pose(dev):
+    """correspond, gn_partials and ring_nn take only the carry's pose: each
+    entry point refuses a null one with an error, which `check_launch`
+    raises, and launches nothing."""
+    from tpuslam_torch.kernels import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = 256
+    p = torch.zeros((n, 8), device=dev).data_ptr()
+    errs = {
+        "correspond": lib.tpuslam_correspond(
+            p, p, p, None, p, n, 16, 16, 1.0, 1.0, 8.0, 8.0, 1.0, 0.0, 0,
+            None, p, p, p, p, stream),
+        "gn_partials": lib.tpuslam_gn_partials(
+            p, None, p, p, p, n, 0.05, None, p, 1, stream),
+        "ring_nn": lib.tpuslam_ring_nn(
+            p, None, p, n, n, 1, None, p, p, p, p, 1, None, 0.0, None, None,
+            None, None, stream),
+    }
+    torch.cuda.synchronize()
+    for name, err in errs.items():
+        assert err != 0, name
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            _build.check_launch(err, name)
+
+
 def ring_problem(n, m, case, seed=0):
     """Frame points, their mask and a packed shard: half the rows valid (or
     none), a NaN query, rounded coordinates for exact ties."""
@@ -673,13 +626,15 @@ def run_ring(points, mask, parts, state, carry, max_dist=0.05,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(1, 1), (300, 1000), (1025, 2049),
-                                 (4096, 20_000)])
+@pytest.mark.parametrize("n,m", [(1, 1), (300, 1000), (513, 2049),
+                                 (1025, 2049), (4096, 20_000)])
 @pytest.mark.parametrize("case", ["half_valid", "all_invalid", "ties"])
 def test_ring_correspond_hop_bit_equal_to_twin(dev, n, m, case):
     """The ring ICP's hop at the carry's pose on ragged shapes, as one hop
     and as a ring of four: score, row, x, q, n and w bit-equal to the twin;
-    four hops over four shards equal one; the tickets are back at zero."""
+    four hops over four shards equal one; a non-finite query keeps +inf, a
+    zero row and no match; a DONE carry leaves the state as it is; the
+    tickets are back at zero."""
     p, mask, shard = ring_problem(n, m, case)
     carry = gn_epilogue.init_carry(ring_pose(dev), 12)
     pg, mg, sg = p.to(dev), mask.to(dev), shard.to(dev)
@@ -702,6 +657,10 @@ def test_ring_correspond_hop_bit_equal_to_twin(dev, n, m, case):
     assert not bool(one.row[n // 2].any()) and float(one.w[n // 2]) == 0.0
     if case == "all_invalid":
         assert not bool(one.w.any()) and not bool(one.row[:, 6].any())
+    before = [t.clone() for t in one]
+    run_ring(pg, mg, (sg,), one, gn_epilogue.init_carry(ring_pose(dev), 0))
+    torch.cuda.synchronize()
+    assert all(same_bits(a, b) for a, b in zip(one, before))
     tickets, _ = ring_nn._scratch(dev, 1, 1)
     assert not bool(tickets.any())
 
@@ -2374,7 +2333,7 @@ POSEGRAPH_CASES = ["loop 15", "loop 19", "loop 24", "loop 32", "candidates",
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", POSEGRAPH_CASES)
 def test_posegraph_dense_kernel_matches_twin(dev, case):
-    """At the 32-node bucket (`profile_odometry.posegraph_cases`: loops of
+    """At the 32-node bucket (`tests/torch_posegraph_cases.py`: loops of
     15-32 nodes, a fused attempt's candidates with zero-weight repeats and
     a closure past the Huber width, rotations on both sides of the Taylor
     switch and near π, a NaN candidate pose at weight 0 and 2): the poses
@@ -2382,8 +2341,8 @@ def test_posegraph_dense_kernel_matches_twin(dev, case):
     TOL_COST_REL + TOL_COST_ABS (another summation order, Cholesky in place
     of LU; kernels/posegraph_dense.py), padding poses bit-equal to what
     came in, and the guard leaving every pose as it was."""
+    from torch_posegraph_cases import posegraph_cases
     from tpuslam_torch.backend import posegraph
-    from tpuslam_torch.bench.profile_odometry import posegraph_cases
     from tpuslam_torch.config import PoseGraphConfig
 
     cfg = PoseGraphConfig()
@@ -2415,9 +2374,9 @@ def test_posegraph_dense_is_one_launch_and_replays_bit_equal(dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from torch_posegraph_cases import posegraph_cases
     from tpuslam_torch import graphs
     from tpuslam_torch.backend import posegraph
-    from tpuslam_torch.bench.profile_odometry import posegraph_cases
     from tpuslam_torch.config import PoseGraphConfig
 
     cfg = PoseGraphConfig()
@@ -2456,8 +2415,8 @@ def test_posegraph_dense_is_one_launch_and_replays_bit_equal(dev):
 def test_posegraph_dense_leaves_bucket_64_to_the_twin(dev):
     """A 40-node graph (the 64-node bucket) runs the twin on the card,
     counted by `plain()`, and never the kernel."""
+    from torch_posegraph_cases import synthetic_graph
     from tpuslam_torch.backend import posegraph
-    from tpuslam_torch.bench.profile_odometry import synthetic_graph
     from tpuslam_torch.config import PoseGraphConfig
 
     cfg = PoseGraphConfig()

@@ -68,7 +68,10 @@ from tpuslam_torch.interop import (
     pose_graph_from_reference,
 )
 from tpuslam_torch.kernels.gn_epilogue import fold_rows
-from tpuslam_torch.kernels.gn_partials import fold_partials, gn_reduce_partials
+from tpuslam_torch.kernels.gn_partials import (
+    fold_partials,
+    gn_reduce_partials_reference,
+)
 from tpuslam_torch.slam import SlamSystem
 
 torch.set_num_threads(1)
@@ -435,8 +438,8 @@ def partial_inputs():
 
 def check_partials(partials, x, q, nrm, w):
     H, b, *_ = fold_partials(torch.as_tensor(partials))
-    whole = gn_reduce_partials(*(torch.as_tensor(a) for a in (x, q, nrm, w)),
-                               0.05)
+    whole = gn_reduce_partials_reference(
+        *(torch.as_tensor(a) for a in (x, q, nrm, w)), 0.05)
     H1, b1, *_ = fold_partials(whole)
     ref = r_gn_reduce(jnp.asarray(x), jnp.asarray(q), jnp.asarray(nrm),
                       jnp.asarray(w), jnp.ones((x.shape[0],), bool), 0.05)
@@ -451,9 +454,9 @@ def check_partials(partials, x, q, nrm, w):
 def test_partials_of_shards_sum_to_single_device():
     x, q, nrm, w = partial_inputs()
     n = x.shape[0] // WORLD
-    total = sum(gn_reduce_partials(*(torch.as_tensor(a[r * n:(r + 1) * n])
-                                     for a in (x, q, nrm, w)), 0.05)
-                for r in range(WORLD))
+    total = sum(gn_reduce_partials_reference(
+        *(torch.as_tensor(a[r * n:(r + 1) * n]) for a in (x, q, nrm, w)),
+        0.05) for r in range(WORLD))
     check_partials(total.numpy(), x, q, nrm, w)
 
 

@@ -80,7 +80,7 @@ def test_correspond_plain_matches_reference(gate):
     _, table, x, mask, n_rot = scene_pair()
     ref = r_corr(x, mask, table, H, W, K, 0.25, src_normals_in_dst=n_rot,
                  normal_dot_min=gate)
-    ours = correspond.projective_correspond_packed(
+    ours = correspond.projective_correspond_packed_reference(
         t(x), t(mask), t(table), H, W, PIntrinsics(*K), 0.25,
         src_normals_in_dst=t(n_rot), normal_dot_min=gate)
     np.testing.assert_array_equal(ours.q.numpy(), np.asarray(ref.q))
@@ -104,7 +104,7 @@ def test_correspond_off_half_pixel_points():
     mask = rng.uniform(size=n) > 0.1
     (pa, na, ga), table, *_ = scene_pair()
     ref = r_corr(jnp.asarray(x), jnp.asarray(mask), table, H, W, K, 0.5)
-    ours = correspond.projective_correspond_packed(
+    ours = correspond.projective_correspond_packed_reference(
         t(x), t(mask), t(table), H, W, PIntrinsics(*K), 0.5)
     for a, b in ((ours.q, ref.q), (ours.n, ref.n), (ours.idx, ref.idx),
                  (ours.w, ref.w)):
@@ -263,7 +263,8 @@ def rel(a, b):
 @pytest.mark.parametrize("n", [1, 300, 5000, 70001])
 def test_partials_fold_matches_pallas_and_gn_reduce(rng, n):
     x, q, nn, w = random_points(rng, n)
-    partials = gn_partials.gn_reduce_partials(t(x), t(q), t(nn), t(w), 0.05)
+    partials = gn_partials.gn_reduce_partials_reference(
+        t(x), t(q), t(nn), t(w), 0.05)
     assert partials.shape == (gn_partials.num_blocks(n), 32)
     Hp, bp, ninl, wsq, wsum = gn_partials.fold_partials(partials)
     Hr, br, ninl_r, wsq_r, wsum_r = gn_reduce_pallas(
@@ -284,7 +285,8 @@ def test_partials_fold_matches_pallas_and_gn_reduce(rng, n):
 
 def test_partials_zero_rows_are_padding(rng):
     x, q, nn, w = random_points(rng, 1000)
-    partials = gn_partials.gn_reduce_partials(t(x), t(q), t(nn), t(w), 0.05)
+    partials = gn_partials.gn_reduce_partials_reference(
+        t(x), t(q), t(nn), t(w), 0.05)
     assert torch.all(partials[:, 30:] == 0)
     assert float(partials[:, 28].sum()) == float(w.sum())
 
@@ -356,7 +358,8 @@ def test_epilogue_plain_matches_reference(rng, case):
 def test_epilogue_matches_lu_solve_chain(rng):
     """Gauss elimination without pivoting reproduces the LU solve + exp."""
     x, q, nn, w = random_points(rng)
-    partials = gn_partials.gn_reduce_partials(t(x), t(q), t(nn), t(w), 0.05)
+    partials = gn_partials.gn_reduce_partials_reference(
+        t(x), t(q), t(nn), t(w), 0.05)
     T = pse3.exp(torch.tensor([0.02, -0.01, 0.03, 0.01, -0.02, 0.01]))
     carry = gn_epilogue.init_carry(T, 12)
     _, step = gn_epilogue.gn_epilogue(partials, carry, torch.tensor(5000.0),
@@ -405,12 +408,14 @@ def test_cpu_tensors_take_the_plain_twins(rng):
     counters = (correspond.counter, gn_partials.counter, gn_epilogue.counter)
     before = [(c.launches, c.plain_calls) for c in counters]
     _, table, xs, mask, n_rot = scene_pair()
-    correspond.projective_correspond_packed(t(xs), t(mask), t(table), H, W,
-                                            PIntrinsics(*K), 0.25)
-    partials = gn_partials.gn_reduce_partials(t(x), t(q), t(nn), t(w), 0.05)
-    gn_epilogue.gn_epilogue(partials, gn_epilogue.init_carry(torch.eye(4), 4),
-                            torch.tensor(1.0), *ARGS, is_last=True, inner=2,
-                            max_iters=4, tol_sq=0.0)
+    carry = gn_epilogue.init_carry(torch.eye(4), 4)
+    correspond.projective_correspond_at_pose(
+        t(xs), t(mask), t(n_rot), t(table), H, W, PIntrinsics(*K), 0.25, 0.5,
+        carry)
+    partials = gn_partials.gn_reduce_partials_at_pose(
+        t(x), t(q), t(nn), t(w), carry[gn_epilogue.T_SLICE], 0.05)
+    gn_epilogue.gn_epilogue(partials, carry, torch.tensor(1.0), *ARGS,
+                            is_last=True, inner=2, max_iters=4, tol_sq=0.0)
     after = [(c.launches, c.plain_calls) for c in counters]
     for (l0, p0), (l1, p1) in zip(before, after):
         assert l1 == l0 and p1 == p0 + 1
@@ -420,18 +425,14 @@ def test_other_devices_raise():
     meta = torch.device("meta")
     x = torch.empty((8, 3), device=meta)
     with pytest.raises(ValueError, match="no kernel"):
-        correspond.projective_correspond_packed(
-            x, torch.empty(8, dtype=torch.bool, device=meta),
-            torch.empty((H * W, 8), dtype=torch.float16, device=meta), H, W,
-            PIntrinsics(*K), 0.25)
-    with pytest.raises(ValueError, match="no kernel"):
         correspond.projective_correspond_at_pose(
             x, torch.empty(8, dtype=torch.bool, device=meta), x,
             torch.empty((H * W, 8), dtype=torch.float16, device=meta), H, W,
             PIntrinsics(*K), 0.25, 0.5, torch.empty(64, device=meta))
     with pytest.raises(ValueError, match="no kernel"):
-        gn_partials.gn_reduce_partials(x, x, x, torch.empty(8, device=meta),
-                                       0.05)
+        gn_partials.gn_reduce_partials_at_pose(
+            x, x, x, torch.empty(8, device=meta), torch.empty(16, device=meta),
+            0.05)
     with pytest.raises(ValueError, match="no kernel"):
         gn_epilogue.gn_epilogue(torch.empty((1, 32), device=meta),
                                 torch.empty(64, device=meta),

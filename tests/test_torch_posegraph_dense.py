@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_posegraph_cases import posegraph_cases, synthetic_graph
 from tpuslam_torch.backend import posegraph
-from tpuslam_torch.bench.profile_odometry import posegraph_cases, synthetic_graph
 from tpuslam_torch.config import PoseGraphConfig
 from tpuslam_torch.kernels import _build
 from tpuslam_torch.kernels import posegraph_dense as pd

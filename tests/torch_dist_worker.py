@@ -112,11 +112,11 @@ def partials_case(z, mesh) -> dict:
     """This rank's block of the points reduced to GN partials, all-reduced
     (the reference's psum of the sharded gn_reduce), and its fold."""
     from tpuslam_torch.kernels.gn_epilogue import fold_rows
-    from tpuslam_torch.kernels.gn_partials import gn_reduce_partials
+    from tpuslam_torch.kernels.gn_partials import gn_reduce_partials_reference
 
     n = z["x"].shape[0] // mesh.size
     block = slice(mesh.rank * n, (mesh.rank + 1) * n)
-    partials = mesh.all_reduce(gn_reduce_partials(
+    partials = mesh.all_reduce(gn_reduce_partials_reference(
         *(torch.as_tensor(z[k][block]) for k in ("x", "q", "n", "w")),
         float(z["huber_delta"])))
     return {"partials": partials.numpy(), "sums": fold_rows(partials).numpy()}

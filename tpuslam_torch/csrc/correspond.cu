@@ -38,11 +38,10 @@
 //   even, like jnp.round and torch.round).  The plain PyTorch twins in
 //   kernels/correspond.py then give bit-equal q, n, flat and w.
 //
-// pose == nullptr: the points and normals are already in the target frame
-// (the reference-shaped call); they are used as they are, not multiplied by
-// an identity.  The kernel skips all work when *done != 0 (the ICP loop's
-// device-side early exit): it reads nothing else and leaves its outputs
-// unwritten, and nothing reads them.
+// The pose is required: the entry point refuses a null one with
+// cudaErrorInvalidValue and launches nothing.  The kernel skips all work
+// when *done != 0 (the ICP loop's device-side early exit): it reads nothing
+// else and leaves its outputs unwritten, and nothing reads them.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -62,21 +61,21 @@ __global__ void __launch_bounds__(kThreads) correspond_kernel(
     float* __restrict__ w_out, int* __restrict__ flat_out) {
   __shared__ float T[12];  // rows 0..2 of the pose, row-major
   if (done != nullptr && done[0] != 0.0f) return;
-  if (pose != nullptr && threadIdx.x < 12) T[threadIdx.x] = pose[threadIdx.x];
+  if (threadIdx.x < 12) T[threadIdx.x] = pose[threadIdx.x];
   __syncthreads();
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
   const float p0 = pts[3 * i + 0], p1 = pts[3 * i + 1], p2 = pts[3 * i + 2];
-  float x0 = p0, x1 = p1, x2 = p2;
-  if (pose != nullptr) {
-    x0 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[0], p0), __fmul_rn(T[1], p1)),
-                             __fmul_rn(T[2], p2)), T[3]);
-    x1 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[4], p0), __fmul_rn(T[5], p1)),
-                             __fmul_rn(T[6], p2)), T[7]);
-    x2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[8], p0), __fmul_rn(T[9], p1)),
-                             __fmul_rn(T[10], p2)), T[11]);
-  }
+  const float x0 =
+      __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[0], p0), __fmul_rn(T[1], p1)),
+                          __fmul_rn(T[2], p2)), T[3]);
+  const float x1 =
+      __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[4], p0), __fmul_rn(T[5], p1)),
+                          __fmul_rn(T[6], p2)), T[7]);
+  const float x2 =
+      __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[8], p0), __fmul_rn(T[9], p1)),
+                          __fmul_rn(T[10], p2)), T[11]);
   bool in_front = x2 > 1e-6f;
   float zs = in_front ? x2 : 1.0f;
   float u = __fadd_rn(__fmul_rn(__fdiv_rn(x0, zs), fx), cx);
@@ -103,15 +102,15 @@ __global__ void __launch_bounds__(kThreads) correspond_kernel(
                (dist_sq < max_dist_sq);
   if (use_normal_gate) {
     const float a0 = nrm[3 * i + 0], a1 = nrm[3 * i + 1], a2 = nrm[3 * i + 2];
-    float s0 = a0, s1 = a1, s2 = a2;
-    if (pose != nullptr) {
-      s0 = __fadd_rn(__fadd_rn(__fmul_rn(T[0], a0), __fmul_rn(T[1], a1)),
-                     __fmul_rn(T[2], a2));
-      s1 = __fadd_rn(__fadd_rn(__fmul_rn(T[4], a0), __fmul_rn(T[5], a1)),
-                     __fmul_rn(T[6], a2));
-      s2 = __fadd_rn(__fadd_rn(__fmul_rn(T[8], a0), __fmul_rn(T[9], a1)),
-                     __fmul_rn(T[10], a2));
-    }
+    const float s0 = __fadd_rn(__fadd_rn(__fmul_rn(T[0], a0),
+                                         __fmul_rn(T[1], a1)),
+                               __fmul_rn(T[2], a2));
+    const float s1 = __fadd_rn(__fadd_rn(__fmul_rn(T[4], a0),
+                                         __fmul_rn(T[5], a1)),
+                               __fmul_rn(T[6], a2));
+    const float s2 = __fadd_rn(__fadd_rn(__fmul_rn(T[8], a0),
+                                         __fmul_rn(T[9], a1)),
+                               __fmul_rn(T[10], a2));
     float dot = __fadd_rn(__fadd_rn(__fmul_rn(m0, s0), __fmul_rn(m1, s1)),
                           __fmul_rn(m2, s2));
     valid = valid && (dot > normal_dot_min);
@@ -135,6 +134,7 @@ extern "C" int tpuslam_correspond(
     float cx, float cy, float max_dist_sq, float normal_dot_min,
     int use_normal_gate, const void* done, void* q_out, void* n_out,
     void* w_out, void* flat_out, void* stream) {
+  if (pose == nullptr) return (int)cudaErrorInvalidValue;
   const int blocks = (n + kThreads - 1) / kThreads;
   correspond_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)pts, (const uint8_t*)x_mask, (const float*)nrm,

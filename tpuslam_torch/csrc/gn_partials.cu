@@ -37,9 +37,10 @@
 //   first solve of an outer iteration reduces at the x the ring's hops
 //   associated at, bit for bit.
 //
-// pose == nullptr: the points are already transformed (the reference-shaped
-// call) and are used as they are.  When *done != 0 (the ICP loop's
-// device-side early exit) each block writes a zero row and reads no input.
+// The pose is required: the entry point refuses a null one with
+// cudaErrorInvalidValue and launches nothing.  When *done != 0 (the ICP
+// loop's device-side early exit) each block writes a zero row and reads no
+// input.
 //
 // The ICP loop on one card calls gn_step.cu, which merges this reduction
 // with the epilogue; this kernel serves the ring ICP (dist/ring_map.py),
@@ -63,25 +64,21 @@ __global__ void __launch_bounds__(gn::kThreads) gn_partials_kernel(
   for (int k = 0; k < gn::kSums; ++k) acc[k] = 0.0f;
 
   const bool skip = (done != nullptr) && (done[0] != 0.0f);
-  if (!skip && pose != nullptr && threadIdx.x < 12)
-    T[threadIdx.x] = pose[threadIdx.x];
+  if (!skip && threadIdx.x < 12) T[threadIdx.x] = pose[threadIdx.x];
   __syncthreads();
   if (!skip) {
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += gridDim.x * blockDim.x) {
       const float p0 = pts[3 * i], p1 = pts[3 * i + 1], p2 = pts[3 * i + 2];
-      float x0 = p0, x1 = p1, x2 = p2;
-      if (pose != nullptr) {
-        x0 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[0], p0),
-                                           __fmul_rn(T[1], p1)),
-                                 __fmul_rn(T[2], p2)), T[3]);
-        x1 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[4], p0),
-                                           __fmul_rn(T[5], p1)),
-                                 __fmul_rn(T[6], p2)), T[7]);
-        x2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[8], p0),
-                                           __fmul_rn(T[9], p1)),
-                                 __fmul_rn(T[10], p2)), T[11]);
-      }
+      const float x0 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[0], p0),
+                                                     __fmul_rn(T[1], p1)),
+                                           __fmul_rn(T[2], p2)), T[3]);
+      const float x1 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[4], p0),
+                                                     __fmul_rn(T[5], p1)),
+                                           __fmul_rn(T[6], p2)), T[7]);
+      const float x2 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[8], p0),
+                                                     __fmul_rn(T[9], p1)),
+                                           __fmul_rn(T[10], p2)), T[11]);
       gn::accumulate_point(acc, x0, x1, x2, q[3 * i], q[3 * i + 1],
                            q[3 * i + 2], nrm[3 * i], nrm[3 * i + 1],
                            nrm[3 * i + 2], wv[i], huber);
@@ -97,6 +94,7 @@ extern "C" int tpuslam_gn_partials(const void* pts, const void* pose,
                                    const void* w, int n, float huber,
                                    const void* done, void* partials,
                                    int num_blocks, void* stream) {
+  if (pose == nullptr) return (int)cudaErrorInvalidValue;
   gn_partials_kernel<<<num_blocks, gn::kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)pts, (const float*)pose, (const float*)q,
       (const float*)nrm, (const float*)w, n, huber, (const float*)done,

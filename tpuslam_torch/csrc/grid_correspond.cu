@@ -26,8 +26,9 @@
 //   the time is each query's chain of dependent reads (the point, the
 //   cell's table entry, the list, the rows, the winner's row) and the
 //   instructions around it.
-//   Leaving out one stage at a time (tpuslam_torch/bench/grid_variants.py,
-//   H100 SXM at 700 W, 16,384 queries x 131,072 rows, ~150 points a cell)
+//   Leaving out one stage at a time (variants timed when this design was
+//   chosen, H100 SXM at 700 W, 16,384 queries x 131,072 rows, ~150 points
+//   a cell)
 //   splits a 13 us launch into about 3.4 us for the point, its cell and
 //   the merge and writes, 5.8 us for the lookups and the list, and 4 us
 //   for the scan, of which the row loads are 0.6 us: the bytes are not
@@ -59,7 +60,7 @@
 //     query, 16 queries a block, 2 loads in flight, list writes in plain
 //     order or a cell at a time by all of a query's lanes time slower; 8
 //     loads in flight and a hash that keeps a cell's z-neighbours in one
-//     sector within 3% (grid_variants.py).
+//     sector within 3%.
 //   - The lanes' best candidates merge by a shuffle minimum over (d2,
 //     position in the scan's order), which is the sequential scan's answer:
 //     the first of the equal minima in (dx, dy, dz, slot) order.

@@ -44,8 +44,8 @@
 //   - Each thread holds 16 queries, so one 16-byte broadcast shared load
 //     of a row feeds 16 cells; the scores live in registers only (168 of
 //     them a thread, three blocks an SM).  8 or 12 queries, 256 threads,
-//     512-row tiles and two waves of blocks time the same or slower
-//     (tpuslam_torch/bench/ring_variants.py).
+//     512-row tiles and two waves of blocks timed the same or slower on
+//     the H100 when this tiling was chosen.
 //   - The queries are moved by the loop carry's pose in registers (x = R p
 //     + t in kernels/gn_step.py's rounded order), so no product runs in
 //     front of the kernel.
@@ -68,8 +68,10 @@
 //   zero row from the first hop).  Map rows are finite (voxel centroids and
 //   zero padding).
 //
-// The kernel does nothing when *done != 0 (the ICP loop's device-side early
-// exit): it reads no point and no row, touches no ticket and writes nothing.
+// The pose is required: the entry point refuses a null one with
+// cudaErrorInvalidValue and launches nothing.  The kernel does nothing when
+// *done != 0 (the ICP loop's device-side early exit): it reads no point and
+// no row, touches no ticket and writes nothing.
 // The tickets and partials are the wrapper's, one of each per stream: two
 // launches that share them run in order on their stream.
 
@@ -121,14 +123,10 @@ __device__ __forceinline__ void stage_tile(float4* smem,
     cp_async16(smem + c, shard + 2 * r + c);
 }
 
-// x = ((R0 p0 + R1 p1) + R2 p2) + t, unfused (pose == nullptr: x = p)
-__device__ __forceinline__ void to_pose(const float* T, bool posed, float p0,
-                                        float p1, float p2, float& x0,
-                                        float& x1, float& x2) {
-  if (!posed) {
-    x0 = p0, x1 = p1, x2 = p2;
-    return;
-  }
+// x = ((R0 p0 + R1 p1) + R2 p2) + t, unfused
+__device__ __forceinline__ void to_pose(const float* T, float p0, float p1,
+                                        float p2, float& x0, float& x1,
+                                        float& x2) {
   x0 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[0], p0), __fmul_rn(T[1], p1)),
                            __fmul_rn(T[2], p2)), T[3]);
   x1 = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(T[4], p0), __fmul_rn(T[5], p1)),
@@ -159,8 +157,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ring_nn_kernel(
   __shared__ bool is_last;
 
   if (done != nullptr && done[0] != 0.0f) return;
-  const bool posed = pose != nullptr;
-  if (posed && threadIdx.x < 12) T[threadIdx.x] = pose[threadIdx.x];
+  if (threadIdx.x < 12) T[threadIdx.x] = pose[threadIdx.x];
   if (threadIdx.x == 0) first_invalid = INT_MAX;
   const int q0 = blockIdx.x * kQueriesPerBlock;
   const int slice = blockIdx.y, slices = gridDim.y;
@@ -181,8 +178,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ring_nn_kernel(
   for (int k = 0; k < kQueriesPerThread; ++k) {
     const int i = q0 + threadIdx.x + k * kThreads;
     float a = 0.0f, b = 0.0f, c = 0.0f;
-    if (i < n) to_pose(T, posed, pts[3 * i], pts[3 * i + 1], pts[3 * i + 2],
-                       a, b, c);
+    if (i < n) to_pose(T, pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], a, b, c);
     // 2x: an exact scaling, so (2x).q rounds as 2(x.q) does
     x0[k] = __fmul_rn(2.0f, a);
     x1[k] = __fmul_rn(2.0f, b);
@@ -334,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ring_nn_kernel(
     }
     if (!last) continue;
     float a, b, c;
-    to_pose(T, posed, pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], a, b, c);
+    to_pose(T, pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], a, b, c);
     const float xx = __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
                                __fmul_rn(c, c));
     float d2 = __fadd_rn(best, xx);
@@ -388,6 +384,7 @@ extern "C" int tpuslam_ring_nn(
     void* best_score, void* best_row, int first, const void* mask,
     float max_dist_sq, void* x_out, void* q_out, void* n_out, void* w_out,
     void* stream) {
+  if (pose == nullptr) return (int)cudaErrorInvalidValue;
   dim3 grid(tpuslam_ring_nn_query_tiles(n), slices);
   const Gates gates{(const uint8_t*)mask, max_dist_sq, (float*)x_out,
                     (float*)q_out, (float*)n_out, (float*)w_out};

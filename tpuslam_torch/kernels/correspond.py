@@ -5,19 +5,21 @@ Organized targets: `pack_organized_target` packs a keyframe level into one
 `projective_correspond_at_pose` moves each source point (and normal) into
 the target camera by the ICP loop carry's pose, projects it, rounds to a
 pixel and gathers that one 16-byte row: the ICP loop's association, one
-launch.  `projective_correspond_packed` is the reference-shaped call, on
-points already in the target camera.  On a CUDA tensor both are the hand
-kernel `csrc/correspond.cu`; on a CPU tensor they are the plain twins
-`projective_correspond_at_pose_reference` and
-`projective_correspond_packed_reference`, which have the same semantics
-and rounding (q, n, flat and w are bit-equal on the card).
+launch.  On a CUDA tensor it is the hand kernel `csrc/correspond.cu`,
+which always reads the pose; on a CPU tensor the plain twin
+`projective_correspond_at_pose_reference`, which has the same semantics
+and rounding (q, n, flat and w are bit-equal on the card): the ordered
+transform, then `projective_correspond_packed_reference`, the
+reference's association of points already in the target camera.
 
 Unorganized targets (a voxel map, map-BA control points):
 `build_grid_index` sorts the target by a packed 256³ cell key (a stable
 sort) into one (M, 8) float32 row table ``[p, n, 0, 0]``.
 `grid_correspond_at_pose` (posed, the ICP loop's association) and
 `grid_hash_correspond` (the reference-shaped call, on points already in the
-target's frame) probe the 27 cells around each query: a lookup of the
+target's frame: map BA's probe of every keyframe point,
+`backend/map_ba.py`, for which the grid kernel keeps its pose-less mode)
+probe the 27 cells around each query: a lookup of the
 cell's run in the index's table of occupied cells (built with the index on
 the card, `with_cell_table`), then up to 16 slots of the cell.  On a CUDA
 tensor both are the hand kernel `csrc/grid_correspond.cu`; on a CPU tensor
@@ -129,44 +131,6 @@ def projective_correspond_packed_reference(
     return Correspondence(q=q, n=n, w=valid.to(x.dtype), idx=flat)
 
 
-def projective_correspond_packed(
-    x: torch.Tensor,
-    x_mask: torch.Tensor,
-    packed: torch.Tensor,
-    height: int,
-    width: int,
-    K: Intrinsics,
-    max_dist: float,
-    src_normals_in_dst: torch.Tensor | None = None,
-    normal_dot_min: float = 0.0,
-    done: torch.Tensor | None = None,
-) -> Correspondence:
-    """Projective association via one row gather from a packed target.
-
-    Args:
-      x: (N, 3) float32 source points already in the target camera frame.
-      x_mask: (N,) bool source validity.
-      packed: (H·W, 8) float16 table from `pack_organized_target`.
-      height/width: target image shape.
-      K: target camera intrinsics (level-scaled for pyramids).
-      max_dist: Euclidean rejection radius.
-      src_normals_in_dst: optional (N, 3) source normals rotated into the
-        target frame for the compatibility gate.
-      normal_dot_min: reject if n_dst · n_src is not above this cosine.
-      done: optional float32 tensor whose element 0, when non-zero, makes
-        the kernel skip all work (the ICP loop's device-side early exit;
-        the outputs are then unspecified).  The CPU twin ignores it.
-    """
-    if x.device.type == "cpu":
-        return projective_correspond_packed_reference(
-            x, x_mask, packed, height, width, K, max_dist,
-            src_normals_in_dst, normal_dot_min)
-    gate = src_normals_in_dst is not None and normal_dot_min > 0.0
-    return _launch("projective_correspond_packed", x, x_mask,
-                   src_normals_in_dst if gate else None, None, packed, height,
-                   width, K, max_dist, normal_dot_min, done)
-
-
 def projective_correspond_at_pose_reference(
     points: torch.Tensor,
     mask: torch.Tensor,
@@ -208,9 +172,12 @@ def projective_correspond_at_pose(
         source frame; the kernel applies the carry's pose T (x = R p + t,
         n_rot = R n, in registers).
       mask: (N,) bool source validity.
-      packed, height, width, K, max_dist, normal_dot_min: as
-        `projective_correspond_packed` (the normal gate applies when
-        `normal_dot_min > 0`).
+      packed: (H·W, 8) float16 table from `pack_organized_target`.
+      height/width: target image shape.
+      K: target camera intrinsics (level-scaled for pyramids).
+      max_dist: Euclidean rejection radius.
+      normal_dot_min: reject if n_dst · (R n_src) is not above this cosine
+        (the normal gate applies when `normal_dot_min > 0`).
       carry: (64,) float32 ICP loop carry (layout in kernels/gn_epilogue.py):
         the pose is read from its T and, once its DONE is set, the kernel
         reads and writes nothing.  The CPU twin ignores DONE.
@@ -225,10 +192,9 @@ def projective_correspond_at_pose(
             normal_dot_min, T))
     _build.require(carry, "carry", dtype=torch.float32,
                    shape=(ep.CARRY_SIZE,), device=points.device)
-    return _launch("projective_correspond_at_pose", points, mask,
-                   normals if normal_dot_min > 0.0 else None,
-                   carry.data_ptr() + 4 * ep.T_SLICE.start, packed, height,
-                   width, K, max_dist, normal_dot_min, carry, out)
+    return _launch(points, mask, normals if normal_dot_min > 0.0 else None,
+                   carry, packed, height, width, K, max_dist, normal_dot_min,
+                   out)
 
 
 def correspondence_buffers(n: int, device) -> Correspondence:
@@ -241,13 +207,15 @@ def correspondence_buffers(n: int, device) -> Correspondence:
         idx=torch.empty((n,), dtype=torch.int32, device=device))
 
 
-def _launch(name, pts, mask, normals, pose_ptr, packed, height, width, K,
-            max_dist, normal_dot_min, done, out=None) -> Correspondence:
-    """Check the inputs and launch the kernel; `normals` None turns the
-    normal gate off, `pose_ptr` None means `pts` is in the target frame,
-    `out` None allocates the outputs."""
+def _launch(pts, mask, normals, carry, packed, height, width, K, max_dist,
+            normal_dot_min, out) -> Correspondence:
+    """Check the inputs and launch the kernel at the carry's pose (its T,
+    rows 0-2, read on the device), which skips all work once the carry's
+    DONE is set; `normals` None turns the normal gate off, `out` None
+    allocates the outputs."""
     if pts.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {pts.device}")
+        raise ValueError(f"projective_correspond_at_pose: no kernel for "
+                         f"{pts.device}")
     dev = pts.device
     n_pts = pts.shape[0]
     _build.require(pts, "points", dtype=torch.float32, shape=(n_pts, 3),
@@ -260,8 +228,6 @@ def _launch(name, pts, mask, normals, pose_ptr, packed, height, width, K,
     if normals is not None:
         _build.require(normals, "normals", dtype=torch.float32,
                        shape=(n_pts, 3), device=dev)
-    if done is not None:
-        _build.require(done, "done", dtype=torch.float32, device=dev)
     if out is None:
         out = correspondence_buffers(n_pts, dev)
     q, n, w, flat = out
@@ -276,10 +242,10 @@ def _launch(name, pts, mask, normals, pose_ptr, packed, height, width, K,
     lib = _build.library()
     err = lib.tpuslam_correspond(
         pts.data_ptr(), mask.data_ptr(),
-        normals.data_ptr() if normals is not None else None, pose_ptr,
-        packed.data_ptr(), n_pts, height, width, K.fx, K.fy, K.cx, K.cy,
-        max_dist * max_dist, normal_dot_min, int(normals is not None),
-        done.data_ptr() if done is not None else None,
+        normals.data_ptr() if normals is not None else None,
+        carry.data_ptr() + 4 * ep.T_SLICE.start, packed.data_ptr(), n_pts,
+        height, width, K.fx, K.fy, K.cx, K.cy, max_dist * max_dist,
+        normal_dot_min, int(normals is not None), carry.data_ptr(),
         q.data_ptr(), n.data_ptr(), w.data_ptr(), flat.data_ptr(), stream)
     _build.check_launch(err, "correspond")
     counter.launched(stream)

@@ -219,7 +219,7 @@ def gn_epilogue(partials: torch.Tensor, carry: torch.Tensor,
     """One GN step's epilogue and carry update.
 
     Args:
-      partials: (B, 32) float32 table from `gn_reduce_partials`.
+      partials: (B, 32) float32 table from `gn_reduce_partials_at_pose`.
       carry: (64,) float32 ICP loop carry (layout above).
       num_valid_src: () float32 Σ source mask (inlier-fraction denominator).
       damping/damping_abs/max_trans/max_rot: solve parameters.

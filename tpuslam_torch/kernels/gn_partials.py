@@ -1,18 +1,19 @@
 """GN reduction to per-block partial sums — port of
 `tpuslam/kernels/pallas_gn.py`.
 
-`gn_reduce_partials` reduces matched points to a (num_blocks, 32) float32
-table: row = one block's 30 sums (21 upper-triangle H entries in row-major
-order, 6 b entries, Σw·r², Σvalid, Σw) and two zero columns.
-`gn_reduce_partials_at_pose` does the same from the untransformed source
-points and a pose on the device (the carry's T), which the kernel applies
-in `transform_points_ordered`'s order.  On a CUDA tensor both launch
-`csrc/gn_partials.cu`; on a CPU tensor they run the plain twins
-`gn_reduce_partials_reference` and `gn_reduce_partials_at_pose_reference`.
-The kernel and the twins assign points to blocks differently, so they
-agree after the fold to the order of summation (rel 1e-4), not bit for
-bit.  `fold_partials` gives (H, b, stats) like the reference's
-`gn_reduce_pallas`.
+`gn_reduce_partials_at_pose` reduces matched points to a (num_blocks, 32)
+float32 table: row = one block's 30 sums (21 upper-triangle H entries in
+row-major order, 6 b entries, Σw·r², Σvalid, Σw) and two zero columns.  It
+takes the untransformed source points and a pose on the device (the
+carry's T), which the kernel applies in `transform_points_ordered`'s
+order.  On a CUDA tensor it launches `csrc/gn_partials.cu`, which always
+reads the pose; on a CPU tensor it runs the plain twin
+`gn_reduce_partials_at_pose_reference`: the ordered transform, then
+`gn_reduce_partials_reference`, the reduction of points already moved
+(the twin held to the reference's `pallas_gn`).  The kernel and the twins
+assign points to blocks differently, so they agree after the fold to the
+order of summation (rel 1e-4), not bit for bit.  `fold_partials` gives
+(H, b, stats) like the reference's `gn_reduce_pallas`.
 
 The ICP loop on one card reduces through `kernels/gn_step.py`, which
 merges this reduction with the epilogue; the posed reduction serves the
@@ -89,38 +90,24 @@ def gn_reduce_partials_at_pose_reference(points, q, n, w_valid, T,
         huber_delta)
 
 
-def gn_reduce_partials(x: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
-                       w_valid: torch.Tensor, huber_delta: float,
-                       done: torch.Tensor | None = None) -> torch.Tensor:
-    """Reduce matched points to (num_blocks(N), 32) partial sums.
-
-    Args:
-      x, q, n: (N, 3) float32 transformed source / matched target / target
-        normals.
-      w_valid: (N,) float32 {0,1} validity.
-      huber_delta: Huber knee (metres).
-      done: optional float32 tensor; when its element 0 is non-zero the
-        kernel writes zero partials without reading the points.  The CPU
-        twin ignores it.
-    """
-    if x.device.type == "cpu":
-        return gn_reduce_partials_reference(x, q, n, w_valid, huber_delta)
-    return _launch("gn_reduce_partials", x, None, q, n, w_valid, huber_delta,
-                   done)
-
-
 def gn_reduce_partials_at_pose(points: torch.Tensor, q: torch.Tensor,
                                n: torch.Tensor, w_valid: torch.Tensor,
                                T: torch.Tensor, huber_delta: float,
                                done: torch.Tensor | None = None
                                ) -> torch.Tensor:
-    """`gn_reduce_partials` at x = T·points, the transform in the kernel.
+    """Reduce matched points at x = T·points to (num_blocks(N), 32)
+    partial sums, the transform in the kernel.
 
     Args:
       points: (N, 3) float32 untransformed source points.
-      q, n, w_valid, huber_delta, done: as `gn_reduce_partials`.
+      q, n: (N, 3) float32 matched target points / target normals.
+      w_valid: (N,) float32 {0,1} validity.
       T: 16 contiguous float32, a (4, 4) pose or the ICP loop carry's T
         slice (rows 0-2 are read).
+      huber_delta: Huber knee (metres).
+      done: optional float32 tensor; when its element 0 is non-zero the
+        kernel writes zero partials without reading the points.  The CPU
+        twin ignores it.
     """
     if points.device.type == "cpu":
         return gn_reduce_partials_at_pose_reference(points, q, n, w_valid, T,
@@ -128,19 +115,18 @@ def gn_reduce_partials_at_pose(points: torch.Tensor, q: torch.Tensor,
     _build.require(T, "T", dtype=torch.float32, device=points.device)
     if T.numel() != 16:
         raise ValueError(f"T: {T.numel()} elements, kernel takes 16")
-    return _launch("gn_reduce_partials_at_pose", points, T.data_ptr(), q, n,
-                   w_valid, huber_delta, done)
+    return _launch(points, T, q, n, w_valid, huber_delta, done)
 
 
-def _launch(name, x, pose_ptr, q, n, w_valid, huber_delta: float,
+def _launch(points, T, q, n, w_valid, huber_delta: float,
             done) -> torch.Tensor:
-    """Check the inputs and launch the kernel; `pose_ptr` None means `x`
-    is already transformed."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {x.device}")
-    dev = x.device
-    n_pts = x.shape[0]
-    for label, t in (("x", x), ("q", q), ("n", n)):
+    """Check the inputs and launch the kernel at the pose T."""
+    if points.device.type != "cuda":
+        raise ValueError(f"gn_reduce_partials_at_pose: no kernel for "
+                         f"{points.device}")
+    dev = points.device
+    n_pts = points.shape[0]
+    for label, t in (("points", points), ("q", q), ("n", n)):
         _build.require(t, label, dtype=torch.float32, shape=(n_pts, 3),
                        device=dev)
     _build.require(w_valid, "w_valid", dtype=torch.float32, shape=(n_pts,),
@@ -149,9 +135,9 @@ def _launch(name, x, pose_ptr, q, n, w_valid, huber_delta: float,
         _build.require(done, "done", dtype=torch.float32, device=dev)
     nb = num_blocks(n_pts)
     partials = torch.empty((nb, ROW), dtype=torch.float32, device=dev)
-    stream = _build.stream_handle(x)
+    stream = _build.stream_handle(points)
     err = _build.library().tpuslam_gn_partials(
-        x.data_ptr(), pose_ptr, q.data_ptr(), n.data_ptr(),
+        points.data_ptr(), T.data_ptr(), q.data_ptr(), n.data_ptr(),
         w_valid.data_ptr(), n_pts, huber_delta,
         done.data_ptr() if done is not None else None, partials.data_ptr(),
         nb, stream)

@@ -108,7 +108,8 @@ def gn_step(points: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
       carry: (64,) float32 ICP loop carry, updated in place.
       num_valid_src: () float32 Σ source mask (inlier-fraction denominator).
       huber_delta, damping, damping_abs, max_trans, max_rot, is_last,
-      inner, max_iters, tol_sq: as `gn_reduce_partials` and `gn_epilogue`.
+      inner, max_iters, tol_sq: as `gn_reduce_partials_at_pose` and
+        `gn_epilogue`.
       blocks: the grid (default `num_blocks(N)`), at most 264.
     """
     if points.device.type == "cpu":

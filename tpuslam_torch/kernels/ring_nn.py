@@ -11,24 +11,23 @@ within the hop, taken only where it is strictly less than the running
 score (so an earlier hop wins ties, as the reference's merge across blocks
 and hops does).
 
-Two entry points launch `csrc/ring_nn.cu`:
+`ring_correspond_hop`, the ring ICP's hop, launches `csrc/ring_nn.cu`.
+It moves the frame points by the ICP loop carry's pose itself (the kernel
+always reads the pose), starts the running best on the ring's first hop,
+and on its last applies the reference's gates (d² = max(score + |x|², 0)
+under `max_dist`, a valid row, a unit normal, the source mask) and writes
+x, q, n and w into a `RingState` for the GN reduction.  Once the carry's
+DONE is set it reads and writes nothing.
 
-  * `ring_correspond_hop` — the ring ICP's hop.  It moves the frame points
-    by the ICP loop carry's pose itself, starts the running best on the
-    ring's first hop, and on its last applies the reference's gates
-    (d² = max(score + |x|², 0) under `max_dist`, a valid row, a unit
-    normal, the source mask) and writes x, q, n and w into a `RingState`
-    for the GN reduction.  Once the carry's DONE is set it reads and
-    writes nothing.
-  * `ring_nn_hop` — the bare hop on queries already in the map's frame,
-    merged into a running best (`init_best`).
-
-On CPU tensors they run the plain twins `ring_correspond_hop_reference`
-and `ring_nn_hop_reference`, which have the same steps and arithmetic,
-chunked over `block_m` rows so that they never hold an (N, M) matrix.
-Kernel and twins are bit-equal on the card.  The kernel scores only the
-valid rows (and each block's first invalid one, which stands for all of
-them: every invalid row scores the same 1e30); the twin scores every row.
+On CPU tensors it runs the plain twin `ring_correspond_hop_reference`,
+which has the same steps and arithmetic, chunked over `block_m` rows so
+that it never holds an (N, M) matrix.  Its merge is also that of
+`ring_nn_hop_reference`, the bare hop on queries already in the map's
+frame into a running best (`init_best`), which the tests hold to the
+reference's Pallas kernel.  Kernel and twin are bit-equal on the card.
+The kernel scores only the valid rows (and each block's first invalid
+one, which stands for all of them: every invalid row scores the same
+1e30); the twin scores every row.
 
 The kernel's partials and tickets are one persistent buffer each per
 stream (or per CUDA graph under capture), owned by this module (they grow
@@ -109,7 +108,9 @@ def _merge_hop(x: torch.Tensor, shard: torch.Tensor,
 def ring_nn_hop_reference(x: torch.Tensor, shard: torch.Tensor,
                           best_score: torch.Tensor, best_row: torch.Tensor,
                           block_m: int = 512) -> None:
-    """Plain twin of the bare hop (same products and sums, same order)."""
+    """The bare hop: queries already in the map's frame merged into the
+    running best, with the kernel's products and sums in its order (the
+    reference's `ring_nn` hop; `ring_correspond_hop`'s merge)."""
     counter.plain()
     _merge_hop(x, shard, best_score, best_row, block_m)
 
@@ -162,10 +163,11 @@ def _scratch(dev: torch.device, tiles: int, cells: int):
         return ws
 
 
-def _launch(pts, pose_ptr, shard, best_score, best_row, done, first: bool,
+def _launch(pts, carry, shard, best_score, best_row, first: bool,
             gates) -> None:
-    """Check the inputs and launch one hop.  `gates`: None, or (mask,
-    max_dist, x, q, n, w) for the last hop."""
+    """Check the inputs and launch one hop at the carry's pose (its T, read
+    on the device; nothing runs once its DONE is set).  `gates`: None, or
+    (mask, max_dist, x, q, n, w) for the last hop."""
     dev = pts.device
     n, m = pts.shape[0], shard.shape[0]
     _build.require(pts, "points", dtype=torch.float32, shape=(n, 3),
@@ -179,8 +181,6 @@ def _launch(pts, pose_ptr, shard, best_score, best_row, done, first: bool,
     for name, t in (("shard", shard), ("best_row", best_row)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: rows must be 16-byte aligned")
-    if done is not None:
-        _build.require(done, "done", dtype=torch.float32, device=dev)
     out = [None] * 5
     max_dist_sq = 0.0
     if gates is not None:
@@ -200,8 +200,8 @@ def _launch(pts, pose_ptr, shard, best_score, best_row, done, first: bool,
     tickets, part = _scratch(dev, lib.tpuslam_ring_nn_query_tiles(n),
                              slices * n)
     err = lib.tpuslam_ring_nn(
-        pts.data_ptr(), pose_ptr, shard.data_ptr(), n, m, slices,
-        done.data_ptr() if done is not None else None, part.data_ptr(),
+        pts.data_ptr(), carry.data_ptr() + 4 * ep.T_SLICE.start,
+        shard.data_ptr(), n, m, slices, carry.data_ptr(), part.data_ptr(),
         tickets.data_ptr(), best_score.data_ptr(), best_row.data_ptr(),
         int(first), out[0], max_dist_sq, *out[1:], stream)
     if err != 0:
@@ -239,29 +239,7 @@ def ring_correspond_hop(points: torch.Tensor, mask: torch.Tensor,
                          f"{points.device}")
     _build.require(carry, "carry", dtype=torch.float32,
                    shape=(ep.CARRY_SIZE,), device=points.device)
-    _launch(points, carry.data_ptr() + 4 * ep.T_SLICE.start, shard,
-            state.score, state.row, carry, first,
+    _launch(points, carry, shard, state.score, state.row, first,
             (mask, max_dist, state.x, state.q, state.n, state.w)
             if last else None)
 
-
-def ring_nn_hop(x: torch.Tensor, shard: torch.Tensor,
-                best_score: torch.Tensor, best_row: torch.Tensor,
-                done: torch.Tensor | None = None) -> None:
-    """Merge one shard's nearest rows into the running best, in place.
-
-    Args:
-      x: (N, 3) float32 queries in the map's frame.
-      shard: (M, 8) float32 packed rows (`pack_cloud_rows`).
-      best_score: (N,) float32 running least score (+inf before hop 0).
-      best_row: (N, 8) float32 running winning row.
-      done: optional float32 tensor whose element 0, when non-zero, makes
-        the kernel leave the running best as it is (the ICP loop's
-        device-side early exit).  The CPU twin ignores it.
-    """
-    if x.device.type == "cpu":
-        ring_nn_hop_reference(x, shard, best_score, best_row)
-        return
-    if x.device.type != "cuda":
-        raise ValueError(f"ring_nn_hop: no kernel for {x.device}")
-    _launch(x, None, shard, best_score, best_row, done, False, None)
