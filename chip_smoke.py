@@ -4,7 +4,7 @@
 
 Phases, in order (any failure raises and the script exits non-zero):
   1. device   — require a CUDA device; print its name and power limit
-  2. build    — build the nine CUDA kernels from tpuslam_torch/csrc (one
+  2. build    — build the ten CUDA kernels from tpuslam_torch/csrc (one
                 nvcc per source, in parallel), with ptxas's registers,
                 stack frames and spills
   3. kernels  — each kernel against its plain PyTorch twin at the main
@@ -77,7 +77,13 @@ Phases, in order (any failure raises and the script exits non-zero):
                 against its twin at the 32-node bucket (posegraph_phase:
                 poses within TOL_POSE, padding bit-equal), timed at 15 and
                 19 live nodes beside the twin's captured solve replayed,
-                with its bound by operations
+                with its bound by operations; then the warm start's kernel
+                (csrc/warm_start.cu) against its eager twin over motions
+                that reach each branch of se3's log and exp and 64 seeded
+                ones (warm_start_phase: bit-equal, and the same bits on a
+                second launch), its device time and the twin's (50 calls
+                in one CUDA graph each), the twin's device operations a
+                call, the byte bound and the device µs of one full launch
   5. small    — a 12-frame 120×160 scan on the GPU against the same scan
                 through the plain twins on the CPU (the twins are held to
                 the JAX reference by tests/test_torch_*.py)
@@ -330,16 +336,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def posegraph_fixtures():
-    """tests/torch_posegraph_cases.py (`synthetic_graph`,
-    `posegraph_cases`), loaded by its file path: the GPU host has another
-    package named `tests` on its path, which hides this repository's."""
+def fixtures(name: str):
+    """A module of fixtures in tests/ by its name (torch_posegraph_cases:
+    `synthetic_graph`, `posegraph_cases`; torch_warm_start_cases), loaded
+    by its file path: the GPU host has another package named `tests` on its
+    path, which hides this repository's."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_posegraph_cases.py")
-    spec = importlib.util.spec_from_file_location("torch_posegraph_cases",
-                                                  path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -418,7 +424,8 @@ KERNEL_SYMBOLS = {"correspond": "correspond_kernel",
                   "grid_correspond": "grid_correspond_kernel",
                   "grid_table": "grid_table_",  # its fill and insert
                   "preprocess": "preprocess_kernel",
-                  "posegraph_dense": "posegraph_dense_kernel"}
+                  "posegraph_dense": "posegraph_dense_kernel",
+                  "warm_start": "warm_start_kernel"}
 
 
 def count_ops(rows, word: str) -> int:
@@ -1151,8 +1158,8 @@ def map_graph_rows(dev, card: str, K, gt, d) -> list:
         # the distributed programs: the 32-node bucket's graph of
         # graphs_phase, this map BA problem, and frames 10-13 each against
         # the one before, batched
-        g32 = posegraph_fixtures().synthetic_graph(dev, 24).graph(
-            bucketed=True)
+        g32 = fixtures("torch_posegraph_cases").synthetic_graph(
+            dev, 24).graph(bucketed=True)
         batched = make_batched_aligner(mesh, icp)
         pyrs = [preprocess(d[i], K, cfg) for i in range(9, 14)]
         src, dst = (tuple(Frame(*(torch.stack([p[li][k] for p in ps])
@@ -1310,7 +1317,7 @@ def graphs_phase(dev, card: str, height: int = 480,
     pg = cfg.posegraph
     # loops of keyframe poses, each off by ~1 cm, with loop edges: the
     # 32-, 256- and 512-node buckets (dense, dense, CG)
-    synthetic_graph = posegraph_fixtures().synthetic_graph
+    synthetic_graph = fixtures("torch_posegraph_cases").synthetic_graph
     g32, g256, g512 = (synthetic_graph(dev, n).graph(bucketed=True)
                        for n in (24, 200, 400))
     # the fused attempt: 3 live revisit candidates padded to 4, tables at
@@ -3207,9 +3214,9 @@ def posegraph_phase(dev, card: str) -> dict:
     from tpuslam_torch.kernels import posegraph_dense as pd
 
     cfg = PoseGraphConfig()
-    fixtures = posegraph_fixtures()
-    synthetic_graph = fixtures.synthetic_graph
-    cases = fixtures.posegraph_cases(dev)
+    mod = fixtures("torch_posegraph_cases")
+    synthetic_graph = mod.synthetic_graph
+    cases = mod.posegraph_cases(dev)
     worst = 0.0
     for name, g in cases.items():
         got = pd.launch(*g, cfg, 0.5)
@@ -3245,6 +3252,48 @@ def posegraph_phase(dev, card: str) -> dict:
     stats = {"cases": len(cases), "worst_pose_err": worst,
              "tol_pose": pd.TOL_POSE, "rows": rows}
     log(f"[posegraph] {json.dumps(stats)} ({card})")
+    return stats
+
+
+def warm_start_phase(dev, card: str) -> dict:
+    """Phase 4b, the warm start: the kernel against its eager twin on the
+    card over `warm_start_cases` (every branch of se3's log and exp) and
+    64 seeded motions at the configuration's γ = 0.5: bit-equal (its
+    elementwise steps op for op, its small products in the order cuBLAS
+    sums the twin's), the same bits on a second launch; then its device
+    time (50 calls in one CUDA graph), the twin's (50 calls in one graph,
+    what a frame's warm start cost before the kernel) and the twin's
+    device operations a call, the bound by bytes (two poses in, one out)
+    and the device µs of one full launch."""
+    from tpuslam_torch.kernels import warm_start as ws
+
+    mod = fixtures("torch_warm_start_cases")
+    cases = {**mod.warm_start_cases(), **mod.random_cases(64)}
+    gamma = 0.5
+    for name, pair in cases.items():
+        T, D = (torch.as_tensor(a, device=dev) for a in pair)
+        got = ws.warm_start(T, D, gamma)
+        again = ws.warm_start(T, D, gamma)
+        want = ws.warm_start_reference(T, D, gamma)
+        torch.cuda.synchronize()
+        check(bits_equal(got, again), f"warm_start {name}: a second launch "
+              "differs")
+        check(bits_equal(got, want), f"warm_start {name}: not bit-equal to "
+              f"the eager twin ({float((got - want).abs().max())} apart)")
+    T, D = (torch.as_tensor(a, device=dev)
+            for a in cases["log exact, exp series"])
+    out = ws.warm_start(T, D, gamma)
+    n_bytes = nbytes(T, D, out)
+    stats = {
+        "cases_bit_equal": len(cases),
+        "ms": graph_ms(lambda: ws.warm_start(T, D, gamma)),
+        "plain_ms": graph_ms(lambda: ws.warm_start_reference(T, D, gamma)),
+        "plain_device_ops": device_ops(
+            lambda: ws.warm_start_reference(T, D, gamma)),
+        **bound(n_bytes, 0.0), "bytes": n_bytes,
+        "device_us_full_launch": full_launch_us(
+            lambda: ws.warm_start(T, D, gamma), "warm_start")}
+    log(f"[warm_start] {json.dumps(stats)} ({card})")
     return stats
 
 
@@ -3595,6 +3644,7 @@ def main() -> int:
     # ---- 4b. the pyramid kernel against its eager twin ----
     pre_stats = preprocess_phase(dev, card, K, depths_np, cfg)
     pre_stats["posegraph"] = posegraph_phase(dev, card)
+    pre_stats["warm_start"] = warm_start_phase(dev, card)
 
     # ---- 5. small scan: GPU kernels vs CPU twins ----
     from tpuslam_torch.config import Intrinsics

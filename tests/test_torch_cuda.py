@@ -2428,3 +2428,112 @@ def test_posegraph_dense_leaves_bucket_64_to_the_twin(dev):
     assert posegraph_dense.counter.launches == 0
     assert posegraph_dense.counter.plain_calls == 1
     assert bool(torch.isfinite(poses).all())
+
+
+# ---- the warm start in one launch (csrc/warm_start.cu) ----
+
+
+def _warm_start_equal(T, D, gamma) -> bool:
+    """Whether the kernel's pose for one (T_kf_cam, Δ) on the card equals
+    the eager twin's bit for bit: its elementwise steps op for op, its
+    small products in the order cuBLAS sums the twin's.  A second launch
+    must give the same bits."""
+    from tpuslam_torch.kernels import warm_start as ws
+
+    got = ws.warm_start(T, D, gamma)
+    again = ws.warm_start(T, D, gamma)
+    want = ws.warm_start_reference(T, D, gamma)
+    torch.cuda.synchronize()
+    assert _int_bits_equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    return _int_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.5, 0.25, 0.1])
+def test_warm_start_kernel_matches_twin_on_every_branch(dev, gamma):
+    """Motions whose rotations reach each branch of se3's log and exp (θ²
+    below and above 0.0625, u < 1e-3, θ > 3.0, θ = 0 exactly, the
+    identity, a half turn) and 64 seeded ones: the kernel bit-equal to the
+    eager twin, two launches a case and one twin call counted."""
+    from torch_warm_start_cases import random_cases, warm_start_cases
+
+    from tpuslam_torch.kernels import warm_start as ws
+
+    cases = {**warm_start_cases(), **random_cases(64)}
+    ws.counter.reset()
+    for name, (T, D) in cases.items():
+        T, D = (torch.as_tensor(a, device=dev) for a in (T, D))
+        assert _warm_start_equal(T, D, gamma), name
+    assert ws.counter.launches == 2 * len(cases)
+    assert ws.counter.plain_calls == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traffic", ["orbit-hover", "loop-2lap"])
+def test_warm_start_kernel_matches_twin_on_benchmark_sessions(
+        dev, traffic, monkeypatch):
+    """Every frame of the benchmark's rendered VGA session pool, scanned
+    eagerly under the odometry cell's configuration: each frame's
+    (T_kf_cam, Δ) as tracking met them, the kernel bit-equal to the eager
+    twin."""
+    import json
+
+    from slambench.core import spec
+    from slambench.inputs import scene
+    from tpuslam_torch import frontend
+    from tpuslam_torch.frontend import scan_odometry_boundary
+    from tpuslam_torch.kernels import warm_start as ws
+
+    config = spec.config_of(spec.benchmark(), "tum-vga-odometry")
+    cfg = SLAMConfig.from_json(json.dumps(config["slam_config"])).validate()
+    chunk = int(config["system"]["chunk"])
+    pool = scene.render_pool(spec.traffic(traffic), 480, 640, 20260518, dev)
+    Kp = Intrinsics(*pool["K"])
+    depth = pool["depth"]
+    seen = []
+
+    def record(T, D, gamma):
+        seen.append((T.clone(), D.clone(), gamma))
+        return ws.warm_start(T, D, gamma)
+
+    monkeypatch.setattr(frontend, "warm_start", record)
+    for s in range(depth.shape[0]):
+        scan_odometry_boundary(depth[s], Kp, cfg, chunk=chunk)
+    assert len(seen) == depth.shape[0] * depth.shape[1]
+    assert {g for _, _, g in seen} == {cfg.cv_damping}
+    differ = [i for i, (T, D, g) in enumerate(seen)
+              if not _warm_start_equal(T, D, g)]
+    assert differ == [], differ[:20]
+
+
+@pytest.mark.cuda
+def test_warm_start_is_one_launch_a_tracked_frame_under_replays(dev):
+    """The boundary scan's chunk program: its warm-up, capture and replays
+    count one `warm_start` launch a tracked frame, the graph records one a
+    frame of its chunk, no twin runs on the card, and the replayed poses
+    equal the eager scan's bit for bit."""
+    from tpuslam_torch import graphs
+    from tpuslam_torch.frontend import (
+        scan_odometry_boundary,
+        scan_odometry_boundary_jit,
+    )
+    from tpuslam_torch.kernels import warm_start as ws
+
+    d = torch.as_tensor(depths(16), device=dev)
+    graphs.clear()
+    try:
+        want = scan_odometry_boundary(d, K, CFG, chunk=8)
+        ws.counter.reset()
+        for i in range(3):            # warm-up and capture, then replays
+            got = scan_odometry_boundary_jit(d, K, CFG, chunk=8)
+            torch.cuda.synchronize()
+            assert ws.counter.launches == 16 * (i + 1)
+            assert _bits_equal(got, want), i
+        (entry,) = [e for e in graphs.stats()
+                    if e["program"] == "scan_odometry_boundary_jit"]
+        assert entry["captured"] and entry["replays"] == 5
+        assert entry["kernel_launches"]["warm_start"] == 8
+        assert ws.counter.plain_calls == 0
+    finally:
+        graphs.clear()

@@ -19,11 +19,11 @@ from tpuslam.geom.backproject import backproject as r_backproject
 from tpuslam.geom.backproject import project as r_project
 from tpuslam.geom.normals import organized_normals as r_normals
 from tpuslam_torch.config import Intrinsics as PIntrinsics
-from tpuslam_torch.frontend import damped_velocity
 from tpuslam_torch.geom.backproject import backproject as p_backproject
 from tpuslam_torch.geom.backproject import project as p_project
 from tpuslam_torch.geom.cloud import PointCloud
 from tpuslam_torch.geom.normals import organized_normals as p_normals
+from tpuslam_torch.kernels.warm_start import damped_velocity
 
 # The tests run in several worker processes on one machine: one intra-op
 # thread each keeps PyTorch's CPU thread pools from oversubscribing the

@@ -297,6 +297,7 @@ def kernel_counters() -> dict:
         gn_step,
         preprocess,
         ring_nn,
+        warm_start,
     )
 
     return {"correspond": correspond.counter,
@@ -306,7 +307,8 @@ def kernel_counters() -> dict:
             "gn_fused": gn_fused.counter, "ring_nn": ring_nn.counter,
             "grid_correspond": correspond.grid_counter,
             "grid_table": correspond.table_counter,
-            "preprocess": preprocess.counter}
+            "preprocess": preprocess.counter,
+            "warm_start": warm_start.counter}
 
 
 def slam_bench_config(height: int, width: int,

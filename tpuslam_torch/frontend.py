@@ -54,18 +54,9 @@ from tpuslam_torch.icp import (
     pack_pyramid,
 )
 from tpuslam_torch.kernels.preprocess import preprocess
+from tpuslam_torch.kernels.warm_start import warm_start
 from tpuslam_torch.transfer import resolve_device, upload
 from tpuslam_torch.utils import profiling
-
-
-def damped_velocity(delta: torch.Tensor, gamma: float) -> torch.Tensor:
-    """Scale an inter-frame motion twist for the warm start (see
-    SLAMConfig.cv_damping for why γ < 1 is required for stability)."""
-    if gamma == 0.0:
-        return torch.eye(4, dtype=delta.dtype, device=delta.device)
-    if gamma == 1.0:
-        return delta
-    return se3.exp(gamma * se3.log(delta))
 
 
 class TrackResult(NamedTuple):
@@ -111,7 +102,7 @@ def _track(kf_packed: tuple, depth: torch.Tensor, K: Intrinsics,
     """Warm start + preprocess + track one frame: (pyr, TrackResult, the
     inter-frame motion for the next warm start)."""
     pyr = preprocess(depth, K, cfg)
-    T0 = T_kf_cam @ damped_velocity(last_delta, cfg.cv_damping)
+    T0 = warm_start(T_kf_cam, last_delta, cfg.cv_damping)
     out = track_step_packed(kf_packed, pyr, K, T0, cfg)
     return pyr, out, se3.relative(T_kf_cam, out.T_kf_cam)
 

@@ -1,7 +1,7 @@
 """Build and bind the port's CUDA kernels (`tpuslam_torch/csrc/*.cu`):
 correspond, gn_partials, gn_epilogue, gn_step, gn_fused, ring_nn,
-grid_correspond (with its table of occupied cells), preprocess and
-posegraph_dense.
+grid_correspond (with its table of occupied cells), preprocess,
+posegraph_dense and warm_start.
 
 The sources have a plain C interface: nvcc compiles them into one shared
 library for `sm_90a`, which `ctypes` loads.  That takes seconds, where an
@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("correspond.cu", "gn_partials.cu", "gn_epilogue.cu",
            "gn_step.cu", "gn_fused.cu", "ring_nn.cu", "grid_correspond.cu",
-           "preprocess.cu", "posegraph_dense.cu")
+           "preprocess.cu", "posegraph_dense.cu", "warm_start.cu")
 HEADERS = ("gn_solve.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -61,6 +61,7 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _P],
     "tpuslam_posegraph_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                                 _F, _I, _P, _P, _P],
+    "tpuslam_warm_start": [_P, _P, _F, _P, _P],
 }
 
 
